@@ -7,22 +7,29 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases, one line each (a failed phase exits non-zero):
 
-1. build the CUDA kernels from ``nmpc_tpu_torch/csrc/`` with nvcc;
-2. hold each kernel against its plain PyTorch twin on the card, on
-   derivative data from a cart-pole rollout at the headline shape
-   (B=4096, N=100) and the tick shape (B=256, N=200), fp32 and fp64, both
-   regularization types, with one non-PD lane and one NaN lane;
-3. end to end: ``DDPSolver.solve_batch`` at the headline shape with
-   ``backward_impl="auto"`` (launch counter reset just before, read just
-   after), compared with ``"stacked"``; an fp64 ``solve`` against the NumPy
-   golden DDP;
+1. build: generate the cart-pole's remat backward (K5) and rollout
+   (K6, K7) units for fp32 and fp64 from its callables, then compile them
+   and ``csrc/ddp_backward.cu`` (K1) with nvcc, all at once; print the
+   seconds and ptxas' registers and spills;
+2. kernels: hold each kernel against its plain PyTorch version on the
+   card at the headline shape (B=4096, N=100) and the tick shape (B=256,
+   N=200), fp32 and fp64: K1 on the stage derivatives of a rollout, K5 on
+   the rollout itself (both regularization types), each with one non-PD
+   lane and one NaN lane; K6 and K7 with gains from a real backward pass;
+   and whether K7's column for an alpha equals K6's sum bit for bit;
+3. end to end: ``DDPSolver.solve_batch`` at the headline shape through
+   the sweep-fed path (``backward_impl="pallas"``, ``forward_impl="scan"``:
+   K1) and through ``auto`` (on the card: remat + fused, K5/K6/K7), each
+   with the launch counters reset just before and read just after; a
+   mixed batch at fp64 and fp32 against the plain path; fp64 ``solve``s
+   through both paths against the NumPy golden DDP;
 4. serving: ``make_closed_loop_batch`` with 256 controllers, N=200,
-   3 iterations, 20 ticks;
-5. times on the card: kernel vs twin (CUDA events), solves/s with the
-   kernel and with the twin;
+   3 iterations, 20 ticks, through the fused path;
+5. times on the card: each kernel and its plain version (CUDA events),
+   solves/s and tick p50/p99 for each (backward, forward) pair;
 6. with ``--layers`` only: where one solve's time goes at both shapes,
-   with the kernel and with the twin (synced time per solver layer, the
-   device's busy time and launches from ``torch.profiler``).
+   for each pair (synced time per solver layer, the device's busy time and
+   launches from ``torch.profiler``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -53,25 +61,61 @@ from golden.cartpole_numpy import CartPoleGolden  # noqa: E402
 from golden.ddp_numpy import GoldenConfig, GoldenDDP  # noqa: E402
 from nmpc_tpu_torch import DDPConfig, DDPSolver, DDPStatus  # noqa: E402
 from nmpc_tpu_torch.kernels import build as kbuild  # noqa: E402
+from nmpc_tpu_torch.kernels import ddp_backward_remat as remat  # noqa: E402
+from nmpc_tpu_torch.kernels import ddp_forward_remat as fwd  # noqa: E402
 from nmpc_tpu_torch.kernels.ddp_backward import (  # noqa: E402
     StackedDerivs, backward_stacked)
 from nmpc_tpu_torch.kernels.ddp_backward_fused import backward_fused  # noqa: E402
 from nmpc_tpu_torch.models.cartpole import make_cartpole_problem  # noqa: E402
 from nmpc_tpu_torch.mpc.closed_loop import make_closed_loop_batch  # noqa: E402
 from nmpc_tpu_torch.solvers import ddp as ddp_mod  # noqa: E402
+from nmpc_tpu_torch.solvers.stages import _stage_derivs_sweep  # noqa: E402
 
 DT = 0.01
 HEADLINE = (4096, 100)   # (B, N): bench.py's cart-pole shape
 TICK = (256, 200)        # (B, N): the 256-controller tick loop
-# Kernel vs twin, normalized max|a-b| / (1 + max|a|) over the lanes both
-# call ok (benchmarks/parity_gate.py:61 for fp32; fp64 differs only by
-# FMA contraction and summation order).
+# Kernel vs plain version, normalized max|a-b| / (1 + max|a|) over the
+# lanes both call ok (benchmarks/parity_gate.py:61 for fp32; fp64 differs
+# only by FMA contraction, summation order and the math library).
 KERNEL_TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
 # End-to-end fp32 contract (benchmarks/parity_gate.py:72-73).
 E2E_U_NORM, E2E_COST_REL = 1e-2, 1e-4
 GOLDEN_TOL = 1e-8
-KERNEL_SOURCE = "nmpc_tpu_torch/csrc/ddp_backward.cu"
-KERNEL_REPLACES = "nmpc_tpu/kernels/ddp_backward_pallas.py:867"
+# (backward_impl, forward_impl) pairs that are timed; "auto" resolves to
+# the last on the card.
+PAIRS = (("pallas", "scan"), ("pallas", "fused"), ("remat", "fused"))
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One hand-written kernel: its wrapper (which counts launches), where
+    it lives and which TPU kernel it replaces."""
+
+    name: str
+    wrapper: object
+    source: str
+    replaces: str
+    max_abs_err: float = 0.0
+    launches: int = 0
+    ms: float = math.nan
+    plain_ms: float = math.nan
+
+
+KERNELS = {
+    "K1": Kernel("ddp_backward_fused", backward_fused,
+                 "nmpc_tpu_torch/csrc/ddp_backward.cu",
+                 "nmpc_tpu/kernels/ddp_backward_pallas.py:867"),
+    "K5": Kernel("backward_remat", remat.backward_remat,
+                 "nmpc_tpu_torch/csrc/ddp_backward_remat.cuh",
+                 "nmpc_tpu/kernels/ddp_backward_remat.py:369"),
+    "K6": Kernel("forward_selected_remat", fwd.forward_selected_remat,
+                 "nmpc_tpu_torch/csrc/ddp_forward_remat.cuh",
+                 "nmpc_tpu/kernels/ddp_forward_remat.py:285"),
+    "K7": Kernel("forward_costs_remat", fwd.forward_costs_remat,
+                 "nmpc_tpu_torch/csrc/ddp_forward_remat.cuh",
+                 "nmpc_tpu/kernels/ddp_forward_remat.py:334"),
+}
+REMAT_PATH = ("K5", "K6", "K7")
 
 
 class PhaseFailed(Exception):
@@ -81,6 +125,15 @@ class PhaseFailed(Exception):
 def check(cond, msg):
     if not cond:
         raise PhaseFailed(msg)
+
+
+def reset_counts():
+    for k in KERNELS.values():
+        k.wrapper.launches = 0
+
+
+def read_counts():
+    return {key: k.wrapper.launches for key, k in KERNELS.items()}
 
 
 def card_line() -> str:
@@ -102,28 +155,59 @@ def hanging_inputs(B, N, dtype, device, seed=0, us_scale=0.0):
     return as_t(x0s), as_t(us0)
 
 
-def rollout_derivs(B, N, dtype, device):
-    """Stage derivatives of a cart-pole rollout (batch-minor, contiguous),
-    with lane 1 made non-PD (Luu = -10) and lane 2 NaN-poisoned."""
+def rollout(B, N, dtype, device):
+    """A cart-pole rollout at t0=0.3: (problem, t0, xs, us, Vx_T, Vxx_T),
+    batch-minor and contiguous."""
     problem = make_cartpole_problem(DT)
     config = DDPConfig(horizon_steps=N)
     x0s, us0 = hanging_inputs(B, N, dtype, device, seed=1, us_scale=0.2)
-    t0 = torch.zeros((), dtype=dtype, device=device)
+    t0 = torch.tensor(0.3, dtype=dtype, device=device)
     us = us0.permute(1, 2, 0).contiguous()
     xs, _ = ddp_mod._rollout_lanes(problem, config, t0, x0s.T.contiguous(),
                                    us)
-    D, VxT, VxxT = ddp_mod._derivative_sweep_lanes(problem, config, t0, xs,
-                                                   us)
-    D = StackedDerivs(*D[:7])
+    VxT, VxxT = (a.contiguous() for a in ddp_mod._terminal_quad_lanes(
+        problem, config, t0, xs))
+    return problem, t0, xs, us, VxT, VxxT
+
+
+def rollout_derivs(B, N, dtype, device):
+    """K1's input: the stage derivatives of the rollout, with lane 1 made
+    non-PD (Luu = -10) and lane 2 NaN-poisoned."""
+    problem, t0, xs, us, VxT, VxxT = rollout(B, N, dtype, device)
+    D = StackedDerivs(*_stage_derivs_sweep(
+        problem, DDPConfig(horizon_steps=N), t0, xs, us)[:7])
     D.Luu[:, :, :, 1] = -10.0
     D.Fx[N // 2, 0, 0, 2] = float("nan")
     return D, VxT, VxxT
 
 
-def norm_err(ref, out, lanes):
+def remat_inputs(B, N, dtype, device):
+    """K5's input: the rollout with lane 1 made non-PD (a negative definite
+    terminal Vxx) and lane 2 NaN-poisoned (a NaN state at stage N/2)."""
+    problem, t0, xs, us, VxT, VxxT = rollout(B, N, dtype, device)
+    VxxT[:, :, 1] = -1e6 * torch.eye(4, dtype=dtype, device=device)
+    xs[N // 2, 1, 2] = float("nan")
+    return problem, t0, xs, us, VxT, VxxT
+
+
+def rollout_refs(B, N, dtype, device):
+    """K6/K7's input: the rollout and the gains of a real backward pass,
+    and a per-lane alpha."""
+    problem, t0, xs, us, VxT, VxxT = rollout(B, N, dtype, device)
+    lam = torch.full((B,), 1e-4, dtype=dtype, device=device)
+    ks, Ks, _, ok = remat.backward_remat_plain(
+        problem, DDPConfig(horizon_steps=N), t0, xs, us, VxT, VxxT, lam)
+    check(bool(ok.all()), "the backward pass feeding K6/K7 failed a lane")
+    alpha = torch.as_tensor(np.random.default_rng(3).uniform(0.1, 1.0, B),
+                            dtype=dtype, device=device)
+    return problem, t0, xs, us, ks, Ks, alpha
+
+
+def norm_err(ref, out, lanes=None):
     """(normalized, absolute) max error of ``out`` vs ``ref`` on ``lanes``."""
-    r = ref[..., lanes].double()
-    o = out[..., lanes].double()
+    r, o = ref.double(), out.double()
+    if lanes is not None:
+        r, o = r[..., lanes], o[..., lanes]
     d = (r - o).abs().max().item()
     return d / (1.0 + r.abs().max().item()), d
 
@@ -147,52 +231,125 @@ def cuda_ms(fn, reps=20, inner=1, warmup=2):
     return statistics.median(times)
 
 
+def ptxas_report(name):
+    log = kbuild.BUILD_DIR / f"{name}.log"
+    if not log.exists():
+        return "cached build"
+    return " | ".join(ln.split(":", 1)[-1].strip()
+                      for ln in log.read_text().splitlines()
+                      if "registers" in ln or "spill" in ln)
+
+
 def phase_build():
+    """Generate every unit (tracing runs one at a time), then start one
+    nvcc per unit, all together."""
+    problem = make_cartpole_problem(DT)
     start = time.perf_counter()
-    lib = kbuild.build("ddp_backward")
+    units = [("ddp_backward", None)]
+    for dtype in (torch.float32, torch.float64):
+        for mod in (remat, fwd):
+            units.append((mod.unit_name(dtype),
+                          mod.unit_source(problem, 4, 1, dtype)))
+    gen_s = time.perf_counter() - start
+
+    def compile_unit(unit):
+        name, text = unit
+        if text is None:
+            return kbuild.build(name)
+        return kbuild.build_generated(name, text)
+
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        libs = list(pool.map(compile_unit, units))
     secs = time.perf_counter() - start
-    log = kbuild.BUILD_DIR / "ddp_backward.log"
-    ptxas = []
-    if log.exists():
-        ptxas = [ln.strip() for ln in log.read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
-    print(f"[build] {lib.name} in {secs:.1f} s; ptxas: "
-          f"{' | '.join(ptxas) or 'cached build'}", flush=True)
+    print(f"[build] {len(libs)} units in {secs:.1f} s (generation "
+          f"{gen_s:.1f} s): {', '.join(lib.name for lib in libs)}",
+          flush=True)
+    for name, _ in units:
+        print(f"[build] ptxas {name}: {ptxas_report(name)}", flush=True)
     return secs
 
 
+def report(label, errs, dtype):
+    worst = max(e[0] for e in errs.values())
+    tol = KERNEL_TOL[dtype]
+    text = " ".join(f"{k} {v[0]:.3e}" for k, v in errs.items())
+    print(f"[kernel] {label}: norm err {text} (tol {tol:g})", flush=True)
+    check(worst <= tol, f"{label}: kernel vs plain error {worst:.3e} > "
+          f"{tol:g}")
+    return max(e[1] for e in errs.values())
+
+
+def check_ok(label, ref_ok, out_ok, B):
+    ok_equal = torch.equal(ref_ok, out_ok)
+    print(f"[kernel] {label}: ok lanes {int(out_ok.sum())}/{B}, masks equal "
+          f"{ok_equal}", flush=True)
+    check(ok_equal, f"{label}: kernel and plain ok masks differ")
+    check(not bool(out_ok[1]) and not bool(out_ok[2]),
+          f"{label}: the non-PD and NaN lanes must fail")
+    check(int(out_ok.sum()) == B - 2, f"{label}: a clean lane failed")
+
+
 def phase_kernels(device):
-    """Kernel vs twin at both shapes, both dtypes, both reg types."""
-    worst_abs = 0.0
+    """Each kernel vs its plain version at both shapes and dtypes."""
     for B, N in (HEADLINE, TICK):
         for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
             D, VxT, VxxT = rollout_derivs(B, N, dtype, device)
+            inputs = remat_inputs(B, N, dtype, device)
             for reg_type, lam_val in ((1, 1e-4), (2, 0.5)):
                 cfg = DDPConfig(horizon_steps=N, reg_type=reg_type)
                 lam = torch.full((B,), lam_val, dtype=dtype, device=device)
-                twin = backward_stacked(cfg, D, VxT, VxxT, lam)
-                kern = backward_fused(cfg, D, VxT, VxxT, lam)
+                label = f"B={B} N={N} {dname} reg_type={reg_type}"
+                plain = backward_stacked(cfg, D, VxT, VxxT, lam)
+                out = backward_fused(cfg, D, VxT, VxxT, lam)
                 torch.cuda.synchronize()
-                ok_equal = torch.equal(twin[3], kern[3])
-                lanes = twin[3]
-                errs = {name: norm_err(a, b, lanes)
-                        for name, a, b in zip(("ks", "Ks", "dV"), twin, kern)}
-                worst = max(e[0] for e in errs.values())
-                worst_abs = max(worst_abs, max(e[1] for e in errs.values()))
-                tol = KERNEL_TOL[dtype]
-                n_ok = int(lanes.sum())
-                print(f"[kernel] B={B} N={N} {str(dtype)[6:]} reg_type="
-                      f"{reg_type}: norm err ks {errs['ks'][0]:.3e} Ks "
-                      f"{errs['Ks'][0]:.3e} dV {errs['dV'][0]:.3e} (tol "
-                      f"{tol:g}); ok lanes {n_ok}/{B}, masks equal "
-                      f"{ok_equal}", flush=True)
-                check(ok_equal, "kernel and twin ok masks differ")
-                check(not bool(lanes[1]) and not bool(lanes[2]),
-                      "the non-PD and NaN lanes must fail")
-                check(n_ok == B - 2, "a clean lane failed")
-                check(worst <= tol, f"kernel vs twin error {worst:.3e} > "
-                      f"{tol:g}")
-    return worst_abs
+                check_ok(f"K1 {label}", plain[3], out[3], B)
+                err = report(f"K1 {label}", {
+                    n: norm_err(a, b, plain[3]) for n, a, b in
+                    zip(("ks", "Ks", "dV"), plain, out)}, dtype)
+                KERNELS["K1"].max_abs_err = max(KERNELS["K1"].max_abs_err,
+                                                err)
+                plain = remat.backward_remat_plain(inputs[0], cfg,
+                                                   *inputs[1:], lam)
+                out = remat.backward_remat(inputs[0], cfg, *inputs[1:], lam)
+                torch.cuda.synchronize()
+                check_ok(f"K5 {label}", plain[3], out[3], B)
+                err = report(f"K5 {label}", {
+                    n: norm_err(a, b, plain[3]) for n, a, b in
+                    zip(("ks", "Ks", "dV"), plain, out)}, dtype)
+                KERNELS["K5"].max_abs_err = max(KERNELS["K5"].max_abs_err,
+                                                err)
+
+            problem, t0, xs, us, ks, Ks, alpha = rollout_refs(B, N, dtype,
+                                                              device)
+            cfg = DDPConfig(horizon_steps=N)
+            label = f"B={B} N={N} {dname}"
+            plain = ddp_mod._forward_selected_lanes(problem, cfg, t0, xs, us,
+                                                    ks, Ks, alpha, dtype)
+            out = fwd.forward_selected_remat(problem, cfg, t0, xs, us, ks, Ks,
+                                             alpha)
+            torch.cuda.synchronize()
+            err = report(f"K6 {label}", {
+                n: norm_err(a, b) for n, a, b in
+                zip(("xs", "us", "costs", "sum"), plain, out)}, dtype)
+            KERNELS["K6"].max_abs_err = max(KERNELS["K6"].max_abs_err, err)
+            alphas = torch.tensor(cfg.alpha_list, dtype=dtype, device=device)
+            plain = ddp_mod._forward_costs_lanes(problem, cfg, t0, xs, us,
+                                                 ks, Ks, alphas, dtype)
+            out = fwd.forward_costs_remat(problem, cfg, t0, xs, us, ks, Ks,
+                                          alphas)
+            torch.cuda.synchronize()
+            err = report(f"K7 {label}", {"sums": norm_err(plain, out)},
+                         dtype)
+            KERNELS["K7"].max_abs_err = max(KERNELS["K7"].max_abs_err, err)
+            same = []
+            for j in range(len(cfg.alpha_list)):
+                sel = fwd.forward_selected_remat(
+                    problem, cfg, t0, xs, us, ks, Ks,
+                    alphas[j].expand(B).contiguous())[3]
+                same.append(torch.equal(out[j], sel))
+            print(f"[kernel] K7 vs K6 {label}: alpha columns equal to K6's "
+                  f"sum bit for bit: {sum(same)}/{len(same)}", flush=True)
 
 
 def e2e_compare(a, b):
@@ -226,33 +383,45 @@ def decision_flips(a, b, cost_update_thre):
     return out
 
 
+def solve_counted(problem, cfg, x0s, us0):
+    """One solve_batch with every launch counter reset just before and
+    read just after."""
+    solver = DDPSolver(problem, cfg)
+    reset_counts()
+    res = solver.solve_batch(0.0, x0s, us0)
+    torch.cuda.synchronize()
+    return res, read_counts(), solver.host_syncs
+
+
 def phase_e2e(device):
-    """The main path: solve_batch at the headline shape through the
-    kernel, against the twin; an fp64 solve against the golden DDP."""
+    """The main paths at the headline shape: the sweep-fed one (K1) and
+    ``auto`` (K5, K6, K7); the mixed batch; both against the golden."""
     B, N = HEADLINE
     problem = make_cartpole_problem(DT)
     cfg = DDPConfig(horizon_steps=N, max_iter=10)
     x0s, us0 = hanging_inputs(B, N, torch.float32, device)
-    solver = DDPSolver(problem, cfg)
-    backward_fused.launches = 0
-    res = solver.solve_batch(0.0, x0s, us0)
-    torch.cuda.synchronize()
-    launches = backward_fused.launches
-    syncs = solver.host_syncs
-    ref = DDPSolver(problem, dataclasses.replace(
-        cfg, backward_impl="stacked")).solve_batch(0.0, x0s, us0)
-    st, it, du, dc = e2e_compare(res, ref)
+    k1, k1_counts, k1_syncs = solve_counted(problem, dataclasses.replace(
+        cfg, backward_impl="pallas", forward_impl="scan"), x0s, us0)
+    res, counts, syncs = solve_counted(problem, cfg, x0s, us0)
+    KERNELS["K1"].launches = k1_counts["K1"]
+    for key in REMAT_PATH:
+        KERNELS[key].launches = counts[key]
+    st, it, du, dc = e2e_compare(res, k1)
     finite = bool(torch.isfinite(res.us).all() and torch.isfinite(res.xs).all())
     n_status = torch.bincount(res.status, minlength=5).tolist()
-    print(f"[e2e] solve_batch B={B} N={N} max_iter=10 fp32 auto: kernel "
-          f"launches {launches}, host syncs {syncs}, status counts "
-          f"{n_status}; vs stacked: status equal {st}, iters equal {it}, "
-          f"u norm diff {du:.3e} (tol {E2E_U_NORM:g}), cost rel diff "
-          f"{dc:.3e} (tol {E2E_COST_REL:g})", flush=True)
-    check(launches > 0, "the auto solve did not launch the kernel")
+    print(f"[e2e] solve_batch B={B} N={N} max_iter=10 fp32: (pallas, scan) "
+          f"launches {k1_counts}, host syncs {k1_syncs}; auto launches "
+          f"{counts}, host syncs {syncs}, status counts {n_status}; auto vs "
+          f"(pallas, scan): status equal {st}, iters equal {it}, u norm diff "
+          f"{du:.3e} (tol {E2E_U_NORM:g}), cost rel diff {dc:.3e} (tol "
+          f"{E2E_COST_REL:g})", flush=True)
+    check(k1_counts["K1"] > 0, "the (pallas, scan) solve did not launch K1")
+    check(all(counts[key] > 0 for key in REMAT_PATH),
+          "the auto solve did not launch K5, K6 and K7")
+    check(counts["K1"] == 0, "the auto solve ran the sweep-fed kernel")
     check(finite, "non-finite solve output")
     check(st and it and du <= E2E_U_NORM and dc <= E2E_COST_REL,
-          "end-to-end contract vs stacked failed")
+          "end-to-end contract vs (pallas, scan) failed")
 
     # A batch whose lanes stop at different iterations, so that a flipped
     # accept or termination decision shows: lanes started near upright
@@ -264,135 +433,203 @@ def phase_e2e(device):
     # u and cost are held to the contract.
     x0m = x0s.clone()
     x0m[B // 2:, 1] -= math.pi
+    plain_pair = {"backward_impl": "stacked", "forward_impl": "scan"}
     for dtype, mcfg in ((torch.float64, cfg), (torch.float32, cfg.for_fp32())):
-        mixed = {impl: DDPSolver(problem, dataclasses.replace(
-            mcfg, backward_impl=impl)).solve_batch(
-                0.0, x0m.to(dtype), us0.to(dtype))
-            for impl in ("auto", "stacked")}
-        st, it, du, dc = e2e_compare(mixed["auto"], mixed["stacked"])
-        n_status = torch.bincount(mixed["auto"].status, minlength=5).tolist()
-        flips = decision_flips(mixed["auto"], mixed["stacked"],
-                               mcfg.cost_update_thre)
-        print(f"[e2e] mixed batch B={B} N={N} max_iter=10 {str(dtype)[6:]}"
-              f"{' for_fp32()' if dtype == torch.float32 else ''}, half "
-              f"near upright: status counts {n_status}; auto vs stacked: "
-              f"status equal {st}, iters equal {it}, u norm diff {du:.3e}, "
-              f"cost rel diff {dc:.3e}; lanes that differ: "
-              f"{'; '.join(flips) or 'none'}", flush=True)
-        check(n_status[DDPStatus.SUCCEEDED] > 0
-              and n_status[DDPStatus.MAX_ITER_REACHED] > 0,
-              "the mixed batch must hold finished and unfinished lanes")
-        check(du <= E2E_U_NORM and dc <= E2E_COST_REL,
-              "mixed batch: u or cost vs stacked out of the contract")
-        if dtype == torch.float64:
-            check(st and it, "mixed batch fp64: status or iters differ")
+        mixed = {
+            name: DDPSolver(problem, dataclasses.replace(mcfg, **kw))
+            .solve_batch(0.0, x0m.to(dtype), us0.to(dtype))
+            for name, kw in (("auto", {}), ("plain", plain_pair),
+                             ("K1", {"backward_impl": "pallas",
+                                     "forward_impl": "scan"}))}
+        for other in ("plain", "K1"):
+            st, it, du, dc = e2e_compare(mixed["auto"], mixed[other])
+            n_status = torch.bincount(mixed["auto"].status,
+                                      minlength=5).tolist()
+            flips = decision_flips(mixed["auto"], mixed[other],
+                                   mcfg.cost_update_thre)
+            print(f"[e2e] mixed batch B={B} N={N} max_iter=10 "
+                  f"{str(dtype)[6:]}"
+                  f"{' for_fp32()' if dtype == torch.float32 else ''}, half "
+                  f"near upright: status counts {n_status}; auto vs "
+                  f"{other}: status equal {st}, iters equal {it}, u norm "
+                  f"diff {du:.3e}, cost rel diff {dc:.3e}; lanes that "
+                  f"differ: {'; '.join(flips) or 'none'}", flush=True)
+            check(n_status[DDPStatus.SUCCEEDED] > 0
+                  and n_status[DDPStatus.MAX_ITER_REACHED] > 0,
+                  "the mixed batch must hold finished and unfinished lanes")
+            check(du <= E2E_U_NORM and dc <= E2E_COST_REL,
+                  f"mixed batch: u or cost vs {other} out of the contract")
+            if dtype == torch.float64:
+                check(st and it, f"mixed batch fp64: status or iters differ "
+                      f"from {other}")
 
     golden = GoldenDDP(CartPoleGolden(DT),
                        GoldenConfig(horizon_steps=N, max_iter=50))
     x0 = np.array([0.0, np.pi, 0.0, 0.0])
     g = golden.solve(0.0, x0, np.zeros((N, 1)))
-    solver64 = DDPSolver(problem, DDPConfig(horizon_steps=N, max_iter=50))
-    before = backward_fused.launches
-    r64 = solver64.solve(0.0, torch.as_tensor(x0, device=device),
-                         torch.zeros((N, 1), dtype=torch.float64,
-                                     device=device))
-    du = np.abs(r64.us.cpu().numpy() - g["us"]).max()
-    dx = np.abs(r64.xs.cpu().numpy() - g["xs"]).max()
-    iters = int(r64.iters)
-    print(f"[e2e] fp64 solve vs NumPy golden: status "
-          f"{DDPStatus(int(r64.status)).name} / {g['status']}, iters {iters}"
-          f" / {g['iters']}, max|du| {du:.3e}, max|dx| {dx:.3e} (tol "
-          f"{GOLDEN_TOL:g}), kernel launches "
-          f"{backward_fused.launches - before}", flush=True)
-    check(g["status"] == "succeeded"
-          and int(r64.status) == DDPStatus.SUCCEEDED, "fp64 solve failed")
-    check(iters == g["iters"], "fp64 iteration count differs from golden")
-    check(du <= GOLDEN_TOL and dx <= GOLDEN_TOL, "fp64 solve vs golden")
-    check(backward_fused.launches > before, "fp64 solve skipped the kernel")
-    return launches, syncs
+    # B=1 on ls_mode "auto" accepts alpha[0] by the head path (K6) in
+    # every iteration here, so the sweep kernel (K7) need not run.
+    for label, keys, kw in (
+            ("auto", ("K5", "K6"), {}),
+            ("(pallas, scan)", ("K1",), {"backward_impl": "pallas",
+                                         "forward_impl": "scan"})):
+        solver64 = DDPSolver(problem, DDPConfig(horizon_steps=N, max_iter=50,
+                                                **kw))
+        reset_counts()
+        r64 = solver64.solve(0.0, torch.as_tensor(x0, device=device),
+                             torch.zeros((N, 1), dtype=torch.float64,
+                                         device=device))
+        torch.cuda.synchronize()
+        got = read_counts()
+        du = np.abs(r64.us.cpu().numpy() - g["us"]).max()
+        dx = np.abs(r64.xs.cpu().numpy() - g["xs"]).max()
+        iters = int(r64.iters)
+        print(f"[e2e] fp64 solve {label} vs NumPy golden: status "
+              f"{DDPStatus(int(r64.status)).name} / {g['status']}, iters "
+              f"{iters} / {g['iters']}, max|du| {du:.3e}, max|dx| {dx:.3e} "
+              f"(tol {GOLDEN_TOL:g}), launches {got}", flush=True)
+        check(g["status"] == "succeeded"
+              and int(r64.status) == DDPStatus.SUCCEEDED,
+              f"fp64 solve {label} failed")
+        check(iters == g["iters"],
+              f"fp64 solve {label}: iteration count differs from golden")
+        check(du <= GOLDEN_TOL and dx <= GOLDEN_TOL,
+              f"fp64 solve {label} vs golden")
+        check(all(got[key] > 0 for key in keys),
+              f"fp64 solve {label} skipped a kernel")
 
 
-def phase_serving(device, card):
+def tick_loop(device, problem, impls, n_ticks=20):
+    """Tick times (ms) of the 256-controller loop on one (backward,
+    forward) pair, each tick from the start of one solve to the start of
+    the next, each reading after a device synchronize; and the log.  The
+    first solve of a problem object generates its kernel units (a trace
+    and a cached library lookup), so warm-up and timed loops share one
+    problem."""
     B, N = TICK
-    n_ticks = 20
-    problem = make_cartpole_problem(DT)
     stamps = []
 
     class TickClock(DDPSolver):
-        """Reads the host clock, after a device synchronize, as each
-        tick's solve starts: consecutive readings bound one tick (solve,
-        plant step, warm-start shift)."""
-
         def solve_batch(self, t0, x0s, us_inits):
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
             return super().solve_batch(t0, x0s, us_inits)
 
-    solver = TickClock(problem, DDPConfig(horizon_steps=N, max_iter=3))
+    cfg = DDPConfig(horizon_steps=N, max_iter=3, backward_impl=impls[0],
+                    forward_impl=impls[1])
+    solver = TickClock(problem, cfg)
     x0s, us0 = hanging_inputs(B, N, torch.float32, device)
-    sim = make_closed_loop_batch(solver, n_steps=n_ticks)
-    before = backward_fused.launches
-    log = sim(0.0, x0s, us0)
+    log = make_closed_loop_batch(solver, n_steps=n_ticks)(0.0, x0s, us0)
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     ms = np.diff(stamps) * 1e3
     check(len(ms) == n_ticks, "one clock reading per tick expected")
+    return ms, log
+
+
+def phase_serving(device, card):
+    B, N = TICK
+    reset_counts()
+    ms, log = tick_loop(device, make_cartpole_problem(DT), ("auto", "auto"))
+    counts = read_counts()
     finite = bool(torch.isfinite(log.xs).all() and torch.isfinite(log.us).all())
-    print(f"[serving] {B} controllers N={N} max_iter=3 fp32, {n_ticks} "
+    print(f"[serving] {B} controllers N={N} max_iter=3 fp32 auto, {len(ms)} "
           f"ticks: tick p50 {np.percentile(ms, 50):.2f} ms, p99 "
-          f"{np.percentile(ms, 99):.2f} ms, first {ms[0]:.2f} ms; kernel "
-          f"launches {backward_fused.launches - before}; all finite "
-          f"{finite} [{card}]", flush=True)
+          f"{np.percentile(ms, 99):.2f} ms, first {ms[0]:.2f} ms; launches "
+          f"{counts}; all finite {finite} [{card}]", flush=True)
     check(finite, "a controller went non-finite")
-    check(backward_fused.launches > before, "tick loop skipped the kernel")
+    check(all(counts[key] > 0 for key in REMAT_PATH),
+          "the tick loop skipped a kernel of the fused path")
+
+
+def moved_bytes(key, B, N, itemsize, A=11):
+    """Bytes a kernel must move at (B, N): its inputs read once and its
+    outputs written once."""
+    nx, nu = 4, 1
+    traj = (N + 1) * nx + N * nu                 # xs, us per lane
+    gains = N * nu + N * nu * nx                 # ks, Ks per lane
+    if key == "K1":
+        fields = nx * nx * 2 + nx * nu * 2 + nx + nu + nu * nu
+        return itemsize * B * (N * fields + gains + nx + nx * nx + 3) + B
+    if key == "K5":
+        return itemsize * B * (traj + gains + nx + nx * nx + 3) + B
+    if key == "K6":
+        return itemsize * B * (2 * traj + gains + (N + 1) + 2)
+    return itemsize * (B * (traj + gains) + A + A * B)
 
 
 def phase_times(device, card):
-    """Kernel vs twin per call, and solves/s with each, on the card."""
-    out = {}
+    """Each kernel vs its plain version per call (CUDA events), then
+    solves/s and tick p50/p99 for each (backward, forward) pair."""
     for B, N in (HEADLINE, TICK):
-        D, VxT, VxxT = rollout_derivs(B, N, torch.float32, device)
+        dtype = torch.float32
         cfg = DDPConfig(horizon_steps=N)
         lam = torch.full((B,), 1e-4, device=device)
-        t_kern = cuda_ms(lambda: backward_fused(cfg, D, VxT, VxxT, lam),
-                         inner=10)
-        t_twin = cuda_ms(lambda: backward_stacked(cfg, D, VxT, VxxT, lam))
-        nx, nu = 4, 1
-        fields = nx * nx * 2 + nx * nu * 2 + nx + nu + nu * nu
-        nbytes = 4 * (N * B * (fields + nu + nu * nx) + B * (nx + nx * nx
-                                                            + 1 + 2)) + B
-        gbs = nbytes / (t_kern * 1e-3) / 1e9
-        print(f"[times] backward B={B} N={N} fp32: kernel {t_kern:.4f} ms "
-              f"({gbs:.1f} GB/s of {nbytes / 1e6:.1f} MB), twin "
-              f"{t_twin:.3f} ms [{card}]", flush=True)
-        out[(B, N)] = (t_kern, t_twin, gbs)
+        D, VxT, VxxT = rollout_derivs(B, N, dtype, device)
+        problem, t0, xs, us, VxT5, VxxT5 = rollout(B, N, dtype, device)
+        _, _, _, _, ks, Ks, alpha = rollout_refs(B, N, dtype, device)
+        alphas = torch.tensor(cfg.alpha_list, device=device)
+        calls = {
+            "K1": (lambda: backward_fused(cfg, D, VxT, VxxT, lam),
+                   lambda: backward_stacked(cfg, D, VxT, VxxT, lam)),
+            "K5": (lambda: remat.backward_remat(problem, cfg, t0, xs, us,
+                                                VxT5, VxxT5, lam),
+                   lambda: remat.backward_remat_plain(problem, cfg, t0, xs,
+                                                      us, VxT5, VxxT5, lam)),
+            "K6": (lambda: fwd.forward_selected_remat(problem, cfg, t0, xs,
+                                                      us, ks, Ks, alpha),
+                   lambda: ddp_mod._forward_selected_lanes(
+                       problem, cfg, t0, xs, us, ks, Ks, alpha, dtype)),
+            "K7": (lambda: fwd.forward_costs_remat(problem, cfg, t0, xs, us,
+                                                   ks, Ks, alphas),
+                   lambda: ddp_mod._forward_costs_lanes(
+                       problem, cfg, t0, xs, us, ks, Ks, alphas, dtype)),
+        }
+        for key, (kernel, plain) in calls.items():
+            t_kern = cuda_ms(kernel, inner=10)
+            t_plain = cuda_ms(plain, reps=5)
+            nbytes = moved_bytes(key, B, N, 4)
+            gbs = nbytes / (t_kern * 1e-3) / 1e9
+            print(f"[times] {key} {KERNELS[key].name} B={B} N={N} fp32: "
+                  f"kernel {t_kern:.4f} ms ({gbs:.1f} GB/s of "
+                  f"{nbytes / 1e6:.2f} MB), plain {t_plain:.3f} ms [{card}]",
+                  flush=True)
+            if (B, N) == HEADLINE:
+                KERNELS[key].ms, KERNELS[key].plain_ms = t_kern, t_plain
 
     B, N = HEADLINE
     problem = make_cartpole_problem(DT)
     x0s, us0 = hanging_inputs(B, N, torch.float32, device)
-    rates = {}
-    for impl in ("pallas", "stacked"):
-        solver = DDPSolver(problem, DDPConfig(horizon_steps=N, max_iter=10,
-                                              backward_impl=impl))
+    for pair in PAIRS:
+        solver = DDPSolver(problem, DDPConfig(
+            horizon_steps=N, max_iter=10, backward_impl=pair[0],
+            forward_impl=pair[1]))
         solver.solve_batch(0.0, x0s, us0)
         torch.cuda.synchronize()
         secs = []
-        for _ in range(20):
+        for _ in range(10):
             start = time.perf_counter()
             solver.solve_batch(0.0, x0s, us0)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - start)
-        rates[impl] = B / statistics.median(secs)
         print(f"[times] solve_batch B={B} N={N} max_iter=10 fp32 "
-              f"backward={impl}: median {statistics.median(secs):.3f} s, "
-              f"{rates[impl]:.1f} solves/s, host syncs {solver.host_syncs} "
-              f"[{card}]", flush=True)
-    return out, rates
+              f"backward={pair[0]} forward={pair[1]}: median "
+              f"{statistics.median(secs):.4f} s, "
+              f"{B / statistics.median(secs):.1f} solves/s, host syncs "
+              f"{solver.host_syncs} [{card}]", flush=True)
+    for pair in PAIRS:
+        tick_loop(device, problem, pair, n_ticks=2)   # warm-up
+        ms, _ = tick_loop(device, problem, pair)
+        print(f"[times] tick loop {TICK[0]} controllers N={TICK[1]} "
+              f"max_iter=3 backward={pair[0]} forward={pair[1]}: p50 "
+              f"{np.percentile(ms, 50):.2f} ms, p99 "
+              f"{np.percentile(ms, 99):.2f} ms [{card}]", flush=True)
 
 
-LAYERS = ("_rollout_lanes", "_derivative_sweep_lanes", "backward_fused",
-          "backward_stacked", "_forward_selected_lanes",
-          "_forward_costs_lanes")
+LAYERS = ("_rollout_lanes", "_derivative_sweep_lanes", "_terminal_quad_lanes",
+          "backward_fused", "backward_stacked", "backward_remat",
+          "_forward_selected_lanes", "_forward_costs_lanes",
+          "forward_selected_remat", "forward_costs_remat")
 
 
 @contextlib.contextmanager
@@ -422,19 +659,20 @@ def layer_clock(acc, count):
 
 
 def phase_layers(device, card):
-    """Where one solve's time goes, at both shapes, with the kernel and
-    with the twin: synced wall time, synced time per layer, and the
-    device's busy time and kernel launches from ``torch.profiler``."""
+    """Where one solve's time goes, at both shapes, for each (backward,
+    forward) pair and the plain path: synced wall time, synced time per
+    layer, and the device's busy time and kernel launches from
+    ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     problem = make_cartpole_problem(DT)
     for label, (B, N), iters, ls_mode in (("headline", HEADLINE, 10, "auto"),
                                           ("tick", TICK, 3, "sweep")):
         x0s, us0 = hanging_inputs(B, N, torch.float32, device)
-        for impl in ("pallas", "stacked"):
+        for pair in PAIRS + (("stacked", "scan"),):
             solver = DDPSolver(problem, DDPConfig(
-                horizon_steps=N, max_iter=iters, backward_impl=impl,
-                ls_mode=ls_mode))
+                horizon_steps=N, max_iter=iters, backward_impl=pair[0],
+                forward_impl=pair[1], ls_mode=ls_mode))
 
             def solve():
                 solver.solve_batch(0.0, x0s, us0)
@@ -460,12 +698,12 @@ def phase_layers(device, card):
                               for name in LAYERS if count[name])
             rest = synced - sum(acc.values())
             print(f"[layers] {label} B={B} N={N} max_iter={iters} ls_mode="
-                  f"{ls_mode} backward={impl}: wall {wall * 1e3:.1f} ms, "
-                  f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}"
-                  f" %), cudaLaunchKernel {launches}, host syncs "
-                  f"{solver.host_syncs}; synced layers (total "
-                  f"{synced * 1e3:.1f} ms): {parts}, rest {rest * 1e3:.1f} ms"
-                  f" [{card}]", flush=True)
+                  f"{ls_mode} backward={pair[0]} forward={pair[1]}: wall "
+                  f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+                  f"({100 * busy / (wall * 1e3):.1f} %), cudaLaunchKernel "
+                  f"{launches}, host syncs {solver.host_syncs}; synced layers "
+                  f"(total {synced * 1e3:.1f} ms): {parts}, rest "
+                  f"{rest * 1e3:.1f} ms [{card}]", flush=True)
             check(busy > 0, "the profiler saw no device time")
 
 
@@ -486,25 +724,30 @@ def main() -> int:
     print(f"[device] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
+    phases = [("build", phase_build),
+              ("kernels", lambda: phase_kernels(device)),
+              ("e2e", lambda: phase_e2e(device)),
+              ("serving", lambda: phase_serving(device, card)),
+              ("times", lambda: phase_times(device, card))]
+    if args.layers:
+        phases.append(("layers", lambda: phase_layers(device, card)))
     try:
-        phase_build()
-        worst_abs = phase_kernels(device)
-        launches, _ = phase_e2e(device)
-        phase_serving(device, card)
-        times, _ = phase_times(device, card)
-        if args.layers:
-            phase_layers(device, card)
+        for name, phase in phases:
+            start = time.perf_counter()
+            phase()
+            print(f"[phase] {name}: {time.perf_counter() - start:.1f} s",
+                  flush=True)
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    t_kern, t_twin, _ = times[HEADLINE]
     record = {"kernels": [{
-        "name": "ddp_backward_fused", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": worst_abs,
-        "ms": t_kern, "plain_ms": t_twin}]}
-    check_finite = all(math.isfinite(v) for v in (worst_abs, t_kern, t_twin))
-    if not check_finite:
+        "name": k.name, "route": "cuda", "source": k.source,
+        "replaces": k.replaces, "launches": k.launches,
+        "max_abs_err": k.max_abs_err, "ms": k.ms, "plain_ms": k.plain_ms}
+        for k in KERNELS.values()]}
+    numbers = [v for k in KERNELS.values()
+               for v in (k.max_abs_err, k.ms, k.plain_ms)]
+    if not all(math.isfinite(v) for v in numbers):
         print("chip_smoke: FAILED: non-finite record", file=sys.stderr)
         return 1
     print(card, flush=True)

@@ -41,14 +41,19 @@ class DDPConfig:
       The name is kept from the JAX package, where it names the fused
       Pallas kernel, so a config carries across unchanged.  On CPU
       tensors it runs the plain twin;
-    - ``"remat"``: the whole-iteration kernel that recomputes the stage
-      derivatives in-kernel; not ported yet (ROADMAP B3);
+    - ``"remat"``: the CUDA backward fed by the trajectory, which
+      recomputes the stage derivatives in-kernel from code generated from
+      the problem's callables (``kernels/ddp_backward_remat.py``); no
+      derivative sweep.  On CPU tensors it runs its plain version; a
+      problem the generator rejects raises ``TileEvalError``;
     - ``"auto"``: the rule in ``solvers/ddp.py::_resolve_backward_impl``.
 
     ``ls_mode`` ``"auto"|"head"|"sweep"`` picks which alphas are evaluated
     (identical accept decisions in every mode); ``"serial"`` is not ported
-    yet.  ``forward_impl="auto"`` resolves to ``"scan"``, the plain rollout;
-    ``"fused"`` is not ported yet (ROADMAP B2).
+    yet.  ``forward_impl`` ``"scan"`` runs the plain rollouts, ``"fused"``
+    the CUDA rollout kernels on generated dynamics and costs
+    (``kernels/ddp_forward_remat.py``; plain versions on CPU tensors),
+    ``"auto"`` the rule in ``solvers/ddp.py::_resolve_forward_impl``.
     """
 
     horizon_steps: int = 100

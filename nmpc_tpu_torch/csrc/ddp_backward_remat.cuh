@@ -1,0 +1,155 @@
+// DDP Riccati backward with the stage derivatives recomputed in the kernel
+// from the trajectory, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel nmpc_tpu/kernels/ddp_backward_remat.py::
+// backward_remat (_backward_remat_call, kernel _make_kernel_remat, fields
+// _stage_fields_tile), unboxed.  Its plain version is
+// nmpc_tpu_torch/kernels/ddp_backward_remat.py::backward_remat_plain: the
+// derivative sweep (_derivative_sweep_lanes) and backward_stacked.  The
+// fields come from gen_fields, generated from the problem's own callables
+// (kernels/tileval.py); the stage is riccati_stage, shared with the
+// sweep-fed kernel ddp_backward.cu.
+//
+// What bounds it on the card: latency, not bytes.  Per stage and lane it
+// reads x_i and u_i (5 values at nx=4, nu=1, against the 46 derivative
+// values the sweep-fed kernel reads) and writes k and K (5 values); the
+// generated fields (~100 scalar ops at the cart-pole) and the Riccati
+// stage (~300 flops) run on registers between the loads.  One thread per
+// lane is 4096 threads at B=4096, one warp per SM: the N dependent stages
+// of each thread are the critical path.
+//
+// What the design does about it:
+//   * one thread per lane walks i = N-1 ... 0 with the (Vx, Vxx, dV, ok)
+//     carry in registers, as ddp_backward.cu does; the ~75 MB derivative
+//     buffer of the sweep never exists;
+//   * (x_{i-1}, u_{i-1}) are loaded before stage i's arithmetic (the TPU
+//     kernel's double-buffered stage DMA), batch-minor and coalesced;
+//   * 32-thread blocks spread the lanes over as many SMs as possible.
+// Templated on the scalar type and (NX, NU); the generated unit
+// instantiates it for the dtype it was traced at.
+
+#pragma once
+
+#include "remat_common.cuh"
+#include "riccati_stage.cuh"
+
+namespace nmpc {
+
+template <typename T, int NX, int NU>
+__device__ __forceinline__ void load_xu(const T* __restrict__ xs,
+                                        const T* __restrict__ us, int i,
+                                        int b, int B, T x[NX], T u[NU]) {
+#pragma unroll
+  for (int a = 0; a < NX; ++a) x[a] = xs[idx2(i, a, NX, b, B)];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) u[a] = us[idx2(i, a, NU, b, B)];
+}
+
+// Unpack gen_fields' flat output (Fx, Fu, Lx, Lu, Lxx, Luu, Lxu, each
+// row-major) into a Riccati stage.
+template <typename T, int NX, int NU>
+__device__ __forceinline__ void unpack_fields(const T* f,
+                                              Stage<T, NX, NU>& s) {
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < NX; ++a)
+#pragma unroll
+    for (int c = 0; c < NX; ++c) s.Fx[a][c] = f[k++];
+#pragma unroll
+  for (int a = 0; a < NX; ++a)
+#pragma unroll
+    for (int c = 0; c < NU; ++c) s.Fu[a][c] = f[k++];
+#pragma unroll
+  for (int a = 0; a < NX; ++a) s.Lx[a] = f[k++];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) s.Lu[a] = f[k++];
+#pragma unroll
+  for (int a = 0; a < NX; ++a)
+#pragma unroll
+    for (int c = 0; c < NX; ++c) s.Lxx[a][c] = f[k++];
+#pragma unroll
+  for (int a = 0; a < NU; ++a)
+#pragma unroll
+    for (int c = 0; c < NU; ++c) s.Luu[a][c] = f[k++];
+#pragma unroll
+  for (int a = 0; a < NX; ++a)
+#pragma unroll
+    for (int c = 0; c < NU; ++c) s.Lxu[a][c] = f[k++];
+}
+
+template <typename T, int NX, int NU>
+__global__ void __launch_bounds__(kLaneThreads)
+backward_remat_kernel(const T* __restrict__ xs, const T* __restrict__ us,
+                      const T* __restrict__ VxT, const T* __restrict__ VxxT,
+                      const T* __restrict__ lam_in,
+                      const T* __restrict__ t0_in, T dt,
+                      T* __restrict__ ks, T* __restrict__ Ks,
+                      T* __restrict__ dV, unsigned char* __restrict__ ok_out,
+                      int N, int B, int reg_type) {
+  constexpr int kFields = 2 * NX * NX + 2 * NX * NU + NX + NU + NU * NU;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  Carry<T, NX> carry;
+#pragma unroll
+  for (int a = 0; a < NX; ++a) {
+    carry.Vx[a] = VxT[static_cast<size_t>(a) * B + b];
+#pragma unroll
+    for (int e = 0; e < NX; ++e)
+      carry.Vxx[a][e] = VxxT[(static_cast<size_t>(a) * NX + e) * B + b];
+  }
+  carry.dV0 = T(0);
+  carry.dV1 = T(0);
+  carry.ok = true;
+  const T lam = lam_in[b];
+  const T t0 = *t0_in;
+
+  T x[NX], u[NU], x_next[NX], u_next[NU];
+  load_xu<T, NX, NU>(xs, us, N - 1, b, B, x, u);
+  for (int i = N - 1; i >= 0; --i) {
+    if (i > 0) load_xu<T, NX, NU>(xs, us, i - 1, b, B, x_next, u_next);
+    T f[kFields];
+    gen_fields<T>(stage_time(t0, dt, i), x, u, f);
+    Stage<T, NX, NU> s;
+    unpack_fields<T, NX, NU>(f, s);
+    T k[NU], K[NU][NX];
+    riccati_stage<T, NX, NU>(s, lam, reg_type, carry, k, K);
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      ks[idx2(i, a, NU, b, B)] = k[a];
+#pragma unroll
+      for (int e = 0; e < NX; ++e) Ks[idx3(i, a, e, NU, NX, b, B)] = K[a][e];
+    }
+#pragma unroll
+    for (int a = 0; a < NX; ++a) x[a] = x_next[a];
+#pragma unroll
+    for (int a = 0; a < NU; ++a) u[a] = u_next[a];
+  }
+  dV[b] = carry.dV0;
+  dV[static_cast<size_t>(B) + b] = carry.dV1;
+  ok_out[b] = carry.ok ? 1 : 0;
+}
+
+// Launch on `stream`; returns cudaGetLastError() after the launch.  All
+// arrays are contiguous batch-minor device arrays; t0 is one device
+// scalar; ok is one byte per lane.
+template <typename T, int NX, int NU>
+int launch_backward_remat(int N, int B, int reg_type, double dt,
+                          const void* xs, const void* us, const void* VxT,
+                          const void* VxxT, const void* lam, const void* t0,
+                          void* ks, void* Ks, void* dV, void* ok,
+                          void* stream) {
+  if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (B + kLaneThreads - 1) / kLaneThreads;
+  backward_remat_kernel<T, NX, NU>
+      <<<blocks, kLaneThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(xs), static_cast<const T*>(us),
+          static_cast<const T*>(VxT), static_cast<const T*>(VxxT),
+          static_cast<const T*>(lam), static_cast<const T*>(t0),
+          static_cast<T>(dt), static_cast<T*>(ks), static_cast<T*>(Ks),
+          static_cast<T*>(dV), static_cast<unsigned char*>(ok), N, B,
+          reg_type);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace nmpc

@@ -1,17 +1,24 @@
-"""Build the CUDA sources under ``nmpc_tpu_torch/csrc/`` at first use.
+"""Build the CUDA sources of ``nmpc_tpu_torch/csrc/`` at first use.
 
-Each source is compiled by ``nvcc`` into a shared library with a plain C
-interface, loaded with ``ctypes`` by its wrapper.  The library lands in
-``build/nmpc_tpu_torch/`` at the root of the checkout, under a name that
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused.  ``nvcc``'s ``-Xptxas -v`` report
+Each translation unit is compiled by ``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes`` by its wrapper.  A unit is either
+a source of ``csrc/`` (:func:`build`) or a text generated from a problem's
+traced callables that includes the templates of ``csrc/``
+(:func:`build_generated`).  The library lands in ``build/nmpc_tpu_torch/``
+at the root of the checkout, under a name that carries a hash of the
+unit's text, of every ``csrc/`` header it includes (followed through the
+headers' own includes) and of the flags: an edited source or header is
+rebuilt, an unchanged one reused.  ``nvcc``'s ``-Xptxas -v`` report
 (registers, spills) is kept beside the library as ``<name>.log``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,6 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nmpc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc_path() -> str:
@@ -36,20 +44,36 @@ def nvcc_path() -> str:
     return str(path)
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    return the library's path.  Raises ``RuntimeError`` with nvcc's output
-    if the compile fails."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+def included_headers(text: str, csrc: Path = CSRC) -> list[Path]:
+    """The ``csrc`` headers ``text`` includes with ``#include "..."``,
+    directly or through other headers, each once, in a fixed order."""
+    found, todo = [], list(_INCLUDE.findall(text))
+    while todo:
+        path = csrc / todo.pop(0)
+        if path in found or not path.exists():
+            continue
+        found.append(path)
+        todo.extend(_INCLUDE.findall(path.read_text()))
+    return found
+
+
+def library_path(name: str, text: str, csrc: Path = CSRC) -> Path:
+    """Where the library of unit ``name`` with source ``text`` is built: the
+    name carries a hash of the text, its included headers and the flags."""
+    h = hashlib.sha256(text.encode())
+    for header in included_headers(text, csrc):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _compile(name: str, src: Path, lib: Path) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(src)],
         capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -58,3 +82,31 @@ def build(name: str) -> Path:
     (BUILD_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
+    return the library's path.  Raises ``RuntimeError`` with nvcc's output
+    if the compile fails."""
+    src = CSRC / f"{name}.cu"
+    return _compile(name, src, library_path(name, src.read_text()))
+
+
+def build_generated(name: str, text: str) -> Path:
+    """Compile a generated unit (``text`` may include ``csrc/`` headers)
+    unless an up-to-date library exists; the source is written beside the
+    library.  Raises ``RuntimeError`` with nvcc's output on failure."""
+    lib = library_path(name, text)
+    src = lib.with_suffix(".cu")
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
+        tmp.write_text(text)
+        os.replace(tmp, src)
+    return _compile(name, src, lib)
+
+
+@functools.cache
+def load(path: Path) -> ctypes.CDLL:
+    """The loaded library at ``path`` (once per process)."""
+    return ctypes.CDLL(str(path))

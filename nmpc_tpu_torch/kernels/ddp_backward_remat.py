@@ -1,0 +1,131 @@
+"""Remat DDP backward: the CUDA kernel's wrapper (TPU K5).
+
+Replaces ``nmpc_tpu/kernels/ddp_backward_remat.py::backward_remat``
+(unboxed): the Riccati backward fed by the trajectory, with each stage's
+derivatives recomputed inside the kernel from (t_i, x_i, u_i), so the
+derivative sweep and its buffer go away.  The kernel is the template
+``csrc/ddp_backward_remat.cuh`` instantiated in a unit generated from the
+problem's own callables (``kernels/tileval.py``), compiled by nvcc at first
+use and bound through ctypes.  Its plain version is
+:func:`backward_remat_plain`: the derivative sweep and ``backward_stacked``,
+independent of the generator, so that holding one against the other on the
+card checks the generator too.
+
+:func:`backward_remat` generates the problem's unit on any device, so a
+problem the generator rejects raises :class:`TileEvalError` everywhere;
+then it runs the plain version on CPU tensors and launches the kernel on
+CUDA tensors (or raises).  Boxed remat waits for ROADMAP B4.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from nmpc_tpu_torch.core.types import DDPConfig
+from nmpc_tpu_torch.kernels import tileval
+from nmpc_tpu_torch.kernels.build import build_generated, load
+from nmpc_tpu_torch.kernels.ddp_backward import StackedDerivs, backward_stacked
+from nmpc_tpu_torch.kernels.ddp_backward_fused import _check
+from nmpc_tpu_torch.solvers.stages import _stage_derivs_sweep
+
+DTYPES = {torch.float32: "float", torch.float64: "double"}
+
+
+def remat_supported(problem, nx: int, nu: int, dtype) -> bool:
+    """Whether the kernel takes this problem at this dtype: float32 or
+    float64 and stage callables the generator accepts (no input mask)."""
+    return dtype in DTYPES and tileval.tile_supported(problem, "remat",
+                                                      nx, nu, dtype)
+
+
+def unit_source(problem, nx: int, nu: int, dtype) -> str:
+    """The generated translation unit for ``problem`` at ``dtype``."""
+    unit = tileval.generate(problem, "remat", nx, nu, dtype)
+    return (f"{unit.cpp}\n#include \"ddp_backward_remat.cuh\"\n\n"
+            f"extern \"C\" int remat_backward_launch(\n"
+            f"    int N, int B, int reg_type, double dt, const void* xs,\n"
+            f"    const void* us, const void* VxT, const void* VxxT,\n"
+            f"    const void* lam, const void* t0, void* ks, void* Ks,\n"
+            f"    void* dV, void* ok, void* stream) {{\n"
+            f"  return nmpc::launch_backward_remat<{DTYPES[dtype]}, {nx}, "
+            f"{nu}>(\n      N, B, reg_type, dt, xs, us, VxT, VxxT, lam, t0, "
+            f"ks, Ks, dV, ok, stream);\n}}\n")
+
+
+def unit_name(dtype) -> str:
+    return f"ddp_backward_remat_{str(dtype)[6:]}"
+
+
+@functools.lru_cache(maxsize=64)
+def _launcher(problem, nx: int, nu: int, dtype):
+    lib = load(build_generated(unit_name(dtype),
+                               unit_source(problem, nx, nu, dtype)))
+    fn = lib.remat_backward_launch
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_double]
+                   + [ctypes.c_void_p] * 11)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def backward_remat_plain(problem, config: DDPConfig, t0, xs, us, Vx_T,
+                         Vxx_T, lam):
+    """The kernel's plain version: the derivative sweep, then
+    ``backward_stacked``."""
+    D = _stage_derivs_sweep(problem, config, t0, xs, us)
+    return backward_stacked(config, StackedDerivs(*D[:7]), Vx_T, Vxx_T, lam)
+
+
+def backward_remat(problem, config: DDPConfig, t0, xs, us, Vx_T, Vxx_T,
+                   lam):
+    """Backward pass fed by the trajectory, batch-minor.
+
+    Args: t0 scalar; xs [N+1, nx, B] (the terminal state rides along
+    unread), us [N, nu, B], Vx_T [nx, B], Vxx_T [nx, nx, B], lam [B].
+    Returns (ks [N, nu, B], Ks [N, nu, nx, B], dV [2, B], ok [B] bool).
+    """
+    N, nu, B = us.shape
+    nx = xs.shape[1]
+    dtype, device = xs.dtype, xs.device
+    for name, a, shape in (("xs", xs, (N + 1, nx, B)), ("us", us, (N, nu, B)),
+                           ("Vx_T", Vx_T, (nx, B)),
+                           ("Vxx_T", Vxx_T, (nx, nx, B)), ("lam", lam, (B,))):
+        _check(name, a, shape, dtype, device)
+    if config.use_state_eq_second_derivative:
+        raise NotImplementedError(
+            "the remat backward is first-order: ROADMAP B1")
+    if config.deriv_dtype != "same":
+        raise ValueError("the remat backward evaluates the derivatives at "
+                         "the solve dtype: deriv_dtype must be 'same'")
+    if dtype not in DTYPES:
+        raise ValueError(f"the remat backward takes float32/float64, got "
+                         f"{dtype}")
+    tileval.generate(problem, "remat", nx, nu, dtype)   # the gate
+    t0 = torch.as_tensor(t0, dtype=dtype, device=device)
+    if device.type == "cpu":
+        return backward_remat_plain(problem, config, t0, xs, us, Vx_T,
+                                    Vxx_T, lam)
+    if device.type != "cuda":
+        raise ValueError(f"backward_remat takes CPU or CUDA tensors, got "
+                         f"{device}")
+    ks = torch.empty((N, nu, B), dtype=dtype, device=device)
+    Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
+    dV = torch.empty((2, B), dtype=dtype, device=device)
+    ok = torch.empty((B,), dtype=torch.bool, device=device)
+    launch = _launcher(problem, nx, nu, dtype)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = launch(N, B, config.reg_type, float(problem.dt), xs.data_ptr(),
+                     us.data_ptr(), Vx_T.data_ptr(), Vxx_T.data_ptr(),
+                     lam.data_ptr(), t0.data_ptr(), ks.data_ptr(),
+                     Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"remat backward kernel launch failed: CUDA "
+                           f"error {err}")
+    backward_remat.launches += 1
+    return ks, Ks, dV, ok
+
+
+backward_remat.launches = 0

@@ -25,14 +25,22 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch import func
 
 from nmpc_tpu_torch.core.problem import Problem
 from nmpc_tpu_torch.core.types import DDPConfig, DDPResult, DDPStatus, DDPTrace
+from nmpc_tpu_torch.kernels import tileval
 from nmpc_tpu_torch.kernels.ddp_backward import (StackedDerivs, StackedSecond,
                                                  backward_stacked)
 from nmpc_tpu_torch.kernels.ddp_backward_fused import (backward_fused,
                                                        kernel_supports)
+from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
+                                                       remat_supported)
+from nmpc_tpu_torch.kernels.ddp_forward_remat import (
+    forward_costs_remat, forward_remat_supported, forward_selected_remat)
+from nmpc_tpu_torch.solvers.stages import (
+    _deriv_dtype_of, _derivative_sweep_lanes, _forward_costs_lanes,
+    _forward_selected_lanes, _lanes, _stage_times, _step_lanes,
+    _terminal_quad_lanes)
 
 _RUNNING = int(DDPStatus.RUNNING)
 
@@ -46,12 +54,6 @@ def _check_ported(config: DDPConfig):
     if config.ls_mode == "serial":
         raise NotImplementedError(
             "ls_mode='serial' is not ported yet: ROADMAP A4 (after A9)")
-    if config.backward_impl == "remat":
-        raise NotImplementedError(
-            "backward_impl='remat' is not ported yet: ROADMAP B3")
-    if config.forward_impl == "fused":
-        raise NotImplementedError(
-            "forward_impl='fused' is not ported yet: ROADMAP B2")
 
 
 class DDPSolver:
@@ -90,87 +92,8 @@ class DDPSolver:
 
 
 # --------------------------------------------------------------------------
-# batch-minor building blocks
+# batch-minor building blocks (the per-stage ones are in solvers/stages.py)
 # --------------------------------------------------------------------------
-
-
-def _lanes(f, n_array_args: int):
-    """vmap ``f(t, *arrays)`` over the trailing batch axis of the arrays."""
-    return func.vmap(f, in_dims=(None,) + (-1,) * n_array_args, out_dims=-1)
-
-
-def _step_lanes(problem):
-    """Batched (next state, running cost) of one stage: one vmapped call
-    per stage instead of two."""
-    return _lanes(lambda t, x, u: (problem.dynamics(t, x, u),
-                                   problem.running_cost(t, x, u)), 2)
-
-
-def _deriv_dtype_of(config: DDPConfig, dtype):
-    if config.deriv_dtype == "same":
-        return dtype
-    return getattr(torch, config.deriv_dtype)
-
-
-def _stage_times(problem, t0, N):
-    return t0 + problem.dt * torch.arange(N, dtype=t0.dtype, device=t0.device)
-
-
-def _stage_derivs(problem: Problem, config: DDPConfig, t, x, u):
-    """One stage's derivatives at the solve dtype: (Fx, Fu, Lx, Lu, Lxx,
-    Luu, Lxu) plus (Fxx, Fuu, Fxu) for full DDP.  The callbacks run at
-    ``deriv_dtype``; results are cast back at the boundary so wide model
-    constants do not promote the solve."""
-    dtype = x.dtype
-    ddt = _deriv_dtype_of(config, dtype)
-    td, xd, ud = t.to(ddt), x.to(ddt), u.to(ddt)
-    Fx, Fu = (a.to(dtype) for a in problem.linearize_dynamics(td, xd, ud))
-    Lx, Lu, Lxx, Luu, Lxu = (
-        a.to(dtype) for a in problem.quadraticize_running_cost(td, xd, ud))
-    second = ()
-    if config.use_state_eq_second_derivative:
-        second = tuple(a.to(dtype)
-                       for a in problem.second_order_dynamics(td, xd, ud))
-    if problem.input_mask is not None:
-        # Masked-dimension embedding: zero the inactive columns and put a
-        # unit diagonal on the inactive Luu block, so inactive inputs get
-        # k = 0 and zero K rows (reference DDPSolver.hpp:513-517).
-        mask = problem.input_mask(t).to(dtype)
-        Fu = Fu * mask[None, :]
-        Lu = Lu * mask
-        Luu = Luu * (mask[:, None] * mask[None, :]) + torch.diag_embed(1.0 - mask)
-        Lxu = Lxu * mask[None, :]
-        if second:
-            Fxx, Fuu, Fxu = second
-            second = (Fxx, Fuu * (mask[None, :, None] * mask[None, None, :]),
-                      Fxu * mask[None, None, :])
-    return (Fx, Fu, Lx, Lu, Lxx, Luu, Lxu) + second
-
-
-def _terminal_quad_lanes(problem, config, t0, xs):
-    """Terminal cost expansion: (Vx_T [nx, B], Vxx_T [nx, nx, B])."""
-    N = config.horizon_steps
-    dtype = xs.dtype
-    ddt = _deriv_dtype_of(config, dtype)
-    quad = _lanes(problem.quadraticize_terminal_cost, 1)
-    Vx_T, Vxx_T = quad((t0 + N * problem.dt).to(ddt), xs[-1].to(ddt))
-    return Vx_T.to(dtype), Vxx_T.to(dtype)
-
-
-def _derivative_sweep_lanes(problem, config, t0, xs, us):
-    """Stage derivatives of the whole horizon, batch-minor and contiguous
-    (every field [N, dims..., B]), plus the terminal expansion.
-
-    One ``vmap`` over N of a ``vmap`` over B with ``out_dims=-1`` produces
-    the batch-minor layout directly; ``contiguous()`` then copies it into
-    the dense layout the CUDA kernel reads."""
-    ts = _stage_times(problem, t0, config.horizon_steps)
-    per_lane = _lanes(
-        lambda t, x, u: _stage_derivs(problem, config, t, x, u), 2)
-    D = func.vmap(per_lane, in_dims=(0, 0, 0), out_dims=0)(ts, xs[:-1], us)
-    D = tuple(a.contiguous() for a in D)
-    Vx_T, Vxx_T = _terminal_quad_lanes(problem, config, t0, xs)
-    return D, Vx_T.contiguous(), Vxx_T.contiguous()
 
 
 def _rollout_lanes(problem, config, t0, x0, us):
@@ -198,93 +121,91 @@ def _ls_cost_dtype(problem, config, t0, xs, us):
     return torch.promote_types(cdtype, _deriv_dtype_of(config, xs.dtype))
 
 
-def _forward_costs_lanes(problem, config, t0, xs, us, ks, Ks, alphas,
-                         cdtype):
-    """Cost-only line-search rollout of every alpha at once
-    (``DDPSolver.hpp:242-265,537-560``).  The state carry is laid out
-    [nx, A, B] so that the alpha and batch axes merge into one vmapped axis
-    without a copy.  Returns per-alpha total costs [A, B]."""
-    N = config.horizon_steps
-    dtype = xs.dtype
-    nx, B = xs.shape[1], xs.shape[2]
-    A = alphas.shape[0]
-    ts = _stage_times(problem, t0, N)
-    step = _step_lanes(problem)
-    a_bc = alphas[None, :, None]                          # [1, A, 1]
-    x = xs[0][:, None, :].expand(nx, A, B)
-    ctot = torch.zeros((A, B), dtype=cdtype, device=xs.device)
-    for i in range(N):
-        dx = x - xs[i][:, None, :]                        # [nx, A, B]
-        u = (us[i][:, None, :] + a_bc * ks[i][:, None, :]
-             + torch.sum(Ks[i][:, :, None, :] * dx[None], dim=1))
-        xn, c = step(ts[i], x.reshape(nx, A * B), u.reshape(-1, A * B))
-        x = xn.to(dtype).reshape(nx, A, B)
-        ctot = ctot + c.to(cdtype).reshape(A, B)
-    term = _lanes(problem.terminal_cost, 1)
-    c_term = term(t0 + N * problem.dt, x.reshape(nx, A * B)).to(cdtype)
-    return ctot + c_term.reshape(A, B)
-
-
-def _forward_selected_lanes(problem, config, t0, xs, us, ks, Ks, alpha,
-                            cdtype):
-    """Rollout at each lane's selected alpha [B]: (xs [N+1,nx,B],
-    us [N,nu,B], costs [N+1,B], cost_sum [B] in cdtype).  ``cost_sum`` is
-    accumulated in horizon order exactly like the per-alpha sums of
-    :func:`_forward_costs_lanes`, so the alpha[0] accept decision is the
-    same in every ``ls_mode``."""
-    N = config.horizon_steps
-    dtype = xs.dtype
-    ts = _stage_times(problem, t0, N)
-    step = _step_lanes(problem)
-    x = xs[0]
-    ctot = torch.zeros(xs.shape[-1:], dtype=cdtype, device=xs.device)
-    xs_new, us_new, cs = [x], [], []
-    for i in range(N):
-        u = (us[i] + alpha[None] * ks[i]
-             + torch.sum(Ks[i] * (x - xs[i])[None], dim=1))
-        xn, c_raw = step(ts[i], x, u)
-        x = xn.to(dtype)
-        ctot = ctot + c_raw.to(cdtype)
-        xs_new.append(x)
-        us_new.append(u)
-        cs.append(c_raw.to(dtype))
-    c_term = _lanes(problem.terminal_cost, 1)(t0 + N * problem.dt, x)
-    cs.append(c_term.to(dtype))
-    return (torch.stack(xs_new), torch.stack(us_new), torch.stack(cs),
-            ctot + c_term.to(cdtype))
-
-
 def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
                            device, boxed: bool, second: bool) -> str:
     """Backward-pass choice for the batched solve; the one place holding
     the ``auto`` rule.
 
-    ``auto`` resolves to:
-      * ``"pallas"`` (the fused CUDA kernel) on CUDA tensors, for a
-        first-order, unboxed solve whose ``(nx, nu)`` and dtype the kernel
-        was built for (``ddp_backward_fused.kernel_supports``);
-      * ``"stacked"`` (the torch-op recursion) otherwise.
-    The JAX rule's ``B % 128 == 0`` and TPU-backend conditions do not carry
-    over: the kernel takes any B.  ``forward_impl="auto"`` resolves to the
-    plain rollout until the fused forward kernel is ported (ROADMAP B2).
+    ``auto`` resolves, on CUDA tensors and for a first-order, unboxed
+    solve, to:
+      * ``"remat"`` (the trajectory-fed CUDA kernel, no derivative sweep)
+        when ``deriv_dtype`` is ``"same"`` and the code generator takes
+        the problem at this dtype (``remat_supported``);
+      * else ``"pallas"`` (the sweep-fed CUDA kernel) where its
+        ``(nx, nu)`` and dtype were built (``kernel_supports``);
+    and to ``"stacked"`` (the torch-op recursion) otherwise, on CPU
+    tensors always.  The JAX rule's ``B % 128 == 0`` and ``B >= 1024``
+    conditions were fit to the TPU's (8, 128) blocks and do not carry
+    over, and neither does B >= 1024: on the H100 the remat pair is the
+    fastest at both shapes the port serves (``chip_smoke.py``, my chip
+    run, PR 2, NVIDIA H100 80GB HBM3, 700.00 W): 18586.3 solves/s at
+    B=4096, N=100 (remat + fused) against 8032.8 (pallas + fused) and
+    2126.1 (pallas + scan); tick p50 236.43 ms at 256 controllers, N=200
+    (remat + fused) against 366.38 and 1759.31 ms.
 
-    An explicit ``"pallas"`` is taken as asked: a second-order or boxed
-    solve, which the kernel does not compute, raises instead of running
-    the twin.
+    An explicit ``"pallas"`` or ``"remat"`` is taken as asked: a
+    second-order or boxed solve, which the kernels do not compute, raises,
+    and so does ``"remat"`` on a problem the generator rejects
+    (``TileEvalError``) or with ``deriv_dtype`` other than ``"same"``;
+    nothing runs the plain version in a kernel's place.
     """
     impl = config.backward_impl
-    if impl == "pallas" and (boxed or second):
+    nx, nu = problem.state_dim, problem.input_dim
+    if impl in ("pallas", "remat") and (boxed or second):
         raise NotImplementedError(
-            "backward_impl='pallas' (the fused backward kernel) is "
+            f"backward_impl={impl!r} (a fused backward kernel) is "
             "first-order and unboxed; the second-order D2 term and the "
             "boxed backward run on backward_impl='stacked': ROADMAP B1 "
             "(boxed: B4)")
+    if impl == "remat":
+        if config.deriv_dtype != "same":
+            raise ValueError("backward_impl='remat' evaluates the "
+                             "derivatives at the solve dtype: deriv_dtype "
+                             "must be 'same'")
+        tileval.generate(problem, "remat", nx, nu, dtype)
+        return impl
     if impl != "auto":
         return impl
-    if (device.type == "cuda" and not boxed and not second
-            and kernel_supports(problem.state_dim, problem.input_dim, dtype)):
-        return "pallas"
+    if device.type == "cuda" and not boxed and not second:
+        if (config.deriv_dtype == "same"
+                and remat_supported(problem, nx, nu, dtype)):
+            return "remat"
+        if kernel_supports(nx, nu, dtype):
+            return "pallas"
     return "stacked"
+
+
+def _resolve_forward_impl(config: DDPConfig, problem: Problem, dtype,
+                          device, cdtype) -> str:
+    """Line-search rollout choice: ``"fused"`` (the CUDA rollout kernels,
+    ``kernels/ddp_forward_remat.py``) or ``"scan"`` (the plain rollouts).
+
+    The kernels sum the costs at the solve dtype, so both ``"fused"`` and
+    ``auto`` need ``cdtype == dtype`` (as the JAX solver does).  ``auto``
+    takes ``"fused"`` on CUDA tensors where the generator takes the
+    problem (``forward_remat_supported``) and ``"scan"`` otherwise.  The
+    JAX window (N >= 25 and (B <= 512 or N >= 50)) was fit on the TPU;
+    on the H100 the fused rollouts replace host loops over N and win at
+    both shapes (same run as ``_resolve_backward_impl``'s numbers: K6
+    0.0485 ms against 106.0 ms for the plain rollout, K7 0.0402 ms
+    against 115.4 ms, at B=4096, N=100), so no window is kept.  An
+    explicit ``"fused"`` on a problem the generator rejects raises
+    ``TileEvalError``; with ``cdtype != dtype`` it raises ``ValueError``.
+    """
+    impl = config.forward_impl
+    nx, nu = problem.state_dim, problem.input_dim
+    if impl == "fused":
+        tileval.generate(problem, "forward", nx, nu, dtype)
+        if cdtype != dtype:
+            raise ValueError(
+                f"forward_impl='fused' sums the line-search costs at the "
+                f"solve dtype {dtype}; this solve sums them at {cdtype} "
+                f"(deriv_dtype or the running cost's dtype)")
+        return impl
+    if (impl == "auto" and device.type == "cuda" and cdtype == dtype
+            and forward_remat_supported(problem, nx, nu, dtype)):
+        return "fused"
+    return "scan"
 
 
 def _make_backward_fn(config: DDPConfig, impl: str, Dst, VxT, VxxT, D2=None):
@@ -372,12 +293,21 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init):
     us = us_init.permute(1, 2, 0).contiguous()            # [N, nu, B]
     xs, costs = _rollout_lanes(problem, config, t0, x0s.T.contiguous(), us)
     cdtype = _ls_cost_dtype(problem, config, t0, xs, us)
+    fused = _resolve_forward_impl(config, problem, dtype, device,
+                                  cdtype) == "fused"
 
+    # The rollouts read the current (xs, us) through the closure.
     def f_costs(ks, Ks, alphas_):
+        if fused:
+            return forward_costs_remat(problem, config, t0, xs, us, ks, Ks,
+                                       alphas_)
         return _forward_costs_lanes(problem, config, t0, xs, us, ks, Ks,
                                     alphas_, cdtype)
 
     def f_sel(ks, Ks, alpha):
+        if fused:
+            return forward_selected_remat(problem, config, t0, xs, us, ks,
+                                          Ks, alpha.contiguous())
         return _forward_selected_lanes(problem, config, t0, xs, us, ks, Ks,
                                        alpha, cdtype)
 
@@ -412,10 +342,23 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init):
         running = status == _RUNNING
 
         # Steps 1+2: derivative sweep, backward pass with lambda retry.
-        D, VxT, VxxT = _derivative_sweep_lanes(problem, config, t0, xs, us)
-        D2 = StackedSecond(*D[7:]) if second else None
-        backward_fn = _make_backward_fn(config, impl, StackedDerivs(*D[:7]),
-                                        VxT, VxxT, D2=D2)
+        # The remat kernel takes the trajectory: only the terminal
+        # expansion is computed here, the stage derivatives in the kernel.
+        if impl == "remat":
+            VxT, VxxT = (a.contiguous() for a in _terminal_quad_lanes(
+                problem, config, t0, xs))
+            xs_b, us_b = xs, us
+
+            def backward_fn(lam_):
+                return backward_remat(problem, config, t0, xs_b, us_b, VxT,
+                                      VxxT, lam_)
+        else:
+            D, VxT, VxxT = _derivative_sweep_lanes(problem, config, t0, xs,
+                                                   us)
+            D2 = StackedSecond(*D[7:]) if second else None
+            backward_fn = _make_backward_fn(config, impl,
+                                            StackedDerivs(*D[:7]), VxT, VxxT,
+                                            D2=D2)
         lam_b, dlam_b, ks_b, Ks_b, dV, bw_failed = _backward_retry(
             config, backward_fn, lam, dlam, ks, Ks, running, host)
         new_status = torch.where(bw_failed & running,

@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernels against their plain PyTorch twins, on the
-card.  Every test here is marked ``cuda`` and skips without a card; the
-file imports no JAX, so on the GPU machine it runs without the JAX
-package's conftest:
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card: the sweep-fed backward (K1), the remat backward (K5) and the
+fused rollouts (K6, K7).  Every test here is marked ``cuda`` and skips
+without a card; the file imports no JAX, so on the GPU machine it runs
+without the JAX package's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
@@ -15,6 +16,11 @@ import torch
 from nmpc_tpu_torch import DDPConfig, DDPSolver
 from nmpc_tpu_torch.kernels.ddp_backward import StackedDerivs, backward_stacked
 from nmpc_tpu_torch.kernels.ddp_backward_fused import backward_fused
+from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
+                                                       backward_remat_plain)
+from nmpc_tpu_torch.kernels.ddp_forward_remat import (forward_costs_remat,
+                                                      forward_selected_remat)
+from nmpc_tpu_torch.kernels.tileval import TileEvalError
 from nmpc_tpu_torch.models.cartpole import make_cartpole_problem
 from nmpc_tpu_torch.solvers import ddp
 
@@ -88,14 +94,15 @@ def test_unbuilt_shape_raises(card):
 
 
 def test_solve_batch_goes_through_kernel(card):
-    """fp64 solve_batch with backward_impl="auto" launches the kernel and
+    """fp64 solve_batch on the sweep-fed path (backward_impl="pallas"; on
+    the card ``auto`` now takes the remat kernel) launches the kernel and
     agrees with "stacked" on the card: same status and iters, us 1e-10."""
     B, N = 64, 30
     rng = np.random.default_rng(1)
     x0s = torch.as_tensor(np.tile([0.0, np.pi, 0.0, 0.0], (B, 1))
                           + 0.05 * rng.normal(size=(B, 4)), device=card)
     us0 = torch.zeros((B, N, 1), dtype=torch.float64, device=card)
-    cfg = DDPConfig(horizon_steps=N, max_iter=20)
+    cfg = DDPConfig(horizon_steps=N, max_iter=20, backward_impl="pallas")
     before = backward_fused.launches
     res = DDPSolver(make_cartpole_problem(DT), cfg).solve_batch(0.0, x0s, us0)
     assert backward_fused.launches > before
@@ -104,3 +111,117 @@ def test_solve_batch_goes_through_kernel(card):
     assert torch.equal(res.status, ref.status)
     assert torch.equal(res.iters, ref.iters)
     assert (res.us - ref.us).abs().max().item() <= 1e-10
+
+
+def _trajectory(B, N, dtype, device, seed=2):
+    """A cart-pole rollout (xs, us), its terminal expansion and t0=0.3,
+    batch-minor on ``device``."""
+    rng = np.random.default_rng(seed)
+    p, cfg = make_cartpole_problem(DT), DDPConfig(horizon_steps=N)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    x0s = np.tile([0.0, np.pi, 0.0, 0.0], (B, 1)) + 0.05 * rng.normal(
+        size=(B, 4))
+    us = as_t(0.2 * rng.normal(size=(N, 1, B)))
+    t0 = as_t(0.3)
+    xs, _ = ddp._rollout_lanes(p, cfg, t0, as_t(x0s.T.copy()), us)
+    VxT, VxxT = (a.contiguous() for a in ddp._terminal_quad_lanes(
+        p, cfg, t0, xs))
+    return p, t0, xs, us, VxT, VxxT
+
+
+def _norm_err(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).abs().max() / (1.0 + a.abs().max())).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("reg_type", [1, 2])
+def test_remat_backward_matches_plain(card, dtype, reg_type):
+    """K5 vs its plain version (derivative sweep + backward_stacked) on a
+    ragged batch, with a NaN lane (a NaN state) and a non-PD lane (a
+    negative definite terminal Vxx): ok masks equal, the rest within
+    TOL."""
+    B, N = 300, 17
+    p, t0, xs, us, VxT, VxxT = _trajectory(B, N, dtype, card)
+    xs[5, 1, 299] = float("nan")
+    VxxT[:, :, 7] = -1e6 * torch.eye(4, dtype=dtype, device=card)
+    cfg = DDPConfig(horizon_steps=N, reg_type=reg_type)
+    lam = torch.full((B,), 1e-4 if reg_type == 1 else 0.5, dtype=dtype,
+                     device=card)
+    before = backward_remat.launches
+    out = backward_remat(p, cfg, t0, xs, us, VxT, VxxT, lam)
+    torch.cuda.synchronize()
+    assert backward_remat.launches == before + 1
+    ref = backward_remat_plain(p, cfg, t0, xs, us, VxT, VxxT, lam)
+    assert torch.equal(out[3], ref[3])
+    assert not out[3][7] and not out[3][299] and int(out[3].sum()) == B - 2
+    for a, b in zip(ref[:3], out[:3]):
+        assert _norm_err(a[..., ref[3]], b[..., ref[3]]) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_rollouts_match_plain(card, dtype):
+    """K6 and K7 vs their plain versions, with gains from a real backward
+    pass; K7's column for an alpha equals K6's sum at that alpha."""
+    B, N = 300, 40
+    p, t0, xs, us, VxT, VxxT = _trajectory(B, N, dtype, card)
+    cfg = DDPConfig(horizon_steps=N)
+    lam = torch.full((B,), 1e-4, dtype=dtype, device=card)
+    ks, Ks, _, ok = backward_remat_plain(p, cfg, t0, xs, us, VxT, VxxT, lam)
+    assert bool(ok.all())
+    alpha = torch.as_tensor(np.random.default_rng(3).uniform(0.1, 1.0, B),
+                            dtype=dtype, device=card)
+    counts = (forward_selected_remat.launches, forward_costs_remat.launches)
+    sel = forward_selected_remat(p, cfg, t0, xs, us, ks, Ks, alpha)
+    alphas = torch.tensor(cfg.alpha_list, dtype=dtype, device=card)
+    sums = forward_costs_remat(p, cfg, t0, xs, us, ks, Ks, alphas)
+    torch.cuda.synchronize()
+    assert (forward_selected_remat.launches,
+            forward_costs_remat.launches) == (counts[0] + 1, counts[1] + 1)
+    ref = ddp._forward_selected_lanes(p, cfg, t0, xs, us, ks, Ks, alpha,
+                                      dtype)
+    for a, b in zip(ref, sel):
+        assert _norm_err(a, b) <= TOL[dtype]
+    ref = ddp._forward_costs_lanes(p, cfg, t0, xs, us, ks, Ks, alphas, dtype)
+    assert _norm_err(ref, sums) <= TOL[dtype]
+    at3 = forward_selected_remat(p, cfg, t0, xs, us, ks, Ks,
+                                 alphas[3].expand(B).contiguous())[3]
+    assert torch.equal(sums[3], at3)
+
+
+def test_solve_batch_goes_through_remat_kernels(card):
+    """fp64 solve_batch with backward_impl="remat", forward_impl="fused"
+    launches K5, K6 and K7 and agrees with the plain path on the card:
+    same status and iters, us 1e-10."""
+    B, N = 64, 30
+    rng = np.random.default_rng(1)
+    x0s = torch.as_tensor(np.tile([0.0, np.pi, 0.0, 0.0], (B, 1))
+                          + 0.05 * rng.normal(size=(B, 4)), device=card)
+    us0 = torch.zeros((B, N, 1), dtype=torch.float64, device=card)
+    cfg = DDPConfig(horizon_steps=N, max_iter=20, ls_mode="sweep",
+                    backward_impl="remat", forward_impl="fused")
+    kernels = (backward_remat, forward_selected_remat, forward_costs_remat)
+    before = [k.launches for k in kernels]
+    res = DDPSolver(make_cartpole_problem(DT), cfg).solve_batch(0.0, x0s, us0)
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    ref = DDPSolver(make_cartpole_problem(DT), dataclasses.replace(
+        cfg, backward_impl="stacked", forward_impl="scan")).solve_batch(
+            0.0, x0s, us0)
+    assert torch.equal(res.status, ref.status)
+    assert torch.equal(res.iters, ref.iters)
+    assert (res.us - ref.us).abs().max().item() <= 1e-10
+
+
+def test_explicit_remat_on_rejected_problem_raises(card):
+    """A problem the generator rejects (a data-dependent index) raises
+    TileEvalError on CUDA tensors too, for remat and for fused."""
+    p = make_cartpole_problem(DT)
+    q = dataclasses.replace(p, dynamics=lambda t, x, u: p.dynamics(
+        t, x, u) * x[torch.argmax(x)])
+    x0s = torch.zeros((4, 4), device=card)
+    us0 = torch.zeros((4, 10, 1), device=card)
+    for change in ({"backward_impl": "remat"}, {"forward_impl": "fused"}):
+        solver = DDPSolver(q, DDPConfig(horizon_steps=10, max_iter=2,
+                                        **change))
+        with pytest.raises(TileEvalError):
+            solver.solve_batch(0.0, x0s, us0)

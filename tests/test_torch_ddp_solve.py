@@ -16,7 +16,9 @@ from nmpc_tpu.models.cartpole import make_cartpole_problem as jax_cartpole
 from nmpc_tpu_torch import DDPConfig, DDPSolver, DDPStatus
 from nmpc_tpu_torch.convert import ddp_config_from_reference, result_to_numpy
 from nmpc_tpu_torch.models.cartpole import make_cartpole_problem
-from nmpc_tpu_torch.solvers.ddp import _resolve_backward_impl
+from nmpc_tpu_torch.kernels.tileval import TileEvalError
+from nmpc_tpu_torch.solvers.ddp import (_resolve_backward_impl,
+                                         _resolve_forward_impl)
 
 torch.set_num_threads(1)
 
@@ -177,13 +179,29 @@ def test_wrong_shape_us_init_names_expected_shape():
     ({"forward_impl": "fused"}, "B2"),
 ])
 def test_unported_options_raise(change, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        DDPSolver(make_cartpole_problem(DT), DDPConfig(**change))
+    """Options still to port raise naming their ROADMAP item.  The remat
+    backward (B3) and the fused rollouts (B2) are ported: they construct
+    and, on CPU tensors, solve through their plain versions exactly like
+    the default path."""
+    if item not in ("B2", "B3"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            DDPSolver(make_cartpole_problem(DT), DDPConfig(**change))
+        return
+    x0s, us0 = _inputs(4, 20, np.float64, seed=3)
+    cfg = DDPConfig(horizon_steps=20, max_iter=5)
+    got = DDPSolver(make_cartpole_problem(DT), dataclasses.replace(
+        cfg, **change)).solve_batch(0.0, torch.as_tensor(x0s),
+                                    torch.as_tensor(us0))
+    ref = DDPSolver(make_cartpole_problem(DT), cfg).solve_batch(
+        0.0, torch.as_tensor(x0s), torch.as_tensor(us0))
+    assert torch.equal(got.status, ref.status)
+    assert torch.equal(got.iters, ref.iters)
+    assert torch.equal(got.us, ref.us)
 
 
 @pytest.mark.parametrize("device,dtype,second,nx_nu,impl,want", [
-    ("cuda", torch.float32, False, (4, 1), "auto", "pallas"),
-    ("cuda", torch.float64, False, (4, 1), "auto", "pallas"),
+    ("cuda", torch.float32, False, (4, 1), "auto", "remat"),
+    ("cuda", torch.float64, False, (4, 1), "auto", "remat"),
     ("cpu", torch.float32, False, (4, 1), "auto", "stacked"),
     ("cuda", torch.float32, True, (4, 1), "auto", "stacked"),
     ("cuda", torch.float32, False, (6, 2), "auto", "stacked"),
@@ -192,12 +210,18 @@ def test_unported_options_raise(change, item):
     ("cuda", torch.float32, True, (4, 1), "pallas", NotImplementedError),
     ("cpu", torch.float64, True, (4, 1), "pallas", NotImplementedError),
     ("cuda", torch.float32, True, (4, 1), "stacked", "stacked"),
+    ("cpu", torch.float32, False, (4, 1), "remat", "remat"),
+    ("cuda", torch.float32, True, (4, 1), "remat", NotImplementedError),
+    ("cuda", torch.float32, False, (6, 2), "remat", TileEvalError),
 ])
 def test_auto_backward_rule(device, dtype, second, nx_nu, impl, want):
-    """``auto`` takes the CUDA kernel only on CUDA tensors, first order,
-    unboxed, at a built (nx, nu) and dtype; no B % 128 condition.  An
-    explicit ``"pallas"`` on a second-order solve raises rather than
-    running the twin in the kernel's place."""
+    """``auto`` takes a CUDA kernel only on CUDA tensors, first order and
+    unboxed: the remat kernel where the generator takes the problem, else
+    the sweep-fed kernel at a built (nx, nu) and dtype; no B % 128
+    condition.  An explicit ``"pallas"`` or ``"remat"`` on a second-order
+    solve raises rather than running a plain version in the kernel's
+    place, and so does ``"remat"`` on a problem whose callables do not
+    generate at its (nx, nu)."""
     p = make_cartpole_problem(DT)
     p = type(p)(**{**p.__dict__, "state_dim": nx_nu[0],
                    "input_dim": nx_nu[1]})
@@ -208,5 +232,62 @@ def test_auto_backward_rule(device, dtype, second, nx_nu, impl, want):
     if want is NotImplementedError:
         with pytest.raises(NotImplementedError, match="ROADMAP B1"):
             resolve()
+    elif want is TileEvalError:
+        with pytest.raises(TileEvalError):
+            resolve()
     else:
         assert resolve() == want
+
+
+@pytest.mark.parametrize("device,forward_impl,cdtype,want", [
+    ("cuda", "auto", torch.float32, "fused"),
+    ("cpu", "auto", torch.float32, "scan"),
+    ("cuda", "auto", torch.float64, "scan"),
+    ("cuda", "scan", torch.float32, "scan"),
+    ("cpu", "fused", torch.float32, "fused"),
+    ("cuda", "fused", torch.float64, ValueError),
+])
+def test_auto_forward_rule(device, forward_impl, cdtype, want):
+    """``auto`` takes the fused rollouts on CUDA tensors when the costs
+    sum at the solve dtype (fp32 here); an explicit ``"fused"`` whose
+    costs would sum wider raises."""
+    cfg = DDPConfig(forward_impl=forward_impl)
+    resolve = lambda: _resolve_forward_impl(
+        cfg, make_cartpole_problem(DT), torch.float32, torch.device(device),
+        cdtype)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="solve dtype"):
+            resolve()
+    else:
+        assert resolve() == want
+
+
+def test_constant_analytic_derivatives_solve():
+    """A linear problem whose analytic derivative callables return
+    constants solves like the same problem on autodiff derivatives (the
+    lane batching once returned tensors of garbage shape for outputs that
+    do not depend on the lane)."""
+    from nmpc_tpu_torch.core.problem import Problem
+
+    rng = np.random.default_rng(4)
+    A = torch.as_tensor(np.eye(2) + 0.1 * rng.normal(size=(2, 2)))
+    Bm = torch.as_tensor(0.1 * rng.normal(size=(2, 1)))
+    base = dict(
+        dt=0.1, state_dim=2, input_dim=1,
+        dynamics=lambda t, x, u: A @ x + Bm @ u,
+        running_cost=lambda t, x, u: 0.5 * (x @ x) + 0.05 * (u @ u),
+        terminal_cost=lambda t, x: 0.5 * (x @ x))
+    analytic = Problem(**base, dynamics_derivs=lambda t, x, u: (A, Bm),
+                       running_cost_derivs=lambda t, x, u: (
+                           x, 0.1 * u, torch.eye(2, dtype=x.dtype),
+                           0.1 * torch.eye(1, dtype=x.dtype),
+                           torch.zeros((2, 1), dtype=x.dtype)))
+    x0s = torch.as_tensor(rng.normal(size=(3, 2)))
+    us0 = torch.zeros((3, 15, 1), dtype=torch.float64)
+    cfg = DDPConfig(horizon_steps=15, max_iter=10)
+    got = DDPSolver(analytic, cfg).solve_batch(0.0, x0s, us0)
+    ref = DDPSolver(Problem(**base), cfg).solve_batch(0.0, x0s, us0)
+    assert (got.status == DDPStatus.SUCCEEDED).all()
+    assert torch.equal(got.iters, ref.iters)
+    np.testing.assert_allclose(got.us.numpy(), ref.us.numpy(), atol=1e-10,
+                               rtol=0)
