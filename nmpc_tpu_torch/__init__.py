@@ -1,12 +1,16 @@
 """nmpc_tpu_torch — the PyTorch/CUDA port of ``nmpc_tpu``.
 
-Ported so far: the batched DDP solve on unboxed problems (cart-pole) and
-the batched closed-loop tick loop, with hand-written CUDA kernels for
-Hopper beside their plain torch-op versions: the sweep-fed Riccati
-backward (``csrc/ddp_backward.cu``), and the remat backward and fused
-line-search rollouts (``csrc/ddp_*_remat.cuh``) built from code that
-``kernels/tileval.py`` generates from the problem's own callables.  The package imports ``torch`` and never ``jax``;
-``nmpc_tpu`` stays the reference it is tested against.
+Ported so far: the batched DDP solve, unboxed and boxed (projected-Newton
+BoxQP per stage, time-varying input masks), on the cart-pole and the
+vertical-motion models, the single BoxQP solve, and the batched
+closed-loop tick loop, with hand-written CUDA kernels for Hopper beside
+their plain torch-op versions: the sweep-fed Riccati backward
+(``csrc/ddp_backward.cu``) and its boxed variant
+(``csrc/ddp_backward_boxed.cuh``), and the remat backward (unboxed and
+boxed) and fused line-search rollouts (``csrc/ddp_*_remat.cuh``) built
+from code that ``kernels/tileval.py`` generates from the problem's own
+callables.  The package imports ``torch`` and never ``jax``; ``nmpc_tpu``
+stays the reference it is tested against.
 """
 
 from nmpc_tpu_torch.core.problem import Problem
@@ -18,6 +22,7 @@ from nmpc_tpu_torch.core.types import (
     DDPStatus,
     DDPTrace,
 )
+from nmpc_tpu_torch.solvers.boxqp import boxqp_solve
 from nmpc_tpu_torch.solvers.ddp import DDPSolver
 
 __version__ = "0.1.0"
@@ -31,4 +36,5 @@ __all__ = [
     "DDPSolver",
     "BoxQPConfig",
     "BoxQPStatus",
+    "boxqp_solve",
 ]

@@ -15,6 +15,8 @@ import torch
 from nmpc_tpu_torch.core.types import BoxQPConfig, DDPConfig, DDPResult
 from nmpc_tpu_torch.models.cartpole import (CartPoleCostWeight, CartPoleParam,
                                             make_cartpole_problem)
+from nmpc_tpu_torch.models.vertical import (VerticalCostWeight,
+                                            make_vertical_problem)
 
 
 def ddp_config_from_reference(cfg) -> DDPConfig:
@@ -31,6 +33,16 @@ def cartpole_problem_from_reference(dt: float, param, cost_weight):
     return make_cartpole_problem(
         dt, param=CartPoleParam(**dataclasses.asdict(param)),
         cost_weight=CartPoleCostWeight(**dataclasses.asdict(cost_weight)))
+
+
+def vertical_problem_from_reference(dt: float, cost_weight,
+                                    force_limits: tuple = (0.0, 30.0),
+                                    with_limits: bool = True):
+    """The vertical-motion problem built from the reference's
+    ``VerticalCostWeight`` dataclass and the same force limits."""
+    return make_vertical_problem(
+        dt, cost_weight=VerticalCostWeight(**dataclasses.asdict(cost_weight)),
+        force_limits=tuple(force_limits), with_limits=with_limits)
 
 
 def tensors_from_numpy(device, dtype, x0s, us, ks=None, Ks=None):

@@ -1,37 +1,45 @@
 // DDP Riccati backward with the stage derivatives recomputed in the kernel
-// from the trajectory, for Hopper (sm_90a).
+// from the trajectory, for Hopper (sm_90a), unboxed and boxed.
 //
 // Replaces the TPU kernel nmpc_tpu/kernels/ddp_backward_remat.py::
 // backward_remat (_backward_remat_call, kernel _make_kernel_remat, fields
-// _stage_fields_tile), unboxed.  Its plain version is
+// _stage_fields_tile with its aux group).  Its plain version is
 // nmpc_tpu_torch/kernels/ddp_backward_remat.py::backward_remat_plain: the
-// derivative sweep (_derivative_sweep_lanes) and backward_stacked.  The
-// fields come from gen_fields, generated from the problem's own callables
-// (kernels/tileval.py); the stage is riccati_stage, shared with the
-// sweep-fed kernel ddp_backward.cu.
+// derivative sweep (_derivative_sweep_lanes) and backward_stacked, or
+// backward_stacked_boxed.  The fields come from gen_fields, generated
+// from the problem's own callables (kernels/tileval.py) with the input
+// mask applied; a boxed unit also generates gen_aux, the stage's bounds.
+// The stage is riccati_stage or riccati_stage_boxed (riccati_stage.cuh),
+// shared with the sweep-fed kernels ddp_backward.cu and
+// ddp_backward_boxed.cuh.
 //
 // What bounds it on the card: latency, not bytes.  Per stage and lane it
-// reads x_i and u_i (5 values at nx=4, nu=1, against the 46 derivative
-// values the sweep-fed kernel reads) and writes k and K (5 values); the
-// generated fields (~100 scalar ops at the cart-pole) and the Riccati
-// stage (~300 flops) run on registers between the loads.  One thread per
-// lane is 4096 threads at B=4096, one warp per SM: the N dependent stages
-// of each thread are the critical path.
+// reads x_i and u_i (5 values at nx=4, nu=1; 4 at the vertical model's
+// nx = nu = 2) and writes k and K; the generated fields, the Riccati stage
+// and, boxed, the QP run on registers between the loads.  One thread per
+// lane is one warp per SM at B=4096: the N dependent stages of each
+// thread are the critical path.
 //
 // What the design does about it:
 //   * one thread per lane walks i = N-1 ... 0 with the (Vx, Vxx, dV, ok)
-//     carry in registers, as ddp_backward.cu does; the ~75 MB derivative
-//     buffer of the sweep never exists;
+//     carry (and, boxed, the QP warm start) in registers, as
+//     ddp_backward.cu does; the derivative buffer of the sweep never
+//     exists;
 //   * (x_{i-1}, u_{i-1}) are loaded before stage i's arithmetic (the TPU
 //     kernel's double-buffered stage DMA), batch-minor and coalesced;
 //   * 32-thread blocks spread the lanes over as many SMs as possible.
-// Templated on the scalar type and (NX, NU); the generated unit
+// Templated on the scalar type, (NX, NU) and BOXED; the generated unit
 // instantiates it for the dtype it was traced at.
 
 #pragma once
 
 #include "remat_common.cuh"
 #include "riccati_stage.cuh"
+
+// The boxed kernel reads the stage's bounds from gen_aux, which only a
+// boxed unit generates; declared here for the units that do not.
+template <typename T>
+__host__ __device__ void gen_aux(T t, const T* x, const T* u, T* o);
 
 namespace nmpc {
 
@@ -77,12 +85,12 @@ __device__ __forceinline__ void unpack_fields(const T* f,
     for (int c = 0; c < NU; ++c) s.Lxu[a][c] = f[k++];
 }
 
-template <typename T, int NX, int NU>
+template <typename T, int NX, int NU, bool BOXED>
 __global__ void __launch_bounds__(kLaneThreads)
 backward_remat_kernel(const T* __restrict__ xs, const T* __restrict__ us,
                       const T* __restrict__ VxT, const T* __restrict__ VxxT,
                       const T* __restrict__ lam_in,
-                      const T* __restrict__ t0_in, T dt,
+                      const T* __restrict__ t0_in, T dt, BoxQPParams qp,
                       T* __restrict__ ks, T* __restrict__ Ks,
                       T* __restrict__ dV, unsigned char* __restrict__ ok_out,
                       int N, int B, int reg_type) {
@@ -103,17 +111,35 @@ backward_remat_kernel(const T* __restrict__ xs, const T* __restrict__ us,
   carry.ok = true;
   const T lam = lam_in[b];
   const T t0 = *t0_in;
+  T k_next[NU];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) k_next[a] = T(0);
 
   T x[NX], u[NU], x_next[NX], u_next[NU];
   load_xu<T, NX, NU>(xs, us, N - 1, b, B, x, u);
   for (int i = N - 1; i >= 0; --i) {
     if (i > 0) load_xu<T, NX, NU>(xs, us, i - 1, b, B, x_next, u_next);
+    const T t_i = stage_time(t0, dt, i);
     T f[kFields];
-    gen_fields<T>(stage_time(t0, dt, i), x, u, f);
+    gen_fields<T>(t_i, x, u, f);
     Stage<T, NX, NU> s;
     unpack_fields<T, NX, NU>(f, s);
     T k[NU], K[NU][NX];
-    riccati_stage<T, NX, NU>(s, lam, reg_type, carry, k, K);
+    if constexpr (BOXED) {
+      T aux[2 * NU];
+      gen_aux<T>(t_i, x, u, aux);
+      Bounds<T, NU> box;
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        box.lower[a] = aux[a];
+        box.upper[a] = aux[NU + a];
+        box.u[a] = u[a];
+      }
+      riccati_stage_boxed<T, NX, NU>(s, box, lam, reg_type, qp, carry,
+                                     k_next, k, K);
+    } else {
+      riccati_stage<T, NX, NU>(s, lam, reg_type, carry, k, K);
+    }
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
       ks[idx2(i, a, NU, b, B)] = k[a];
@@ -132,21 +158,21 @@ backward_remat_kernel(const T* __restrict__ xs, const T* __restrict__ us,
 
 // Launch on `stream`; returns cudaGetLastError() after the launch.  All
 // arrays are contiguous batch-minor device arrays; t0 is one device
-// scalar; ok is one byte per lane.
-template <typename T, int NX, int NU>
+// scalar; ok is one byte per lane.  qp is read by the boxed kernel only.
+template <typename T, int NX, int NU, bool BOXED = false>
 int launch_backward_remat(int N, int B, int reg_type, double dt,
                           const void* xs, const void* us, const void* VxT,
                           const void* VxxT, const void* lam, const void* t0,
                           void* ks, void* Ks, void* dV, void* ok,
-                          void* stream) {
+                          void* stream, BoxQPParams qp = BoxQPParams{}) {
   if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + kLaneThreads - 1) / kLaneThreads;
-  backward_remat_kernel<T, NX, NU>
+  backward_remat_kernel<T, NX, NU, BOXED>
       <<<blocks, kLaneThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(xs), static_cast<const T*>(us),
           static_cast<const T*>(VxT), static_cast<const T*>(VxxT),
           static_cast<const T*>(lam), static_cast<const T*>(t0),
-          static_cast<T>(dt), static_cast<T*>(ks), static_cast<T*>(Ks),
+          static_cast<T>(dt), qp, static_cast<T*>(ks), static_cast<T*>(Ks),
           static_cast<T*>(dV), static_cast<unsigned char*>(ok), N, B,
           reg_type);
   return static_cast<int>(cudaGetLastError());

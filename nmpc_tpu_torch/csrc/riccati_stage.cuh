@@ -1,11 +1,15 @@
-// The DDP Riccati stage as device functions, shared by the backward
-// kernels: ddp_backward.cu (sweep-fed, TPU K1) and the generated remat
-// backward (ddp_backward_remat.cuh, TPU K5), as the TPU kernels share
-// nmpc_tpu/kernels/ddp_backward_pallas.py::_riccati_stage, _chol_t and
-// _chol_solve_t.  The math and the order of each sum follow
+// The DDP Riccati stages as device functions, shared by the backward
+// kernels: ddp_backward.cu (sweep-fed, TPU K1), ddp_backward_boxed.cuh
+// (sweep-fed boxed, TPU K4) and the generated remat backward
+// (ddp_backward_remat.cuh, TPU K5, unboxed and boxed), as the TPU kernels
+// share nmpc_tpu/kernels/ddp_backward_pallas.py::_riccati_stage and
+// _riccati_stage_boxed.  The math and the order of each sum follow
 // _riccati_stage.  Templated on the scalar type and on (NX, NU).
 
 #pragma once
+
+#include "boxqp.cuh"
+#include "linalg.cuh"
 
 namespace nmpc {
 
@@ -21,70 +25,6 @@ struct Stage {
   T Lxu[NX][NU];
 };
 
-template <typename T>
-__device__ __forceinline__ bool finite(T v) {
-  return isfinite(v);
-}
-
-// Unrolled Cholesky with Eigen's LLT failure rule: a pivot that is not
-// > 0 and finite fails the lane; sqrt(d > 0 ? d : 1) keeps the rest of
-// the lane's arithmetic defined (the lane's result is discarded).
-template <typename T, int N>
-__device__ __forceinline__ bool cholesky(const T A[N][N], T L[N][N]) {
-  bool ok = true;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    T d = A[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) d = d - L[j][k] * L[j][k];
-    ok = ok && (d > T(0)) && finite(d);
-    const T ljj = sqrt(d > T(0) ? d : T(1));
-    L[j][j] = ljj;
-    const T inv = T(1) / ljj;
-#pragma unroll
-    for (int i = j + 1; i < N; ++i) {
-      T s = A[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
-      L[i][j] = s * inv;
-    }
-  }
-  return ok;
-}
-
-// X = -(L L^T)^{-1} Bm for an [N][M] right-hand side.
-template <typename T, int N, int M>
-__device__ __forceinline__ void neg_chol_solve(const T L[N][N],
-                                               const T Bm[N][M], T X[N][M]) {
-  T y[N][M];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int c = 0; c < M; ++c) {
-      T s = Bm[i][c];
-#pragma unroll
-      for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k][c];
-      y[i][c] = s / L[i][i];
-    }
-  }
-  T x[N][M];
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-#pragma unroll
-    for (int c = 0; c < M; ++c) {
-      T s = y[i][c];
-#pragma unroll
-      for (int k = i + 1; k < N; ++k) s = s - L[k][i] * x[k][c];
-      x[i][c] = s / L[i][i];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int c = 0; c < M; ++c) X[i][c] = -x[i][c];
-  }
-}
-
 // The (Vx, Vxx, dV, ok) value-function carry of one lane.
 template <typename T, int NX>
 struct Carry {
@@ -94,20 +34,18 @@ struct Carry {
   bool ok;
 };
 
-// One backward Riccati stage, the TPU kernel's _riccati_stage: the
-// Q-function expansion, regularization (reg_type 1: Quu + lam I;
-// reg_type 2: Vxx + lam I in Qux_reg / Quu_F), the gains k = -Quu_F^-1 Qu
-// and K = -Quu_F^-1 Qux_reg from the unrolled Cholesky, and the carry
-// update with the unregularized Q terms and a symmetrized Vxx.
+// The Q-function expansion of one stage (the first half of the TPU
+// kernel's _riccati_stage): Qu, Qx, Qux, Quu, Qxx from the fields and the
+// carry, and the regularized blocks Qux_reg, Quu_F (reg_type 1: Quu +
+// lam I; reg_type 2: Vxx + lam I in Qux_reg / Quu_F).
 template <typename T, int NX, int NU>
-__device__ __forceinline__ void riccati_stage(const Stage<T, NX, NU>& cur,
-                                              T lam, int reg_type,
-                                              Carry<T, NX>& carry, T k[NU],
-                                              T K[NU][NX]) {
-  T(&Vx)[NX] = carry.Vx;
-  T(&Vxx)[NX][NX] = carry.Vxx;
+__device__ __forceinline__ void q_expansion(
+    const Stage<T, NX, NU>& cur, T lam, int reg_type,
+    const Carry<T, NX>& carry, T Qu[NU], T Qx[NX], T Qux[NU][NX],
+    T Quu[NU][NU], T Qxx[NX][NX], T Qux_reg[NU][NX], T Quu_F[NU][NU]) {
+  const T(&Vx)[NX] = carry.Vx;
+  const T(&Vxx)[NX][NX] = carry.Vxx;
   // Q-function expansion.
-  T Qu[NU], Qx[NX], Qux[NU][NX], Quu[NU][NU], Qxx[NX][NX];
   T FuT_Vxx[NU][NX], FxT_Vxx[NX][NX];
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
@@ -166,7 +104,6 @@ __device__ __forceinline__ void riccati_stage(const Stage<T, NX, NU>& cur,
   }
 
   // Regularization: reg_type 2 puts lam on Vxx, reg_type 1 on Quu.
-  T Qux_reg[NU][NX], Quu_F[NU][NU];
   if (reg_type == 2) {
     T FuT_Vr[NU][NX];
 #pragma unroll
@@ -207,32 +144,32 @@ __device__ __forceinline__ void riccati_stage(const Stage<T, NX, NU>& cur,
         Quu_F[a][c] = Quu[a][c] + ((reg_type == 1 && a == c) ? lam : T(0));
     }
   }
+}
 
-  // Gains from the Cholesky factor of Quu_F.
-  T L[NU][NU];
-  carry.ok = cholesky<T, NU>(Quu_F, L) && carry.ok;
-  T Qu_col[NU][1], k_col[NU][1];
-#pragma unroll
-  for (int a = 0; a < NU; ++a) Qu_col[a][0] = Qu[a];
-  neg_chol_solve<T, NU, 1>(L, Qu_col, k_col);
-  neg_chol_solve<T, NU, NX>(L, Qux_reg, K);
-
-  // Value-function update with the unregularized Q terms.
+// The value-function carry from the unregularized Q terms and the stage's
+// gains k, K: dV, Vx and the symmetrized Vxx.
+template <typename T, int NX, int NU>
+__device__ __forceinline__ void value_update(
+    const T Qu[NU], const T Qx[NX], const T Qux[NU][NX],
+    const T Quu[NU][NU], const T Qxx[NX][NX], const T k[NU],
+    const T K[NU][NX], Carry<T, NX>& carry) {
+  T(&Vx)[NX] = carry.Vx;
+  T(&Vxx)[NX][NX] = carry.Vxx;
   T Quu_k[NU];
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
-    T s = Quu[a][0] * k_col[0][0];
+    T s = Quu[a][0] * k[0];
 #pragma unroll
-    for (int l = 1; l < NU; ++l) s = s + Quu[a][l] * k_col[l][0];
+    for (int l = 1; l < NU; ++l) s = s + Quu[a][l] * k[l];
     Quu_k[a] = s;
   }
   {
-    T s0 = k_col[0][0] * Qu[0];
-    T s1 = k_col[0][0] * Quu_k[0];
+    T s0 = k[0] * Qu[0];
+    T s1 = k[0] * Quu_k[0];
 #pragma unroll
     for (int a = 1; a < NU; ++a) {
-      s0 = s0 + k_col[a][0] * Qu[a];
-      s1 = s1 + k_col[a][0] * Quu_k[a];
+      s0 = s0 + k[a] * Qu[a];
+      s1 = s1 + k[a] * Quu_k[a];
     }
     carry.dV0 = carry.dV0 + s0;
     carry.dV1 = carry.dV1 + T(0.5) * s1;
@@ -241,25 +178,29 @@ __device__ __forceinline__ void riccati_stage(const Stage<T, NX, NU>& cur,
   for (int a = 0; a < NX; ++a) {
     T t1 = K[0][a] * Quu_k[0];
     T t2 = K[0][a] * Qu[0];
-    T t3 = Qux[0][a] * k_col[0][0];
+    T t3 = Qux[0][a] * k[0];
 #pragma unroll
     for (int l = 1; l < NU; ++l) {
       t1 = t1 + K[l][a] * Quu_k[l];
       t2 = t2 + K[l][a] * Qu[l];
-      t3 = t3 + Qux[l][a] * k_col[l][0];
+      t3 = t3 + Qux[l][a] * k[l];
     }
     Vx[a] = Qx[a] + t1 + t2 + t3;
   }
-  T KTQuu[NX][NU], T2[NX][NX], Vn[NX][NX];
+  // K^T (Quu K), associated as the plain version's _mm(KT, _mm(Quu, K))
+  T QuuK[NU][NX], T2[NX][NX], Vn[NX][NX];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      T t = Quu[a][0] * K[0][c];
+#pragma unroll
+      for (int l = 1; l < NU; ++l) t = t + Quu[a][l] * K[l][c];
+      QuuK[a][c] = t;
+    }
+  }
 #pragma unroll
   for (int a = 0; a < NX; ++a) {
-#pragma unroll
-    for (int c = 0; c < NU; ++c) {
-      T t = K[0][a] * Quu[0][c];
-#pragma unroll
-      for (int l = 1; l < NU; ++l) t = t + K[l][a] * Quu[l][c];
-      KTQuu[a][c] = t;
-    }
 #pragma unroll
     for (int c = 0; c < NX; ++c) {
       T t = K[0][a] * Qux[0][c];
@@ -272,9 +213,9 @@ __device__ __forceinline__ void riccati_stage(const Stage<T, NX, NU>& cur,
   for (int a = 0; a < NX; ++a) {
 #pragma unroll
     for (int c = 0; c < NX; ++c) {
-      T t1 = KTQuu[a][0] * K[0][c];
+      T t1 = K[0][a] * QuuK[0][c];
 #pragma unroll
-      for (int l = 1; l < NU; ++l) t1 = t1 + KTQuu[a][l] * K[l][c];
+      for (int l = 1; l < NU; ++l) t1 = t1 + K[l][a] * QuuK[l][c];
       Vn[a][c] = Qxx[a][c] + t1 + T2[a][c] + T2[c][a];
     }
   }
@@ -283,8 +224,81 @@ __device__ __forceinline__ void riccati_stage(const Stage<T, NX, NU>& cur,
 #pragma unroll
     for (int c = 0; c < NX; ++c) Vxx[a][c] = T(0.5) * (Vn[a][c] + Vn[c][a]);
   }
+}
+
+// One backward Riccati stage, the TPU kernel's _riccati_stage: the
+// Q-function expansion, the gains k = -Quu_F^-1 Qu and K = -Quu_F^-1
+// Qux_reg from the unrolled Cholesky, and the carry update with the
+// unregularized Q terms and a symmetrized Vxx.
+template <typename T, int NX, int NU>
+__device__ __forceinline__ void riccati_stage(const Stage<T, NX, NU>& cur,
+                                              T lam, int reg_type,
+                                              Carry<T, NX>& carry, T k[NU],
+                                              T K[NU][NX]) {
+  T Qu[NU], Qx[NX], Qux[NU][NX], Quu[NU][NU], Qxx[NX][NX];
+  T Qux_reg[NU][NX], Quu_F[NU][NU];
+  q_expansion<T, NX, NU>(cur, lam, reg_type, carry, Qu, Qx, Qux, Quu, Qxx,
+                         Qux_reg, Quu_F);
+  // Gains from the Cholesky factor of Quu_F.
+  T L[NU][NU];
+  carry.ok = cholesky<T, NU>(Quu_F, L) && carry.ok;
+  T Qu_col[NU][1], k_col[NU][1];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) Qu_col[a][0] = Qu[a];
+  neg_chol_solve<T, NU, 1>(L, Qu_col, k_col);
+  neg_chol_solve<T, NU, NX>(L, Qux_reg, K);
 #pragma unroll
   for (int a = 0; a < NU; ++a) k[a] = k_col[a][0];
+  value_update<T, NX, NU>(Qu, Qx, Qux, Quu, Qxx, k, K, carry);
+}
+
+// One stage's box: the absolute bounds and the current input they are
+// taken relative to.
+template <typename T, int NU>
+struct Bounds {
+  T lower[NU];
+  T upper[NU];
+  T u[NU];
+};
+
+// One boxed backward stage, the TPU kernel's _riccati_stage_boxed
+// (DDPSolver.hpp:450-497): the Q expansion of riccati_stage; k from the
+// BoxQP on (Quu_F, Qu) over [lower - u, upper - u], warm-started from the
+// later stage's k (k_next, updated to this stage's k); the K rows
+// -free (Quu_F free block)^-1 (free Qux_reg) through the QP's last
+// factorization, zero on clamped inputs; the value update with the
+// unregularized Q terms.
+template <typename T, int NX, int NU>
+__device__ __forceinline__ void riccati_stage_boxed(
+    const Stage<T, NX, NU>& cur, const Bounds<T, NU>& box, T lam,
+    int reg_type, const BoxQPParams& qp, Carry<T, NX>& carry, T k_next[NU],
+    T k[NU], T K[NU][NX]) {
+  T Qu[NU], Qx[NX], Qux[NU][NX], Quu[NU][NU], Qxx[NX][NX];
+  T Qux_reg[NU][NX], Quu_F[NU][NU];
+  q_expansion<T, NX, NU>(cur, lam, reg_type, carry, Qu, Qx, Qux, Quu, Qxx,
+                         Qux_reg, Quu_F);
+  T lo[NU], hi[NU], free[NU], L[NU][NU];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    lo[a] = box.lower[a] - box.u[a];
+    hi[a] = box.upper[a] - box.u[a];
+  }
+  carry.ok = boxqp<T, NU>(Quu_F, Qu, lo, hi, k_next, qp, k, free, L) &&
+             carry.ok;
+  T rhs[NU][NX], sol[NU][NX];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) rhs[a][c] = free[a] * Qux_reg[a][c];
+  }
+  neg_chol_solve<T, NU, NX>(L, rhs, sol);
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    k_next[a] = k[a];
+#pragma unroll
+    for (int c = 0; c < NX; ++c) K[a][c] = free[a] * sol[a][c];
+  }
+  value_update<T, NX, NU>(Qu, Qx, Qux, Quu, Qxx, k, K, carry);
 }
 
 }  // namespace nmpc

@@ -9,7 +9,8 @@ at the root of the checkout, under a name that carries a hash of the
 unit's text, of every ``csrc/`` header it includes (followed through the
 headers' own includes) and of the flags: an edited source or header is
 rebuilt, an unchanged one reused.  ``nvcc``'s ``-Xptxas -v`` report
-(registers, spills) is kept beside the library as ``<name>.log``.
+(registers, spills) is kept beside the library, under its name with
+``.log`` for ``.so``.
 """
 
 from __future__ import annotations
@@ -57,29 +58,32 @@ def included_headers(text: str, csrc: Path = CSRC) -> list[Path]:
     return found
 
 
-def library_path(name: str, text: str, csrc: Path = CSRC) -> Path:
+def library_path(name: str, text: str, csrc: Path = CSRC,
+                 flags: tuple = ()) -> Path:
     """Where the library of unit ``name`` with source ``text`` is built: the
-    name carries a hash of the text, its included headers and the flags."""
+    name carries a hash of the text, its included headers and the flags
+    (``NVCC_FLAGS`` plus the unit's own ``flags``)."""
     h = hashlib.sha256(text.encode())
     for header in included_headers(text, csrc):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(name: str, src: Path, lib: Path) -> Path:
+def _compile(src: Path, lib: Path, flags: tuple = ()) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(src)],
+        [nvcc_path(), *NVCC_FLAGS, *flags, f"-I{CSRC}", "-o", str(tmp),
+         str(src)],
         capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed on {src} (exit {proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}")
-    (BUILD_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
 
@@ -89,21 +93,22 @@ def build(name: str) -> Path:
     return the library's path.  Raises ``RuntimeError`` with nvcc's output
     if the compile fails."""
     src = CSRC / f"{name}.cu"
-    return _compile(name, src, library_path(name, src.read_text()))
+    return _compile(src, library_path(name, src.read_text()))
 
 
-def build_generated(name: str, text: str) -> Path:
+def build_generated(name: str, text: str, flags: tuple = ()) -> Path:
     """Compile a generated unit (``text`` may include ``csrc/`` headers)
-    unless an up-to-date library exists; the source is written beside the
-    library.  Raises ``RuntimeError`` with nvcc's output on failure."""
-    lib = library_path(name, text)
+    with nvcc's ``NVCC_FLAGS`` and ``flags`` unless an up-to-date library
+    exists; the source is written beside the library.  Raises
+    ``RuntimeError`` with nvcc's output on failure."""
+    lib = library_path(name, text, flags=flags)
     src = lib.with_suffix(".cu")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
         tmp.write_text(text)
         os.replace(tmp, src)
-    return _compile(name, src, lib)
+    return _compile(src, lib, flags)
 
 
 @functools.cache

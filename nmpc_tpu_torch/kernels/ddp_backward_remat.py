@@ -1,25 +1,28 @@
-"""Remat DDP backward: the CUDA kernel's wrapper (TPU K5).
+"""Remat DDP backward: the CUDA kernel's wrapper (TPU K5, unboxed and
+boxed).
 
-Replaces ``nmpc_tpu/kernels/ddp_backward_remat.py::backward_remat``
-(unboxed): the Riccati backward fed by the trajectory, with each stage's
-derivatives recomputed inside the kernel from (t_i, x_i, u_i), so the
-derivative sweep and its buffer go away.  The kernel is the template
+Replaces ``nmpc_tpu/kernels/ddp_backward_remat.py::backward_remat``: the
+Riccati backward fed by the trajectory, with each stage's derivatives (and,
+boxed, its bounds) recomputed inside the kernel from (t_i, x_i, u_i), so
+the derivative sweep and its buffer go away.  The kernel is the template
 ``csrc/ddp_backward_remat.cuh`` instantiated in a unit generated from the
-problem's own callables (``kernels/tileval.py``), compiled by nvcc at first
-use and bound through ctypes.  Its plain version is
-:func:`backward_remat_plain`: the derivative sweep and ``backward_stacked``,
-independent of the generator, so that holding one against the other on the
-card checks the generator too.
+problem's own callables (``kernels/tileval.py``: ``"remat"``, or
+``"remat_boxed"`` with the aux group), compiled by nvcc at first use and
+bound through ctypes.  Its plain version is :func:`backward_remat_plain`:
+the derivative sweep and ``backward_stacked`` (boxed:
+``backward_stacked_boxed``), independent of the generator, so that holding
+one against the other on the card checks the generator too.
 
 :func:`backward_remat` generates the problem's unit on any device, so a
 problem the generator rejects raises :class:`TileEvalError` everywhere;
 then it runs the plain version on CPU tensors and launches the kernel on
-CUDA tensors (or raises).  Boxed remat waits for ROADMAP B4.
+CUDA tensors (or raises).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -27,63 +30,91 @@ import torch
 from nmpc_tpu_torch.core.types import DDPConfig
 from nmpc_tpu_torch.kernels import tileval
 from nmpc_tpu_torch.kernels.build import build_generated, load
-from nmpc_tpu_torch.kernels.ddp_backward import StackedDerivs, backward_stacked
+from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds,
+                                                 StackedDerivs,
+                                                 backward_stacked,
+                                                 backward_stacked_boxed)
+from nmpc_tpu_torch.kernels.ddp_backward_boxed import (BOXED_FLAGS, DTYPES,
+                                                       MAX_NU, QP_ARGTYPES,
+                                                       QP_PARAMS_C,
+                                                       QP_STRUCT_C, qp_args)
 from nmpc_tpu_torch.kernels.ddp_backward_fused import _check
 from nmpc_tpu_torch.solvers.stages import _stage_derivs_sweep
 
-DTYPES = {torch.float32: "float", torch.float64: "double"}
+def _kind(boxed: bool) -> str:
+    return "remat_boxed" if boxed else "remat"
 
 
-def remat_supported(problem, nx: int, nu: int, dtype) -> bool:
+def remat_supported(problem, nx: int, nu: int, dtype,
+                    boxed: bool = False) -> bool:
     """Whether the kernel takes this problem at this dtype: float32 or
-    float64 and stage callables the generator accepts (no input mask)."""
-    return dtype in DTYPES and tileval.tile_supported(problem, "remat",
-                                                      nx, nu, dtype)
+    float64, stage callables (boxed: and limits and mask) the generator
+    accepts, and boxed nu <= MAX_NU."""
+    return (dtype in DTYPES and (not boxed or nu <= MAX_NU)
+            and tileval.tile_supported(problem, _kind(boxed), nx, nu, dtype))
 
 
-def unit_source(problem, nx: int, nu: int, dtype) -> str:
+def unit_source(problem, nx: int, nu: int, dtype, boxed: bool = False) -> str:
     """The generated translation unit for ``problem`` at ``dtype``."""
-    unit = tileval.generate(problem, "remat", nx, nu, dtype)
+    unit = tileval.generate(problem, _kind(boxed), nx, nu, dtype)
+    params = qp_struct = flag = qp = ""
+    if boxed:   # the QP's parameters ride along to the boxed instantiation
+        params, qp_struct, flag, qp = (f",\n    {QP_PARAMS_C}", QP_STRUCT_C,
+                                       ", true", ", qp")
     return (f"{unit.cpp}\n#include \"ddp_backward_remat.cuh\"\n\n"
             f"extern \"C\" int remat_backward_launch(\n"
             f"    int N, int B, int reg_type, double dt, const void* xs,\n"
             f"    const void* us, const void* VxT, const void* VxxT,\n"
             f"    const void* lam, const void* t0, void* ks, void* Ks,\n"
-            f"    void* dV, void* ok, void* stream) {{\n"
+            f"    void* dV, void* ok, void* stream{params}) {{\n{qp_struct}"
             f"  return nmpc::launch_backward_remat<{DTYPES[dtype]}, {nx}, "
-            f"{nu}>(\n      N, B, reg_type, dt, xs, us, VxT, VxxT, lam, t0, "
-            f"ks, Ks, dV, ok, stream);\n}}\n")
+            f"{nu}{flag}>(\n      N, B, reg_type, dt, xs, us, VxT, VxxT, "
+            f"lam, t0, ks, Ks, dV, ok, stream{qp});\n}}\n")
 
 
-def unit_name(dtype) -> str:
-    return f"ddp_backward_remat_{str(dtype)[6:]}"
+def unit_name(dtype, boxed: bool = False) -> str:
+    return f"ddp_backward_{_kind(boxed)}_{str(dtype)[6:]}"
+
+
+def unit_flags(boxed: bool = False) -> tuple:
+    """The unit's nvcc flags beyond ``build.NVCC_FLAGS``."""
+    return BOXED_FLAGS if boxed else ()
 
 
 @functools.lru_cache(maxsize=64)
-def _launcher(problem, nx: int, nu: int, dtype):
-    lib = load(build_generated(unit_name(dtype),
-                               unit_source(problem, nx, nu, dtype)))
+def _launcher(problem, nx: int, nu: int, dtype, boxed: bool):
+    lib = load(build_generated(unit_name(dtype, boxed),
+                               unit_source(problem, nx, nu, dtype, boxed),
+                               unit_flags(boxed)))
     fn = lib.remat_backward_launch
     fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_double]
-                   + [ctypes.c_void_p] * 11)
+                   + [ctypes.c_void_p] * 11 + (QP_ARGTYPES if boxed else []))
     fn.restype = ctypes.c_int
     return fn
 
 
 def backward_remat_plain(problem, config: DDPConfig, t0, xs, us, Vx_T,
-                         Vxx_T, lam):
-    """The kernel's plain version: the derivative sweep, then
-    ``backward_stacked``."""
-    D = _stage_derivs_sweep(problem, config, t0, xs, us)
+                         Vxx_T, lam, boxed: bool = False, host=bool):
+    """The kernel's plain version: the derivative sweep (boxed: with the
+    bounds), then ``backward_stacked`` or ``backward_stacked_boxed``."""
+    D = _stage_derivs_sweep(problem, dataclasses.replace(
+        config, with_input_constraint=boxed), t0, xs, us)
+    if boxed:
+        return backward_stacked_boxed(config, StackedDerivs(*D[:7]),
+                                      StackedBounds(*D[-3:]), Vx_T, Vxx_T,
+                                      lam, host=host)
     return backward_stacked(config, StackedDerivs(*D[:7]), Vx_T, Vxx_T, lam)
 
 
 def backward_remat(problem, config: DDPConfig, t0, xs, us, Vx_T, Vxx_T,
-                   lam):
+                   lam, boxed: bool = False, host=bool):
     """Backward pass fed by the trajectory, batch-minor.
 
     Args: t0 scalar; xs [N+1, nx, B] (the terminal state rides along
     unread), us [N, nu, B], Vx_T [nx, B], Vxx_T [nx, nx, B], lam [B].
+    ``boxed=True`` runs the boxed stage on the bounds the aux group
+    generates; ``host`` reads the plain boxed version's device flags on
+    CPU tensors.
     Returns (ks [N, nu, B], Ks [N, nu, nx, B], dV [2, B], ok [B] bool).
     """
     N, nu, B = us.shape
@@ -102,11 +133,14 @@ def backward_remat(problem, config: DDPConfig, t0, xs, us, Vx_T, Vxx_T,
     if dtype not in DTYPES:
         raise ValueError(f"the remat backward takes float32/float64, got "
                          f"{dtype}")
-    tileval.generate(problem, "remat", nx, nu, dtype)   # the gate
+    if boxed and nu > MAX_NU:
+        raise NotImplementedError(
+            f"the boxed remat backward takes nu <= {MAX_NU}: ROADMAP B7")
+    tileval.generate(problem, _kind(boxed), nx, nu, dtype)   # the gate
     t0 = torch.as_tensor(t0, dtype=dtype, device=device)
     if device.type == "cpu":
         return backward_remat_plain(problem, config, t0, xs, us, Vx_T,
-                                    Vxx_T, lam)
+                                    Vxx_T, lam, boxed, host)
     if device.type != "cuda":
         raise ValueError(f"backward_remat takes CPU or CUDA tensors, got "
                          f"{device}")
@@ -114,18 +148,23 @@ def backward_remat(problem, config: DDPConfig, t0, xs, us, Vx_T, Vxx_T,
     Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
     dV = torch.empty((2, B), dtype=dtype, device=device)
     ok = torch.empty((B,), dtype=torch.bool, device=device)
-    launch = _launcher(problem, nx, nu, dtype)
+    launch = _launcher(problem, nx, nu, dtype, boxed)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = launch(N, B, config.reg_type, float(problem.dt), xs.data_ptr(),
                      us.data_ptr(), Vx_T.data_ptr(), Vxx_T.data_ptr(),
                      lam.data_ptr(), t0.data_ptr(), ks.data_ptr(),
-                     Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream)
+                     Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream,
+                     *(qp_args(config.boxqp) if boxed else ()))
     if err != 0:
         raise RuntimeError(f"remat backward kernel launch failed: CUDA "
                            f"error {err}")
-    backward_remat.launches += 1
+    if boxed:
+        backward_remat.boxed_launches += 1
+    else:
+        backward_remat.launches += 1
     return ks, Ks, dV, ok
 
 
 backward_remat.launches = 0
+backward_remat.boxed_launches = 0

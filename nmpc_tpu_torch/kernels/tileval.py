@@ -12,7 +12,9 @@ problem's Python callables into that device code.  Four steps:
   mode so that data-dependent Python control flow refuses to trace; the
   derivative groups are ``torch.func`` transforms traced the same way
   (``dyn_jvp``, ``cost_grad``, ``cost_grad_jvp``), or the problem's
-  analytic ``dynamics_derivs`` / ``running_cost_derivs``;
+  analytic ``dynamics_derivs`` / ``running_cost_derivs``; the ``aux``
+  group gives a stage's input mask and box bounds from its time, as
+  ``solvers/stages.py`` computes them;
 * **scalarize** every graph value of small shape into a flat row-major
   list of elements, each an SSA scalar (:class:`Var`) or a Python
   literal: selects, stacks, expands, views and aliases are re-indexing,
@@ -55,6 +57,8 @@ from typing import NamedTuple
 import torch
 from torch import func
 from torch.fx.experimental.proxy_tensor import make_fx
+
+from nmpc_tpu_torch.solvers.stages import _stage_bounds
 
 MAX_ELEMS = 256
 # make_fx's tracing state is process-wide: one trace at a time (two
@@ -281,7 +285,7 @@ class Program:
             return "true" if e else "false"
         ctype = self._ctype(dtype if dtype is not None else _lit_dtype(e))
         if isinstance(e, int):
-            return f"{ctype}({e})"
+            return f"static_cast<{ctype}>({e})"
         if math.isnan(e):
             return f"{ctype}(NAN)"
         if math.isinf(e):
@@ -607,6 +611,16 @@ def _h_where(g, node, cond, a, b):
     return SVal(shape, dtype, out)
 
 
+def _h_bool_binary(name):
+    """``&`` / ``|`` of two masks: logical on bools, refused on integers
+    (bitwise there)."""
+    def handler(g, node, a, b):
+        if _meta(node)[1] != torch.bool:
+            raise TileEvalError(f"{node.target} on integers")
+        return g.elementwise(node, name, a, b)
+    return handler
+
+
 def _h_fill(value):
     def handler(g, node, *args, **kwargs):
         return g.filled(node, value)
@@ -655,6 +669,8 @@ _HANDLERS.update({
     "aten.logical_not.default": _h_unary("not"),
     "aten.logical_and.default": _h_binary("and"),
     "aten.logical_or.default": _h_binary("or"),
+    "aten.bitwise_and.Tensor": _h_bool_binary("and"),
+    "aten.bitwise_or.Tensor": _h_bool_binary("or"),
     "aten.where.self": _h_where,
     "aten.sum.default": _h_sum,
     "aten.sum.dim_IntList": _h_sum,
@@ -715,6 +731,18 @@ def _group_fn(problem, which):
             return func.jvp(lambda xx, uu: problem.dynamics(t, xx, uu),
                             (x, u), (dx, du))[1]
         return dyn_jvp, "txuxu"
+    if which == "aux":
+        def aux(t, x, u):
+            """(mask, lower, upper) of one stage as ``_stage_derivs``
+            computes them (nmpc_tpu/kernels/ddp_backward_remat.py:119-134)."""
+            if problem.input_mask is None:
+                mask = torch.ones((problem.input_dim,), dtype=x.dtype)
+                lower, upper, _ = _stage_bounds(problem, t, u)
+            else:
+                mask = problem.input_mask(t).to(x.dtype)
+                lower, upper, _ = _stage_bounds(problem, t, u, mask)
+            return mask, lower, upper
+        return aux, "txu"
     if which == "cost_grad_jvp":
         grad = func.grad(problem.running_cost, argnums=(1, 2))
 
@@ -844,9 +872,37 @@ def _field_program(problem, nx, nu, dtype):
                           _onehot(prog, nu, c))
             for r in range(nu):
                 Luu[r][c] = gu.elems[r]
+    cast = lambda rows: [[prog.cast(e, dtype) for e in row] for row in rows]
+    Fx, Fu, Lxx, Luu, Lxu = map(cast, (Fx, Fu, Lxx, Luu, Lxu))
+    Lx, Lu = (cast([v])[0] for v in (Lx, Lu))
+    if problem.input_mask is not None:
+        # the masked-dimension embedding of _stage_derivs, op for op
+        mask, _, _ = call("aux", ((nu,), (nu,), (nu,)), tv, xv, uv)
+        m = [prog.cast(e, dtype) for e in mask.elems]
+        mul = lambda a, b: prog.op("mul", (a, b), dtype)
+        Fu = [[mul(Fu[r][c], m[c]) for c in range(nu)] for r in range(nx)]
+        Lu = [mul(Lu[c], m[c]) for c in range(nu)]
+        Luu = [[prog.op("add", (mul(Luu[r][c], mul(m[r], m[c])),
+                                prog.op("sub", (_lit(1, dtype), m[r]), dtype)
+                                if r == c else _lit(0, dtype)), dtype)
+                for c in range(nu)] for r in range(nu)]
+        Lxu = [[mul(Lxu[r][c], m[c]) for c in range(nu)] for r in range(nx)]
     flat = lambda m: [e for row in m for e in row]
-    outs = flat(Fx) + flat(Fu) + Lx + Lu + flat(Lxx) + flat(Luu) + flat(Lxu)
-    return prog, [prog.cast(e, dtype) for e in outs]
+    return prog, flat(Fx) + flat(Fu) + Lx + Lu + flat(Lxx) + flat(Luu) + flat(
+        Lxu)
+
+
+def _aux_program(problem, nx, nu, dtype):
+    """The boxed stage's bounds from (t, x, u): lower then upper (2 nu
+    outputs), as ``_stage_bounds``."""
+    prog = Program(dtype)
+    t = prog.arg("t", dtype)
+    x = [prog.arg(f"x_{a}", dtype) for a in range(nx)]
+    u = [prog.arg(f"u_{a}", dtype) for a in range(nu)]
+    _, lower, upper = _call(prog, problem, "aux", nx, nu,
+                            (_scalar(prog, t), _vec(prog, x), _vec(prog, u)),
+                            ((nu,), (nu,), (nu,)))
+    return prog, [prog.cast(e, dtype) for e in lower.elems + upper.elems]
 
 
 def _step_program(problem, nx, nu, dtype):
@@ -894,17 +950,19 @@ def generate(problem, kind: str, nx: int, nu: int, dtype) -> Unit:
     same problem reuse them):
 
     * ``"remat"``: ``fields(t, x, u, f)`` writes the 2nx²+2nx·nu+nx+nu+nu²
-      Riccati fields to ``f`` in ``FIELDS`` order, row-major;
+      Riccati fields to ``f`` in ``FIELDS`` order, row-major, with the
+      problem's input mask applied as ``_stage_derivs`` applies it;
+    * ``"remat_boxed"``: ``fields`` and ``aux(t, x, u, o)``, which writes
+      the stage's lower and upper bounds (the aux group);
     * ``"forward"``: ``step(t, x, u, xn, c)`` writes the next state and the
       running cost; ``term(t, x, c)`` the terminal cost.
 
     Raises :class:`TileEvalError` where the problem's callables do not
     generate."""
-    if kind == "remat":
-        if problem.input_mask is not None:
-            raise TileEvalError("input_mask (the aux group) is not "
-                                "generated yet: ROADMAP B3")
+    if kind in ("remat", "remat_boxed"):
         progs = {"fields": _field_program(problem, nx, nu, dtype) + ("txu",)}
+        if kind == "remat_boxed":
+            progs["aux"] = _aux_program(problem, nx, nu, dtype) + ("txu",)
     elif kind == "forward":
         progs = {"step": _step_program(problem, nx, nu, dtype) + ("txu",),
                  "term": _term_program(problem, nx, nu, dtype) + ("tx",)}
@@ -912,8 +970,8 @@ def generate(problem, kind: str, nx: int, nu: int, dtype) -> Unit:
         raise ValueError(kind)
     params = {"txu": "T t, const T* x, const T* u",
               "tx": "T t, const T* x"}
-    outs = {"fields": ("f", "T* f"), "step": ("o", "T* o"),
-            "term": ("o", "T* o")}
+    outs = {"fields": ("f", "T* f"), "aux": ("o", "T* o"),
+            "step": ("o", "T* o"), "term": ("o", "T* o")}
     parts = [_PREAMBLE]
     for name, (prog, outputs, kinds) in progs.items():
         var, decl = outs[name]

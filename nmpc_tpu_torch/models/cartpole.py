@@ -55,8 +55,8 @@ def make_cartpole_problem(
     input_limits: Optional[tuple] = None,
 ) -> Problem:
     """Discrete-time cart-pole (forward Euler, like the reference's
-    ``stateEq``: x + dt * xdot).  ``input_limits=(lo, hi)`` is carried for
-    the boxed solve, which is not ported yet."""
+    ``stateEq``: x + dt * xdot).  ``input_limits=(lo, hi)`` bounds the
+    force in the boxed solve (``DDPConfig.with_input_constraint``)."""
     if ref_pos_func is None:
         ref_pos_func = lambda t: 0.0
 

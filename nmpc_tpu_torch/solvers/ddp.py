@@ -4,7 +4,9 @@ Port of the batched path of ``nmpc_tpu/solvers/ddp.py`` (``_solve_stacked``;
 reference ``nmpc_ddp/include/nmpc_ddp/DDPSolver.hpp``): Levenberg-Marquardt
 regularized backward Riccati recursion with per-lane lambda retry,
 all-alphas line search with the reference's first-accept decision, the
-reference's termination tests, per-lane status and trace rows.
+reference's termination tests, per-lane status and trace rows.  With
+``with_input_constraint`` the backward pass solves a box-constrained QP
+per stage (``DDPSolver.hpp:450-497``) on the problem's ``input_limits``.
 
 Layout: every internal quantity is batch-minor, ``[..., B]``, as in the
 JAX package; the public layout is batch-first.  The JAX package's
@@ -15,8 +17,9 @@ JAX package; the public layout is batch-first.  The JAX package's
 Host control flow: the JAX ``lax.while_loop`` / ``lax.cond`` constructs
 become Python control flow that reads a device value (one host sync) at
 each decision: the iteration loop's any-lane-running test, each pass of
-the backward retry loop, the head path's tail test and, in ``ls_mode``
-"auto", the hysteresis predictor's accept-all-alpha[0] flag.
+the backward retry loop, the head path's tail test, in ``ls_mode``
+"auto" the hysteresis predictor's accept-all-alpha[0] flag and, on the
+plain boxed backward, each trip of the QP's iteration and Armijo loops.
 ``DDPSolver.host_syncs`` holds the count for the last solve.
 """
 
@@ -29,8 +32,13 @@ import torch
 from nmpc_tpu_torch.core.problem import Problem
 from nmpc_tpu_torch.core.types import DDPConfig, DDPResult, DDPStatus, DDPTrace
 from nmpc_tpu_torch.kernels import tileval
-from nmpc_tpu_torch.kernels.ddp_backward import (StackedDerivs, StackedSecond,
-                                                 backward_stacked)
+from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds,
+                                                 StackedDerivs, StackedSecond,
+                                                 backward_stacked,
+                                                 backward_stacked_boxed)
+from nmpc_tpu_torch.kernels.ddp_backward_boxed import (MAX_NU,
+                                                       backward_fused_boxed,
+                                                       boxed_kernel_supports)
 from nmpc_tpu_torch.kernels.ddp_backward_fused import (backward_fused,
                                                        kernel_supports)
 from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
@@ -47,10 +55,6 @@ _RUNNING = int(DDPStatus.RUNNING)
 
 def _check_ported(config: DDPConfig):
     """Raise for the configurations this port does not run yet."""
-    if config.with_input_constraint:
-        raise NotImplementedError(
-            "with_input_constraint=True (boxed DDP) is not ported yet: "
-            "ROADMAP A6 (its kernel is B4)")
     if config.ls_mode == "serial":
         raise NotImplementedError(
             "ls_mode='serial' is not ported yet: ROADMAP A4 (after A9)")
@@ -126,51 +130,62 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
     """Backward-pass choice for the batched solve; the one place holding
     the ``auto`` rule.
 
-    ``auto`` resolves, on CUDA tensors and for a first-order, unboxed
-    solve, to:
+    ``auto`` resolves, on CUDA tensors and for a first-order solve, to:
       * ``"remat"`` (the trajectory-fed CUDA kernel, no derivative sweep)
         when ``deriv_dtype`` is ``"same"`` and the code generator takes
-        the problem at this dtype (``remat_supported``);
-      * else ``"pallas"`` (the sweep-fed CUDA kernel) where its
-        ``(nx, nu)`` and dtype were built (``kernel_supports``);
+        the problem at this dtype (``remat_supported``; boxed: its limits
+        and mask too, the aux group);
+      * else ``"pallas"``, the sweep-fed CUDA kernel: unboxed where its
+        ``(nx, nu)`` and dtype were built (``kernel_supports``), boxed
+        (K4) at any nx and float32/float64, its unit built on demand;
     and to ``"stacked"`` (the torch-op recursion) otherwise, on CPU
-    tensors always.  The JAX rule's ``B % 128 == 0`` and ``B >= 1024``
-    conditions were fit to the TPU's (8, 128) blocks and do not carry
-    over, and neither does B >= 1024: on the H100 the remat pair is the
-    fastest at both shapes the port serves (``chip_smoke.py``, my chip
-    run, PR 2, NVIDIA H100 80GB HBM3, 700.00 W): 18586.3 solves/s at
-    B=4096, N=100 (remat + fused) against 8032.8 (pallas + fused) and
-    2126.1 (pallas + scan); tick p50 236.43 ms at 256 controllers, N=200
-    (remat + fused) against 366.38 and 1759.31 ms.
+    tensors always.  A boxed solve with nu > 4 (``MAX_NU``) takes
+    ``"stacked"`` too, as in the JAX rule (``nmpc_tpu/solvers/ddp.py:
+    747-752``): the in-kernel QP unrolls about nu^3 work per stage, which
+    costs registers on the card as it cost VMEM on the TPU (ROADMAP B7).
+    The JAX rule's ``B % 128 == 0`` and ``B >= 1024`` conditions were fit
+    to the TPU's (8, 128) blocks and do not carry over: on the H100 the
+    remat pair is the fastest at both shapes the port serves
+    (``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md):
+    18586.3 solves/s at B=4096, N=100 (remat + fused) against
+    8032.8 (pallas + fused) and 2126.1 (pallas + scan); tick p50 236.43 ms
+    at 256 controllers, N=200 (remat + fused) against 366.38 and 1759.31
+    ms.
 
     An explicit ``"pallas"`` or ``"remat"`` is taken as asked: a
-    second-order or boxed solve, which the kernels do not compute, raises,
-    and so does ``"remat"`` on a problem the generator rejects
-    (``TileEvalError``) or with ``deriv_dtype`` other than ``"same"``;
-    nothing runs the plain version in a kernel's place.
+    second-order solve, or a boxed one with nu > 4, which the kernels do
+    not compute, raises, and so does ``"remat"`` on a problem the
+    generator rejects (``TileEvalError``) or with ``deriv_dtype`` other
+    than ``"same"``; nothing runs the plain version in a kernel's place.
     """
     impl = config.backward_impl
     nx, nu = problem.state_dim, problem.input_dim
-    if impl in ("pallas", "remat") and (boxed or second):
+    if impl in ("pallas", "remat") and second:
         raise NotImplementedError(
             f"backward_impl={impl!r} (a fused backward kernel) is "
-            "first-order and unboxed; the second-order D2 term and the "
-            "boxed backward run on backward_impl='stacked': ROADMAP B1 "
-            "(boxed: B4)")
+            "first-order; the second-order D2 term runs on "
+            "backward_impl='stacked': ROADMAP B1")
+    if impl in ("pallas", "remat") and boxed and nu > MAX_NU:
+        raise NotImplementedError(
+            f"backward_impl={impl!r}: the boxed kernels take nu <= "
+            f"{MAX_NU}; nu={nu} runs on backward_impl='stacked': ROADMAP B7")
     if impl == "remat":
         if config.deriv_dtype != "same":
             raise ValueError("backward_impl='remat' evaluates the "
                              "derivatives at the solve dtype: deriv_dtype "
                              "must be 'same'")
-        tileval.generate(problem, "remat", nx, nu, dtype)
+        tileval.generate(problem, "remat_boxed" if boxed else "remat", nx,
+                         nu, dtype)
         return impl
     if impl != "auto":
         return impl
-    if device.type == "cuda" and not boxed and not second:
+    if (device.type == "cuda" and not second
+            and not (boxed and nu > MAX_NU)):
         if (config.deriv_dtype == "same"
-                and remat_supported(problem, nx, nu, dtype)):
+                and remat_supported(problem, nx, nu, dtype, boxed)):
             return "remat"
-        if kernel_supports(nx, nu, dtype):
+        if (boxed_kernel_supports(nu, dtype) if boxed
+                else kernel_supports(nx, nu, dtype)):
             return "pallas"
     return "stacked"
 
@@ -181,7 +196,10 @@ def _resolve_forward_impl(config: DDPConfig, problem: Problem, dtype,
     ``kernels/ddp_forward_remat.py``) or ``"scan"`` (the plain rollouts).
 
     The kernels sum the costs at the solve dtype, so both ``"fused"`` and
-    ``auto`` need ``cdtype == dtype`` (as the JAX solver does).  ``auto``
+    ``auto`` need ``cdtype == dtype`` (as the JAX solver does).  They serve
+    masked and boxed problems unchanged: the rollout does not read the
+    mask (an inactive input has k = 0 and a zero K row, so it keeps its
+    value), as in the JAX kernels.  ``auto``
     takes ``"fused"`` on CUDA tensors where the generator takes the
     problem (``forward_remat_supported``) and ``"scan"`` otherwise.  The
     JAX window (N >= 25 and (B <= 512 or N >= 50)) was fit on the TPU;
@@ -208,9 +226,17 @@ def _resolve_forward_impl(config: DDPConfig, problem: Problem, dtype,
     return "scan"
 
 
-def _make_backward_fn(config: DDPConfig, impl: str, Dst, VxT, VxxT, D2=None):
-    """Bind the chosen backward to its derivative data:
-    ``backward_fn(lam) -> (ks, Ks, dV, ok)``, batch-minor."""
+def _make_backward_fn(config: DDPConfig, impl: str, Dst, VxT, VxxT,
+                      bounds=None, D2=None, host=bool):
+    """Bind the chosen sweep-fed backward to its derivative data (and, for
+    a boxed solve, its bounds): ``backward_fn(lam) -> (ks, Ks, dV, ok)``,
+    batch-minor.  ``host`` reads the plain boxed QP's device flags."""
+    if bounds is not None:
+        if impl == "pallas":
+            return lambda lam: backward_fused_boxed(config, Dst, bounds, VxT,
+                                                    VxxT, lam, host=host)
+        return lambda lam: backward_stacked_boxed(
+            config, Dst, bounds, VxT, VxxT, lam, D2=D2, host=host)
     if impl == "pallas":
         return lambda lam: backward_fused(config, Dst, VxT, VxxT, lam)
     return lambda lam: backward_stacked(config, Dst, VxT, VxxT, lam, D2=D2)
@@ -284,8 +310,9 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init):
     alphas = torch.tensor(config.alpha_list, dtype=dtype, device=device)
     A = len(config.alpha_list)
     second = config.use_state_eq_second_derivative
-    impl = _resolve_backward_impl(config, problem, dtype, device,
-                                  config.with_input_constraint, second)
+    boxed = config.with_input_constraint
+    impl = _resolve_backward_impl(config, problem, dtype, device, boxed,
+                                  second)
     wdtype = torch.promote_types(dtype, _deriv_dtype_of(config, dtype))
     thre = config.cost_update_ratio_thre
     hyst = max(1, config.ls_auto_hysteresis)
@@ -351,14 +378,15 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init):
 
             def backward_fn(lam_):
                 return backward_remat(problem, config, t0, xs_b, us_b, VxT,
-                                      VxxT, lam_)
+                                      VxxT, lam_, boxed=boxed, host=host)
         else:
             D, VxT, VxxT = _derivative_sweep_lanes(problem, config, t0, xs,
                                                    us)
-            D2 = StackedSecond(*D[7:]) if second else None
+            D2 = StackedSecond(*D[7:10]) if second else None
+            bounds = StackedBounds(*D[-3:]) if boxed else None
             backward_fn = _make_backward_fn(config, impl,
                                             StackedDerivs(*D[:7]), VxT, VxxT,
-                                            D2=D2)
+                                            bounds=bounds, D2=D2, host=host)
         lam_b, dlam_b, ks_b, Ks_b, dV, bw_failed = _backward_retry(
             config, backward_fn, lam, dlam, ks, Ks, running, host)
         new_status = torch.where(bw_failed & running,

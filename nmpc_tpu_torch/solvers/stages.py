@@ -2,8 +2,9 @@
 
 Port of the per-stage helpers of ``nmpc_tpu/solvers/ddp.py``: the problem's
 callables batched over the trailing lane axis with ``torch.func.vmap``,
-the stage derivatives and their sweep over the horizon, and the two
-line-search rollouts.  They are the solver's plain path and the plain
+the stage derivatives (with the input mask and, for a boxed solve, the
+bounds) and their sweep over the horizon, and the two line-search
+rollouts.  They are the solver's plain path and the plain
 versions the CUDA kernels are held against: ``_derivative_sweep_lanes``
 with ``backward_stacked`` for the remat backward
 (``kernels/ddp_backward_remat.py``), ``_forward_selected_lanes`` and
@@ -55,11 +56,31 @@ def _stage_times(problem, t0, N):
     return t0 + problem.dt * torch.arange(N, dtype=t0.dtype, device=t0.device)
 
 
+def _stage_bounds(problem: Problem, t, u, mask=None):
+    """The boxed backward's (lower, upper, u) of one stage
+    (``nmpc_tpu/solvers/ddp.py:173-186``): the problem's limits at the
+    solve's device and dtype, (-1, 1) on masked-out inputs, +-inf without
+    limits."""
+    dtype, device = u.dtype, u.device
+    nu = problem.input_dim
+    if problem.input_limits is None:
+        inf = torch.full((nu,), float("inf"), dtype=dtype, device=device)
+        return -inf, inf, u
+    lower, upper = (torch.as_tensor(a, dtype=dtype, device=device)
+                    for a in problem.input_limits(t))
+    if mask is not None:
+        active = mask > 0
+        lower = torch.where(active, lower, -torch.ones_like(lower))
+        upper = torch.where(active, upper, torch.ones_like(upper))
+    return lower, upper, u
+
+
 def _stage_derivs(problem: Problem, config: DDPConfig, t, x, u):
     """One stage's derivatives at the solve dtype: (Fx, Fu, Lx, Lu, Lxx,
-    Luu, Lxu) plus (Fxx, Fuu, Fxu) for full DDP.  The callbacks run at
-    ``deriv_dtype``; results are cast back at the boundary so wide model
-    constants do not promote the solve."""
+    Luu, Lxu), then (Fxx, Fuu, Fxu) for full DDP, then the bounds (lower,
+    upper, u) of :func:`_stage_bounds` for a boxed solve.  The callbacks
+    run at ``deriv_dtype``; results are cast back at the boundary so wide
+    model constants do not promote the solve."""
     dtype = x.dtype
     ddt = _deriv_dtype_of(config, dtype)
     td, xd, ud = t.to(ddt), x.to(ddt), u.to(ddt)
@@ -70,6 +91,7 @@ def _stage_derivs(problem: Problem, config: DDPConfig, t, x, u):
     if config.use_state_eq_second_derivative:
         second = tuple(a.to(dtype)
                        for a in problem.second_order_dynamics(td, xd, ud))
+    mask = None
     if problem.input_mask is not None:
         # Masked-dimension embedding: zero the inactive columns and put a
         # unit diagonal on the inactive Luu block, so inactive inputs get
@@ -83,7 +105,10 @@ def _stage_derivs(problem: Problem, config: DDPConfig, t, x, u):
             Fxx, Fuu, Fxu = second
             second = (Fxx, Fuu * (mask[None, :, None] * mask[None, None, :]),
                       Fxu * mask[None, None, :])
-    return (Fx, Fu, Lx, Lu, Lxx, Luu, Lxu) + second
+    bounds = ()
+    if config.with_input_constraint:
+        bounds = _stage_bounds(problem, t, u, mask)
+    return (Fx, Fu, Lx, Lu, Lxx, Luu, Lxu) + second + bounds
 
 
 def _terminal_quad_lanes(problem, config, t0, xs):

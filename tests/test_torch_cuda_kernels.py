@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: the sweep-fed backward (K1), the remat backward (K5) and the
-fused rollouts (K6, K7).  Every test here is marked ``cuda`` and skips
+the card: the sweep-fed backward (K1) and its boxed variant (K4), the remat
+backward (K5, unboxed and boxed) and the fused rollouts (K6, K7).  Every test here is marked ``cuda`` and skips
 without a card; the file imports no JAX, so on the GPU machine it runs
 without the JAX package's conftest:
 
@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from nmpc_tpu_torch import DDPConfig, DDPSolver
-from nmpc_tpu_torch.kernels.ddp_backward import StackedDerivs, backward_stacked
+from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds, StackedDerivs,
+                                                 backward_stacked,
+                                                 backward_stacked_boxed)
+from nmpc_tpu_torch.kernels.ddp_backward_boxed import backward_fused_boxed
 from nmpc_tpu_torch.kernels.ddp_backward_fused import backward_fused
 from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
                                                        backward_remat_plain)
@@ -22,6 +25,7 @@ from nmpc_tpu_torch.kernels.ddp_forward_remat import (forward_costs_remat,
                                                       forward_selected_remat)
 from nmpc_tpu_torch.kernels.tileval import TileEvalError
 from nmpc_tpu_torch.models.cartpole import make_cartpole_problem
+from nmpc_tpu_torch.models.vertical import make_vertical_problem
 from nmpc_tpu_torch.solvers import ddp
 
 torch.set_num_threads(1)
@@ -225,3 +229,116 @@ def test_explicit_remat_on_rejected_problem_raises(card):
                                         **change))
         with pytest.raises(TileEvalError):
             solver.solve_batch(0.0, x0s, us0)
+
+
+def _vertical_trajectory(B, N, dtype, device, seed=5):
+    """A boxed vertical-model rollout from t0=1.9 (the horizon crosses the
+    switch to two contacts), batch-minor on ``device``."""
+    rng = np.random.default_rng(seed)
+    p = make_vertical_problem(DT)
+    cfg = DDPConfig(horizon_steps=N, with_input_constraint=True)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    x0s = np.tile([1.2, 0.0], (B, 1)) + 0.05 * rng.normal(size=(B, 2))
+    us = as_t(0.02 * rng.normal(size=(N, 2, B)))
+    t0 = as_t(1.9)
+    xs, _ = ddp._rollout_lanes(p, cfg, t0, as_t(x0s.T.copy()), us)
+    VxT, VxxT = (a.contiguous() for a in ddp._terminal_quad_lanes(
+        p, cfg, t0, xs))
+    return p, cfg, t0, xs, us, VxT, VxxT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("reg_type", [1, 2])
+def test_boxed_kernel_matches_plain(card, dtype, reg_type):
+    """K4 vs ``backward_stacked_boxed`` on vertical data (B=300, N=17), with
+    a non-PD lane (Luu = -10), a NaN lane (a NaN Fx) and a lane whose last
+    stage holds a QP of 5 iterations: ok masks equal, the rest within TOL
+    (the boxed units are built without FMA contraction)."""
+    B, N = 300, 17
+    p, cfg, t0, xs, us, VxT, VxxT = _vertical_trajectory(B, N, dtype, card)
+    D = ddp._derivative_sweep_lanes(p, cfg, t0, xs, us)[0]
+    D, bnd = StackedDerivs(*D[:7]), StackedBounds(*D[-3:])
+    D.Luu[:, :, :, 7] = -10.0
+    D.Fx[3, 0, 0, 299] = float("nan")
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=card)
+    D.Fu[N - 1, :, :, 11] = 0.0
+    D.Luu[N - 1, :, :, 11] = as_t([[2.38, 5.0], [5.0, 10.65]])
+    D.Lu[N - 1, :, 11] = as_t([-1.58, -2.98])
+    bnd.lower[N - 1, :, 11] = as_t([-0.11, -0.99])
+    bnd.upper[N - 1, :, 11] = as_t([1.22, 0.96])
+    bnd.u[N - 1, :, 11] = 0.0
+    cfg = DDPConfig(horizon_steps=N, reg_type=reg_type,
+                    with_input_constraint=True)
+    lam = torch.full((B,), 1e-6 if reg_type == 1 else 0.5, dtype=dtype,
+                     device=card)
+    before = backward_fused_boxed.launches
+    out = backward_fused_boxed(cfg, D, bnd, VxT, VxxT, lam)
+    torch.cuda.synchronize()
+    assert backward_fused_boxed.launches == before + 1
+    stats = {}
+    ref = backward_stacked_boxed(cfg, D, bnd, VxT, VxxT, lam, stats=stats)
+    assert int(stats["qp_iters"][N - 1, 11]) > 4
+    assert torch.equal(out[3], ref[3])
+    assert not out[3][7] and not out[3][299] and int(out[3].sum()) == B - 2
+    for a, b in zip(ref[:3], out[:3]):
+        assert _norm_err(a[..., ref[3]], b[..., ref[3]]) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("reg_type", [1, 2])
+def test_remat_boxed_kernel_matches_plain(card, dtype, reg_type):
+    """K5 boxed vs its plain version (the sweep with bounds and
+    ``backward_stacked_boxed``) on vertical data, with a non-PD lane (a
+    negative definite terminal Vxx under interior forces) and a NaN lane
+    (a NaN terminal Vxx): ok masks equal, the rest within TOL."""
+    B, N = 300, 17
+    p, cfg, t0, xs, us, VxT, VxxT = _vertical_trajectory(B, N, dtype, card)
+    us[:, :, 7] = 5.0
+    VxxT[:, :, 7] = -1e6 * torch.eye(2, dtype=dtype, device=card)
+    VxxT[1, 1, 299] = float("nan")
+    cfg = DDPConfig(horizon_steps=N, reg_type=reg_type,
+                    with_input_constraint=True)
+    lam = torch.full((B,), 1e-6 if reg_type == 1 else 0.5, dtype=dtype,
+                     device=card)
+    before = backward_remat.boxed_launches
+    out = backward_remat(p, cfg, t0, xs, us, VxT, VxxT, lam, boxed=True)
+    torch.cuda.synchronize()
+    assert backward_remat.boxed_launches == before + 1
+    ref = backward_remat_plain(p, cfg, t0, xs, us, VxT, VxxT, lam, boxed=True)
+    assert torch.equal(out[3], ref[3])
+    assert not out[3][7] and not out[3][299] and int(out[3].sum()) == B - 2
+    for a, b in zip(ref[:3], out[:3]):
+        assert _norm_err(a[..., ref[3]], b[..., ref[3]]) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("impls,counter", [
+    (("pallas", "scan"), "K4"), (("auto", "auto"), "K5")])
+def test_boxed_solve_batch_goes_through_kernels(card, impls, counter):
+    """fp64 boxed vertical solve_batch (B=64, N=30, from t0=1.9) through
+    K4 (``backward_impl="pallas"``) and through ``auto`` (K5 boxed and the
+    fused rollouts) launches its kernels and agrees with the plain path on
+    the card: same status and iters, us 1e-10, the first-stage u inside
+    [0, 30]."""
+    B, N = 64, 30
+    rng = np.random.default_rng(1)
+    x0s = torch.as_tensor(np.tile([1.2, 0.0], (B, 1))
+                          + 0.05 * rng.normal(size=(B, 2)), device=card)
+    us0 = torch.zeros((B, N, 2), dtype=torch.float64, device=card)
+    cfg = DDPConfig(horizon_steps=N, max_iter=3, initial_lambda=1e-6,
+                    with_input_constraint=True)
+    p = make_vertical_problem(DT)
+    count = {"K4": lambda: backward_fused_boxed.launches,
+             "K5": lambda: backward_remat.boxed_launches}[counter]
+    before = count()
+    res = DDPSolver(p, dataclasses.replace(
+        cfg, backward_impl=impls[0], forward_impl=impls[1])).solve_batch(
+            1.9, x0s, us0)
+    assert count() > before
+    ref = DDPSolver(p, dataclasses.replace(
+        cfg, backward_impl="stacked", forward_impl="scan")).solve_batch(
+            1.9, x0s, us0)
+    assert torch.equal(res.status, ref.status)
+    assert torch.equal(res.iters, ref.iters)
+    assert (res.us - ref.us).abs().max().item() <= 1e-10
+    assert res.us[:, 0].min().item() >= 0.0
+    assert res.us[:, 0].max().item() <= 30.0

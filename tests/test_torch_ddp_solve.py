@@ -182,13 +182,32 @@ def test_unported_options_raise(change, item):
     """Options still to port raise naming their ROADMAP item.  The remat
     backward (B3) and the fused rollouts (B2) are ported: they construct
     and, on CPU tensors, solve through their plain versions exactly like
-    the default path."""
+    the default path.  Boxed DDP (A6) is ported: with limits that never
+    bind it takes the unboxed solve's decisions (statuses, iterations,
+    alphas equal; costs within 1e-12 relative).  Its QP keeps the warm
+    start (the later stage's k) where the gradient there is below
+    ``grad_thre`` = 1e-8 (BoxQP.h), which leaves k up to grad_thre / Quu
+    off the Newton point: u within 1e-4."""
+    x0s, us0 = _inputs(4, 20, np.float64, seed=3)
+    cfg = DDPConfig(horizon_steps=20, max_iter=5)
+    if item == "A6":
+        wide = make_cartpole_problem(DT, input_limits=(-1e3, 1e3))
+        got = DDPSolver(wide, dataclasses.replace(cfg, **change)).solve_batch(
+            0.0, torch.as_tensor(x0s), torch.as_tensor(us0))
+        ref = DDPSolver(make_cartpole_problem(DT), cfg).solve_batch(
+            0.0, torch.as_tensor(x0s), torch.as_tensor(us0))
+        assert torch.equal(got.status, ref.status)
+        assert torch.equal(got.iters, ref.iters)
+        assert torch.equal(got.trace.alpha, ref.trace.alpha)
+        np.testing.assert_allclose(got.trace.cost.numpy(),
+                                   ref.trace.cost.numpy(), rtol=1e-12)
+        np.testing.assert_allclose(got.us.numpy(), ref.us.numpy(), rtol=0,
+                                   atol=1e-4)
+        return
     if item not in ("B2", "B3"):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             DDPSolver(make_cartpole_problem(DT), DDPConfig(**change))
         return
-    x0s, us0 = _inputs(4, 20, np.float64, seed=3)
-    cfg = DDPConfig(horizon_steps=20, max_iter=5)
     got = DDPSolver(make_cartpole_problem(DT), dataclasses.replace(
         cfg, **change)).solve_batch(0.0, torch.as_tensor(x0s),
                                     torch.as_tensor(us0))

@@ -290,7 +290,8 @@ def test_library_name_follows_included_headers(tmp_path):
     assert before == [build.library_path("k", text, csrc)
                       for text in (k1, gen)]
     assert {p.name for p in build.included_headers(gen, csrc)} == {
-        "ddp_backward_remat.cuh", "remat_common.cuh", "riccati_stage.cuh"}
+        "ddp_backward_remat.cuh", "remat_common.cuh", "riccati_stage.cuh",
+        "boxqp.cuh", "linalg.cuh"}
     fwd = csrc / "ddp_forward_remat.cuh"
     fwd.write_text(fwd.read_text() + "\n// edited\n")
     assert before == [build.library_path("k", text, csrc)
@@ -300,3 +301,10 @@ def test_library_name_follows_included_headers(tmp_path):
     after = [build.library_path("k", text, csrc) for text in (k1, gen)]
     assert all(a != b for a, b in zip(before, after))
     assert build.library_path("k", gen + " ", csrc) != after[1]
+    # a header included only through another one (riccati_stage.cuh ->
+    # boxqp.cuh -> linalg.cuh), and a unit's own flags
+    linalg = csrc / "linalg.cuh"
+    linalg.write_text(linalg.read_text() + "\n// edited\n")
+    again = [build.library_path("k", text, csrc) for text in (k1, gen)]
+    assert all(a != b for a, b in zip(after, again))
+    assert build.library_path("k", gen, csrc, ("-fmad=false",)) != again[1]
