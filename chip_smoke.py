@@ -10,7 +10,9 @@ Phases, one line each (a failed phase exits non-zero):
 1. build: generate the remat backward (K5), boxed remat backward (K5
    boxed) and rollout (K6, K7) units of the cart-pole and the
    vertical-motion model from their callables, and the sweep-fed boxed
-   backward (K4) at (nx, nu) = (2, 2) and (4, 1), for fp32 and fp64; then
+   backward (K4) at (nx, nu) = (2, 2) and (4, 1), the FMPC backward (K8)
+   at (nx, nu, ng) = (2, 1, 3), (4, 1, 4), (2, 2, 2) and the FMPC
+   recursion (K11) at (2, 1), (4, 1), (2, 2), for fp32 and fp64; then
    compile them and ``csrc/ddp_backward.cu`` (K1) with nvcc, all at once;
    print the seconds and ptxas' registers and spills;
 2. kernels: hold each kernel against its plain PyTorch version on the
@@ -22,7 +24,10 @@ Phases, one line each (a failed phase exits non-zero):
    switch to two contacts, both regularization types), with a non-PD, a
    NaN and (K4) a planted long-QP lane, and how many lanes ran the QP's
    iteration and Armijo tails; K4 and K5 boxed on boxed cart-pole data
-   (B=4096, N=100, fp32);
+   (B=4096, N=100, fp32); K8 against ``_backward_bm`` on first-iteration
+   FMPC data (cart-pole B=4096, oscillator B=1024, N=100, both
+   ``break_if_llt_fails``, a non-PD and a NaN lane; the two-input non-PD
+   case) and K11 against its plain recursion fed K8's gains;
 3. end to end: ``DDPSolver.solve_batch`` at the headline shape through
    the sweep-fed path (``backward_impl="pallas"``, ``forward_impl="scan"``:
    K1) and through ``auto`` (on the card: remat + fused, K5/K6/K7), each
@@ -34,17 +39,24 @@ Phases, one line each (a failed phase exits non-zero):
    through ``auto`` (K5 boxed + K6/K7) and on the plain path, at fp64 and
    fp32, every first-stage u inside its box (later stages add the
    unclipped feedback K dx and may leave it) and every masked u exactly 0;
+   ``FmpcSolver.solve_batch`` at the cart-pole serving shape (B=4096,
+   N=100, 5 iterations) through ``auto`` (K8 + K11) and the plain path:
+   fp64 on the stabilization and swing-up populations, fp32's converged
+   set; fp64 ``solve`` of the oscillator against the NumPy golden FMPC;
 4. serving: ``make_closed_loop_batch`` with 256 cart-pole controllers,
-   N=200, 3 iterations, 20 ticks, through the fused path; and with 256
+   N=200, 3 iterations, 20 ticks, through the fused path; with 256
    boxed vertical-motion controllers, N=100, 3 iterations, 20 ticks from
-   t0=1.8 (the horizon crosses the contact switch), through ``auto``;
+   t0=1.8 (the horizon crosses the contact switch), through ``auto``; and
+   a warm-started loop of 256 FMPC oscillator controllers at fp64, N=100,
+   3 iterations, 100 ticks, every applied input inside the constraints;
 5. times on the card: each kernel and its plain version (CUDA events)
    beside its bound, solves/s and tick p50/p99 for each (backward,
-   forward) pair, and solves/s of the boxed vertical solve for each pair;
+   forward) pair, and solves/s of the boxed vertical solve and of both
+   FMPC configurations for each pair;
 6. with ``--layers`` only: where one solve's time goes at both shapes,
-   for each pair, and for the boxed vertical solve (synced time per
-   solver layer, the device's busy time and launches from
-   ``torch.profiler``).
+   for each pair, for the boxed vertical solve and for both FMPC
+   configurations (synced time per solver layer, the device's busy time
+   and launches from ``torch.profiler``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -75,7 +87,12 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 from golden.cartpole_numpy import CartPoleGolden  # noqa: E402
 from golden.ddp_numpy import GoldenConfig, GoldenDDP  # noqa: E402
-from nmpc_tpu_torch import DDPConfig, DDPSolver, DDPStatus  # noqa: E402
+from golden.fmpc_numpy import (  # noqa: E402
+    GoldenFmpc, GoldenFmpcConfig, OscillatorGolden)
+from nmpc_tpu_torch import (  # noqa: E402
+    DDPConfig, DDPSolver, DDPStatus, FmpcConfig, FmpcSolver, FmpcStatus,
+    FmpcVariable, fmpc_variable_reset)
+from nmpc_tpu_torch.core.problem import Problem  # noqa: E402
 from nmpc_tpu_torch.kernels import build as kbuild  # noqa: E402
 from nmpc_tpu_torch.kernels import ddp_backward_remat as remat  # noqa: E402
 from nmpc_tpu_torch.kernels import ddp_forward_remat as fwd  # noqa: E402
@@ -84,11 +101,17 @@ from nmpc_tpu_torch.kernels import ddp_backward_boxed as boxed  # noqa: E402
 from nmpc_tpu_torch.kernels.ddp_backward import (  # noqa: E402
     StackedBounds, StackedDerivs, backward_stacked, backward_stacked_boxed)
 from nmpc_tpu_torch.kernels.ddp_backward_fused import backward_fused  # noqa: E402
-from nmpc_tpu_torch.models.cartpole import make_cartpole_problem  # noqa: E402
+from nmpc_tpu_torch.kernels import fmpc_backward as k8  # noqa: E402
+from nmpc_tpu_torch.kernels import fmpc_forward as k11  # noqa: E402
+from nmpc_tpu_torch.models.cartpole import (  # noqa: E402
+    make_cartpole_fmpc_problem, make_cartpole_problem)
+from nmpc_tpu_torch.models.oscillator import make_oscillator_problem  # noqa: E402
 from nmpc_tpu_torch.models.vertical import (  # noqa: E402
     make_vertical_problem, num_contacts)
 from nmpc_tpu_torch.mpc.closed_loop import make_closed_loop_batch  # noqa: E402
 from nmpc_tpu_torch.solvers import ddp as ddp_mod  # noqa: E402
+from nmpc_tpu_torch.solvers import fmpc as fmpc_mod  # noqa: E402
+from nmpc_tpu_torch.solvers.stages import _lanes as stages_lanes  # noqa: E402
 from nmpc_tpu_torch.solvers.stages import _stage_derivs_sweep  # noqa: E402
 
 DT = 0.01
@@ -119,6 +142,21 @@ PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
 # of K4's input: (H, g, lower, upper) with u = 0.
 LONG_QP = ([[1.24, 1.82], [1.82, 2.68]], [2.42, 3.13], [-0.06, -0.9],
            [0.95, 0.52])
+# FMPC (B, N): the cart-pole serving shape (benchmarks/bench_all.py:146-171,
+# 5 iterations, kkt_error_thre=0, init_complementary_variable) and the
+# oscillator's config #4 (:123-143, 5 iterations); the oscillator tick loop
+# (256 controllers, 100 ticks, 3 iterations, tests/test_fmpc.py:53-82).
+FMPC_SERVING = (4096, 100)
+FMPC_OSC = (1024, 100)
+FMPC_TICK = (256, 100)
+FMPC_SIM_DT = 0.005
+# fp32 FMPC contract on converged lanes (benchmarks/parity_gate.py:
+# TOL_E2E_FMPC_U) and the fp64 kernel-path vs plain-path contract.
+E2E_FMPC_U, E2E_FMPC_FP64 = 2e-4, 1e-8
+# (backward_impl, forward_impl) pairs of the FMPC solve that are timed;
+# "auto" resolves to the first on the card.
+FMPC_PAIRS = (("pallas", "fused"), ("pallas", "scan"), ("stacked", "fused"),
+              ("stacked", "scan"))
 
 
 @dataclasses.dataclass
@@ -160,8 +198,15 @@ KERNELS = {
     "K7": Kernel("forward_costs_remat", fwd.forward_costs_remat, "launches",
                  "nmpc_tpu_torch/csrc/ddp_forward_remat.cuh",
                  "nmpc_tpu/kernels/ddp_forward_remat.py:334"),
+    "K8": Kernel("fmpc_backward_fused", k8.backward_fmpc_fused, "launches",
+                 "nmpc_tpu_torch/csrc/fmpc_backward.cuh",
+                 "nmpc_tpu/kernels/fmpc_backward_pallas.py:558"),
+    "K11": Kernel("forward_fmpc_deltas_fused", k11.forward_fmpc_deltas_fused,
+                  "launches", "nmpc_tpu_torch/csrc/fmpc_forward.cuh",
+                  "nmpc_tpu/kernels/fmpc_forward_pallas.py:113"),
 }
 REMAT_PATH = ("K5", "K6", "K7")
+FMPC_PATH = ("K8", "K11")
 
 
 class PhaseFailed(Exception):
@@ -431,6 +476,13 @@ def phase_build():
             units.append((boxed.unit_name(nx, nu, dtype),
                           boxed.unit_source(nx, nu, dtype),
                           boxed.BOXED_FLAGS))
+        # FMPC: the oscillator, the constrained cart-pole, the two-input
+        # problem of the non-PD check
+        for nx, nu, ng in ((2, 1, 3), (4, 1, 4), (2, 2, 2)):
+            units.append((k8.unit_name(nx, nu, ng, dtype),
+                          k8.unit_source(nx, nu, ng, dtype), k8.FMPC_FLAGS))
+            units.append((k11.unit_name(nx, nu, dtype),
+                          k11.unit_source(nx, nu, dtype), k8.FMPC_FLAGS))
     gen_s = time.perf_counter() - start
 
     def compile_unit(unit):
@@ -586,6 +638,7 @@ def phase_kernels_boxed(device):
                                        VxxT5, lam, boxed=True)
             torch.cuda.synchronize()
             check_boxed("K5b", label, plain, out, B, config, stats, dtype)
+    phase_kernels_fmpc(device)
 
 
 def e2e_compare(a, b):
@@ -811,6 +864,7 @@ def phase_e2e_boxed(device):
             if model == "vertical" and dtype == torch.float32:
                 KERNELS["K4"].launches = k4["K4"]
                 KERNELS["K5b"].launches = auto["K5b"]
+    phase_e2e_fmpc(device)
 
 
 def tick_loop(device, problem, impls, n_ticks=20, boxed=False):
@@ -883,6 +937,7 @@ def phase_serving(device, card):
           "masked input")
     check(all(counts[key] > 0 for key in ("K5b", "K6", "K7")),
           "the boxed tick loop skipped a kernel of the fused path")
+    phase_serving_fmpc(device, card)
 
 
 def moved_bytes(key, B, N, itemsize, nx=4, nu=1, A=11):
@@ -1068,6 +1123,7 @@ def phase_times(device, card):
               f"{statistics.median(secs):.4f} s, "
               f"{B / statistics.median(secs):.1f} solves/s, host syncs "
               f"{solver.host_syncs} [{card}]", flush=True)
+    phase_times_fmpc(device, card)
 
 
 def timed_solves(solver, x0s, us0, reps):
@@ -1108,10 +1164,11 @@ LAYERS = ("_rollout_lanes", "_derivative_sweep_lanes", "_terminal_quad_lanes",
 
 
 @contextlib.contextmanager
-def layer_clock(acc, count):
-    """Wrap each solver layer in ``LAYERS`` with a device synchronize and
-    the host clock on both sides; restore the layers on exit."""
-    saved = {name: getattr(ddp_mod, name) for name in LAYERS}
+def layer_clock(acc, count, module=ddp_mod, names=LAYERS):
+    """Wrap each solver layer ``names`` of ``module`` with a device
+    synchronize and the host clock on both sides; restore the layers on
+    exit."""
+    saved = {name: getattr(module, name) for name in names}
 
     def timed(name, fn):
         def wrap(*args, **kwargs):
@@ -1125,12 +1182,12 @@ def layer_clock(acc, count):
         return wrap
 
     for name, fn in saved.items():
-        setattr(ddp_mod, name, timed(name, fn))
+        setattr(module, name, timed(name, fn))
     try:
         yield
     finally:
         for name, fn in saved.items():
-            setattr(ddp_mod, name, fn)
+            setattr(module, name, fn)
 
 
 def phase_layers(device, card):
@@ -1192,6 +1249,524 @@ def phase_layers(device, card):
                   f"{solver.host_syncs}; synced layers (total "
                   f"{synced * 1e3:.1f} ms): {parts}, rest "
                   f"{rest * 1e3:.1f} ms [{card}]", flush=True)
+            check(busy > 0, "the profiler saw no device time")
+    phase_layers_fmpc(device, card)
+
+
+# --------------------------------------------------------------------------
+# FMPC: the condensed Riccati backward (K8) and the Δx/Δu recursion (K11)
+# --------------------------------------------------------------------------
+
+VARIABLE = ("xs", "us", "lambdas", "ss", "nus")
+
+
+def two_input_problem():
+    """The synthetic linear nx=2, nu=2, ng=2 problem of the JAX non-PD test
+    (tests/test_pallas_kernels.py:694-717): G is a genuine 2x2 block, so
+    the Gauss-Jordan fallback pivots."""
+    dt = 0.02
+    A = [[1.0, dt], [-0.3 * dt, 1.0 - 0.1 * dt]]
+    Bm = [[0.5 * dt, 0.0], [dt, 0.7 * dt]]
+
+    def dynamics(t, x, u):
+        mat = lambda m: torch.tensor(m, dtype=x.dtype, device=x.device)
+        return mat(A) @ x + mat(Bm) @ u
+
+    return Problem(
+        dt=dt, state_dim=2, input_dim=2, ineq_dim=2, dynamics=dynamics,
+        running_cost=lambda t, x, u: 0.5 * (torch.sum(x * x)
+                                            + 0.1 * torch.sum(u * u)),
+        terminal_cost=lambda t, x: 0.5 * torch.sum(x * x),
+        ineq_const=lambda t, x, u: torch.stack([u[0] - 1.0, -u[1] - 1.0]))
+
+
+def fmpc_config(model, N, **kw):
+    """The benchmarked configurations: cart-pole serving (fixed work:
+    kkt_error_thre=0, init_complementary_variable) and oscillator #4."""
+    if model == "cart-pole":
+        kw = {"kkt_error_thre": 0.0, "init_complementary_variable": True,
+              **kw}
+    return FmpcConfig(**{"horizon_steps": N, "max_iter": 5, **kw})
+
+
+def fmpc_start(model, B, N, dtype, device, population="stabilization",
+               seed=0):
+    """(problem, x0s [B, nx], reset variables [B, ...], eps [B]) of a
+    benchmarked population: the oscillator near [0, 1] (bench_all.py:
+    130-133), the cart-pole near upright, x0 ~ 0.15 N(0, 1) (:159), or
+    near hanging for the swing-up population."""
+    rng = np.random.default_rng(seed)
+    if model == "oscillator":
+        problem = make_oscillator_problem(DT)
+        x0 = np.tile([0.0, 1.0], (B, 1)) + 0.05 * rng.normal(size=(B, 2))
+    else:
+        problem = make_cartpole_fmpc_problem(DT)
+        x0 = 0.15 * rng.normal(size=(B, 4))
+        if population == "swing-up":
+            x0 = np.tile([0.0, np.pi, 0.0, 0.0], (B, 1)) + 0.05 * rng.normal(
+                size=(B, 4))
+    v1 = fmpc_variable_reset(N, problem.state_dim, problem.input_dim,
+                             problem.ineq_dim, dtype=dtype, device=device)
+    var = FmpcVariable(**{f: getattr(v1, f).expand(
+        B, *getattr(v1, f).shape).contiguous() for f in VARIABLE})
+    return (problem, torch.as_tensor(x0, dtype=dtype, device=device), var,
+            torch.full((B,), 1e-4, dtype=dtype, device=device))
+
+
+def fmpc_kernel_inputs(model, B, N, dtype, device, poison=True):
+    """First-iteration K8/K11 inputs as benchmarks/parity_gate.py::
+    _fmpc_case builds them (the reset iterate, s and nu from the
+    complementary initialization), with each lane's state trajectory held
+    at its x0 so that the lanes differ; with ``poison`` lane 1 is made
+    non-PD (Luu = -1e4: G < 0 on every stage) and lane 2 NaN (one NaN A).
+    Returns (problem, config, coefficients, variable, masks, eps, x0)
+    batch-minor; x0 [nx, B]."""
+    problem, x0s, var, eps = fmpc_start(model, B, N, dtype, device)
+    x0 = x0s.T.contiguous()
+    t0 = torch.zeros((), dtype=dtype, device=device)
+    ts = t0 + DT * torch.arange(N, dtype=dtype, device=device)
+    bm = lambda a: torch.movedim(a, 0, -1).contiguous()
+    xs = x0[None].expand(N + 1, *x0.shape).contiguous()
+    us = bm(var.us)
+    g0 = torch.func.vmap(stages_lanes(problem.ineq_const, 2))(
+        ts, xs[:-1], us).contiguous()
+    ss = 1.01 * torch.clamp(-g0, min=1e-2)
+    nus = 1.01 * torch.clamp(eps[None, None, :] / ss, min=1e-2)
+    v = FmpcVariable(xs=xs, us=us, lambdas=bm(var.lambdas), ss=ss, nus=nus)
+    config = fmpc_config(model, N)
+    co = fmpc_mod._coeffs_bm(problem, config, t0, v)
+    if poison:
+        co.Luu[:, :, :, 1] = -1e4
+        co.A[N // 2, 0, 0, 2] = float("nan")
+    gms = fmpc_mod._ineq_masks(problem, ts, dtype)
+    return problem, config, co, v, gms, eps, x0
+
+
+def two_input_inputs(dtype, device, B=128, N=8):
+    """The non-PD case of tests/test_pallas_kernels.py:720-772: a random
+    iterate (seed 7) of the two-input problem, Luu = -400 I on stages 2
+    and 5 of half the lanes."""
+    problem = two_input_problem()
+    rng = np.random.default_rng(7)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    v = FmpcVariable(xs=as_t(0.3 * rng.normal(size=(N + 1, 2, B))),
+                     us=as_t(0.3 * rng.normal(size=(N, 2, B))),
+                     lambdas=as_t(0.3 * rng.normal(size=(N + 1, 2, B))),
+                     ss=as_t(0.2 + rng.uniform(size=(N, 2, B))),
+                     nus=as_t(0.2 + rng.uniform(size=(N, 2, B))))
+    t0 = torch.zeros((), dtype=dtype, device=device)
+    co = fmpc_mod._coeffs_bm(problem, FmpcConfig(horizon_steps=N), t0, v)
+    eye = torch.eye(2, dtype=dtype, device=device)[:, :, None]
+    for i in (2, 5):
+        co.Luu[i, :, :, :B // 2] = -400.0 * eye
+    gms = fmpc_mod._ineq_masks(problem, t0 + problem.dt * torch.arange(
+        N, dtype=dtype, device=device), dtype)
+    return problem, co, v, gms, torch.full((B,), 1e-4, dtype=dtype,
+                                            device=device)
+
+
+def hold_fmpc_backward(label, plain, out, dtype, B):
+    """K8 vs its plain version: ok and finite masks equal, outputs within
+    the kernel tolerance on the finite lanes; returns the largest absolute
+    difference and whether every output is equal bit for bit."""
+    masks = torch.equal(plain[4], out[4]) and torch.equal(plain[5], out[5])
+    lanes = plain[5]
+    errs = {n: norm_err(a, b, lanes) for n, a, b in
+            zip(("ks", "Ks", "s", "P"), plain[:4], out[:4])}
+    bits = all(torch.equal(a[..., lanes], b[..., lanes])
+               for a, b in zip(plain[:4], out[:4]))
+    print(f"[kernel] K8 {label}: ok lanes {int(out[4].sum())}/{B}, finite "
+          f"{int(out[5].sum())}/{B}, masks equal {masks}, bit-equal "
+          f"{bits}", flush=True)
+    check(masks, f"K8 {label}: kernel and plain ok/finite masks differ")
+    return report(f"K8 {label}", errs, dtype), bits
+
+
+def phase_kernels_fmpc(device):
+    """K8 vs ``_backward_bm`` and K11 vs its plain recursion (fed K8's
+    gains), on the card: the cart-pole serving shape and the oscillator
+    config at fp32 and fp64, both ``break_if_llt_fails``, with a non-PD
+    and a NaN lane; then the two-input non-PD case."""
+    bit_equal = collections.Counter()
+    for model, (B, N) in (("cart-pole", FMPC_SERVING),
+                          ("oscillator", FMPC_OSC)):
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            problem, config, co, v, gms, eps, x0 = fmpc_kernel_inputs(
+                model, B, N, dtype, device)
+            for brk in (False, True):
+                cfg = dataclasses.replace(config, break_if_llt_fails=brk)
+                label = (f"{model} B={B} N={N} {dname} "
+                         f"break_if_llt_fails={brk}")
+                plain = fmpc_mod._backward_bm(problem, cfg, co, v.ss, v.nus,
+                                              gms, eps)
+                out = k8.backward_fmpc_fused(problem, cfg, co, v.ss, v.nus,
+                                             gms, eps)
+                torch.cuda.synchronize()
+                err, bits = hold_fmpc_backward(label, plain, out, dtype, B)
+                bit_equal[dname] += bits
+                clean = torch.ones((B,), dtype=torch.bool, device=device)
+                clean[1:3] = False
+                check(not bool(out[5][2]) and bool(out[5][clean].all()),
+                      f"K8 {label}: the NaN lane must be non-finite, the "
+                      f"clean lanes finite")
+                check(bool(out[4][1]) != brk,
+                      f"K8 {label}: the non-PD lane's ok is wrong")
+                KERNELS["K8"].max_abs_err = max(KERNELS["K8"].max_abs_err,
+                                                err)
+                if not brk:
+                    gains = out[:2]
+            # K11 on the gains of the fallback run (the non-PD lane's LU
+            # gains included) from dx0 = 0.1 x0, on the lanes where the
+            # plain result is finite
+            dx0 = (0.1 * x0).contiguous()
+            args = (co.A, co.B, co.x_bar, *gains, dx0)
+            plain = k11.forward_fmpc_deltas_plain(*args)
+            out = k11.forward_fmpc_deltas_fused(*args)
+            torch.cuda.synchronize()
+            label = f"{model} B={B} N={N} {dname}"
+            finite = (fmpc_mod._finite(plain[0])
+                      & fmpc_mod._finite(plain[1]))
+            bits = all(torch.equal(a[..., finite], b[..., finite])
+                       for a, b in zip(plain, out))
+            print(f"[kernel] K11 {label}: gains from K8, bit-equal {bits}",
+                  flush=True)
+            err = report(f"K11 {label}", {
+                n: norm_err(a, b, finite)
+                for n, a, b in zip(("dxs", "dus"), plain, out)}, dtype)
+            KERNELS["K11"].max_abs_err = max(KERNELS["K11"].max_abs_err, err)
+
+    for dtype in (torch.float32, torch.float64):
+        problem, co, v, gms, eps = two_input_inputs(dtype, device)
+        B = eps.shape[0]
+        for brk in (False, True):
+            cfg = FmpcConfig(horizon_steps=8, break_if_llt_fails=brk)
+            label = (f"two-input non-PD B={B} N=8 {str(dtype)[6:]} "
+                     f"break_if_llt_fails={brk}")
+            plain = fmpc_mod._backward_bm(problem, cfg, co, v.ss, v.nus, gms,
+                                          eps)
+            out = k8.backward_fmpc_fused(problem, cfg, co, v.ss, v.nus, gms,
+                                         eps)
+            torch.cuda.synchronize()
+            err, _ = hold_fmpc_backward(label, plain, out, dtype, B)
+            ok = out[4].cpu()
+            check(bool(ok.all()) if not brk else
+                  (not ok[:B // 2].any() and bool(ok[B // 2:].all())),
+                  f"K8 {label}: the poisoned lanes' ok is wrong")
+            KERNELS["K8"].max_abs_err = max(KERNELS["K8"].max_abs_err, err)
+    print(f"[kernel] K8 checks bit-equal to the plain version on every "
+          f"finite lane: {dict(bit_equal)} of 4 per dtype", flush=True)
+
+
+def fmpc_solve_counted(problem, cfg, x0s, var, eps, t0=0.0):
+    """One FMPC solve_batch with every launch counter reset just before
+    and read just after."""
+    solver = FmpcSolver(problem, cfg)
+    reset_counts()
+    res = solver.solve_batch(t0, x0s, var, eps)
+    torch.cuda.synchronize()
+    return res, read_counts(), solver.host_syncs
+
+
+def fmpc_compare(a, b):
+    """(statuses equal, iterations equal, the largest normalized
+    difference over the variable's fields, status counts of ``a``)."""
+    st = torch.equal(a.status, b.status)
+    it = torch.equal(a.iters, b.iters)
+    dv = max(norm_err(getattr(b.variable, f), getattr(a.variable, f))[0]
+             for f in VARIABLE)
+    return st, it, dv, torch.bincount(a.status, minlength=7).tolist()
+
+
+def phase_e2e_fmpc(device):
+    """``FmpcSolver.solve_batch`` at the cart-pole serving shape through
+    ``auto`` (K8 + K11) and the plain path (``stacked``, ``scan``): the
+    fp32 main path with the launch counters; fp64 on the stabilization and
+    swing-up populations (statuses and iterations equal, variables within
+    1e-8); fp32 stabilization at kkt_error_thre=1e-2 (the converged set
+    equal, u within 2e-4 on it); then fp64 ``solve`` of the oscillator
+    against the NumPy golden."""
+    B, N = FMPC_SERVING
+    plain_kw = {"backward_impl": "stacked", "forward_impl": "scan"}
+    problem, x0s, var, eps = fmpc_start("cart-pole", B, N, torch.float32,
+                                        device)
+    cfg = fmpc_config("cart-pole", N)
+    res, counts, syncs = fmpc_solve_counted(problem, cfg, x0s, var, eps)
+    for key in FMPC_PATH:
+        KERNELS[key].launches = counts[key]
+    finite = all(bool(torch.isfinite(getattr(res.variable, f)).all())
+                 for f in VARIABLE)
+    print(f"[e2e] FMPC cart-pole serving B={B} N={N} max_iter=5 "
+          f"kkt_error_thre=0 fp32 auto: launches {counts}, host syncs "
+          f"{syncs}, status counts "
+          f"{torch.bincount(res.status, minlength=7).tolist()}, finite "
+          f"{finite}", flush=True)
+    check(all(counts[k] == cfg.max_iter for k in FMPC_PATH)
+          and sum(counts.values()) == 2 * cfg.max_iter,
+          "the FMPC auto solve did not run K8 and K11 once per iteration")
+    check(finite, "non-finite FMPC solve output")
+
+    for population in ("stabilization", "swing-up"):
+        problem, x0s, var, eps = fmpc_start("cart-pole", B, N,
+                                            torch.float64, device,
+                                            population)
+        a, ca, _ = fmpc_solve_counted(problem, cfg, x0s, var, eps)
+        b, cb, _ = fmpc_solve_counted(problem, dataclasses.replace(
+            cfg, **plain_kw), x0s, var, eps)
+        st, it, dv, n_status = fmpc_compare(a, b)
+        print(f"[e2e] FMPC cart-pole {population} B={B} N={N} max_iter=5 "
+              f"fp64: auto launches {ca}, status counts {n_status}; auto vs "
+              f"plain: status equal {st}, iters equal {it}, variable norm "
+              f"diff {dv:.3e} (tol {E2E_FMPC_FP64:g})", flush=True)
+        check(ca["K8"] > 0 and ca["K11"] > 0 and not any(cb.values()),
+              "FMPC fp64: auto skipped a kernel or plain launched one")
+        check(st and it and dv <= E2E_FMPC_FP64,
+              f"FMPC fp64 {population}: auto vs plain out of the contract")
+
+    problem, x0s, var, eps = fmpc_start("cart-pole", B, N, torch.float32,
+                                        device)
+    cfg32 = FmpcConfig(horizon_steps=N, max_iter=10, kkt_error_thre=1e-2,
+                       init_complementary_variable=True)
+    a = fmpc_solve_counted(problem, cfg32, x0s, var, eps)[0]
+    b = fmpc_solve_counted(problem, dataclasses.replace(cfg32, **plain_kw),
+                           x0s, var, eps)[0]
+    conv = a.status == FmpcStatus.SUCCEEDED
+    same = torch.equal(conv, b.status == FmpcStatus.SUCCEEDED)
+    n_conv = int(conv.sum())
+    du = ((a.variable.us - b.variable.us)[conv].abs().max().item()
+          if n_conv else math.nan)
+    print(f"[e2e] FMPC cart-pole stabilization B={B} N={N} max_iter=10 "
+          f"kkt_error_thre=1e-2 fp32: converged {n_conv}/{B} (plain "
+          f"{int((b.status == FmpcStatus.SUCCEEDED).sum())}), converged set "
+          f"equal {same}, max|du| on it {du:.3e} (tol {E2E_FMPC_U:g}); "
+          f"statuses equal on all lanes {torch.equal(a.status, b.status)}",
+          flush=True)
+    check(same and n_conv >= B // 4 and du <= E2E_FMPC_U,
+          "FMPC fp32 converged-lane contract failed")
+
+    Ng = 100
+    golden = GoldenFmpc(OscillatorGolden(DT),
+                        GoldenFmpcConfig(horizon_steps=Ng, max_iter=10))
+    v1 = fmpc_variable_reset(Ng, 2, 1, 3, dtype=torch.float64, device=device)
+    x0 = torch.tensor([0.0, 1.0], dtype=torch.float64, device=device)
+    solver = FmpcSolver(make_oscillator_problem(DT),
+                        FmpcConfig(horizon_steps=Ng, max_iter=10))
+    reset_counts()
+    r = solver.solve(0.0, x0, v1)
+    torch.cuda.synchronize()
+    got = read_counts()
+    g = golden.solve(0.0, x0.cpu().numpy(),
+                     {f: getattr(v1, f).cpu().numpy() for f in VARIABLE})
+    dvar = max(np.abs(getattr(r.variable, f).cpu().numpy() - g[f]).max()
+               for f in ("xs", "us", "ss", "nus"))
+    kkt = np.asarray(g["kkt_trace"])
+    dkkt = np.abs(r.trace.kkt_error[1:len(kkt) + 1].cpu().numpy() / kkt
+                  - 1).max()
+    deps = abs(float(r.barrier_eps) / g["barrier_eps"] - 1)
+    print(f"[e2e] FMPC fp64 oscillator solve N={Ng} vs NumPy golden: status "
+          f"{FmpcStatus(int(r.status)).name} / {g['status']}, iters "
+          f"{int(r.iters)} / {g['iters']}, max|dvar| {dvar:.3e} (tol "
+          f"{GOLDEN_TOL:g}), KKT trace rel {dkkt:.3e}, eps rel {deps:.3e}, "
+          f"launches {got}", flush=True)
+    check(int(r.status) == g["status"] and int(r.iters) == g["iters"],
+          "FMPC golden: status or iterations differ")
+    check(dvar <= GOLDEN_TOL and dkkt <= 1e-8 and deps <= 1e-10,
+          "FMPC golden: out of tolerance")
+    check(got["K8"] > 0 and got["K11"] > 0, "FMPC solve skipped a kernel")
+
+
+def oscillator_step(x, u, h):
+    """The oscillator plant, one explicit Euler step of ``h`` seconds per
+    lane: x [B, 2], u [B, 1] (tests/test_fmpc.py:62-64)."""
+    xdot0 = (1.0 - x[:, 1] ** 2) * x[:, 0] - x[:, 1] + u[:, 0]
+    return x + h * torch.stack([xdot0, x[:, 0]], dim=1)
+
+
+def phase_serving_fmpc(device, card):
+    """A warm-started receding-horizon loop of 256 oscillator controllers
+    at fp64 (tests/test_fmpc.py:53-82): each tick one ``solve_batch`` with
+    N=100 and 3 iterations through ``auto``, the plant advanced 5 ms by
+    the first input, 100 ticks; every applied input satisfies
+    g(x, u0) <= 1e-10 and every status is SUCCEEDED or
+    MAX_ITERATION_REACHED."""
+    B, N = FMPC_TICK
+    problem, x, var, eps = fmpc_start("oscillator", B, N, torch.float64,
+                                      device)
+    solver = FmpcSolver(problem, FmpcConfig(horizon_steps=N, max_iter=3))
+    good = (int(FmpcStatus.SUCCEEDED), int(FmpcStatus.MAX_ITERATION_REACHED))
+    ms, g_max, bad = [], [], []
+    reset_counts()
+    t = 0.0
+    for _ in range(100):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = solver.solve_batch(t, x, var, eps)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - start) * 1e3)
+        u0 = res.variable.us[:, 0]
+        g = torch.stack([-x[:, 1] - 0.05, -u0[:, 0] - 1.0, u0[:, 0] - 0.9])
+        g_max.append(g.max())
+        bad.append(((res.status != good[0]) & (res.status != good[1])).sum())
+        x = oscillator_step(x, u0, FMPC_SIM_DT)
+        var, eps = res.variable, res.barrier_eps
+        t += FMPC_SIM_DT
+    counts = read_counts()
+    worst, n_bad = float(torch.stack(g_max).max()), int(sum(bad))
+    print(f"[serving] FMPC {B} oscillator controllers N={N} max_iter=3 fp64 "
+          f"auto, {len(ms)} ticks: tick p50 {np.percentile(ms, 50):.2f} ms, "
+          f"p99 {np.percentile(ms, 99):.2f} ms, first {ms[0]:.2f} ms; "
+          f"max g(x, u0) {worst:.3e} (tol 1e-10), lane-ticks with another "
+          f"status {n_bad}, final max|x| {float(x.abs().max()):.3e}; "
+          f"launches {counts} [{card}]", flush=True)
+    check(worst <= 1e-10 and n_bad == 0,
+          "an FMPC controller violated a constraint or failed")
+    check(all(counts[k] > 0 for k in FMPC_PATH),
+          "the FMPC tick loop skipped a kernel")
+
+
+def fmpc_stage_ops(nx, nu, ng):
+    """Arithmetic operations of one stage of csrc/fmpc_stage.cuh (the
+    Cholesky path) and of the wrapper's condensation of that stage."""
+    cond = (nx * nx + nx * nu + nu * nu) * (3 * ng + 1) + (nx + nu) * 2 * ng
+    products = (nx * nx * (2 * nx - 1) + nx * nu * (2 * nx - 1)
+                + nx * (2 * nx - 1) + nx * nx * 2 * nx + nx * nu * 2 * nx
+                + nu * nu * 2 * nx + nu * 3 * nx)
+    factor = chol_ops(nu) + solve_ops(nu, 1) + solve_ops(nu, nx) + nu * (
+        1 + nx)
+    value = (nx * (3 * nx + 2 * nu) + nu * nx * (2 * nu - 1)
+             + nx * nx * 2 * nu + nx * nx * 2)
+    return cond + products + factor + value + 5 * ng
+
+
+def fmpc_bytes(key, B, N, itemsize, nx, nu, ng):
+    """Bytes K8 or K11 must move at (B, N): inputs read once, outputs
+    written once.  K8 reads ten coefficient fields, g_bar, s and nu per
+    stage, the terminal (s, P) and eps, and writes k, K and the N+1 rows
+    of s and P, and two flag bytes; K11 reads A, B, x_bar, k, K per stage
+    and dx0, and writes N+1 dx and N du."""
+    if key == "K8":
+        fields = (2 * nx * nx + 2 * nx * nu + ng * nx + ng * nu + nu * nu
+                  + 2 * nx + nu + 3 * ng)
+        return (itemsize * B * (N * fields + nx + nx * nx + 1
+                                + N * (nu + nu * nx)
+                                + (N + 1) * (nx + nx * nx)) + 2 * B)
+    stage = nx * nx + 2 * nx * nu + nx + nu
+    return itemsize * B * (N * stage + nx + (N + 1) * nx + N * nu)
+
+
+def timed_fmpc(solver, x0s, var, eps, reps):
+    """Host seconds of ``reps`` synced FMPC solves after a warm one."""
+    solver.solve_batch(0.0, x0s, var, eps)
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        solver.solve_batch(0.0, x0s, var, eps)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - start)
+    return secs
+
+
+def phase_times_fmpc(device, card):
+    """K8 and K11 against their plain versions (CUDA events) beside their
+    bounds at both FMPC shapes (the record keeps the cart-pole serving
+    shape), then solves/s of both configurations for each (backward,
+    forward) pair."""
+    for model, (B, N) in (("cart-pole", FMPC_SERVING),
+                          ("oscillator", FMPC_OSC)):
+        dtype = torch.float32
+        problem, cfg, co, v, gms, eps, x0 = fmpc_kernel_inputs(
+            model, B, N, dtype, device, poison=False)
+        nx, nu, ng = problem.state_dim, problem.input_dim, problem.ineq_dim
+        ks, Ks, *_ = k8.backward_fmpc_fused(problem, cfg, co, v.ss, v.nus,
+                                            gms, eps)
+        args = (co.A, co.B, co.x_bar, ks, Ks, (0.1 * x0).contiguous())
+        calls = {
+            "K8": (lambda: k8.backward_fmpc_fused(problem, cfg, co, v.ss,
+                                                  v.nus, gms, eps),
+                   lambda: fmpc_mod._backward_bm(problem, cfg, co, v.ss,
+                                                 v.nus, gms, eps),
+                   B * N * fmpc_stage_ops(nx, nu, ng)),
+            "K11": (lambda: k11.forward_fmpc_deltas_fused(*args),
+                    lambda: k11.forward_fmpc_deltas_plain(*args),
+                    B * N * (2 * nx * nu + nx * (2 * nx + 2 * nu))),
+        }
+        for key, (kernel, plain, n_ops) in calls.items():
+            record_time(key, kernel, plain,
+                        fmpc_bytes(key, B, N, 4, nx, nu, ng), n_ops,
+                        f"{model} B={B} N={N}", model == "cart-pole", card)
+
+    for model, (B, N) in (("cart-pole", FMPC_SERVING),
+                          ("oscillator", FMPC_OSC)):
+        problem, x0s, var, eps = fmpc_start(model, B, N, torch.float32,
+                                            device)
+        for pair in FMPC_PAIRS:
+            solver = FmpcSolver(problem, fmpc_config(
+                model, N, backward_impl=pair[0], forward_impl=pair[1]))
+            secs = timed_fmpc(solver, x0s, var, eps,
+                              3 if pair[0] == "stacked" else 10)
+            med = statistics.median(secs)
+            print(f"[times] FMPC {model} solve_batch B={B} N={N} max_iter=5 "
+                  f"fp32 backward={pair[0]} forward={pair[1]}"
+                  f"{' (= auto)' if pair == FMPC_PAIRS[0] else ''}: median "
+                  f"{med:.4f} s, {B / med:.1f} solves/s, host syncs "
+                  f"{solver.host_syncs} [{card}]", flush=True)
+
+
+FMPC_LAYERS = ("_coeffs_bm", "_kkt_error_bm", "backward_fmpc_fused",
+               "_backward_bm", "_forward_bm", "_update_bm")
+FMPC_INNER = ("forward_fmpc_deltas_fused", "forward_fmpc_deltas_plain")
+
+
+def phase_layers_fmpc(device, card):
+    """Where one FMPC solve's time goes at both shapes for each pair:
+    synced time of the coefficient sweep, KKT, backward, forward (the
+    recursion and the post-passes apart) and update, the host syncs, and
+    the device's busy time and launches from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for model, (B, N) in (("cart-pole", FMPC_SERVING),
+                          ("oscillator", FMPC_OSC)):
+        problem, x0s, var, eps = fmpc_start(model, B, N, torch.float32,
+                                            device)
+        for pair in FMPC_PAIRS:
+            solver = FmpcSolver(problem, fmpc_config(
+                model, N, backward_impl=pair[0], forward_impl=pair[1]))
+
+            def solve():
+                solver.solve_batch(0.0, x0s, var, eps)
+                torch.cuda.synchronize()
+
+            solve()
+            start = time.perf_counter()
+            solve()
+            wall = time.perf_counter() - start
+            acc, count = collections.defaultdict(float), collections.Counter()
+            with layer_clock(acc, count, fmpc_mod,
+                             FMPC_LAYERS + FMPC_INNER):
+                start = time.perf_counter()
+                solve()
+                synced = time.perf_counter() - start
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                solve()
+            events = prof.key_averages()
+            busy = sum(e.self_device_time_total for e in events) / 1e3
+            launches = sum(e.count for e in events
+                           if e.key.startswith("cudaLaunchKernel"))
+            parts = ", ".join(f"{name} {acc[name] * 1e3:.1f} ms x{count[name]}"
+                              for name in FMPC_LAYERS + FMPC_INNER
+                              if count[name])
+            inner = sum(acc[n] for n in FMPC_INNER)
+            rest = synced - sum(acc[n] for n in FMPC_LAYERS)
+            print(f"[layers] FMPC {model} B={B} N={N} max_iter=5 backward="
+                  f"{pair[0]} forward={pair[1]}: wall {wall * 1e3:.1f} ms, "
+                  f"device busy {busy:.1f} ms "
+                  f"({100 * busy / (wall * 1e3):.1f} %), cudaLaunchKernel "
+                  f"{launches}, host syncs {solver.host_syncs}; synced "
+                  f"layers (total {synced * 1e3:.1f} ms): {parts}; forward "
+                  f"post-passes {(acc['_forward_bm'] - inner) * 1e3:.1f} ms, "
+                  f"rest {rest * 1e3:.1f} ms [{card}]", flush=True)
             check(busy > 0, "the profiler saw no device time")
 
 

@@ -12,9 +12,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from nmpc_tpu_torch.core.types import BoxQPConfig, DDPConfig, DDPResult
+from nmpc_tpu_torch.core.types import (BoxQPConfig, DDPConfig, DDPResult,
+                                        FmpcConfig, FmpcResult, FmpcVariable)
 from nmpc_tpu_torch.models.cartpole import (CartPoleCostWeight, CartPoleParam,
+                                            make_cartpole_fmpc_problem,
                                             make_cartpole_problem)
+from nmpc_tpu_torch.models.oscillator import make_oscillator_problem
 from nmpc_tpu_torch.models.vertical import (VerticalCostWeight,
                                             make_vertical_problem)
 
@@ -63,4 +66,49 @@ def result_to_numpy(res: DDPResult) -> dict:
            for f in dataclasses.fields(res) if f.name != "trace"}
     out["trace"] = {f.name: getattr(res.trace, f.name).cpu().numpy()
                     for f in dataclasses.fields(res.trace)}
+    return out
+
+
+def fmpc_config_from_reference(cfg) -> FmpcConfig:
+    """An ``FmpcConfig`` equal field for field to ``cfg``, any dataclass
+    with ``FmpcConfig``'s fields."""
+    return FmpcConfig(**dataclasses.asdict(cfg))
+
+
+def oscillator_problem_from_reference(dt: float):
+    """The Van der Pol FMPC problem (it has no parameters besides dt)."""
+    return make_oscillator_problem(dt)
+
+
+def cartpole_fmpc_problem_from_reference(dt: float, param, cost_weight,
+                                         u_max: float = 15.0,
+                                         x_max: float = 20.0):
+    """The constrained cart-pole FMPC problem built from the reference's
+    parameter dataclasses and the same bounds."""
+    return make_cartpole_fmpc_problem(
+        dt, param=CartPoleParam(**dataclasses.asdict(param)),
+        cost_weight=CartPoleCostWeight(**dataclasses.asdict(cost_weight)),
+        u_max=u_max, x_max=x_max)
+
+
+def fmpc_variable_from_numpy(device, dtype, xs, us, lambdas, ss,
+                             nus) -> FmpcVariable:
+    """A primal-dual iterate (e.g. a JAX ``FmpcVariable``'s fields as
+    numpy, batched or not) as tensors on ``device``."""
+    conv = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                     device=device).contiguous()
+    return FmpcVariable(xs=conv(xs), us=conv(us), lambdas=conv(lambdas),
+                        ss=conv(ss), nus=conv(nus))
+
+
+def fmpc_result_to_numpy(res: FmpcResult) -> dict:
+    """An FMPC result as a dict of numpy arrays (``variable`` and
+    ``trace`` nested dicts), field names as in ``FmpcResult``."""
+    nested = ("variable", "trace")
+    out = {f.name: getattr(res, f.name).cpu().numpy()
+           for f in dataclasses.fields(res) if f.name not in nested}
+    for name in nested:
+        sub = getattr(res, name)
+        out[name] = {f.name: getattr(sub, f.name).cpu().numpy()
+                     for f in dataclasses.fields(sub)}
     return out

@@ -185,3 +185,108 @@ class DDPResult:
     lam: torch.Tensor
     dlam: torch.Tensor
     trace: DDPTrace
+
+
+class FmpcStatus(enum.IntEnum):
+    """FMPC result status (reference ``FmpcSolver.h:92-114``)."""
+
+    UNINITIALIZED = 0
+    SUCCEEDED = 1
+    ERROR_IN_FORWARD = 2
+    ERROR_IN_BACKWARD = 3
+    ERROR_IN_UPDATE = 4
+    MAX_ITERATION_REACHED = 5
+    ITERATION_CONTINUED = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class FmpcConfig:
+    """FMPC solver configuration (reference ``FmpcSolver.h:58-89``).
+
+    ``print_level`` is carried for config parity and not acted on yet
+    (ROADMAP A12).  ``max_line_search_iter`` bounds the l1-merit Armijo
+    backtracking (the reference stops at alpha_s < 1e-10).
+
+    ``backward_impl`` selects the condensed Riccati backward of the
+    batched solve: ``"stacked"`` the torch-op recursion
+    (``solvers/fmpc.py::_backward_bm``); ``"pallas"`` the hand-written
+    CUDA kernel (``kernels/fmpc_backward.py``, source
+    ``csrc/fmpc_backward.cuh``; the name is kept from the JAX package, where
+    it names the fused Pallas kernel; on CPU tensors it runs the plain
+    version); ``"auto"`` the rule in
+    ``solvers/fmpc.py::_resolve_impls``.  ``forward_impl`` selects the
+    Δx/Δu recursion the same way: ``"scan"`` the plain loop, ``"fused"``
+    the CUDA kernel (``kernels/fmpc_forward.py``), ``"auto"``.
+    """
+
+    horizon_steps: int = 100
+    max_iter: int = 10
+    print_level: int = 0
+    kkt_error_thre: float = 1e-4
+    check_nan: bool = True
+    init_complementary_variable: bool = False
+    update_barrier_eps: bool = True
+    break_if_llt_fails: bool = False
+    enable_line_search: bool = False
+    merit_const_scale_from_lagrange_multipliers: bool = False
+    max_line_search_iter: int = 40
+    backward_impl: str = "auto"
+    forward_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.backward_impl not in ("auto", "stacked", "pallas"):
+            raise ValueError(
+                f"FmpcConfig.backward_impl must be one of 'auto', 'stacked', "
+                f"'pallas'; got {self.backward_impl!r}")
+        if self.forward_impl not in ("auto", "fused", "scan"):
+            raise ValueError(
+                f"FmpcConfig.forward_impl must be one of 'auto', 'fused', "
+                f"'scan'; got {self.forward_impl!r}")
+
+
+@dataclasses.dataclass
+class FmpcVariable:
+    """Primal-dual iterate (reference ``FmpcSolver::Variable``,
+    ``FmpcSolver.h:117-158``); also the warm start.  Batched variables
+    carry a leading batch axis."""
+
+    xs: torch.Tensor       # [N+1, nx]
+    us: torch.Tensor       # [N, nu]
+    lambdas: torch.Tensor  # [N+1, nx]  dynamics multipliers
+    ss: torch.Tensor       # [N, ng]    slacks (>= 0)
+    nus: torch.Tensor      # [N, ng]    inequality multipliers (>= 0)
+
+
+def fmpc_variable_reset(N, nx, nu, ng, x=0.0, u=0.0, lam=0.0, s=1.0,
+                        nu_=1.0, dtype=None, device=None) -> FmpcVariable:
+    """Constant-filled iterate (``FmpcSolver::Variable::reset``,
+    ``FmpcSolver.hpp:42-68``); ``dtype`` defaults to torch's default."""
+    dtype = dtype or torch.get_default_dtype()
+    full = lambda shape, v: torch.full(shape, v, dtype=dtype, device=device)
+    return FmpcVariable(xs=full((N + 1, nx), x), us=full((N, nu), u),
+                        lambdas=full((N + 1, nx), lam), ss=full((N, ng), s),
+                        nus=full((N, ng), nu_))
+
+
+@dataclasses.dataclass
+class FmpcTrace:
+    """Per-iteration trace (``FmpcSolver::TraceData``): column j holds
+    the KKT error of check j (column 0 is unused)."""
+
+    iter: torch.Tensor
+    kkt_error: torch.Tensor
+
+
+@dataclasses.dataclass
+class FmpcResult:
+    """Result of an FMPC solve; batched results carry a leading batch
+    axis."""
+
+    status: torch.Tensor        # int32, FmpcStatus
+    iters: torch.Tensor         # int32 KKT checks performed
+    variable: FmpcVariable
+    kkt_error: torch.Tensor     # KKT error at the last check
+    ks: torch.Tensor            # [N, nu] feedforward gains, last good backward
+    Ks: torch.Tensor            # [N, nu, nx] feedback gains
+    barrier_eps: torch.Tensor   # final barrier parameter
+    trace: FmpcTrace

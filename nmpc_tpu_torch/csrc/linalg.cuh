@@ -71,4 +71,58 @@ __device__ __forceinline__ void neg_chol_solve(const T L[N][N],
   }
 }
 
+// Inverse by Gauss-Jordan elimination with partial pivoting, the LU
+// fallback of the FMPC backward (fmpc_stage.cuh).  Same rules and order as
+// kernels/linalg.py::_inv_bl and the TPU's _inv_t
+// (nmpc_tpu/kernels/fmpc_backward_pallas.py:48-77): a row swaps when its
+// entry in the pivot column is strictly larger in magnitude; a zero pivot
+// becomes 1e-30.
+template <typename T, int N>
+__device__ __forceinline__ void gauss_jordan_inverse(const T A[N][N],
+                                                     T inv[N][N]) {
+  T a[N][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      a[i][j] = A[i][j];
+      inv[i][j] = i == j ? T(1) : T(0);
+    }
+  }
+#pragma unroll
+  for (int col = 0; col < N; ++col) {
+#pragma unroll
+    for (int r = col + 1; r < N; ++r) {
+      if (fabs(a[r][col]) > fabs(a[col][col])) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const T ta = a[col][j];
+          a[col][j] = a[r][j];
+          a[r][j] = ta;
+          const T ti = inv[col][j];
+          inv[col][j] = inv[r][j];
+          inv[r][j] = ti;
+        }
+      }
+    }
+    const T piv = a[col][col];
+    const T ipiv = T(1) / (piv == T(0) ? T(1e-30) : piv);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      a[col][j] = a[col][j] * ipiv;
+      inv[col][j] = inv[col][j] * ipiv;
+    }
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      if (r == col) continue;
+      const T f = a[r][col];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        a[r][j] = a[r][j] - f * a[col][j];
+        inv[r][j] = inv[r][j] - f * inv[col][j];
+      }
+    }
+  }
+}
+
 }  // namespace nmpc

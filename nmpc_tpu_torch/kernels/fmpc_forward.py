@@ -1,0 +1,112 @@
+"""FMPC forward Δx/Δu recursion: its plain version and the CUDA kernel's
+wrapper (TPU K11).
+
+Replaces ``nmpc_tpu/kernels/fmpc_forward_pallas.py::
+forward_fmpc_deltas_pallas``.  Source: ``csrc/fmpc_forward.cuh`` (one
+thread per lane, dx in registers, the next stage's coefficients loaded
+ahead), instantiated per (nx, nu, dtype) in a small generated unit that
+nvcc builds at first use without FMA contraction.
+
+:func:`forward_fmpc_deltas_fused` takes the plain version's arguments.  On
+CPU tensors it runs :func:`forward_fmpc_deltas_plain`; on CUDA tensors it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from nmpc_tpu_torch.kernels.build import build_generated, load
+from nmpc_tpu_torch.kernels.ddp_backward import _mv
+from nmpc_tpu_torch.kernels.ddp_backward_fused import _check
+from nmpc_tpu_torch.kernels.fmpc_backward import (DTYPES, FMPC_FLAGS, MAX_NU,
+                                                  MAX_NX)
+
+
+def forward_kernel_supports(nx: int, nu: int, dtype) -> bool:
+    """Whether the kernel takes this shape and dtype: 1 <= nx <= 8,
+    1 <= nu <= 4, float32 or float64 (any B and N)."""
+    return 1 <= nx <= MAX_NX and 1 <= nu <= MAX_NU and dtype in DTYPES
+
+
+def forward_fmpc_deltas_plain(A, Bm, xb, ks, Ks, dx0):
+    """The recursion ``du = K dx + k``, ``dx' = A dx + B du + x_bar``
+    (``FmpcSolver.hpp:668-708``), batch-minor: A [N,nx,nx,B], Bm
+    [N,nx,nu,B], xb [N,nx,B], ks [N,nu,B], Ks [N,nu,nx,B], dx0 [nx,B] ->
+    (dxs [N+1,nx,B], dus [N,nu,B]); dxs[i] is the delta before stage i,
+    dxs[N] the final carry."""
+    dx, dxs, dus = dx0, [], []
+    for i in range(A.shape[0]):
+        du = _mv(Ks[i], dx) + ks[i]                          # (2.36)
+        dxs.append(dx)
+        dus.append(du)
+        dx = _mv(A[i], dx) + _mv(Bm[i], du) + xb[i]          # (2.26b)
+    dxs.append(dx)
+    return torch.stack(dxs), torch.stack(dus)
+
+
+def unit_source(nx: int, nu: int, dtype) -> str:
+    """The unit instantiating the kernel at (nx, nu, dtype)."""
+    return (f"#include \"fmpc_forward.cuh\"\n\n"
+            f"extern \"C\" int fmpc_forward_launch(\n"
+            f"    int N, int B, const void* A, const void* Bm, "
+            f"const void* xb,\n    const void* ks, const void* Ks, "
+            f"const void* dx0, void* dxs, void* dus,\n    void* stream) {{\n"
+            f"  return nmpc::launch_fmpc_forward<{DTYPES[dtype]}, {nx}, "
+            f"{nu}>(\n      N, B, A, Bm, xb, ks, Ks, dx0, dxs, dus, "
+            f"stream);\n}}\n")
+
+
+def unit_name(nx: int, nu: int, dtype) -> str:
+    return f"fmpc_forward_{nx}x{nu}_{str(dtype)[6:]}"
+
+
+@functools.lru_cache(maxsize=32)
+def _launcher(nx: int, nu: int, dtype):
+    lib = load(build_generated(unit_name(nx, nu, dtype),
+                               unit_source(nx, nu, dtype), FMPC_FLAGS))
+    fn = lib.fmpc_forward_launch
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def forward_fmpc_deltas_fused(A, Bm, xb, ks, Ks, dx0):
+    """:func:`forward_fmpc_deltas_plain` by the CUDA kernel (same arguments
+    and results, every input contiguous)."""
+    N, nx = A.shape[0], A.shape[1]
+    nu = Bm.shape[2]
+    B = dx0.shape[-1]
+    dtype, device = dx0.dtype, dx0.device
+    for name, a, shape in (("A", A, (N, nx, nx, B)), ("Bm", Bm, (N, nx, nu, B)),
+                           ("xb", xb, (N, nx, B)), ("ks", ks, (N, nu, B)),
+                           ("Ks", Ks, (N, nu, nx, B)), ("dx0", dx0, (nx, B))):
+        _check(name, a, shape, dtype, device)
+    if device.type == "cpu":
+        return forward_fmpc_deltas_plain(A, Bm, xb, ks, Ks, dx0)
+    if device.type != "cuda":
+        raise ValueError(f"forward_fmpc_deltas_fused takes CPU or CUDA "
+                         f"tensors, got {device}")
+    if not forward_kernel_supports(nx, nu, dtype):
+        raise ValueError(f"the FMPC CUDA forward takes nx <= {MAX_NX}, "
+                         f"nu <= {MAX_NU} and float32/float64; got "
+                         f"({nx}, {nu}) {dtype}")
+    dxs = torch.empty((N + 1, nx, B), dtype=dtype, device=device)
+    dus = torch.empty((N, nu, B), dtype=dtype, device=device)
+    launch = _launcher(nx, nu, dtype)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = launch(N, B, A.data_ptr(), Bm.data_ptr(), xb.data_ptr(),
+                     ks.data_ptr(), Ks.data_ptr(), dx0.data_ptr(),
+                     dxs.data_ptr(), dus.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"FMPC forward kernel launch failed: CUDA error "
+                           f"{err}")
+    forward_fmpc_deltas_fused.launches += 1
+    return dxs, dus
+
+
+forward_fmpc_deltas_fused.launches = 0

@@ -9,7 +9,10 @@ Semantics match the reference's Eigen usage:
   * ``cholesky_small`` fails (ok=False) iff a pivot is <= 0 or non-finite,
     Eigen LLT's NumericalIssue (``DDPSolver.hpp:500-508``);
   * ``lu_solve_small`` is Gaussian elimination with partial pivoting, the
-    FullPivLU fallback role (``FmpcSolver.hpp:614-617``).
+    FullPivLU fallback role (``FmpcSolver.hpp:614-617``);
+  * ``_inv_bl`` is the batch-minor Gauss-Jordan inverse the batched FMPC
+    backward takes in that role (``nmpc_tpu/solvers/parallel_riccati.py::
+    _inv_bl``), the plain form of ``csrc/linalg.cuh::gauss_jordan_inverse``.
 """
 
 from __future__ import annotations
@@ -106,3 +109,36 @@ def lu_solve_small(A, B):
         x[i] = s / arows[i][..., i, None]
     X = torch.stack(x, dim=-2)
     return X[..., 0] if vec else X
+
+
+def _inv_bl(A):
+    """Inverse of ``A[n, n, E]`` (batch-minor) by unrolled Gauss-Jordan
+    elimination with partial pivoting: a row swaps when its entry in the
+    pivot column is strictly larger in magnitude, and a zero pivot is
+    replaced by 1e-30.  Every op is elementwise over the trailing axis."""
+    n = A.shape[0]
+    a = [[A[i, j] for j in range(n)] for i in range(n)]
+    zeros, ones = torch.zeros_like(A[0, 0]), torch.ones_like(A[0, 0])
+    inv = [[ones if i == j else zeros for j in range(n)] for i in range(n)]
+    for col in range(n):
+        for r in range(col + 1, n):
+            swap = torch.abs(a[r][col]) > torch.abs(a[col][col])
+            for j in range(n):
+                a[col][j], a[r][j] = (torch.where(swap, a[r][j], a[col][j]),
+                                      torch.where(swap, a[col][j], a[r][j]))
+                inv[col][j], inv[r][j] = (
+                    torch.where(swap, inv[r][j], inv[col][j]),
+                    torch.where(swap, inv[col][j], inv[r][j]))
+        piv = a[col][col]
+        ipiv = 1.0 / torch.where(piv == 0, torch.full_like(piv, 1e-30), piv)
+        for j in range(n):
+            a[col][j] = a[col][j] * ipiv
+            inv[col][j] = inv[col][j] * ipiv
+        for r in range(n):
+            if r == col:
+                continue
+            f = a[r][col]
+            for j in range(n):
+                a[r][j] = a[r][j] - f * a[col][j]
+                inv[r][j] = inv[r][j] - f * inv[col][j]
+    return torch.stack([torch.stack(row, dim=0) for row in inv], dim=0)

@@ -105,3 +105,32 @@ def make_cartpole_problem(
         terminal_cost=terminal_cost,
         input_limits=limits_fn,
     )
+
+
+def make_cartpole_fmpc_problem(
+    dt: float,
+    ref_pos_func: Optional[Callable] = None,
+    param: CartPoleParam = CartPoleParam(),
+    cost_weight: CartPoleCostWeight = CartPoleCostWeight(),
+    u_max: float = 15.0,
+    x_max: float = 20.0,
+) -> Problem:
+    """Cart-pole with force and cart-position inequality constraints,
+    g = [-u - u_max, u - u_max, -x - x_max, x - x_max] <= 0
+    (``TestFmpcCartPole.cpp:118-131``)."""
+    base = make_cartpole_problem(dt, ref_pos_func, param, cost_weight)
+
+    def ineq_const(t, x, u):
+        return torch.stack([-u[0] - u_max, u[0] - u_max,
+                            -x[0] - x_max, x[0] - x_max])
+
+    return Problem(
+        dt=dt,
+        state_dim=4,
+        input_dim=1,
+        dynamics=base.dynamics,
+        running_cost=base.running_cost,
+        terminal_cost=base.terminal_cost,
+        ineq_dim=4,
+        ineq_const=ineq_const,
+    )

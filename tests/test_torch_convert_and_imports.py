@@ -15,8 +15,12 @@ import nmpc_tpu
 import nmpc_tpu_torch
 from nmpc_tpu.core import types as jax_types
 from nmpc_tpu.models import cartpole as jax_cp
-from nmpc_tpu_torch.convert import (cartpole_problem_from_reference,
+from nmpc_tpu_torch.convert import (cartpole_fmpc_problem_from_reference,
+                                    cartpole_problem_from_reference,
                                     ddp_config_from_reference,
+                                    fmpc_config_from_reference,
+                                    fmpc_result_to_numpy,
+                                    fmpc_variable_from_numpy,
                                     result_to_numpy, tensors_from_numpy)
 from nmpc_tpu_torch.core import types
 
@@ -126,6 +130,76 @@ def test_import_scan_covers_the_boxed_slice():
     assert nmpc_tpu_torch.boxqp_solve.__module__ == (
         "nmpc_tpu_torch.solvers.boxqp")
     assert "boxqp_solve" in nmpc_tpu.__all__
+
+
+@pytest.mark.parametrize("make", [
+    lambda: jax_types.FmpcConfig(),
+    lambda: jax_types.FmpcConfig(horizon_steps=30, max_iter=4,
+                                 kkt_error_thre=0.0,
+                                 init_complementary_variable=True,
+                                 enable_line_search=True,
+                                 backward_impl="stacked",
+                                 forward_impl="scan"),
+], ids=["default", "custom"])
+def test_fmpc_config_carries_across(make):
+    """``FmpcConfig`` field for field with JAX's (names, order, defaults),
+    the same validation, and ``FmpcStatus`` with the same values."""
+    ref = make()
+    got = fmpc_config_from_reference(ref)
+    assert isinstance(got, types.FmpcConfig)
+    assert ([f.name for f in dataclasses.fields(got)]
+            == [f.name for f in dataclasses.fields(ref)])
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(types.FmpcConfig()) == dataclasses.asdict(
+        jax_types.FmpcConfig())
+    for bad in ({"backward_impl": "fused"}, {"forward_impl": "pallas"}):
+        with pytest.raises(ValueError):
+            types.FmpcConfig(**bad)
+        with pytest.raises(ValueError):
+            jax_types.FmpcConfig(**bad)
+    assert ({m.name: int(m) for m in types.FmpcStatus}
+            == {m.name: int(m) for m in jax_types.FmpcStatus})
+
+
+def test_fmpc_variable_and_result_round_trip():
+    """A JAX ``fmpc_variable_reset`` carried across by
+    ``fmpc_variable_from_numpy`` equals the port's own reset, and a
+    solve's result comes back as numpy with the JAX field names."""
+    ref = jax_types.fmpc_variable_reset(10, 4, 1, 4, x=0.5, s=2.0,
+                                        dtype=jnp.float64)
+    fields = {f.name: np.asarray(getattr(ref, f.name))
+              for f in dataclasses.fields(ref)}
+    got = fmpc_variable_from_numpy("cpu", torch.float64, **fields)
+    own = types.fmpc_variable_reset(10, 4, 1, 4, x=0.5, s=2.0,
+                                    dtype=torch.float64)
+    for name, arr in fields.items():
+        assert torch.equal(getattr(got, name), getattr(own, name))
+        np.testing.assert_array_equal(getattr(got, name).numpy(), arr)
+    solver = nmpc_tpu_torch.FmpcSolver(
+        cartpole_fmpc_problem_from_reference(0.01, jax_cp.CartPoleParam(),
+                                             jax_cp.CartPoleCostWeight()),
+        types.FmpcConfig(horizon_steps=10, max_iter=2))
+    res = fmpc_result_to_numpy(solver.solve(
+        0.0, torch.zeros(4, dtype=torch.float64), got))
+    assert set(res) == {f.name for f in dataclasses.fields(
+        jax_types.FmpcResult)}
+    assert res["variable"]["us"].shape == (10, 1)
+    assert res["trace"]["kkt_error"].shape == (3,)
+    assert res["status"].dtype == np.int32
+
+
+def test_import_scan_covers_the_fmpc_slice():
+    """The FMPC slice's modules are among the files the import check
+    scans, and its exports are the JAX package's names."""
+    assert {"nmpc_tpu_torch/solvers/fmpc.py",
+            "nmpc_tpu_torch/kernels/fmpc_backward.py",
+            "nmpc_tpu_torch/kernels/fmpc_forward.py",
+            "nmpc_tpu_torch/models/oscillator.py"} <= set(PORT_FILES)
+    for name in ("FmpcConfig", "FmpcResult", "FmpcStatus", "FmpcVariable",
+                 "fmpc_variable_reset", "FmpcSolver"):
+        assert name in nmpc_tpu_torch.__all__ and name in nmpc_tpu.__all__
+    assert nmpc_tpu_torch.FmpcSolver.__module__ == (
+        "nmpc_tpu_torch.solvers.fmpc")
 
 
 @pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])

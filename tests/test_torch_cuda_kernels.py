@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: the sweep-fed backward (K1) and its boxed variant (K4), the remat
-backward (K5, unboxed and boxed) and the fused rollouts (K6, K7).  Every test here is marked ``cuda`` and skips
-without a card; the file imports no JAX, so on the GPU machine it runs
-without the JAX package's conftest:
+backward (K5, unboxed and boxed), the fused rollouts (K6, K7), and FMPC's
+condensed Riccati backward (K8) and Δx/Δu recursion (K11).  Every test
+here is marked ``cuda`` and skips without a card; the file imports no JAX,
+so on the GPU machine it runs without the JAX package's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
@@ -13,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from nmpc_tpu_torch import DDPConfig, DDPSolver
+from nmpc_tpu_torch import (DDPConfig, DDPSolver, FmpcConfig, FmpcSolver,
+                            FmpcVariable, fmpc_variable_reset)
 from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds, StackedDerivs,
                                                  backward_stacked,
                                                  backward_stacked_boxed)
@@ -23,10 +25,15 @@ from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
                                                        backward_remat_plain)
 from nmpc_tpu_torch.kernels.ddp_forward_remat import (forward_costs_remat,
                                                       forward_selected_remat)
+from nmpc_tpu_torch.kernels.fmpc_backward import backward_fmpc_fused
+from nmpc_tpu_torch.kernels.fmpc_forward import (forward_fmpc_deltas_fused,
+                                                 forward_fmpc_deltas_plain)
 from nmpc_tpu_torch.kernels.tileval import TileEvalError
-from nmpc_tpu_torch.models.cartpole import make_cartpole_problem
+from nmpc_tpu_torch.models.cartpole import (make_cartpole_fmpc_problem,
+                                            make_cartpole_problem)
 from nmpc_tpu_torch.models.vertical import make_vertical_problem
 from nmpc_tpu_torch.solvers import ddp
+from nmpc_tpu_torch.solvers import fmpc
 
 torch.set_num_threads(1)
 
@@ -342,3 +349,98 @@ def test_boxed_solve_batch_goes_through_kernels(card, impls, counter):
     assert (res.us - ref.us).abs().max().item() <= 1e-10
     assert res.us[:, 0].min().item() >= 0.0
     assert res.us[:, 0].max().item() <= 30.0
+
+
+def _fmpc_case(B, N, dtype, device, seed=4):
+    """Cart-pole FMPC first-iteration data on ``device``: a random
+    batch-minor iterate (s, nu in [0.2, 1.2)), its coefficients, masks and
+    eps, with lane 7 NaN-poisoned (a NaN A) and lane 11 non-PD (Luu = -1e4
+    on every stage)."""
+    p = make_cartpole_fmpc_problem(DT)
+    rng = np.random.default_rng(seed)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    var = FmpcVariable(
+        xs=as_t(0.3 * rng.normal(size=(N + 1, 4, B))),
+        us=as_t(0.3 * rng.normal(size=(N, 1, B))),
+        lambdas=as_t(0.3 * rng.normal(size=(N + 1, 4, B))),
+        ss=as_t(0.2 + rng.uniform(size=(N, 4, B))),
+        nus=as_t(0.2 + rng.uniform(size=(N, 4, B))))
+    t0 = torch.zeros((), dtype=dtype, device=device)
+    co = fmpc._coeffs_bm(p, FmpcConfig(horizon_steps=N), t0, var)
+    co.A[3, 0, 1, 7] = float("nan")
+    co.Luu[:, :, :, 11] = -1e4
+    gms = fmpc._ineq_masks(p, t0 + DT * torch.arange(
+        N, dtype=dtype, device=device), dtype)
+    eps = torch.full((B,), 1e-4, dtype=dtype, device=device)
+    return p, co, var, gms, eps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("break_if_llt_fails", [False, True])
+def test_fmpc_backward_kernel_matches_plain(card, dtype, break_if_llt_fails):
+    """K8 vs ``_backward_bm`` on a ragged batch (B=300, N=17): ok and finite
+    masks equal (the NaN lane not finite; the non-PD lane takes the
+    Gauss-Jordan fallback, or fails with ``break_if_llt_fails``), the
+    outputs within TOL on the finite lanes."""
+    B, N = 300, 17
+    p, co, var, gms, eps = _fmpc_case(B, N, dtype, card)
+    cfg = FmpcConfig(horizon_steps=N, break_if_llt_fails=break_if_llt_fails)
+    before = backward_fmpc_fused.launches
+    out = backward_fmpc_fused(p, cfg, co, var.ss, var.nus, gms, eps)
+    torch.cuda.synchronize()
+    assert backward_fmpc_fused.launches == before + 1
+    ref = fmpc._backward_bm(p, cfg, co, var.ss, var.nus, gms, eps)
+    assert torch.equal(out[4], ref[4]) and torch.equal(out[5], ref[5])
+    assert not out[5][7] and int(out[5].sum()) == B - 1
+    assert bool(out[4][11]) != break_if_llt_fails
+    for a, b in zip(ref[:4], out[:4]):
+        assert _norm_err(a[..., ref[5]], b[..., ref[5]]) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fmpc_forward_kernel_matches_plain(card, dtype):
+    """K11 vs its plain recursion with gains from K8's plain version
+    (B=300, N=17, the NaN lane left out): within TOL, one launch."""
+    B, N = 300, 17
+    p, co, var, gms, eps = _fmpc_case(B, N, dtype, card)
+    ks, Ks, *_, finite = fmpc._backward_bm(
+        p, FmpcConfig(horizon_steps=N), co, var.ss, var.nus, gms, eps)
+    dx0 = (0.1 * torch.ones((4, B), dtype=dtype, device=card)).contiguous()
+    args = (co.A, co.B, co.x_bar, ks, Ks, dx0)
+    before = forward_fmpc_deltas_fused.launches
+    out = forward_fmpc_deltas_fused(*args)
+    torch.cuda.synchronize()
+    assert forward_fmpc_deltas_fused.launches == before + 1
+    for a, b in zip(forward_fmpc_deltas_plain(*args), out):
+        assert _norm_err(a[..., finite], b[..., finite]) <= TOL[dtype]
+
+
+def test_fmpc_auto_goes_through_kernels(card):
+    """fp64 cart-pole ``solve_batch`` (B=64, N=30, 5 iterations,
+    ``init_complementary_variable``) through ``auto`` launches K8 and K11
+    and agrees with the plain path on the card: statuses and iterations
+    equal, every variable within 1e-10."""
+    B, N = 64, 30
+    p = make_cartpole_fmpc_problem(DT)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(0.15 * rng.normal(size=(B, 4)), device=card)
+    v1 = fmpc_variable_reset(N, 4, 1, 4, dtype=torch.float64, device=card)
+    var = FmpcVariable(**{f: getattr(v1, f).expand(
+        B, *getattr(v1, f).shape).contiguous()
+        for f in ("xs", "us", "lambdas", "ss", "nus")})
+    eps = torch.full((B,), 1e-4, dtype=torch.float64, device=card)
+    cfg = FmpcConfig(horizon_steps=N, max_iter=5,
+                     init_complementary_variable=True)
+    counts = (backward_fmpc_fused.launches,
+              forward_fmpc_deltas_fused.launches)
+    res = FmpcSolver(p, cfg).solve_batch(0.0, x0s, var, eps)
+    assert backward_fmpc_fused.launches > counts[0]
+    assert forward_fmpc_deltas_fused.launches > counts[1]
+    ref = FmpcSolver(p, dataclasses.replace(
+        cfg, backward_impl="stacked", forward_impl="scan")).solve_batch(
+            0.0, x0s, var, eps)
+    assert torch.equal(res.status, ref.status)
+    assert torch.equal(res.iters, ref.iters)
+    for f in ("xs", "us", "lambdas", "ss", "nus"):
+        assert _norm_err(getattr(ref.variable, f),
+                         getattr(res.variable, f)) <= 1e-10
