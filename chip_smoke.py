@@ -9,12 +9,14 @@ Phases, one line each (a failed phase exits non-zero):
 
 1. build: generate the remat backward (K5), boxed remat backward (K5
    boxed) and rollout (K6, K7) units of the cart-pole and the
-   vertical-motion model from their callables, and the sweep-fed boxed
-   backward (K4) at (nx, nu) = (2, 2) and (4, 1), the FMPC backward (K8)
-   at (nx, nu, ng) = (2, 1, 3), (4, 1, 4), (2, 2, 2) and the FMPC
+   vertical-motion model from their callables, the sweep-fed backward in
+   its three layouts (K1, K2 chunked, K3 packed) at (nx, nu) = (4, 1) and
+   (2, 1), the sweep-fed boxed backward (K4) at (2, 2) and (4, 1), the
+   FMPC backward in its three layouts (K8 streaming, K9 resident, K10
+   packed) at (nx, nu, ng) = (2, 1, 3), (4, 1, 4), (2, 2, 2) and the FMPC
    recursion (K11) at (2, 1), (4, 1), (2, 2), for fp32 and fp64; then
-   compile them and ``csrc/ddp_backward.cu`` (K1) with nvcc, all at once;
-   print the seconds and ptxas' registers and spills;
+   compile them with nvcc, all at once; print the seconds and ptxas'
+   registers and spills;
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, fp32 and fp64: K1 and K5 at the headline shape (B=4096, N=100)
    and the tick shape (B=256, N=200), each with one non-PD lane and one
@@ -27,7 +29,12 @@ Phases, one line each (a failed phase exits non-zero):
    (B=4096, N=100, fp32); K8 against ``_backward_bm`` on first-iteration
    FMPC data (cart-pole B=4096, oscillator B=1024, N=100, both
    ``break_if_llt_fails``, a non-PD and a NaN lane; the two-input non-PD
-   case) and K11 against its plain recursion fed K8's gains;
+   case) and K11 against its plain recursion fed K8's gains; then the
+   layout variants against their plain versions and, bit for bit, their
+   parent kernels: K2 and K3 against K1 at the headline shape and the
+   bipedal shape (B=2048, N=300), K9 against K8 at the oscillator's N=20
+   (B=4096) and the cart-pole's largest N that fits, K10 at those and at
+   both FMPC shapes of phase 2, K9 and K10 on the two-input case;
 3. end to end: ``DDPSolver.solve_batch`` at the headline shape through
    the sweep-fed path (``backward_impl="pallas"``, ``forward_impl="scan"``:
    K1) and through ``auto`` (on the card: remat + fused, K5/K6/K7), each
@@ -43,20 +50,33 @@ Phases, one line each (a failed phase exits non-zero):
    N=100, 5 iterations) through ``auto`` (K8 + K11) and the plain path:
    fp64 on the stabilization and swing-up populations, fp32's converged
    set; fp64 ``solve`` of the oscillator against the NumPy golden FMPC;
+   then the bipedal config #2 (B=2048, N=300, 10 iterations) through
+   ``auto`` with each ``backward_dma`` (K1, K2, K3 and the plain rollouts)
+   and the plain path, and FMPC through ``backward_variant`` "resident"
+   and "stream" (oscillator N=20, B=4096) and "packed" (cart-pole
+   serving), at fp64 and fp32 against the plain path;
 4. serving: ``make_closed_loop_batch`` with 256 cart-pole controllers,
    N=200, 3 iterations, 20 ticks, through the fused path; with 256
    boxed vertical-motion controllers, N=100, 3 iterations, 20 ticks from
    t0=1.8 (the horizon crosses the contact switch), through ``auto``; and
    a warm-started loop of 256 FMPC oscillator controllers at fp64, N=100,
    3 iterations, 100 ticks, every applied input inside the constraints;
+   then the driver: ``run_mpc`` with one bipedal controller (fp64, N=300)
+   from t=0 for 35 steps (each horizon crosses the footsteps at 1.5, 2
+   and 3 s), its planned ZMP within 1e-2 of the reference at every step,
+   and its last steps again on the plain path and with
+   ``make_closed_loop``;
 5. times on the card: each kernel and its plain version (CUDA events)
-   beside its bound, solves/s and tick p50/p99 for each (backward,
-   forward) pair, and solves/s of the boxed vertical solve and of both
-   FMPC configurations for each pair;
+   beside its bound, the packs apart, solves/s and tick p50/p99 for each
+   (backward, forward) pair, solves/s of the boxed vertical solve and of
+   both FMPC configurations for each pair, and of the oscillator at N=20
+   and the cart-pole serving shape for each ``backward_variant`` (phase
+   3 prints the bipedal config's for each ``backward_dma``);
 6. with ``--layers`` only: where one solve's time goes at both shapes,
-   for each pair, for the boxed vertical solve and for both FMPC
-   configurations (synced time per solver layer, the device's busy time
-   and launches from ``torch.profiler``).
+   for each pair, for the boxed vertical solve, the bipedal config's
+   ``auto`` path at 2 iterations and the FMPC configurations (synced time
+   per solver layer, the device's busy time and launches from
+   ``torch.profiler``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -100,15 +120,20 @@ from nmpc_tpu_torch.kernels import tileval  # noqa: E402
 from nmpc_tpu_torch.kernels import ddp_backward_boxed as boxed  # noqa: E402
 from nmpc_tpu_torch.kernels.ddp_backward import (  # noqa: E402
     StackedBounds, StackedDerivs, backward_stacked, backward_stacked_boxed)
+from nmpc_tpu_torch.kernels import ddp_backward_fused as k1  # noqa: E402
 from nmpc_tpu_torch.kernels.ddp_backward_fused import backward_fused  # noqa: E402
 from nmpc_tpu_torch.kernels import fmpc_backward as k8  # noqa: E402
 from nmpc_tpu_torch.kernels import fmpc_forward as k11  # noqa: E402
+from nmpc_tpu_torch.models.bipedal import (  # noqa: E402
+    example_omega2_func, example_ref_zmp_func, make_bipedal_problem)
 from nmpc_tpu_torch.models.cartpole import (  # noqa: E402
     make_cartpole_fmpc_problem, make_cartpole_problem)
 from nmpc_tpu_torch.models.oscillator import make_oscillator_problem  # noqa: E402
 from nmpc_tpu_torch.models.vertical import (  # noqa: E402
     make_vertical_problem, num_contacts)
-from nmpc_tpu_torch.mpc.closed_loop import make_closed_loop_batch  # noqa: E402
+from nmpc_tpu_torch.mpc.closed_loop import (  # noqa: E402
+    make_closed_loop, make_closed_loop_batch)
+from nmpc_tpu_torch.mpc.driver import run_mpc, shift_warm_start  # noqa: E402
 from nmpc_tpu_torch.solvers import ddp as ddp_mod  # noqa: E402
 from nmpc_tpu_torch.solvers import fmpc as fmpc_mod  # noqa: E402
 from nmpc_tpu_torch.solvers.stages import _lanes as stages_lanes  # noqa: E402
@@ -180,8 +205,14 @@ class Kernel:
 
 KERNELS = {
     "K1": Kernel("ddp_backward_fused", backward_fused, "launches",
-                 "nmpc_tpu_torch/csrc/ddp_backward.cu",
+                 "nmpc_tpu_torch/csrc/ddp_backward.cuh",
                  "nmpc_tpu/kernels/ddp_backward_pallas.py:867"),
+    "K2": Kernel("ddp_backward_chunked", backward_fused, "chunked_launches",
+                 "nmpc_tpu_torch/csrc/ddp_backward_chunked.cuh",
+                 "nmpc_tpu/kernels/ddp_backward_pallas.py:651"),
+    "K3": Kernel("ddp_backward_packed", k1.backward_packed, "launches",
+                 "nmpc_tpu_torch/csrc/ddp_backward_packed.cuh",
+                 "nmpc_tpu/kernels/ddp_backward_pallas.py:1113"),
     "K4": Kernel("ddp_backward_boxed", boxed.backward_fused_boxed,
                  "launches", "nmpc_tpu_torch/csrc/ddp_backward_boxed.cuh",
                  "nmpc_tpu/kernels/ddp_backward_pallas.py:1018"),
@@ -201,12 +232,39 @@ KERNELS = {
     "K8": Kernel("fmpc_backward_fused", k8.backward_fmpc_fused, "launches",
                  "nmpc_tpu_torch/csrc/fmpc_backward.cuh",
                  "nmpc_tpu/kernels/fmpc_backward_pallas.py:558"),
+    "K9": Kernel("fmpc_backward_resident", k8.backward_fmpc_fused,
+                 "resident_launches",
+                 "nmpc_tpu_torch/csrc/fmpc_backward_resident.cuh",
+                 "nmpc_tpu/kernels/fmpc_backward_pallas.py:515"),
+    "K10": Kernel("fmpc_backward_packed", k8.backward_fmpc_packed, "launches",
+                  "nmpc_tpu_torch/csrc/fmpc_backward_packed.cuh",
+                  "nmpc_tpu/kernels/fmpc_backward_pallas.py:632"),
     "K11": Kernel("forward_fmpc_deltas_fused", k11.forward_fmpc_deltas_fused,
                   "launches", "nmpc_tpu_torch/csrc/fmpc_forward.cuh",
                   "nmpc_tpu/kernels/fmpc_forward_pallas.py:113"),
 }
 REMAT_PATH = ("K5", "K6", "K7")
 FMPC_PATH = ("K8", "K11")
+# The bipedal CoM-ZMP config #2 (benchmarks/bench_all.py:56-72): B=2048,
+# N=300, 10 iterations, x0 ~ 0.05 N(0, 1), zero inputs, fp32; the walk
+# ends at 20 s.  The generator rejects the model, so on the card it runs
+# the sweep-fed kernels (K1, K2, K3 by backward_dma) and plain rollouts.
+BIPEDAL = (2048, 300)
+BIPEDAL_END_T = 20.0
+DMA_KERNEL = {"stage": "K1", "chunked": "K2", "packed": "K3"}
+# The receding-horizon driver: one bipedal controller, fp64, N=300,
+# max_iter=500 (tests/test_ddp_models.py:22-40), from x=0 at t=0 to
+# DRIVER_END (each solve's 3 s horizon crosses the footsteps at 1.5, 2
+# and 3 s; a window across the first applied footstep, 155 solves of
+# ~1.6 s, would take half the run's time limit); the plain path and
+# make_closed_loop repeat the last DRIVER_WINDOW solves from the kernel
+# path's state; the planned ZMP u[0] within ZMP_TOL of the reference at
+# every step (TestDDPBipedal.cpp:252-273).
+DRIVER_END, DRIVER_WINDOW, ZMP_TOL = 0.35, 5, 1e-2
+# K9's design point: the oscillator at N=20, B=4096
+# (nmpc_tpu/kernels/fmpc_backward_pallas.py:460-466), 5 iterations.
+FMPC_OSC_SHORT = (4096, 20)
+VARIANT_KERNEL = {"stream": "K8", "resident": "K9", "packed": "K10"}
 
 
 class PhaseFailed(Exception):
@@ -460,8 +518,14 @@ def phase_build():
     nvcc per unit, all together."""
     cartpole = make_cartpole_problem(DT)
     start = time.perf_counter()
-    units = [("ddp_backward", None, ())]
+    units = []
     for dtype in (torch.float32, torch.float64):
+        # the sweep-fed backward in its three layouts (K1, K2, K3): the
+        # cart-pole and the bipedal model
+        for nx, nu in ((4, 1), (2, 1)):
+            for dma in k1.DMA_MODES:
+                units.append((k1.unit_name(nx, nu, dtype, dma),
+                              k1.unit_source(nx, nu, dtype, dma), ()))
         for mod in (remat, fwd):
             units.append((mod.unit_name(dtype),
                           mod.unit_source(cartpole, 4, 1, dtype), ()))
@@ -479,16 +543,16 @@ def phase_build():
         # FMPC: the oscillator, the constrained cart-pole, the two-input
         # problem of the non-PD check
         for nx, nu, ng in ((2, 1, 3), (4, 1, 4), (2, 2, 2)):
-            units.append((k8.unit_name(nx, nu, ng, dtype),
-                          k8.unit_source(nx, nu, ng, dtype), k8.FMPC_FLAGS))
+            for variant in k8.VARIANTS:
+                units.append((k8.unit_name(nx, nu, ng, dtype, variant),
+                              k8.unit_source(nx, nu, ng, dtype, variant),
+                              k8.FMPC_FLAGS))
             units.append((k11.unit_name(nx, nu, dtype),
                           k11.unit_source(nx, nu, dtype), k8.FMPC_FLAGS))
     gen_s = time.perf_counter() - start
 
     def compile_unit(unit):
         name, text, flags = unit
-        if text is None:
-            return kbuild.build(name)
         return kbuild.build_generated(name, text, flags)
 
     with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
@@ -673,10 +737,10 @@ def decision_flips(a, b, cost_update_thre):
     return out
 
 
-def solve_counted(problem, cfg, x0s, us0, t0=0.0):
+def solve_counted(problem, cfg, x0s, us0, t0=0.0, **solver_kw):
     """One solve_batch with every launch counter reset just before and
     read just after."""
-    solver = DDPSolver(problem, cfg)
+    solver = DDPSolver(problem, cfg, **solver_kw)
     reset_counts()
     res = solver.solve_batch(t0, x0s, us0)
     torch.cuda.synchronize()
@@ -1192,11 +1256,10 @@ def layer_clock(acc, count, module=ddp_mod, names=LAYERS):
 
 def phase_layers(device, card):
     """Where one solve's time goes, at both shapes and for the boxed
-    vertical config, for each (backward, forward) pair and the plain path:
+    vertical config, for each (backward, forward) pair and the plain path,
+    and for the bipedal config's ``auto`` path at 2 iterations:
     synced wall time, synced time per layer, and the device's busy time
     and kernel launches from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
     cartpole = make_cartpole_problem(DT)
     cells = []
     for label, (B, N), iters, ls_mode in (("headline", HEADLINE, 10, "auto"),
@@ -1212,45 +1275,66 @@ def phase_layers(device, card):
     cells.append(("boxed vertical", vertical_problem(), x0s, us0,
                   lambda pair, N=N: boxed_config(N, backward_impl=pair[0],
                                                  forward_impl=pair[1])))
-    for label, problem, x0s, us0, make_cfg in cells:
+    runs = [(label, problem, x0s, us0, make_cfg(pair), pair, "stage")
+            for label, problem, x0s, us0, make_cfg in cells
+            for pair in PAIRS + (("stacked", "scan"),)]
+    # the bipedal config's auto path at 2 of its 10 iterations: the
+    # profiler takes minutes to sort the ~60,000 launches of each of its
+    # iterations (the plain rollouts)
+    B, N = BIPEDAL
+    x0s, us0 = bipedal_start(B, N, torch.float32, device)
+    runs.append(("bipedal", bipedal_problem(), x0s, us0, DDPConfig(
+        horizon_steps=N, max_iter=2), ("pallas", "scan"), "stage"))
+    for label, problem, x0s, us0, cfg, pair, dma in runs:
         B, N = us0.shape[:2]
-        for pair in PAIRS + (("stacked", "scan"),):
-            cfg = make_cfg(pair)
-            solver = DDPSolver(problem, cfg)
-
-            def solve():
-                solver.solve_batch(0.0, x0s, us0)
-                torch.cuda.synchronize()
-
-            solve()
-            start = time.perf_counter()
-            solve()
-            wall = time.perf_counter() - start
-            acc, count = collections.defaultdict(float), collections.Counter()
-            with layer_clock(acc, count):
-                start = time.perf_counter()
-                solve()
-                synced = time.perf_counter() - start
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                solve()
-            events = prof.key_averages()
-            busy = sum(e.self_device_time_total for e in events) / 1e3
-            launches = sum(e.count for e in events
-                           if e.key.startswith("cudaLaunchKernel"))
-            parts = ", ".join(f"{name} {acc[name] * 1e3:.1f} ms x{count[name]}"
-                              for name in LAYERS if count[name])
-            rest = synced - sum(acc.values())
-            print(f"[layers] {label} B={B} N={N} max_iter={cfg.max_iter} "
-                  f"ls_mode={cfg.ls_mode} backward={pair[0]} forward="
-                  f"{pair[1]}: wall {wall * 1e3:.1f} ms, device busy "
-                  f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f} %), "
-                  f"cudaLaunchKernel {launches}, host syncs "
-                  f"{solver.host_syncs}; synced layers (total "
-                  f"{synced * 1e3:.1f} ms): {parts}, rest "
-                  f"{rest * 1e3:.1f} ms [{card}]", flush=True)
-            check(busy > 0, "the profiler saw no device time")
+        solver = DDPSolver(problem, cfg, backward_dma=dma)
+        wall, busy, launches, acc, count, synced = layered_solve(
+            lambda: solver.solve_batch(0.0, x0s, us0), acc_module=ddp_mod,
+            names=LAYERS)
+        parts = ", ".join(f"{name} {acc[name] * 1e3:.1f} ms x{count[name]}"
+                          for name in LAYERS if count[name])
+        rest = synced - sum(acc.values())
+        print(f"[layers] {label} B={B} N={N} max_iter={cfg.max_iter} "
+              f"ls_mode={cfg.ls_mode} backward={pair[0]} forward="
+              f"{pair[1]}{f' backward_dma={dma}' if dma != 'stage' else ''}: "
+              f"wall {wall * 1e3:.1f} ms, device busy "
+              f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f} %), "
+              f"cudaLaunchKernel {launches}, host syncs "
+              f"{solver.host_syncs}; synced layers (total "
+              f"{synced * 1e3:.1f} ms): {parts}, rest "
+              f"{rest * 1e3:.1f} ms [{card}]", flush=True)
     phase_layers_fmpc(device, card)
+
+
+def layered_solve(solve, acc_module, names):
+    """One warm solve, then (wall seconds of a synced solve, device busy
+    ms and kernel launches of a profiled solve, the synced seconds per
+    layer and their counts, the synced solve's seconds with the layers
+    clocked)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        solve()
+        torch.cuda.synchronize()
+
+    run()
+    start = time.perf_counter()
+    run()
+    wall = time.perf_counter() - start
+    acc, count = collections.defaultdict(float), collections.Counter()
+    with layer_clock(acc, count, acc_module, names):
+        start = time.perf_counter()
+        run()
+        synced = time.perf_counter() - start
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events
+                   if e.key.startswith("cudaLaunchKernel"))
+    check(busy > 0, "the profiler saw no device time")
+    return wall, busy, launches, acc, count, synced
 
 
 # --------------------------------------------------------------------------
@@ -1365,21 +1449,22 @@ def two_input_inputs(dtype, device, B=128, N=8):
                                             device=device)
 
 
-def hold_fmpc_backward(label, plain, out, dtype, B):
-    """K8 vs its plain version: ok and finite masks equal, outputs within
-    the kernel tolerance on the finite lanes; returns the largest absolute
-    difference and whether every output is equal bit for bit."""
+def hold_fmpc_backward(label, plain, out, dtype, B, key="K8"):
+    """An FMPC backward kernel (K8, K9, K10) vs its plain version: ok and
+    finite masks equal, outputs within the kernel tolerance on the finite
+    lanes; returns the largest absolute difference and whether every
+    output is equal bit for bit."""
     masks = torch.equal(plain[4], out[4]) and torch.equal(plain[5], out[5])
     lanes = plain[5]
     errs = {n: norm_err(a, b, lanes) for n, a, b in
             zip(("ks", "Ks", "s", "P"), plain[:4], out[:4])}
     bits = all(torch.equal(a[..., lanes], b[..., lanes])
                for a, b in zip(plain[:4], out[:4]))
-    print(f"[kernel] K8 {label}: ok lanes {int(out[4].sum())}/{B}, finite "
-          f"{int(out[5].sum())}/{B}, masks equal {masks}, bit-equal "
+    print(f"[kernel] {key} {label}: ok lanes {int(out[4].sum())}/{B}, "
+          f"finite {int(out[5].sum())}/{B}, masks equal {masks}, bit-equal "
           f"{bits}", flush=True)
-    check(masks, f"K8 {label}: kernel and plain ok/finite masks differ")
-    return report(f"K8 {label}", errs, dtype), bits
+    check(masks, f"{key} {label}: kernel and plain ok/finite masks differ")
+    return report(f"{key} {label}", errs, dtype), bits
 
 
 def phase_kernels_fmpc(device):
@@ -1719,55 +1804,476 @@ FMPC_INNER = ("forward_fmpc_deltas_fused", "forward_fmpc_deltas_plain")
 
 
 def phase_layers_fmpc(device, card):
-    """Where one FMPC solve's time goes at both shapes for each pair:
-    synced time of the coefficient sweep, KKT, backward, forward (the
-    recursion and the post-passes apart) and update, the host syncs, and
-    the device's busy time and launches from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for model, (B, N) in (("cart-pole", FMPC_SERVING),
-                          ("oscillator", FMPC_OSC)):
+    """Where one FMPC solve's time goes at both shapes for each pair, and
+    at the oscillator's N=20 for each backward variant: synced time of the
+    coefficient sweep, KKT, backward, forward (the recursion and the
+    post-passes apart) and update, the host syncs, and the device's busy
+    time and launches from ``torch.profiler``."""
+    runs = [(model, shape, pair, "stream")
+            for model, shape in (("cart-pole", FMPC_SERVING),
+                                 ("oscillator", FMPC_OSC))
+            for pair in FMPC_PAIRS]
+    runs += [("oscillator", FMPC_OSC_SHORT, FMPC_PAIRS[0], variant)
+             for variant in k8.VARIANTS]
+    for model, (B, N), pair, variant in runs:
         problem, x0s, var, eps = fmpc_start(model, B, N, torch.float32,
                                             device)
-        for pair in FMPC_PAIRS:
-            solver = FmpcSolver(problem, fmpc_config(
-                model, N, backward_impl=pair[0], forward_impl=pair[1]))
+        solver = FmpcSolver(problem, fmpc_config(
+            model, N, backward_impl=pair[0], forward_impl=pair[1]),
+            backward_variant=variant)
+        wall, busy, launches, acc, count, synced = layered_solve(
+            lambda: solver.solve_batch(0.0, x0s, var, eps), fmpc_mod,
+            FMPC_LAYERS + FMPC_INNER)
+        parts = ", ".join(f"{name} {acc[name] * 1e3:.1f} ms x{count[name]}"
+                          for name in FMPC_LAYERS + FMPC_INNER
+                          if count[name])
+        inner = sum(acc[n] for n in FMPC_INNER)
+        rest = synced - sum(acc[n] for n in FMPC_LAYERS)
+        print(f"[layers] FMPC {model} B={B} N={N} max_iter=5 backward="
+              f"{pair[0]} forward={pair[1]}"
+              f"{f' backward_variant={variant}' if variant != 'stream' else ''}"
+              f": wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+              f"({100 * busy / (wall * 1e3):.1f} %), cudaLaunchKernel "
+              f"{launches}, host syncs {solver.host_syncs}; synced "
+              f"layers (total {synced * 1e3:.1f} ms): {parts}; forward "
+              f"post-passes {(acc['_forward_bm'] - inner) * 1e3:.1f} ms, "
+              f"rest {rest * 1e3:.1f} ms [{card}]", flush=True)
 
-            def solve():
-                solver.solve_batch(0.0, x0s, var, eps)
+
+# --------------------------------------------------------------------------
+# The layout variants: the chunked and packed DDP backward (K2, K3) on the
+# bipedal model, the resident and packed FMPC backward (K9, K10), and the
+# receding-horizon driver
+# --------------------------------------------------------------------------
+
+
+@functools.cache
+def bipedal_problem():
+    """The bipedal CoM-ZMP model of config #2, one object for the run."""
+    return make_bipedal_problem(DT, example_ref_zmp_func(BIPEDAL_END_T),
+                                example_omega2_func())
+
+
+def bipedal_start(B, N, dtype, device):
+    """Config #2's batch (benchmarks/bench_all.py:66-68): x0 ~ 0.05 N(0, 1)
+    from seed 0, zero inputs."""
+    rng = np.random.default_rng(0)
+    return (torch.as_tensor(0.05 * rng.normal(size=(B, 2)), dtype=dtype,
+                            device=device),
+            torch.zeros((B, N, 1), dtype=dtype, device=device))
+
+
+def bipedal_derivs(B, N, dtype, device):
+    """K1/K2/K3's bipedal input: the stage derivatives of a rollout from
+    t0=1.2 (the horizon crosses the footsteps and the squat's start) with
+    inputs 0.02 N(0, 1), lane 1 made non-PD (Luu = -10) and lane 2
+    NaN-poisoned."""
+    problem, config = bipedal_problem(), DDPConfig(horizon_steps=N)
+    rng = np.random.default_rng(1)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    t0, us = as_t(1.2), as_t(0.02 * rng.normal(size=(N, 1, B))).contiguous()
+    xs, _ = ddp_mod._rollout_lanes(
+        problem, config, t0, as_t(0.05 * rng.normal(size=(2, B))), us)
+    D, VxT, VxxT = ddp_mod._derivative_sweep_lanes(problem, config, t0, xs,
+                                                   us)
+    D = StackedDerivs(*D[:7])
+    D.Luu[:, :, :, 1] = -10.0
+    D.Fx[N // 2, 0, 0, 2] = float("nan")
+    return D, VxT, VxxT
+
+
+def bit_equal(ref, out, lanes):
+    return all(torch.equal(a[..., lanes], b[..., lanes])
+               for a, b in zip(ref, out))
+
+
+def phase_kernels_variants(device):
+    """K2 and K3 vs the plain version and vs K1 at the headline shape and
+    the bipedal shape; K9 vs ``_backward_bm`` and K8 at the oscillator's
+    N=20 and the cart-pole's largest fitting N; K10 at the cart-pole
+    serving shape and the oscillator's config #4; K9 and K10 on the
+    two-input non-PD case; fp32 and fp64."""
+    bits = collections.Counter()
+    for model, (B, N) in (("cart-pole", HEADLINE), ("bipedal", BIPEDAL)):
+        for dtype in (torch.float32, torch.float64):
+            D, VxT, VxxT = (rollout_derivs if model == "cart-pole"
+                            else bipedal_derivs)(B, N, dtype, device)
+            cfg = DDPConfig(horizon_steps=N)
+            lam = torch.full((B,), 1e-4, dtype=dtype, device=device)
+            plain = backward_stacked(cfg, D, VxT, VxxT, lam)
+            parent = backward_fused(cfg, D, VxT, VxxT, lam)
+            for key, dma in (("K2", "chunked"), ("K3", "packed")):
+                out = backward_fused(cfg, D, VxT, VxxT, lam, dma=dma)
                 torch.cuda.synchronize()
+                label = f"{model} B={B} N={N} {str(dtype)[6:]}"
+                if dma == "chunked":
+                    C = k1.chunk_stages(D.Fx.shape[1], 1, N, dtype)
+                    label += f" C={C} (last chunk {N - (N - 1) // C * C})"
+                check_ok(f"{key} {label}", plain[3], out[3], B)
+                err = report(f"{key} {label}", {
+                    n: norm_err(a, b, plain[3]) for n, a, b in
+                    zip(("ks", "Ks", "dV"), plain, out)}, dtype)
+                KERNELS[key].max_abs_err = max(KERNELS[key].max_abs_err, err)
+                same = (torch.equal(parent[3], out[3])
+                        and bit_equal(parent[:3], out[:3], parent[3]))
+                bits[key] += same
+                print(f"[kernel] {key} {label}: bit-equal to K1 on its ok "
+                      f"lanes {same}", flush=True)
 
-            solve()
+    def fmpc_case(label, problem, cfg, co, v, gms, eps, B):
+        plain = fmpc_mod._backward_bm(problem, cfg, co, v.ss, v.nus, gms, eps)
+        parent = k8.backward_fmpc_fused(problem, cfg, co, v.ss, v.nus, gms,
+                                        eps)
+        for key, variant in (("K9", "resident"), ("K10", "packed")):
+            if key == "K9" and not k8.resident_fits(
+                    problem.state_dim, problem.input_dim, problem.ineq_dim,
+                    co.A.shape[0], eps.dtype):
+                continue
+            out = k8.backward_fmpc_fused(problem, cfg, co, v.ss, v.nus, gms,
+                                         eps, variant=variant)
+            torch.cuda.synchronize()
+            err, _ = hold_fmpc_backward(label, plain, out, eps.dtype, B, key)
+            KERNELS[key].max_abs_err = max(KERNELS[key].max_abs_err, err)
+            same = (torch.equal(parent[4], out[4])
+                    and torch.equal(parent[5], out[5])
+                    and bit_equal(parent[:4], out[:4], parent[5]))
+            bits[key] += same
+            print(f"[kernel] {key} {label}: bit-equal to K8 on its finite "
+                  f"lanes {same}", flush=True)
+            yield key, out
+
+    for dtype in (torch.float32, torch.float64):
+        fits_n = max(n for n in range(1, 33)
+                     if k8.resident_fits(4, 1, 4, n, dtype))
+        cases = (("oscillator", FMPC_OSC_SHORT), ("cart-pole", (4096, fits_n)),
+                 ("cart-pole", FMPC_SERVING), ("oscillator", FMPC_OSC))
+        for model, (B, N) in cases:
+            problem, config, co, v, gms, eps, _ = fmpc_kernel_inputs(
+                model, B, N, dtype, device)
+            for brk in (False, True):
+                cfg = dataclasses.replace(config, break_if_llt_fails=brk)
+                label = (f"{model} B={B} N={N} {str(dtype)[6:]} "
+                         f"break_if_llt_fails={brk}")
+                for key, out in fmpc_case(label, problem, cfg, co, v, gms,
+                                          eps, B):
+                    clean = torch.ones((B,), dtype=torch.bool, device=device)
+                    clean[1:3] = False
+                    check(not bool(out[5][2]) and bool(out[5][clean].all())
+                          and bool(out[4][1]) != brk,
+                          f"{key} {label}: the NaN or non-PD lane's flags "
+                          f"are wrong")
+        problem, co, v, gms, eps = two_input_inputs(dtype, device)
+        for brk in (False, True):
+            cfg = FmpcConfig(horizon_steps=8, break_if_llt_fails=brk)
+            label = (f"two-input non-PD B={eps.shape[0]} N=8 "
+                     f"{str(dtype)[6:]} break_if_llt_fails={brk}")
+            for _ in fmpc_case(label, problem, cfg, co, v, gms, eps,
+                               eps.shape[0]):
+                pass
+    print(f"[kernel] checks bit-equal to the parent kernel (K1 for K2/K3, K8 "
+          f"for K9/K10): {dict(bits)}", flush=True)
+
+
+def resolved_impls(problem, cfg, dtype, device):
+    """(backward, forward) that the DDP solver resolves for ``cfg``."""
+    bw = ddp_mod._resolve_backward_impl(cfg, problem, dtype, device, False,
+                                        False)
+    fw = ddp_mod._resolve_forward_impl(cfg, problem, dtype, device, dtype)
+    return bw, fw
+
+
+def phase_e2e_variants(device):
+    """The bipedal solve of config #2 through ``auto`` with each
+    ``backward_dma`` (K1, K2, K3) and on the plain path, fp64 (statuses
+    and iterations equal, u within 1e-8) and fp32 (u and cost to the
+    contract, decision flips listed); FMPC at the oscillator's N=20
+    through ``"resident"`` (K9) and ``"stream"`` (K8), and at the
+    cart-pole serving shape through ``"packed"`` (K10), against the plain
+    path with the contracts of the existing FMPC checks."""
+    B, N = BIPEDAL
+    problem = bipedal_problem()
+    cfg = DDPConfig(horizon_steps=N, max_iter=10)
+    plain_kw = {"backward_impl": "stacked", "forward_impl": "scan"}
+    print(f"[e2e] bipedal: auto resolves to (backward, forward) = "
+          f"{resolved_impls(problem, cfg, torch.float32, device)}",
+          flush=True)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype)[6:]
+        x0s, us0 = bipedal_start(B, N, dtype, device)
+        runs, secs = {}, {}
+        for name in k1.DMA_MODES + ("plain",):
             start = time.perf_counter()
-            solve()
-            wall = time.perf_counter() - start
-            acc, count = collections.defaultdict(float), collections.Counter()
-            with layer_clock(acc, count, fmpc_mod,
-                             FMPC_LAYERS + FMPC_INNER):
-                start = time.perf_counter()
-                solve()
-                synced = time.perf_counter() - start
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                solve()
-            events = prof.key_averages()
-            busy = sum(e.self_device_time_total for e in events) / 1e3
-            launches = sum(e.count for e in events
-                           if e.key.startswith("cudaLaunchKernel"))
-            parts = ", ".join(f"{name} {acc[name] * 1e3:.1f} ms x{count[name]}"
-                              for name in FMPC_LAYERS + FMPC_INNER
-                              if count[name])
-            inner = sum(acc[n] for n in FMPC_INNER)
-            rest = synced - sum(acc[n] for n in FMPC_LAYERS)
-            print(f"[layers] FMPC {model} B={B} N={N} max_iter=5 backward="
-                  f"{pair[0]} forward={pair[1]}: wall {wall * 1e3:.1f} ms, "
-                  f"device busy {busy:.1f} ms "
-                  f"({100 * busy / (wall * 1e3):.1f} %), cudaLaunchKernel "
-                  f"{launches}, host syncs {solver.host_syncs}; synced "
-                  f"layers (total {synced * 1e3:.1f} ms): {parts}; forward "
-                  f"post-passes {(acc['_forward_bm'] - inner) * 1e3:.1f} ms, "
-                  f"rest {rest * 1e3:.1f} ms [{card}]", flush=True)
-            check(busy > 0, "the profiler saw no device time")
+            runs[name] = (solve_counted(problem, dataclasses.replace(
+                cfg, **plain_kw), x0s, us0) if name == "plain" else
+                solve_counted(problem, cfg, x0s, us0, backward_dma=name))
+            secs[name] = time.perf_counter() - start
+        ref = runs["plain"][0]
+        for name, (res, counts, syncs) in runs.items():
+            finite = bool(torch.isfinite(res.us).all()
+                          and torch.isfinite(res.xs).all())
+            st, it, du, dc = e2e_compare(res, ref)
+            flips = decision_flips(res, ref, cfg.cost_update_thre)
+            same = all(torch.equal(getattr(res, f), getattr(runs["stage"][0], f))
+                       for f in ("status", "iters", "us", "xs"))
+            print(f"[e2e] bipedal B={B} N={N} max_iter=10 {dname} "
+                  f"backward_dma={name}: {secs[name]:.4f} s "
+                  f"({B / secs[name]:.1f} solves/s, host clock, one synced "
+                  f"solve), launches {counts}, host syncs {syncs}, status "
+                  f"counts "
+                  f"{torch.bincount(res.status, minlength=5).tolist()}; vs "
+                  f"plain: status equal {st}, iters equal {it}, u norm diff "
+                  f"{du:.3e}, cost rel diff {dc:.3e}; lanes that differ: "
+                  f"{'; '.join(flips[:8]) or 'none'}"
+                  f"{f' (+{len(flips) - 8} more)' if len(flips) > 8 else ''}"
+                  f"; equal to the stage run bit for bit {same}", flush=True)
+            check(finite, f"bipedal {dname} {name}: non-finite output")
+            check(du <= E2E_U_NORM and dc <= E2E_COST_REL,
+                  f"bipedal {dname} {name}: u or cost vs plain out of the "
+                  f"contract")
+            if dtype == torch.float64:
+                check(st and it and du <= E2E_U_NORM_FP64,
+                      f"bipedal fp64 {name} vs plain")
+            if name == "plain":
+                check(not any(counts.values()),
+                      "the plain bipedal solve launched a kernel")
+                continue
+            key = DMA_KERNEL[name]
+            others = {"K1", "K2", "K3", "K5", "K6", "K7"} - {key}
+            check(counts[key] > 0 and not any(counts[k] for k in others),
+                  f"bipedal backward_dma={name} did not run {key} alone")
+            if dtype == torch.float32:
+                KERNELS[key].launches = counts[key]
+
+    def fmpc_runs(model, B, N, dtype, cfg, variants):
+        problem, x0s, var, eps = fmpc_start(model, B, N, dtype, device)
+        out = {}
+        for variant in variants:
+            solver = FmpcSolver(problem, cfg, backward_variant=variant)
+            reset_counts()
+            res = solver.solve_batch(0.0, x0s, var, eps)
+            torch.cuda.synchronize()
+            out[variant] = (res, read_counts(), solver.host_syncs)
+        out["plain"] = fmpc_solve_counted(problem, dataclasses.replace(
+            cfg, backward_impl="stacked", forward_impl="scan"), x0s, var, eps)
+        return out
+
+    for model, (B, N), variants in (
+            ("oscillator", FMPC_OSC_SHORT, ("resident", "stream")),
+            ("cart-pole", FMPC_SERVING, ("packed",))):
+        cfg = fmpc_config(model, N)
+        runs = fmpc_runs(model, B, N, torch.float32, cfg, variants)
+        for variant in variants:
+            res, counts, syncs = runs[variant]
+            key = VARIANT_KERNEL[variant]
+            others = {"K8", "K9", "K10"} - {key}
+            finite = all(bool(torch.isfinite(getattr(res.variable, f)).all())
+                         for f in VARIABLE)
+            print(f"[e2e] FMPC {model} B={B} N={N} max_iter=5 fp32 "
+                  f"backward_variant={variant}: launches {counts}, host syncs "
+                  f"{syncs}, status counts "
+                  f"{torch.bincount(res.status, minlength=7).tolist()}, "
+                  f"finite {finite}", flush=True)
+            check(finite and counts[key] > 0 and counts["K11"] > 0
+                  and not any(counts[k] for k in others),
+                  f"FMPC {model} {variant}: non-finite or not through {key}")
+            if key != "K8":
+                KERNELS[key].launches = counts[key]
+        runs = fmpc_runs(model, B, N, torch.float64, cfg, variants)
+        for variant in variants:
+            st, it, dv, n_status = fmpc_compare(runs[variant][0],
+                                                runs["plain"][0])
+            print(f"[e2e] FMPC {model} B={B} N={N} max_iter=5 fp64 "
+                  f"backward_variant={variant}: status counts {n_status}; vs "
+                  f"plain: status equal {st}, iters equal {it}, variable "
+                  f"norm diff {dv:.3e} (tol {E2E_FMPC_FP64:g})", flush=True)
+            check(st and it and dv <= E2E_FMPC_FP64,
+                  f"FMPC {model} fp64 {variant} vs plain out of the contract")
+        # fp32: the converged set equal to the plain path's and u within
+        # E2E_FMPC_U on it; the oscillator at N=20 converges on no lane
+        # within 10 iterations at kkt_error_thre=1e-2, so there the
+        # statuses must be equal and u within E2E_FMPC_U on every lane
+        cfg32 = dataclasses.replace(cfg, max_iter=10, kkt_error_thre=1e-2)
+        runs = fmpc_runs(model, B, N, torch.float32, cfg32, variants)
+        b = runs["plain"][0]
+        for variant in variants:
+            a = runs[variant][0]
+            conv = a.status == FmpcStatus.SUCCEEDED
+            same = torch.equal(conv, b.status == FmpcStatus.SUCCEEDED)
+            n_conv = int(conv.sum())
+            lanes = conv if n_conv >= B // 4 else torch.ones_like(conv)
+            du = (a.variable.us - b.variable.us)[lanes].abs().max().item()
+            st = torch.equal(a.status, b.status)
+            print(f"[e2e] FMPC {model} B={B} N={N} max_iter=10 "
+                  f"kkt_error_thre=1e-2 fp32 backward_variant={variant}: "
+                  f"converged {n_conv}/{B}, converged set equal to the plain "
+                  f"path's {same}, statuses equal {st}, max|du| on "
+                  f"{'it' if n_conv >= B // 4 else 'every lane'} {du:.3e} "
+                  f"(tol {E2E_FMPC_U:g})", flush=True)
+            check(same and du <= E2E_FMPC_U and (n_conv >= B // 4 or st),
+                  f"FMPC {model} fp32 {variant}: converged-lane contract")
+
+
+def phase_driver(device, card):
+    """``run_mpc`` with one bipedal controller (fp64, N=300) from x=0 at
+    t=0 to DRIVER_END through ``auto`` (K1 at (2, 1) and the plain
+    rollouts): the planned ZMP within ZMP_TOL of the reference at every
+    step; then the last DRIVER_WINDOW steps again on the plain path and
+    with ``make_closed_loop``, from the kernel path's state and warm
+    start: iterations and statuses equal, states and inputs within
+    1e-8."""
+    problem, N = bipedal_problem(), BIPEDAL[1]
+    cfg = DDPConfig(horizon_steps=N, max_iter=500)
+    ref = example_ref_zmp_func(BIPEDAL_END_T)
+    end_t = DRIVER_END - 0.5 * DT
+    errs, warm = [], []
+
+    def record(t, x, u, res):
+        t64 = torch.tensor(t, dtype=torch.float64)
+        errs.append(abs(float(u[0]) - float(ref(t64))))
+        warm.append(shift_warm_start(problem, t + DT, res.us))
+
+    reset_counts()
+    log = run_mpc(DDPSolver(problem, cfg),
+                  torch.zeros(2, dtype=torch.float64, device=device),
+                  t0=0.0, end_t=end_t, callback=record)
+    counts = read_counts()
+    k = len(log.ts) - DRIVER_WINDOW
+    t_k, x_k = float(log.ts[k]), torch.as_tensor(log.xs[k], device=device)
+    reset_counts()
+    plain = run_mpc(DDPSolver(problem, dataclasses.replace(
+        cfg, backward_impl="stacked", forward_impl="scan")), x_k, t0=t_k,
+        end_t=end_t, us_init=warm[k - 1])
+    plain_counts = read_counts()
+    closed = make_closed_loop(DDPSolver(problem, cfg), DRIVER_WINDOW)(
+        t_k, x_k, warm[k - 1])
+    torch.cuda.synchronize()
+    rows = slice(k, None)
+    d_plain = max(np.abs(plain.xs - log.xs[rows]).max(),
+                  np.abs(plain.us - log.us[rows]).max())
+    d_closed = max(np.abs(closed.xs.cpu().numpy() - log.xs[rows]).max(),
+                   np.abs(closed.us.cpu().numpy() - log.us[rows]).max())
+    same_plain = (np.array_equal(plain.solve_iters, log.solve_iters[rows])
+                  and np.array_equal(plain.solve_status,
+                                     log.solve_status[rows]))
+    same_closed = (np.array_equal(closed.iters.cpu().numpy(),
+                                  log.solve_iters[rows])
+                   and np.array_equal(closed.status.cpu().numpy(),
+                                      log.solve_status[rows]))
+    wall = log.solve_wall_ms
+    print(f"[driver] run_mpc bipedal N={N} fp64 auto, t=0..{log.ts[-1]:.2f} "
+          f"({len(log.ts)} solves): max |u0 - ref ZMP| {max(errs):.3e} (tol "
+          f"{ZMP_TOL:g}), iterations {int(log.solve_iters.min())}.."
+          f"{int(log.solve_iters.max())}, statuses "
+          f"{sorted(set(log.solve_status.tolist()))}, solve wall p50 "
+          f"{np.percentile(wall, 50):.2f} ms, p99 {np.percentile(wall, 99):.2f}"
+          f" ms; launches {counts} [{card}]", flush=True)
+    print(f"[driver] last {DRIVER_WINDOW} steps from t={t_k:.2f}: plain path "
+          f"(launches {plain_counts}) iterations and statuses equal "
+          f"{same_plain}, max|dx|,|du| {d_plain:.3e}, solve wall p50 "
+          f"{np.percentile(plain.solve_wall_ms, 50):.2f} ms; make_closed_loop "
+          f"iterations and statuses equal {same_closed}, max|dx|,|du| "
+          f"{d_closed:.3e} (tol {E2E_U_NORM_FP64:g})", flush=True)
+    check(max(errs) <= ZMP_TOL, "driver: the planned ZMP left the reference")
+    check(counts["K1"] > 0 and not any(counts[key] for key in REMAT_PATH),
+          "driver: the bipedal solves did not run K1")
+    check(not any(plain_counts.values()),
+          "driver: the plain path launched a kernel")
+    check(same_plain and same_closed and d_plain <= E2E_U_NORM_FP64
+          and d_closed <= E2E_U_NORM_FP64,
+          "driver: the plain path or make_closed_loop parts from run_mpc")
+
+
+def fmpc_packed_parts(problem, cfg, co, v, gms, eps):
+    """K10's own call: (its packed input, the terminal (s_T, P_T), the
+    pack as a function)."""
+    nu_s, tilde = k8.condensation(co, v.ss, v.nus, gms, eps)
+    pack = lambda: k8.pack_fmpc_inputs(co, nu_s, tilde)
+    return pack(), -co.Lx_bar_term, co.Lxx_term, pack
+
+
+def phase_times_variants(device, card):
+    """K2, K3, K9 and K10 against their plain versions and their parent
+    kernel (CUDA events) beside their bounds, the packs' time apart; then
+    solves/s of the oscillator at N=20 and the cart-pole serving shape per
+    ``backward_variant`` (the bipedal solves/s per ``backward_dma`` are
+    phase 3's, one 11-13 s solve each)."""
+    dtype = torch.float32
+    for model, (B, N) in (("cart-pole", HEADLINE), ("bipedal", BIPEDAL)):
+        D, VxT, VxxT = (rollout_derivs if model == "cart-pole"
+                        else bipedal_derivs)(B, N, dtype, device)
+        nx = D.Fx.shape[1]
+        cfg = DDPConfig(horizon_steps=N)
+        lam = torch.full((B,), 1e-4, device=device)
+        P = k1.pack_derivs(D)
+        nbytes = moved_bytes("K1", B, N, 4, nx, 1)
+        ops = B * N * riccati_ops(nx, 1, 1, False)
+        label = f"{model} B={B} N={N}"
+        keep = model == "cart-pole"
+        plain = lambda: backward_stacked(cfg, D, VxT, VxxT, lam)
+        t_k1 = cuda_ms(lambda: backward_fused(cfg, D, VxT, VxxT, lam),
+                       inner=10)
+        t_pack = cuda_ms(lambda: k1.pack_derivs(D), inner=10)
+        print(f"[times] K1 {label} fp32 in this phase: {t_k1:.4f} ms; "
+              f"pack_derivs {t_pack:.4f} ms [{card}]", flush=True)
+        record_time("K2", lambda: backward_fused(cfg, D, VxT, VxxT, lam,
+                                                 dma="chunked"),
+                    plain, nbytes, ops, label, keep, card)
+        record_time("K3", lambda: k1.backward_packed(cfg, P, nx, 1, VxT, VxxT,
+                                                     lam),
+                    lambda: backward_stacked(cfg, k1.unpack_derivs(P, nx, 1),
+                                             VxT, VxxT, lam),
+                    nbytes, ops, label, keep, card)
+
+    for key, model, (B, N), keep in (
+            ("K9", "oscillator", FMPC_OSC_SHORT, True),
+            ("K9", "cart-pole", (4096, 23), False),
+            ("K10", "cart-pole", FMPC_SERVING, True),
+            ("K10", "oscillator", FMPC_OSC, False)):
+        problem, cfg, co, v, gms, eps, _ = fmpc_kernel_inputs(
+            model, B, N, dtype, device, poison=False)
+        nx, nu, ng = problem.state_dim, problem.input_dim, problem.ineq_dim
+        label = f"{model} B={B} N={N}"
+        t_k8 = cuda_ms(lambda: k8.backward_fmpc_fused(
+            problem, cfg, co, v.ss, v.nus, gms, eps), inner=10)
+        plain = lambda: fmpc_mod._backward_bm(problem, cfg, co, v.ss, v.nus,
+                                              gms, eps)
+        if key == "K9":
+            print(f"[times] K8 {label} fp32 in this phase: {t_k8:.4f} ms "
+                  f"[{card}]", flush=True)
+            record_time(key, lambda: k8.backward_fmpc_fused(
+                problem, cfg, co, v.ss, v.nus, gms, eps, variant="resident"),
+                plain, fmpc_bytes("K8", B, N, 4, nx, nu, ng),
+                B * N * fmpc_stage_ops(nx, nu, ng), label, keep, card)
+            continue
+        P_in, s_T, P_T, pack = fmpc_packed_parts(problem, cfg, co, v, gms,
+                                                 eps)
+        _, Fin, _, Fout = k8.field_offsets(nx, nu, ng)
+        t_pack = cuda_ms(pack, inner=10)
+        t_whole = cuda_ms(lambda: k8.backward_fmpc_fused(
+            problem, cfg, co, v.ss, v.nus, gms, eps, variant="packed"),
+            inner=10)
+        print(f"[times] K8 {label} fp32 in this phase: {t_k8:.4f} ms; "
+              f"pack_fmpc_inputs {t_pack:.4f} ms; the packed variant "
+              f"end to end (condensation, pack, K10, slicing) {t_whole:.4f} "
+              f"ms [{card}]", flush=True)
+        record_time(key, lambda: k8.backward_fmpc_packed(
+            problem, cfg, P_in, s_T, P_T, nx, nu, ng),
+            lambda: k8.backward_fmpc_packed_plain(
+                problem, cfg, P_in, s_T, P_T, nx, nu, ng),
+            4 * B * (N * (Fin + Fout) + nx + nx * nx) + 2 * B,
+            B * N * (fmpc_stage_ops(nx, nu, ng) - 5 * ng), label, keep, card)
+
+    for model, (B, N) in (("oscillator", FMPC_OSC_SHORT),
+                          ("cart-pole", FMPC_SERVING)):
+        problem, x0s, var, eps = fmpc_start(model, B, N, dtype, device)
+        for variant in k8.VARIANTS:
+            solver = FmpcSolver(problem, fmpc_config(model, N),
+                                backward_variant=variant)
+            secs = timed_fmpc(solver, x0s, var, eps, 5)
+            med = statistics.median(secs)
+            print(f"[times] FMPC {model} solve_batch B={B} N={N} max_iter=5 "
+                  f"fp32 backward_variant={variant}: median {med:.4f} s, "
+                  f"{B / med:.1f} solves/s [{card}]", flush=True)
 
 
 def main() -> int:
@@ -1789,9 +2295,13 @@ def main() -> int:
           flush=True)
     phases = [("build", phase_build),
               ("kernels", lambda: phase_kernels(device)),
+              ("kernels-variants", lambda: phase_kernels_variants(device)),
               ("e2e", lambda: phase_e2e(device)),
+              ("e2e-variants", lambda: phase_e2e_variants(device)),
               ("serving", lambda: phase_serving(device, card)),
-              ("times", lambda: phase_times(device, card))]
+              ("driver", lambda: phase_driver(device, card)),
+              ("times", lambda: phase_times(device, card)),
+              ("times-variants", lambda: phase_times_variants(device, card))]
     if args.layers:
         phases.append(("layers", lambda: phase_layers(device, card)))
     try:

@@ -14,6 +14,10 @@ import torch
 
 from nmpc_tpu_torch.core.types import (BoxQPConfig, DDPConfig, DDPResult,
                                         FmpcConfig, FmpcResult, FmpcVariable)
+from nmpc_tpu_torch.models.bipedal import (BipedalCostWeight,
+                                           example_omega2_func,
+                                           example_ref_zmp_func,
+                                           make_bipedal_problem)
 from nmpc_tpu_torch.models.cartpole import (CartPoleCostWeight, CartPoleParam,
                                             make_cartpole_fmpc_problem,
                                             make_cartpole_problem)
@@ -46,6 +50,16 @@ def vertical_problem_from_reference(dt: float, cost_weight,
     return make_vertical_problem(
         dt, cost_weight=VerticalCostWeight(**dataclasses.asdict(cost_weight)),
         force_limits=tuple(force_limits), with_limits=with_limits)
+
+
+def bipedal_problem_from_reference(dt: float, end_t: float, cost_weight):
+    """The bipedal CoM-ZMP problem of the reference's example: the
+    footstep ZMP reference of a walk ending at ``end_t``, the squat
+    omega^2 profile, and the weights of the reference's
+    ``BipedalCostWeight`` dataclass."""
+    return make_bipedal_problem(
+        dt, example_ref_zmp_func(end_t), example_omega2_func(),
+        BipedalCostWeight(**dataclasses.asdict(cost_weight)))
 
 
 def tensors_from_numpy(device, dtype, x0s, us, ks=None, Ks=None):

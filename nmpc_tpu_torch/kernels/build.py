@@ -1,10 +1,11 @@
 """Build the CUDA sources of ``nmpc_tpu_torch/csrc/`` at first use.
 
 Each translation unit is compiled by ``nvcc`` into a shared library with a
-plain C interface, loaded with ``ctypes`` by its wrapper.  A unit is either
-a source of ``csrc/`` (:func:`build`) or a text generated from a problem's
-traced callables that includes the templates of ``csrc/``
-(:func:`build_generated`).  The library lands in ``build/nmpc_tpu_torch/``
+plain C interface, loaded with ``ctypes`` by its wrapper.  A unit is a
+short generated text that includes the templates of ``csrc/`` and
+instantiates one kernel for one shape and dtype, or for one problem's
+traced callables (:func:`build_generated`).  The library lands in
+``build/nmpc_tpu_torch/``
 at the root of the checkout, under a name that carries a hash of the
 unit's text, of every ``csrc/`` header it includes (followed through the
 headers' own includes) and of the flags: an edited source or header is
@@ -70,10 +71,19 @@ def library_path(name: str, text: str, csrc: Path = CSRC,
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(src: Path, lib: Path, flags: tuple = ()) -> Path:
+def build_generated(name: str, text: str, flags: tuple = ()) -> Path:
+    """Compile a generated unit (``text`` may include ``csrc/`` headers)
+    with nvcc's ``NVCC_FLAGS`` and ``flags`` unless an up-to-date library
+    exists; the source is written beside the library.  Raises
+    ``RuntimeError`` with nvcc's output on failure."""
+    lib = library_path(name, text, flags=flags)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = lib.with_suffix(".cu")
+    tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, src)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
         [nvcc_path(), *NVCC_FLAGS, *flags, f"-I{CSRC}", "-o", str(tmp),
@@ -86,29 +96,6 @@ def _compile(src: Path, lib: Path, flags: tuple = ()) -> Path:
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
-
-
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    return the library's path.  Raises ``RuntimeError`` with nvcc's output
-    if the compile fails."""
-    src = CSRC / f"{name}.cu"
-    return _compile(src, library_path(name, src.read_text()))
-
-
-def build_generated(name: str, text: str, flags: tuple = ()) -> Path:
-    """Compile a generated unit (``text`` may include ``csrc/`` headers)
-    with nvcc's ``NVCC_FLAGS`` and ``flags`` unless an up-to-date library
-    exists; the source is written beside the library.  Raises
-    ``RuntimeError`` with nvcc's output on failure."""
-    lib = library_path(name, text, flags=flags)
-    src = lib.with_suffix(".cu")
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
-        tmp.write_text(text)
-        os.replace(tmp, src)
-    return _compile(src, lib, flags)
 
 
 @functools.cache

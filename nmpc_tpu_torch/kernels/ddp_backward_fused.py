@@ -1,46 +1,158 @@
-"""Fused DDP Riccati backward: the hand-written CUDA kernel's wrapper.
+"""Fused DDP Riccati backward: the hand-written CUDA kernels' wrappers.
 
 Replaces ``nmpc_tpu/kernels/ddp_backward_pallas.py::backward_pallas`` (the
-fused Pallas TPU kernel).  Source: ``csrc/ddp_backward.cu``, one thread per
-batch lane running the whole N-stage recursion with its carry in
-registers; the source's header says what bounds it on the card and what
-the design does about that.
+fused Pallas TPU kernel) in its three DMA modes, each a CUDA kernel with
+one thread per batch lane running the whole N-stage recursion with its
+carry in registers; each source's header says what bounds it on the card
+and what its design does about that:
+
+* ``"stage"`` (K1, ``csrc/ddp_backward.cuh``): the next stage's fields
+  loaded into registers while this stage computes;
+* ``"chunked"`` (K2, ``csrc/ddp_backward_chunked.cuh``): the fields staged
+  in shared memory C stages at a time with ``cp.async``, double-buffered
+  by chunk (``_backward_pallas_call_chunked``);
+* ``"packed"`` (K3, ``csrc/ddp_backward_packed.cuh``): the fields read
+  from one ``[N, F, B]`` buffer built by :func:`pack_derivs`
+  (``_backward_pallas_call_packed``).
+
+Each is instantiated per (nx, nu, dtype) in a small generated unit that
+nvcc builds at first use, with K1's flags (FMA contraction on); the three
+share ``csrc/riccati_stage.cuh::riccati_stage`` and agree bit for bit.
 
 :func:`backward_fused` is a drop-in for
 ``kernels/ddp_backward.py::backward_stacked`` (same arguments, same
-batch-minor layout, ok as bool).  On CPU tensors it runs that plain twin;
-on CUDA tensors it launches the kernel or raises.  Nothing here builds or
-touches CUDA until the first CUDA call, so the module imports without
-``nvcc`` or a card.
+batch-minor layout, ok as bool).  On CPU tensors it runs that plain twin
+(``"packed"`` through :func:`pack_derivs` and its inverse, so that the
+offsets run on the CPU too); on CUDA tensors it launches the kernel or
+raises.  Nothing here builds or touches CUDA until the first CUDA call, so
+the module imports without ``nvcc`` or a card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from nmpc_tpu_torch.core.types import DDPConfig
-from nmpc_tpu_torch.kernels.build import build
+from nmpc_tpu_torch.kernels.build import build_generated, load
 from nmpc_tpu_torch.kernels.ddp_backward import StackedDerivs, backward_stacked
 
-# (nx, nu) pairs instantiated in csrc/ddp_backward.cu (cart-pole: 4, 1).
-BUILT_SHAPES = frozenset({(4, 1)})
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+# The largest (nx, nu) a unit is instantiated for: every stage field is
+# unrolled into registers (two stages of them with the prefetch).
+MAX_NX, MAX_NU = 8, 4
+# the kernels' scalar types (the generated units' T)
+DTYPES = {torch.float32: "float", torch.float64: "double"}
+DMA_MODES = ("stage", "chunked", "packed")
+# Lanes per block of the kernels that stage fields in shared memory (K2,
+# K9; one thread each, csrc/remat_common.cuh::kLaneThreads); K2's budget
+# for its two chunk slots and its most stages in a chunk (the TPU
+# chooser's cap).
+LANES = 32
+CHUNK_SMEM_BYTES = 96 * 1024
+MAX_CHUNK = 32
+# per mode: the header and the launch template with its leading arguments
+_UNITS = {"stage": ("ddp_backward.cuh", "launch_ddp_backward", ""),
+          "chunked": ("ddp_backward_chunked.cuh",
+                      "launch_ddp_backward_chunked", "chunk, "),
+          "packed": ("ddp_backward_packed.cuh", "launch_ddp_backward_packed",
+                     "")}
 
 
 def kernel_supports(nx: int, nu: int, dtype) -> bool:
-    """Whether the CUDA kernel was built for this state/input size and
-    dtype."""
-    return (nx, nu) in BUILT_SHAPES and dtype in _DTYPE_CODES
+    """Whether the kernels take this state/input size and dtype:
+    1 <= nx <= 8, 1 <= nu <= 4, float32 or float64 (any B and N; the unit
+    is built on demand)."""
+    return 1 <= nx <= MAX_NX and 1 <= nu <= MAX_NU and dtype in DTYPES
 
 
-@functools.cache
-def _launcher():
-    lib = ctypes.CDLL(str(build("ddp_backward")))
+def _shapes(nx, nu):
+    return dict(zip(StackedDerivs._fields, ((nx, nx), (nx, nu), (nx,), (nu,),
+                                            (nx, nx), (nu, nu), (nx, nu))))
+
+
+def offsets(shapes: dict):
+    """(offset of each field, width) of a packed stage holding ``shapes``
+    (name -> per-stage shape) in order, each row-major."""
+    off, out = 0, {}
+    for name, shape in shapes.items():
+        out[name] = off
+        off += math.prod(shape)
+    return out, off
+
+
+def pack_fields(arrays) -> torch.Tensor:
+    """[N, F, B]: the [N, ..., B] arrays concatenated along one axis per
+    stage."""
+    N, B = arrays[0].shape[0], arrays[0].shape[-1]
+    return torch.cat([a.reshape(N, -1, B) for a in arrays], dim=1)
+
+
+def unpack_fields(P: torch.Tensor, shapes: dict) -> dict:
+    """The inverse of :func:`pack_fields`: name -> contiguous
+    [N, *shape, B] field."""
+    N, B = P.shape[0], P.shape[-1]
+    off, _ = offsets(shapes)
+    return {name: P[:, off[name]:off[name] + math.prod(shape)].reshape(
+        N, *shape, B).contiguous() for name, shape in shapes.items()}
+
+
+def field_offsets(nx: int, nu: int):
+    """(offset of each field, F) of the packed per-stage buffer: Fx, Fu,
+    Lx, Lu, Lxx, Luu, Lxu, each row-major
+    (``ddp_backward_pallas.py::_field_offsets``)."""
+    return offsets(_shapes(nx, nu))
+
+
+def pack_derivs(D: StackedDerivs) -> torch.Tensor:
+    """The packed ``[N, F, B]`` buffer of K3 (``pack_derivs_pallas`` with B
+    flat)."""
+    return pack_fields(D)
+
+
+def unpack_derivs(P: torch.Tensor, nx: int, nu: int) -> StackedDerivs:
+    """The inverse of :func:`pack_derivs`: contiguous fields."""
+    return StackedDerivs(**unpack_fields(P, _shapes(nx, nu)))
+
+
+def chunk_stages(nx: int, nu: int, N: int, dtype) -> int:
+    """K2's stages per chunk: as many as two chunk slots of a 32-lane block
+    hold within ``CHUNK_SMEM_BYTES`` (at most 32 and N); the last chunk
+    takes the rest when C does not divide N.  (4, 1) fp32: 8; (2, 1) fp32:
+    24."""
+    _, F = field_offsets(nx, nu)
+    per_stage = 2 * F * LANES * torch.empty((), dtype=dtype).element_size()
+    return max(1, min(N, MAX_CHUNK, CHUNK_SMEM_BYTES // per_stage))
+
+
+def unit_source(nx: int, nu: int, dtype, dma: str = "stage") -> str:
+    """The unit instantiating the ``dma`` kernel at (nx, nu, dtype)."""
+    header, launch, chunk = _UNITS[dma]
+    return (f"#include \"{header}\"\n\n"
+            f"extern \"C\" int ddp_backward_launch(\n"
+            f"    int N, int B, int reg_type, int chunk,\n"
+            f"    const void* const* fields, const void* VxT,\n"
+            f"    const void* VxxT, const void* lam, void* ks, void* Ks,\n"
+            f"    void* dV, void* ok, void* stream) {{\n"
+            f"  (void)chunk;\n"
+            f"  return nmpc::{launch}<{DTYPES[dtype]}, {nx}, {nu}>(\n"
+            f"      N, B, {chunk}reg_type, fields, VxT, VxxT, lam, ks, Ks, "
+            f"dV, ok,\n      stream);\n}}\n")
+
+
+def unit_name(nx: int, nu: int, dtype, dma: str = "stage") -> str:
+    kind = "" if dma == "stage" else f"_{dma}"
+    return f"ddp_backward{kind}_{nx}x{nu}_{str(dtype)[6:]}"
+
+
+@functools.lru_cache(maxsize=32)
+def _launcher(nx: int, nu: int, dtype, dma: str):
+    lib = load(build_generated(unit_name(nx, nu, dtype, dma),
+                               unit_source(nx, nu, dtype, dma)))
     fn = lib.ddp_backward_launch
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 15
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,14 +169,56 @@ def _check(name, a, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def backward_fused(config: DDPConfig, D: StackedDerivs, Vx_T, Vxx_T, lam):
-    """Backward pass, batch-minor, by the fused CUDA kernel.
+def _check_carry(nx, B, Vx_T, Vxx_T, lam):
+    dtype, device = Vx_T.dtype, Vx_T.device
+    _check("Vx_T", Vx_T, (nx, B), dtype, device)
+    _check("Vxx_T", Vxx_T, (nx, nx, B), dtype, device)
+    _check("lam", lam, (B,), dtype, device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the DDP backward takes CPU or CUDA tensors, got "
+                         f"{device}")
+
+
+def _launch(dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam):
+    """Launch the ``dma`` kernel on ``fields`` (pointers); returns
+    (ks, Ks, dV, ok)."""
+    B, dtype, device = lam.shape[0], lam.dtype, lam.device
+    if not kernel_supports(nx, nu, dtype):
+        raise ValueError(
+            f"the CUDA backward kernels are built for 1 <= nx <= {MAX_NX}, "
+            f"1 <= nu <= {MAX_NU} and float32/float64; got ({nx}, {nu}) "
+            f"{dtype}")
+    ks = torch.empty((N, nu, B), dtype=dtype, device=device)
+    Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
+    dV = torch.empty((2, B), dtype=dtype, device=device)
+    ok = torch.empty((B,), dtype=torch.bool, device=device)
+    chunk = chunk_stages(nx, nu, N, dtype) if dma == "chunked" else 0
+    ptrs = (ctypes.c_void_p * len(fields))(*(a.data_ptr() for a in fields))
+    launch = _launcher(nx, nu, dtype, dma)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = launch(N, B, config.reg_type, chunk, ptrs, Vx_T.data_ptr(),
+                     Vxx_T.data_ptr(), lam.data_ptr(), ks.data_ptr(),
+                     Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"ddp_backward ({dma}) kernel launch failed: CUDA "
+                           f"error {err}")
+    return ks, Ks, dV, ok
+
+
+def backward_fused(config: DDPConfig, D: StackedDerivs, Vx_T, Vxx_T, lam,
+                   dma: str = "stage"):
+    """Backward pass, batch-minor, by the fused CUDA kernel of ``dma``
+    (``"stage"``: K1, ``"chunked"``: K2, ``"packed"``: K3 after
+    :func:`pack_derivs`).
 
     Args: D with Fx [N,nx,nx,B], Fu [N,nx,nu,B], Lx [N,nx,B], Lu [N,nu,B],
     Lxx [N,nx,nx,B], Luu [N,nu,nu,B], Lxu [N,nx,nu,B]; Vx_T [nx,B],
     Vxx_T [nx,nx,B]; lam [B].
     Returns (ks [N,nu,B], Ks [N,nu,nx,B], dV [2,B], ok [B] bool).
     """
+    if dma not in DMA_MODES:
+        raise ValueError(f"dma must be one of {DMA_MODES}, got {dma!r}")
     N, nx = D.Fx.shape[0], D.Fx.shape[1]
     nu = D.Fu.shape[2]
     B = Vx_T.shape[-1]
@@ -74,36 +228,39 @@ def backward_fused(config: DDPConfig, D: StackedDerivs, Vx_T, Vxx_T, lam):
               "Lxu": (N, nx, nu, B)}
     for name, a in zip(StackedDerivs._fields, D):
         _check(name, a, shapes[name], dtype, device)
-    _check("Vx_T", Vx_T, (nx, B), dtype, device)
-    _check("Vxx_T", Vxx_T, (nx, nx, B), dtype, device)
-    _check("lam", lam, (B,), dtype, device)
+    _check_carry(nx, B, Vx_T, Vxx_T, lam)
+    if dma == "packed":
+        return backward_packed(config, pack_derivs(D), nx, nu, Vx_T, Vxx_T,
+                               lam)
     if device.type == "cpu":
         return backward_stacked(config, D, Vx_T, Vxx_T, lam)
-    if device.type != "cuda":
-        raise ValueError(f"backward_fused takes CPU or CUDA tensors, got "
-                         f"{device}")
-    if not kernel_supports(nx, nu, dtype):
-        raise ValueError(
-            f"the CUDA backward kernel is built for (nx, nu) in "
-            f"{sorted(BUILT_SHAPES)} and float32/float64; got ({nx}, {nu}) "
-            f"{dtype}")
-
-    ks = torch.empty((N, nu, B), dtype=dtype, device=device)
-    Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
-    dV = torch.empty((2, B), dtype=dtype, device=device)
-    ok = torch.empty((B,), dtype=torch.bool, device=device)
-    launch = _launcher()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = launch(_DTYPE_CODES[dtype], nx, nu, config.reg_type, N, B,
-                     *(a.data_ptr() for a in D), Vx_T.data_ptr(),
-                     Vxx_T.data_ptr(), lam.data_ptr(), ks.data_ptr(),
-                     Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"ddp_backward kernel launch failed: CUDA error "
-                           f"{err}")
-    backward_fused.launches += 1
-    return ks, Ks, dV, ok
+    out = _launch(dma, config, N, nx, nu, D, Vx_T, Vxx_T, lam)
+    if dma == "chunked":
+        backward_fused.chunked_launches += 1
+    else:
+        backward_fused.launches += 1
+    return out
 
 
-backward_fused.launches = 0
+backward_fused.launches = 0           # K1
+backward_fused.chunked_launches = 0   # K2
+
+
+def backward_packed(config: DDPConfig, P, nx: int, nu: int, Vx_T, Vxx_T,
+                    lam):
+    """Backward pass from the packed buffer P [N, F, B] (:func:`pack_derivs`)
+    by K3; other arguments and the result as :func:`backward_fused`'s.  On
+    CPU tensors the plain version unpacks P and runs ``backward_stacked``."""
+    N, B = P.shape[0], Vx_T.shape[-1]
+    _, F = field_offsets(nx, nu)
+    _check("P", P, (N, F, B), Vx_T.dtype, Vx_T.device)
+    _check_carry(nx, B, Vx_T, Vxx_T, lam)
+    if P.device.type == "cpu":
+        return backward_stacked(config, unpack_derivs(P, nx, nu), Vx_T,
+                                Vxx_T, lam)
+    out = _launch("packed", config, N, nx, nu, (P,), Vx_T, Vxx_T, lam)
+    backward_packed.launches += 1
+    return out
+
+
+backward_packed.launches = 0          # K3

@@ -1,16 +1,29 @@
 """Condensed PDIP Riccati backward of the batched FMPC solve: the CUDA
-kernel's wrapper (TPU K8).
+kernels' wrappers (TPU K8, K9, K10).
 
-Replaces ``nmpc_tpu/kernels/fmpc_backward_pallas.py::backward_fmpc_pallas``.
-Source: ``csrc/fmpc_backward.cuh`` (one thread per lane, the (s, P, ok)
-carry in registers; the stage ``csrc/fmpc_stage.cuh::fmpc_stage``, the LU
-fallback ``csrc/linalg.cuh::gauss_jordan_inverse``), instantiated per
-(nx, nu, ng, dtype) in a small generated unit that nvcc builds at first use
-without FMA contraction.  The header says what bounds it on the card.
+Replaces ``nmpc_tpu/kernels/fmpc_backward_pallas.py::backward_fmpc_pallas``
+in its three variants, each a CUDA kernel with one thread per lane and the
+(s, P, ok) carry in registers, on the stage ``csrc/fmpc_stage.cuh::
+fmpc_stage`` (LU fallback ``csrc/linalg.cuh::gauss_jordan_inverse``):
+
+* ``"stream"`` (K8, ``csrc/fmpc_backward.cuh``): each stage's 12 fields
+  streamed from device memory, the next stage's loaded ahead at fp32;
+* ``"resident"`` (K9, ``csrc/fmpc_backward_resident.cuh``): the whole
+  horizon of a block's lanes copied into shared memory first, for
+  N <= 32 where it fits (:func:`resident_fits`);
+* ``"packed"`` (K10, ``csrc/fmpc_backward_packed.cuh``): inputs from one
+  ``[N, Fin, B]`` buffer, outputs to one ``[N, Fout, B]`` buffer
+  (:func:`pack_fmpc_inputs`, :func:`backward_fmpc_packed`).
+
+Each is instantiated per (nx, nu, ng, dtype) in a small generated unit that
+nvcc builds at first use without FMA contraction, so all three equal the
+plain version bit for bit.  The headers say what bounds each on the card.
 
 :func:`backward_fmpc_fused` is a drop-in for
 ``solvers/fmpc.py::_backward_bm``.  On CPU tensors it runs that plain
-version; on CUDA tensors it launches the kernel or raises.
+version (``"packed"`` through the pack and its inverse, so that the
+offsets run on the CPU too); on CUDA tensors it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -21,7 +34,9 @@ import functools
 import torch
 
 from nmpc_tpu_torch.kernels.build import build_generated, load
-from nmpc_tpu_torch.kernels.ddp_backward_fused import _check
+from nmpc_tpu_torch.kernels.ddp_backward_fused import (LANES, _check,
+                                                       offsets, pack_fields,
+                                                       unpack_fields)
 
 # The largest (nx, nu, ng) a unit is instantiated for: every stage field
 # is unrolled into registers.
@@ -34,6 +49,16 @@ DTYPES = {torch.float32: "float", torch.float64: "double"}
 FMPC_FLAGS = ("-fmad=false",)
 _FIELDS = ("A", "B", "C", "D", "Lxx", "Luu", "Lxu", "x_bar", "Lx_bar",
            "Lu_bar")
+VARIANTS = ("stream", "resident", "packed")
+# The packed stage's fields (fmpc_backward_pallas.py::_IN_FIELDS,
+# _OUT_FIELDS), and the resident kernel's limits: the TPU kernel's static
+# unroll bound on N (_RESIDENT_MAX_N) and the H100's shared memory per
+# block for the 32 lanes of a block.
+IN_FIELDS = ("A", "B", "C", "D", "Lxx", "Luu", "Lxu", "xb", "Lxb", "Lub",
+             "nu_s", "tilde")
+OUT_FIELDS = ("k", "K", "svec", "P")
+RESIDENT_MAX_N = 32
+MAX_SMEM_BYTES = 227 * 1024
 
 
 def kernel_supports(nx: int, nu: int, ng: int, dtype) -> bool:
@@ -43,33 +68,94 @@ def kernel_supports(nx: int, nu: int, ng: int, dtype) -> bool:
             and dtype in DTYPES)
 
 
-def unit_source(nx: int, nu: int, ng: int, dtype) -> str:
-    """The unit instantiating the kernel at (nx, nu, ng, dtype); the fp64
-    units load each stage when they need it (no prefetch)."""
+def field_offsets(nx: int, nu: int, ng: int):
+    """(input offsets, Fin, output offsets, Fout) of the packed per-stage
+    buffers (``fmpc_backward_pallas.py::_field_offsets``): each field
+    row-major, in the order of ``IN_FIELDS`` / ``OUT_FIELDS``."""
+    return offsets(_in_shapes(nx, nu, ng)) + offsets(_out_shapes(nx, nu))
+
+
+def _in_shapes(nx, nu, ng):
+    return dict(zip(IN_FIELDS, ((nx, nx), (nx, nu), (ng, nx), (ng, nu),
+                                (nx, nx), (nu, nu), (nx, nu), (nx,), (nx,),
+                                (nu,), (ng,), (ng,))))
+
+
+def _out_shapes(nx, nu):
+    return dict(zip(OUT_FIELDS, ((nu,), (nu, nx), (nx,), (nx, nx))))
+
+
+def resident_fits(nx: int, nu: int, ng: int, N: int, dtype) -> bool:
+    """Whether the resident kernel (K9) takes this shape: the shape and
+    dtype K8 takes, N <= 32, and the horizon's inputs of a 32-lane block
+    within the 227 KB of shared memory a block may have (oscillator
+    (2, 1, 3): N <= 32 at fp32, 27 at fp64; cart-pole (4, 1, 4): N <= 23
+    at fp32, 11 at fp64).  The card's counterpart of ``_pick_sub_resident``."""
+    if not kernel_supports(nx, nu, ng, dtype) or not 1 <= N <= RESIDENT_MAX_N:
+        return False
+    _, Fin, _, _ = field_offsets(nx, nu, ng)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return N * Fin * LANES * itemsize <= MAX_SMEM_BYTES
+
+
+def pack_fmpc_inputs(co, nu_s, tilde):
+    """K10's input buffer [N, Fin, B] from the coefficients and the
+    condensation scalings (the concatenate of ``backward_fmpc_pallas``
+    :717-722)."""
+    return pack_fields([getattr(co, name) for name in _FIELDS]
+                       + [nu_s, tilde])
+
+
+def unit_source(nx: int, nu: int, ng: int, dtype,
+                variant: str = "stream") -> str:
+    """The unit instantiating the ``variant`` kernel at (nx, nu, ng, dtype);
+    the fp64 units of the streaming kernels (K8, K10) load each stage when
+    they need it (no prefetch)."""
     prefetch = "true" if dtype == torch.float32 else "false"
-    return (f"#include \"fmpc_backward.cuh\"\n\n"
+    T = DTYPES[dtype]
+    if variant == "packed":
+        return (f"#include \"fmpc_backward_packed.cuh\"\n\n"
+                f"extern \"C\" int fmpc_backward_launch(\n"
+                f"    int N, int B, double dt, int break_if_llt_fails,\n"
+                f"    int check_nan, const void* Pin, const void* sT,\n"
+                f"    const void* PT, void* out, void* ok, void* finite,\n"
+                f"    void* stream) {{\n"
+                f"  return nmpc::launch_fmpc_backward_packed<{T}, {nx}, {nu}, "
+                f"{ng}, {prefetch}>(\n      N, B, dt, break_if_llt_fails, "
+                f"check_nan, Pin, sT, PT, out, ok, finite,\n      "
+                f"stream);\n}}\n")
+    if variant == "resident":
+        header, launch = "fmpc_backward_resident.cuh", (
+            f"launch_fmpc_backward_resident<{T}, {nx}, {nu}, {ng}>")
+    else:
+        header, launch = "fmpc_backward.cuh", (
+            f"launch_fmpc_backward<{T}, {nx}, {nu}, {ng}, {prefetch}>")
+    return (f"#include \"{header}\"\n\n"
             f"extern \"C\" int fmpc_backward_launch(\n"
             f"    int N, int B, double dt, int break_if_llt_fails,\n"
             f"    int check_nan, const void* const* fields, const void* sT,\n"
             f"    const void* PT, void* ks, void* Ks, void* sv, void* Ps,\n"
             f"    void* ok, void* finite, void* stream) {{\n"
-            f"  return nmpc::launch_fmpc_backward<{DTYPES[dtype]}, {nx}, "
-            f"{nu}, {ng}, {prefetch}>(\n      N, B, dt, break_if_llt_fails, "
+            f"  return nmpc::{launch}(\n      N, B, dt, break_if_llt_fails, "
             f"check_nan, fields, sT, PT, ks, Ks, sv, Ps,\n      ok, finite, "
             f"stream);\n}}\n")
 
 
-def unit_name(nx: int, nu: int, ng: int, dtype) -> str:
-    return f"fmpc_backward_{nx}x{nu}x{ng}_{str(dtype)[6:]}"
+def unit_name(nx: int, nu: int, ng: int, dtype,
+              variant: str = "stream") -> str:
+    kind = "" if variant == "stream" else f"_{variant}"
+    return f"fmpc_backward{kind}_{nx}x{nu}x{ng}_{str(dtype)[6:]}"
 
 
 @functools.lru_cache(maxsize=32)
-def _launcher(nx: int, nu: int, ng: int, dtype):
-    lib = load(build_generated(unit_name(nx, nu, ng, dtype),
-                               unit_source(nx, nu, ng, dtype), FMPC_FLAGS))
+def _launcher(nx: int, nu: int, ng: int, dtype, variant: str = "stream"):
+    lib = load(build_generated(unit_name(nx, nu, ng, dtype, variant),
+                               unit_source(nx, nu, ng, dtype, variant),
+                               FMPC_FLAGS))
     fn = lib.fmpc_backward_launch
+    n_ptrs = 7 if variant == "packed" else 10
     fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                    ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10)
+                    ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * n_ptrs)
     fn.restype = ctypes.c_int
     return fn
 
@@ -86,14 +172,21 @@ def condensation(co, ss, nus, gms, barrier_eps):
     return nu_s, tilde
 
 
-def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps):
-    """Condensed Riccati backward, batch-minor, by the CUDA kernel.
+def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps,
+                        variant: str = "stream"):
+    """Condensed Riccati backward, batch-minor, by the CUDA kernel of
+    ``variant`` (``"stream"``: K8, ``"resident"``: K9, which raises where
+    :func:`resident_fits` does not hold, ``"packed"``: K10 between
+    :func:`pack_fmpc_inputs` and the slicing of its output buffer).
 
     Args as ``_backward_bm``'s: ``co`` a ``_StCoeffs`` (contiguous fields),
     ss, nus [N, ng, B], gms [N, ng], barrier_eps [B].
     Returns (ks [N,nu,B], Ks [N,nu,nx,B], svecs [N+1,nx,B],
     Ps [N+1,nx,nx,B], ok [B] bool, finite [B] bool).
     """
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
     N, nx = co.A.shape[0], co.A.shape[1]
     nu, ng = co.B.shape[2], co.C.shape[1]
     B = barrier_eps.shape[0]
@@ -111,17 +204,21 @@ def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps):
     if tuple(gms.shape) != (N, ng):
         raise ValueError(f"gms has shape {tuple(gms.shape)}, expected "
                          f"{(N, ng)}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"backward_fmpc_fused takes CPU or CUDA tensors, "
+                         f"got {device}")
+    if variant == "resident" and not resident_fits(nx, nu, ng, N, dtype):
+        raise ValueError(
+            f"the resident FMPC backward takes N <= {RESIDENT_MAX_N} within "
+            f"{MAX_SMEM_BYTES} bytes of shared memory per 32 lanes; got "
+            f"(nx, nu, ng) = ({nx}, {nu}, {ng}), N={N}, {dtype}")
+    if variant == "packed":
+        return _backward_packed_fields(problem, config, co, ss, nus, gms,
+                                       barrier_eps)
     if device.type == "cpu":
         from nmpc_tpu_torch.solvers.fmpc import _backward_bm
         return _backward_bm(problem, config, co, ss, nus, gms, barrier_eps)
-    if device.type != "cuda":
-        raise ValueError(f"backward_fmpc_fused takes CPU or CUDA tensors, "
-                         f"got {device}")
-    if not kernel_supports(nx, nu, ng, dtype):
-        raise ValueError(
-            f"the FMPC CUDA backward takes nx <= {MAX_NX}, nu <= {MAX_NU}, "
-            f"ng <= {MAX_NG} and float32/float64; got ({nx}, {nu}, {ng}) "
-            f"{dtype}")
+    _check_shape(nx, nu, ng, dtype)
 
     nu_s, tilde = condensation(co, ss, nus, gms, barrier_eps)
     s_T = -co.Lx_bar_term
@@ -133,7 +230,7 @@ def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps):
     finite = torch.empty((B,), dtype=torch.bool, device=device)
     ins = [getattr(co, name) for name in _FIELDS] + [nu_s, tilde]
     fields = (ctypes.c_void_p * 12)(*(a.data_ptr() for a in ins))
-    launch = _launcher(nx, nu, ng, dtype)
+    launch = _launcher(nx, nu, ng, dtype, variant)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = launch(N, B, float(problem.dt), int(config.break_if_llt_fails),
@@ -142,10 +239,88 @@ def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps):
                      svecs.data_ptr(), Ps.data_ptr(), ok.data_ptr(),
                      finite.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"FMPC backward kernel launch failed: CUDA error "
-                           f"{err}")
-    backward_fmpc_fused.launches += 1
+        raise RuntimeError(f"FMPC backward ({variant}) kernel launch failed: "
+                           f"CUDA error {err}")
+    if variant == "resident":
+        backward_fmpc_fused.resident_launches += 1
+    else:
+        backward_fmpc_fused.launches += 1
     return ks, Ks, svecs, Ps, ok, finite
 
 
-backward_fmpc_fused.launches = 0
+backward_fmpc_fused.launches = 0            # K8
+backward_fmpc_fused.resident_launches = 0   # K9
+
+
+def _check_shape(nx, nu, ng, dtype):
+    if not kernel_supports(nx, nu, ng, dtype):
+        raise ValueError(
+            f"the FMPC CUDA backward takes nx <= {MAX_NX}, nu <= {MAX_NU}, "
+            f"ng <= {MAX_NG} and float32/float64; got ({nx}, {nu}, {ng}) "
+            f"{dtype}")
+
+
+def _backward_packed_fields(problem, config, co, ss, nus, gms, barrier_eps):
+    """``variant="packed"``: the condensation, the pack, K10 (or its plain
+    version) and the outputs sliced back, with the terminal row appended."""
+    nx, nu, ng = co.A.shape[1], co.B.shape[2], co.C.shape[1]
+    nu_s, tilde = condensation(co, ss, nus, gms, barrier_eps)
+    s_T, P_T = -co.Lx_bar_term, co.Lxx_term
+    out, ok, finite = backward_fmpc_packed(
+        problem, config, pack_fmpc_inputs(co, nu_s, tilde), s_T, P_T, nx, nu,
+        ng)
+    o = unpack_fields(out, _out_shapes(nx, nu))
+    svecs = torch.cat([o["svec"], s_T[None]])
+    Ps = torch.cat([o["P"], P_T[None]])
+    return o["k"], o["K"], svecs, Ps, ok, finite
+
+
+def backward_fmpc_packed(problem, config, P_in, s_T, P_T, nx: int, nu: int,
+                         ng: int):
+    """K10: the recursion from the packed inputs P_in [N, Fin, B]
+    (:func:`pack_fmpc_inputs`) and the terminal (s_T [nx, B],
+    P_T [nx, nx, B]).  Returns (out [N, Fout, B] holding k, K, s, P of rows
+    0 .. N-1 at the offsets of :func:`field_offsets`, ok [B] bool,
+    finite [B] bool; finite covers the terminal row too).  On CPU tensors
+    the plain version unpacks P_in, runs ``_riccati_condensed`` and packs
+    its outputs."""
+    N, B = P_in.shape[0], s_T.shape[-1]
+    dtype, device = s_T.dtype, s_T.device
+    _, Fin, _, Fout = field_offsets(nx, nu, ng)
+    _check("P_in", P_in, (N, Fin, B), dtype, device)
+    _check("s_T", s_T, (nx, B), dtype, device)
+    _check("P_T", P_T, (nx, nx, B), dtype, device)
+    if device.type == "cpu":
+        return backward_fmpc_packed_plain(problem, config, P_in, s_T, P_T,
+                                          nx, nu, ng)
+    _check_shape(nx, nu, ng, dtype)
+    out = torch.empty((N, Fout, B), dtype=dtype, device=device)
+    ok = torch.empty((B,), dtype=torch.bool, device=device)
+    finite = torch.empty((B,), dtype=torch.bool, device=device)
+    launch = _launcher(nx, nu, ng, dtype, "packed")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = launch(N, B, float(problem.dt), int(config.break_if_llt_fails),
+                     int(config.check_nan), P_in.data_ptr(), s_T.data_ptr(),
+                     P_T.data_ptr(), out.data_ptr(), ok.data_ptr(),
+                     finite.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"FMPC backward (packed) kernel launch failed: "
+                           f"CUDA error {err}")
+    backward_fmpc_packed.launches += 1
+    return out, ok, finite
+
+
+backward_fmpc_packed.launches = 0           # K10
+
+
+def backward_fmpc_packed_plain(problem, config, P_in, s_T, P_T, nx: int,
+                               nu: int, ng: int):
+    """K10's plain version: unpack P_in, run ``_riccati_condensed`` (the
+    recursion of ``_backward_bm``) and pack its outputs."""
+    from nmpc_tpu_torch.solvers.fmpc import _riccati_condensed
+    N = P_in.shape[0]
+    ks, Ks, svecs, Ps, ok, finite = _riccati_condensed(
+        problem, config, unpack_fields(P_in, _in_shapes(nx, nu, ng)), s_T,
+        P_T)
+    return pack_fields([ks, Ks, svecs[:N], Ps[:N]]), ok, finite

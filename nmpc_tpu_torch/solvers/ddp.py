@@ -39,7 +39,8 @@ from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds,
 from nmpc_tpu_torch.kernels.ddp_backward_boxed import (MAX_NU,
                                                        backward_fused_boxed,
                                                        boxed_kernel_supports)
-from nmpc_tpu_torch.kernels.ddp_backward_fused import (backward_fused,
+from nmpc_tpu_torch.kernels.ddp_backward_fused import (DMA_MODES,
+                                                       backward_fused,
                                                        kernel_supports)
 from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
                                                        remat_supported)
@@ -63,20 +64,35 @@ def _check_ported(config: DDPConfig):
 class DDPSolver:
     """Problem + config bound into batched solve functions.
 
-    ``config.print_level`` is carried for config parity and not acted on
-    yet (ROADMAP A12)."""
+    ``backward_dma`` picks the sweep-fed CUDA kernel where the resolved
+    backward is ``"pallas"`` and the solve is unboxed: ``"stage"`` (K1),
+    ``"chunked"`` (K2) or ``"packed"`` (K3, after a pack of the stage
+    fields); the JAX package's ``packed=`` argument and ``NMPC_PALLAS_DMA``
+    switch (``nmpc_tpu/kernels/ddp_backward_pallas.py:1204-1234``).  The
+    three compute the same numbers.  ``config.print_level`` is carried for
+    config parity and not acted on yet (ROADMAP A12)."""
 
-    def __init__(self, problem: Problem, config: DDPConfig = DDPConfig()):
+    def __init__(self, problem: Problem, config: DDPConfig = DDPConfig(),
+                 backward_dma: str = "stage"):
         _check_ported(config)
+        if backward_dma not in DMA_MODES:
+            raise ValueError(f"backward_dma must be one of {DMA_MODES}, got "
+                             f"{backward_dma!r}")
+        if backward_dma != "stage" and config.with_input_constraint:
+            raise ValueError(f"backward_dma={backward_dma!r}: the chunked and "
+                             "packed kernels are unboxed, as in the JAX "
+                             "package; a boxed solve takes 'stage'")
         self.problem = problem
         self.config = config
+        self.backward_dma = backward_dma
         self.host_syncs = 0   # host reads of device values, last solve
 
     def solve_batch(self, t0, x0s, us_inits) -> DDPResult:
         """Batched solve: x0s [B, nx], us_inits [B, N, nu]; the result
         carries a leading batch axis."""
         res, self.host_syncs = _solve_stacked(self.problem, self.config, t0,
-                                              x0s, us_inits)
+                                              x0s, us_inits,
+                                              self.backward_dma)
         return res
 
     def solve(self, t0, x0, us_init) -> DDPResult:
@@ -135,9 +151,12 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
         when ``deriv_dtype`` is ``"same"`` and the code generator takes
         the problem at this dtype (``remat_supported``; boxed: its limits
         and mask too, the aux group);
-      * else ``"pallas"``, the sweep-fed CUDA kernel: unboxed where its
-        ``(nx, nu)`` and dtype were built (``kernel_supports``), boxed
-        (K4) at any nx and float32/float64, its unit built on demand;
+      * else ``"pallas"``, the sweep-fed CUDA kernel, its unit built on
+        demand: unboxed (K1, or K2/K3 by ``DDPSolver``'s ``backward_dma``)
+        within its limits (``kernel_supports``: nx <= 8, nu <= 4,
+        float32/float64), so every first-order problem the generator
+        rejects (the bipedal model) runs a kernel; boxed (K4) at any nx
+        and float32/float64;
     and to ``"stacked"`` (the torch-op recursion) otherwise, on CPU
     tensors always.  A boxed solve with nu > 4 (``MAX_NU``) takes
     ``"stacked"`` too, as in the JAX rule (``nmpc_tpu/solvers/ddp.py:
@@ -227,10 +246,11 @@ def _resolve_forward_impl(config: DDPConfig, problem: Problem, dtype,
 
 
 def _make_backward_fn(config: DDPConfig, impl: str, Dst, VxT, VxxT,
-                      bounds=None, D2=None, host=bool):
+                      bounds=None, D2=None, host=bool, dma="stage"):
     """Bind the chosen sweep-fed backward to its derivative data (and, for
     a boxed solve, its bounds): ``backward_fn(lam) -> (ks, Ks, dV, ok)``,
-    batch-minor.  ``host`` reads the plain boxed QP's device flags."""
+    batch-minor.  ``host`` reads the plain boxed QP's device flags;
+    ``dma`` picks the unboxed kernel (``DDPSolver``)."""
     if bounds is not None:
         if impl == "pallas":
             return lambda lam: backward_fused_boxed(config, Dst, bounds, VxT,
@@ -238,7 +258,8 @@ def _make_backward_fn(config: DDPConfig, impl: str, Dst, VxT, VxxT,
         return lambda lam: backward_stacked_boxed(
             config, Dst, bounds, VxT, VxxT, lam, D2=D2, host=host)
     if impl == "pallas":
-        return lambda lam: backward_fused(config, Dst, VxT, VxxT, lam)
+        return lambda lam: backward_fused(config, Dst, VxT, VxxT, lam,
+                                          dma=dma)
     return lambda lam: backward_stacked(config, Dst, VxT, VxxT, lam, D2=D2)
 
 
@@ -285,7 +306,8 @@ def _ratio(actual, expected):
 # --------------------------------------------------------------------------
 
 
-def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init):
+def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init,
+                   backward_dma="stage"):
     """Batched DDP solve.  Returns (DDPResult, host syncs).
 
     Per-lane control flow reproduces the JAX ``_solve_stacked`` exactly:
@@ -386,7 +408,8 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init):
             bounds = StackedBounds(*D[-3:]) if boxed else None
             backward_fn = _make_backward_fn(config, impl,
                                             StackedDerivs(*D[:7]), VxT, VxxT,
-                                            bounds=bounds, D2=D2, host=host)
+                                            bounds=bounds, D2=D2, host=host,
+                                            dma=backward_dma)
         lam_b, dlam_b, ks_b, Ks_b, dV, bw_failed = _backward_retry(
             config, backward_fn, lam, dlam, ks, Ks, running, host)
         new_status = torch.where(bw_failed & running,

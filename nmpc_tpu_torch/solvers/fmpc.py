@@ -39,9 +39,11 @@ from nmpc_tpu_torch.core.types import (FmpcConfig, FmpcResult, FmpcStatus,
                                         FmpcTrace, FmpcVariable)
 from nmpc_tpu_torch.kernels.ddp_backward import (_chol_bl, _chol_solve_bl,
                                                  _mm, _mT, _mv)
-from nmpc_tpu_torch.kernels.fmpc_backward import (backward_fmpc_fused,
+from nmpc_tpu_torch.kernels.fmpc_backward import (VARIANTS,
+                                                  backward_fmpc_fused,
                                                   condensation,
-                                                  kernel_supports)
+                                                  kernel_supports,
+                                                  resident_fits)
 from nmpc_tpu_torch.kernels.fmpc_forward import (forward_fmpc_deltas_fused,
                                                  forward_fmpc_deltas_plain,
                                                  forward_kernel_supports)
@@ -60,15 +62,26 @@ _CONTINUED = int(FmpcStatus.ITERATION_CONTINUED)
 class FmpcSolver:
     """Problem + config bound into batched solve functions.
 
-    ``config.print_level`` is carried for config parity and not acted on
-    yet (ROADMAP A12)."""
+    ``backward_variant`` picks the CUDA backward where the resolved
+    backward is ``"pallas"``: ``"stream"`` (K8), ``"resident"`` (K9 where
+    ``resident_fits`` holds, K8 otherwise, as the JAX rule at
+    ``nmpc_tpu/kernels/fmpc_backward_pallas.py:747-751``) or ``"packed"``
+    (K10, between a pack and an unpack); the JAX package's
+    ``NMPC_FMPC_PALLAS`` and ``NMPC_PALLAS_PACKED`` switches.  The three
+    compute the same numbers.  ``config.print_level`` is carried for
+    config parity and not acted on yet (ROADMAP A12)."""
 
-    def __init__(self, problem: Problem, config: FmpcConfig = FmpcConfig()):
+    def __init__(self, problem: Problem, config: FmpcConfig = FmpcConfig(),
+                 backward_variant: str = "stream"):
         if problem.ineq_const is None or problem.ineq_dim <= 0:
             raise ValueError("FMPC requires a problem with inequality "
                              "constraints (ineq_const, ineq_dim > 0)")
+        if backward_variant not in VARIANTS:
+            raise ValueError(f"backward_variant must be one of {VARIANTS}, "
+                             f"got {backward_variant!r}")
         self.problem = problem
         self.config = config
+        self.backward_variant = backward_variant
         self.host_syncs = 0   # host reads of device values, last solve
 
     def solve_batch(self, t0, x0s, variables: FmpcVariable,
@@ -77,7 +90,8 @@ class FmpcSolver:
         leading batch axis, barrier_epss [B]; the result carries a leading
         batch axis."""
         res, self.host_syncs = _solve_batched(self.problem, self.config, t0,
-                                              x0s, variables, barrier_epss)
+                                              x0s, variables, barrier_epss,
+                                              self.backward_variant)
         return res
 
     def solve(self, t0, x0, variable: FmpcVariable,
@@ -210,32 +224,44 @@ def _backward_bm(problem: Problem, config: FmpcConfig, co: _StCoeffs, ss,
     the plain version of the K8 kernel (``kernels/fmpc_backward.py``).
 
     ``co`` from :func:`_coeffs_bm`; ``ss``/``nus`` [N, ng, B], ``gms``
-    [N, ng], ``barrier_eps`` [B].  Per stage: the (s, nu) condensation
-    through nu/s (computed for every row, then selected by the mask),
-    F/H/G, LLT(G) with Eigen's pivot > 0 rule and, unless
-    ``break_if_llt_fails``, the Gauss-Jordan inverse on the lanes whose
-    LLT failed, then the (s, P) recursion with P symmetrized.
+    [N, ng], ``barrier_eps`` [B].  The (s, nu) condensation through nu/s
+    (computed for every row, then selected by the mask), then
+    :func:`_riccati_condensed`.
     Returns (ks [N,nu,B], Ks [N,nu,nx,B], svecs [N+1,nx,B],
     Ps [N+1,nx,nx,B], ok [B], finite [B]); row N of svecs/Ps is the
     terminal (s_T, P_T), which the finite check covers too."""
+    nu_s, tilde = condensation(co, ss, nus, gms, barrier_eps)
+    fields = {"A": co.A, "B": co.B, "C": co.C, "D": co.D, "Lxx": co.Lxx,
+              "Luu": co.Luu, "Lxu": co.Lxu, "xb": co.x_bar,
+              "Lxb": co.Lx_bar, "Lub": co.Lu_bar, "nu_s": nu_s,
+              "tilde": tilde}
+    return _riccati_condensed(problem, config, fields, -co.Lx_bar_term,
+                              co.Lxx_term)
+
+
+def _riccati_condensed(problem: Problem, config: FmpcConfig, f: dict, s_T,
+                       P_T):
+    """The recursion of :func:`_backward_bm` on condensed stage fields
+    ``f`` (the names of ``kernels/fmpc_backward.py::IN_FIELDS``, each
+    [N, ..., B]) from the terminal (s_T [nx, B], P_T [nx, nx, B]): per
+    stage F/H/G, LLT(G) with Eigen's pivot > 0 rule and, unless
+    ``break_if_llt_fails``, the Gauss-Jordan inverse on the lanes whose
+    LLT failed, then the (s, P) recursion with P symmetrized.  Also the
+    plain version of the packed kernel (K10), which unpacks into ``f``."""
     dt = problem.dt
-    N = co.A.shape[0]
-    B = barrier_eps.shape[0]
-    s_T = -co.Lx_bar_term                                    # (2.34)
-    P_T = co.Lxx_term
+    N, B = f["A"].shape[0], s_T.shape[-1]
     s_vec, P = s_T, P_T
-    ok = torch.ones((B,), dtype=torch.bool, device=barrier_eps.device)
-    nu_s_all, tilde_all = condensation(co, ss, nus, gms, barrier_eps)
+    ok = torch.ones((B,), dtype=torch.bool, device=s_T.device)
     ks, Ks, svecs, Ps = [None] * N, [None] * N, [None] * N, [None] * N
     for i in reversed(range(N)):
-        A, Bm, C, D = co.A[i], co.B[i], co.C[i], co.D[i]
-        nu_s, tilde = nu_s_all[i], tilde_all[i]              # [ng, B]
+        A, Bm, C, D = f["A"][i], f["B"][i], f["C"][i], f["D"][i]
+        nu_s, tilde = f["nu_s"][i], f["tilde"][i]            # [ng, B]
         CT, DT = _mT(C), _mT(D)
-        Qxx_t = dt * co.Lxx[i] + _mm(CT, nu_s[:, None, :] * C)   # (2.28c)
-        Quu_t = dt * co.Luu[i] + _mm(DT, nu_s[:, None, :] * D)   # (2.28e)
-        Qxu_t = dt * co.Lxu[i] + _mm(CT, nu_s[:, None, :] * D)   # (2.28d)
-        Lx_t = co.Lx_bar[i] + _mv(CT, tilde)                     # (2.28f)
-        Lu_t = co.Lu_bar[i] + _mv(DT, tilde)                     # (2.28g)
+        Qxx_t = dt * f["Lxx"][i] + _mm(CT, nu_s[:, None, :] * C)  # (2.28c)
+        Quu_t = dt * f["Luu"][i] + _mm(DT, nu_s[:, None, :] * D)  # (2.28e)
+        Qxu_t = dt * f["Lxu"][i] + _mm(CT, nu_s[:, None, :] * D)  # (2.28d)
+        Lx_t = f["Lxb"][i] + _mv(CT, tilde)                      # (2.28f)
+        Lu_t = f["Lub"][i] + _mv(DT, tilde)                      # (2.28g)
 
         AT, BT = _mT(A), _mT(Bm)
         PB = _mm(P, Bm)
@@ -243,7 +269,7 @@ def _backward_bm(problem: Problem, config: FmpcConfig, co: _StCoeffs, ss,
         H = Qxu_t + _mm(AT, PB)                              # (2.35c)
         G = Quu_t + _mm(BT, PB)                              # (2.35d)
 
-        Pxb = _mv(P, co.x_bar[i])
+        Pxb = _mv(P, f["xb"][i])
         rhs_k = _mv(BT, Pxb - s_vec) + Lu_t                  # [nu, B]
         L, pd = _chol_bl(G)
         k = -_chol_solve_bl(L, rhs_k[:, None, :])[:, 0, :]
@@ -455,7 +481,8 @@ def _resolve_impls(config: FmpcConfig, problem: Problem, dtype,
 
 
 def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
-                   variables: FmpcVariable, barrier_eps0s):
+                   variables: FmpcVariable, barrier_eps0s,
+                   backward_variant="stream"):
     """Batched FMPC solve.  Returns (FmpcResult, host syncs).
 
     Check-first loop (``nmpc_tpu/solvers/fmpc.py:1059-1137``): the
@@ -517,9 +544,14 @@ def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
                 & _lanes_all(var.nus * gm3 >= 0))
 
     if bw_impl == "pallas":
+        variant = backward_variant
+        if variant == "resident" and not resident_fits(nx, nu_dim, ng, N,
+                                                        dtype):
+            variant = "stream"
+
         def backward_fn(co, ss, nus, eps_):
             return backward_fmpc_fused(problem, config, co, ss, nus, gms,
-                                       eps_)
+                                       eps_, variant=variant)
     else:
         def backward_fn(co, ss, nus, eps_):
             return _backward_bm(problem, config, co, ss, nus, gms, eps_)

@@ -1,7 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: the sweep-fed backward (K1) and its boxed variant (K4), the remat
 backward (K5, unboxed and boxed), the fused rollouts (K6, K7), and FMPC's
-condensed Riccati backward (K8) and Δx/Δu recursion (K11).  Every test
+condensed Riccati backward (K8) and Δx/Δu recursion (K11), and the
+layout variants that must equal their parents bit for bit: the chunked
+and packed DDP backward (K2, K3) against K1, the resident and packed FMPC
+backward (K9, K10) against K8, with the solver keywords that select them.
+Every test
 here is marked ``cuda`` and skips without a card; the file imports no JAX,
 so on the GPU machine it runs without the JAX package's conftest:
 
@@ -20,17 +24,24 @@ from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds, StackedDerivs,
                                                  backward_stacked,
                                                  backward_stacked_boxed)
 from nmpc_tpu_torch.kernels.ddp_backward_boxed import backward_fused_boxed
-from nmpc_tpu_torch.kernels.ddp_backward_fused import backward_fused
+from nmpc_tpu_torch.kernels.ddp_backward_fused import (backward_fused,
+                                                       backward_packed,
+                                                       chunk_stages)
 from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
                                                        backward_remat_plain)
 from nmpc_tpu_torch.kernels.ddp_forward_remat import (forward_costs_remat,
                                                       forward_selected_remat)
-from nmpc_tpu_torch.kernels.fmpc_backward import backward_fmpc_fused
+from nmpc_tpu_torch.kernels.fmpc_backward import (backward_fmpc_fused,
+                                                  backward_fmpc_packed)
 from nmpc_tpu_torch.kernels.fmpc_forward import (forward_fmpc_deltas_fused,
                                                  forward_fmpc_deltas_plain)
 from nmpc_tpu_torch.kernels.tileval import TileEvalError
 from nmpc_tpu_torch.models.cartpole import (make_cartpole_fmpc_problem,
                                             make_cartpole_problem)
+from nmpc_tpu_torch.models.bipedal import (example_omega2_func,
+                                           example_ref_zmp_func,
+                                           make_bipedal_problem)
+from nmpc_tpu_torch.models.oscillator import make_oscillator_problem
 from nmpc_tpu_torch.models.vertical import make_vertical_problem
 from nmpc_tpu_torch.solvers import ddp
 from nmpc_tpu_torch.solvers import fmpc
@@ -93,8 +104,9 @@ def test_kernel_matches_twin(card, dtype, reg_type):
 
 
 def test_unbuilt_shape_raises(card):
-    """(nx, nu) = (3, 1) was not instantiated: the wrapper raises."""
-    N, nx, nu, B = 4, 3, 1, 32
+    """(nx, nu) = (9, 1) is past the kernels' limits (nx <= 8): the wrapper
+    raises."""
+    N, nx, nu, B = 4, 9, 1, 32
     r = lambda *shape: torch.rand(shape, device=card)
     D = StackedDerivs(r(N, nx, nx, B), r(N, nx, nu, B), r(N, nx, B),
                       r(N, nu, B), r(N, nx, nx, B), r(N, nu, nu, B),
@@ -444,3 +456,155 @@ def test_fmpc_auto_goes_through_kernels(card):
     for f in ("xs", "us", "lambdas", "ss", "nus"):
         assert _norm_err(getattr(ref.variable, f),
                          getattr(res.variable, f)) <= 1e-10
+
+
+def _equal_on(ref, out, lanes):
+    """Every output equal bit for bit on ``lanes`` (NaN where NaN)."""
+    return all(torch.equal(a[..., lanes], b[..., lanes])
+               for a, b in zip(ref, out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", [17, 100])
+def test_chunked_and_packed_equal_k1(card, dtype, N):
+    """K2 and K3 vs K1 on a ragged batch (B=300) with a non-PD and a NaN
+    lane: bit-equal on every lane K1 calls ok, ok masks equal, one launch
+    each.  N=100 runs K2 with a shorter last chunk at fp32 (C=8)."""
+    B = 300
+    D, VxT, VxxT = _derivs(B, N, dtype, card)
+    D.Luu[:, :, :, 7] = -10.0
+    D.Fx[3, 2, 1, 299] = float("nan")
+    cfg = DDPConfig(horizon_steps=N)
+    lam = torch.full((B,), 1e-4, dtype=dtype, device=card)
+    k1 = backward_fused(cfg, D, VxT, VxxT, lam)
+    before = (backward_fused.chunked_launches, backward_packed.launches)
+    k2 = backward_fused(cfg, D, VxT, VxxT, lam, dma="chunked")
+    k3 = backward_fused(cfg, D, VxT, VxxT, lam, dma="packed")
+    torch.cuda.synchronize()
+    assert (backward_fused.chunked_launches, backward_packed.launches) == (
+        before[0] + 1, before[1] + 1)
+    if dtype == torch.float32 and N == 100:
+        assert N % chunk_stages(4, 1, N, dtype) != 0
+    for out in (k2, k3):
+        assert torch.equal(out[3], k1[3])
+        assert _equal_on(k1[:3], out[:3], k1[3])
+
+
+def _osc_case(B, N, dtype, device, seed=6):
+    """Oscillator FMPC first-iteration data, lane 3 NaN, lane 9 non-PD."""
+    p = make_oscillator_problem(DT)
+    rng = np.random.default_rng(seed)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    var = FmpcVariable(
+        xs=as_t(0.3 * rng.normal(size=(N + 1, 2, B))),
+        us=as_t(0.3 * rng.normal(size=(N, 1, B))),
+        lambdas=as_t(0.3 * rng.normal(size=(N + 1, 2, B))),
+        ss=as_t(0.2 + rng.uniform(size=(N, 3, B))),
+        nus=as_t(0.2 + rng.uniform(size=(N, 3, B))))
+    t0 = torch.zeros((), dtype=dtype, device=device)
+    co = fmpc._coeffs_bm(p, FmpcConfig(horizon_steps=N), t0, var)
+    co.A[N // 2, 0, 1, 3] = float("nan")
+    co.Luu[:, :, :, 9] = -1e4
+    gms = fmpc._ineq_masks(p, t0 + DT * torch.arange(
+        N, dtype=dtype, device=device), dtype)
+    return p, co, var, gms, torch.full((B,), 1e-4, dtype=dtype,
+                                       device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("break_if_llt_fails", [False, True])
+@pytest.mark.parametrize("model", ["oscillator", "cart-pole"])
+def test_resident_and_packed_equal_k8(card, dtype, break_if_llt_fails,
+                                      model):
+    """K9 and K10 vs K8 (ragged B=300, N=11 so that the cart-pole fits K9
+    at fp64 too): ok and finite masks equal, every output bit-equal on the
+    finite lanes, one launch each."""
+    B, N = 300, 11
+    p, co, var, gms, eps = (_osc_case if model == "oscillator"
+                            else _fmpc_case)(B, N, dtype, card)
+    cfg = FmpcConfig(horizon_steps=N, break_if_llt_fails=break_if_llt_fails)
+    k8 = backward_fmpc_fused(p, cfg, co, var.ss, var.nus, gms, eps)
+    before = (backward_fmpc_fused.resident_launches,
+              backward_fmpc_packed.launches)
+    k9 = backward_fmpc_fused(p, cfg, co, var.ss, var.nus, gms, eps,
+                             variant="resident")
+    k10 = backward_fmpc_fused(p, cfg, co, var.ss, var.nus, gms, eps,
+                              variant="packed")
+    torch.cuda.synchronize()
+    assert (backward_fmpc_fused.resident_launches,
+            backward_fmpc_packed.launches) == (before[0] + 1, before[1] + 1)
+    for out in (k9, k10):
+        assert torch.equal(out[4], k8[4]) and torch.equal(out[5], k8[5])
+        assert _equal_on(k8[:4], out[:4], k8[5])
+
+
+def test_resident_raises_where_it_does_not_fit(card):
+    """The cart-pole at N=24, fp32, needs more than 227 KB per 32 lanes:
+    the wrapper asked for K9 raises (the solver's "resident" takes K8
+    there: ``test_fmpc_variant_reaches_its_kernel``)."""
+    B, N = 64, 24
+    p, co, var, gms, eps = _fmpc_case(B, N, torch.float32, card)
+    cfg = FmpcConfig(horizon_steps=N)
+    with pytest.raises(ValueError, match="resident"):
+        backward_fmpc_fused(p, cfg, co, var.ss, var.nus, gms, eps,
+                            variant="resident")
+
+
+@pytest.mark.parametrize("dma,counter", [
+    ("stage", lambda: backward_fused.launches),
+    ("chunked", lambda: backward_fused.chunked_launches),
+    ("packed", lambda: backward_packed.launches)])
+def test_bipedal_solve_reaches_each_dma_kernel(card, dma, counter):
+    """fp64 bipedal ``solve_batch`` (B=64, N=60) through ``auto`` with each
+    ``backward_dma`` launches that kernel (K1, K2 or K3 at (2, 1): the
+    generator rejects the model) and agrees with the plain path: statuses
+    and iterations equal, u within 1e-8."""
+    B, N = 64, 60
+    p = make_bipedal_problem(DT, example_ref_zmp_func(20.0),
+                             example_omega2_func())
+    rng = np.random.default_rng(2)
+    x0s = torch.as_tensor(0.05 * rng.normal(size=(B, 2)), device=card)
+    us0 = torch.zeros((B, N, 1), dtype=torch.float64, device=card)
+    cfg = DDPConfig(horizon_steps=N, max_iter=10)
+    before = counter()
+    res = DDPSolver(p, cfg, backward_dma=dma).solve_batch(1.2, x0s, us0)
+    assert counter() > before
+    ref = DDPSolver(p, dataclasses.replace(
+        cfg, backward_impl="stacked", forward_impl="scan")).solve_batch(
+            1.2, x0s, us0)
+    assert torch.equal(res.status, ref.status)
+    assert torch.equal(res.iters, ref.iters)
+    assert (res.us - ref.us).abs().max().item() <= 1e-8
+
+
+@pytest.mark.parametrize("variant,N,counter", [
+    ("stream", 20, lambda: backward_fmpc_fused.launches),
+    ("resident", 20, lambda: backward_fmpc_fused.resident_launches),
+    ("resident", 40, lambda: backward_fmpc_fused.launches),
+    ("packed", 20, lambda: backward_fmpc_packed.launches)])
+def test_fmpc_variant_reaches_its_kernel(card, variant, N, counter):
+    """An oscillator ``solve_batch`` (B=128, fp32, 3 iterations) with each
+    ``backward_variant`` launches its kernel once per iteration
+    ("resident" at N=40 does not fit K9 and takes K8) and equals the
+    default solve bit for bit."""
+    B = 128
+    p = make_oscillator_problem(DT)
+    rng = np.random.default_rng(1)
+    x0s = torch.as_tensor(np.tile([0.0, 1.0], (B, 1))
+                          + 0.05 * rng.normal(size=(B, 2)),
+                          dtype=torch.float32, device=card)
+    v1 = fmpc_variable_reset(N, 2, 1, 3, dtype=torch.float32, device=card)
+    var = FmpcVariable(**{f: getattr(v1, f).expand(
+        B, *getattr(v1, f).shape).contiguous()
+        for f in ("xs", "us", "lambdas", "ss", "nus")})
+    eps = torch.full((B,), 1e-4, dtype=torch.float32, device=card)
+    cfg = FmpcConfig(horizon_steps=N, max_iter=3, kkt_error_thre=0.0)
+    ref = FmpcSolver(p, cfg).solve_batch(0.0, x0s, var, eps)
+    before = counter()
+    res = FmpcSolver(p, cfg, backward_variant=variant).solve_batch(
+        0.0, x0s, var, eps)
+    assert counter() == before + 3
+    assert torch.equal(res.status, ref.status)
+    for f in ("xs", "us", "lambdas", "ss", "nus"):
+        assert torch.equal(getattr(ref.variable, f),
+                           getattr(res.variable, f))

@@ -223,7 +223,7 @@ def test_unported_options_raise(change, item):
     ("cuda", torch.float64, False, (4, 1), "auto", "remat"),
     ("cpu", torch.float32, False, (4, 1), "auto", "stacked"),
     ("cuda", torch.float32, True, (4, 1), "auto", "stacked"),
-    ("cuda", torch.float32, False, (6, 2), "auto", "stacked"),
+    ("cuda", torch.float32, False, (12, 2), "auto", "stacked"),
     ("cuda", torch.float16, False, (4, 1), "auto", "stacked"),
     ("cpu", torch.float32, False, (4, 1), "pallas", "pallas"),
     ("cuda", torch.float32, True, (4, 1), "pallas", NotImplementedError),
@@ -232,12 +232,14 @@ def test_unported_options_raise(change, item):
     ("cpu", torch.float32, False, (4, 1), "remat", "remat"),
     ("cuda", torch.float32, True, (4, 1), "remat", NotImplementedError),
     ("cuda", torch.float32, False, (6, 2), "remat", TileEvalError),
+    ("cuda", torch.float32, False, (6, 2), "auto", "pallas"),
 ])
 def test_auto_backward_rule(device, dtype, second, nx_nu, impl, want):
     """``auto`` takes a CUDA kernel only on CUDA tensors, first order and
     unboxed: the remat kernel where the generator takes the problem, else
-    the sweep-fed kernel at a built (nx, nu) and dtype; no B % 128
-    condition.  An explicit ``"pallas"`` or ``"remat"`` on a second-order
+    the sweep-fed kernel within its limits (nx <= 8, nu <= 4, float32 or
+    float64: a problem the generator rejects at (6, 2) takes it, one at
+    (12, 2) the plain backward); no B % 128 condition.  An explicit ``"pallas"`` or ``"remat"`` on a second-order
     solve raises rather than running a plain version in the kernel's
     place, and so does ``"remat"`` on a problem whose callables do not
     generate at its (nx, nu)."""

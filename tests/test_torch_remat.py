@@ -31,7 +31,7 @@ from nmpc_tpu_torch import DDPConfig, DDPSolver
 from nmpc_tpu_torch.convert import (cartpole_problem_from_reference,
                                     ddp_config_from_reference,
                                     result_to_numpy)
-from nmpc_tpu_torch.kernels import build, tileval
+from nmpc_tpu_torch.kernels import build, ddp_backward_fused, tileval
 from nmpc_tpu_torch.kernels.ddp_backward import StackedDerivs, backward_stacked
 from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
                                                        remat_supported)
@@ -284,7 +284,7 @@ def test_library_name_follows_included_headers(tmp_path):
     renames neither.  Nothing is compiled."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
-    k1 = (csrc / "ddp_backward.cu").read_text()
+    k1 = ddp_backward_fused.unit_source(4, 1, torch.float32)
     gen = '#include "ddp_backward_remat.cuh"\n'
     before = [build.library_path("k", text, csrc) for text in (k1, gen)]
     assert before == [build.library_path("k", text, csrc)
