@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--layers]
+    python3 chip_smoke.py [--layers] [--qp-groups [--baseline DIR]]
 
 Phases, one line each (a failed phase exits non-zero):
 
@@ -17,17 +17,19 @@ Phases, one line each (a failed phase exits non-zero):
    recursion (K11) at (2, 1), (4, 1), (2, 2), for fp32 and fp64; then
    compile them with nvcc, all at once; print the seconds and ptxas'
    registers and spills;
-2. kernels: hold each kernel against its plain PyTorch version on the
-   card, fp32 and fp64: K1 and K5 at the headline shape (B=4096, N=100)
-   and the tick shape (B=256, N=200), each with one non-PD lane and one
-   NaN lane; K6 and K7 with gains from a real backward pass, and whether
-   K7's column for an alpha equals K6's sum bit for bit; K4 and K5 boxed
-   on first-iteration vertical-motion data (B=1024, N=100, across the
-   switch to two contacts, both regularization types), with a non-PD, a
-   NaN and (K4) a planted long-QP lane, and how many lanes ran the QP's
-   iteration and Armijo tails; K4 and K5 boxed on boxed cart-pole data
-   (B=4096, N=100, fp32); K8 against ``_backward_bm`` on first-iteration
-   FMPC data (cart-pole B=4096, oscillator B=1024, N=100, both
+2. kernels: hold each kernel against its plain PyTorch version on the card,
+   fp32 and fp64: K1 and K5 at the headline shape (B=4096, N=100) and the
+   tick shape (B=256, N=200), each with one non-PD lane and one NaN lane;
+   K6 and K7 with gains from a real backward pass, and whether K7's
+   column for an alpha equals K6's sum bit for bit; K4 and K5 boxed on
+   first-iteration vertical-motion data (B=1024, N=100, across the switch
+   to two contacts, both regularization types), with a non-PD, a NaN and
+   (K4) a planted long-QP lane, and how many lanes ran the QP's iteration
+   and Armijo tails; K4 and K5 boxed on boxed cart-pole data (B=4096,
+   N=100, fp32); K4 and K5 boxed where one lane's QPs run the whole
+   Armijo schedule (``min_step = 0``, a NaN lane, B=1023, fp32 and fp64);
+   the boxed kernels bit for bit; K8 against ``_backward_bm`` on first-
+   iteration FMPC data (cart-pole B=4096, oscillator B=1024, N=100, both
    ``break_if_llt_fails``, a non-PD and a NaN lane; the two-input non-PD
    case) and K11 against its plain recursion fed K8's gains; then the
    layout variants against their plain versions and, bit for bit, their
@@ -67,12 +69,17 @@ Phases, one line each (a failed phase exits non-zero):
    and its last steps again on the plain path and with
    ``make_closed_loop``;
 5. times on the card: each kernel and its plain version (CUDA events)
-   beside its bound, the packs apart, solves/s and tick p50/p99 for each
+   beside its bound, the packs apart, the QP work of the boxed kernels'
+   timed inputs (``[qp]``), solves/s and tick p50/p99 for each
    (backward, forward) pair, solves/s of the boxed vertical solve and of
    both FMPC configurations for each pair, and of the oscillator at N=20
    and the cart-pole serving shape for each ``backward_variant`` (phase
    3 prints the bipedal config's for each ``backward_dma``);
-6. with ``--layers`` only: where one solve's time goes at both shapes,
+6. with ``--qp-groups`` only: K4 and K5 boxed built with 1, 4, 8 and 16
+   threads per lane (and, with ``--baseline DIR``, from the headers of
+   the checkout at DIR), each held to its plain version bit for bit and
+   timed in turns, with ptxas' report of each;
+7. with ``--layers`` only: where one solve's time goes at both shapes,
    for each pair, for the boxed vertical solve, the bipedal config's
    ``auto`` path at 2 iterations and the FMPC configurations (synced time
    per solver layer, the device's busy time and launches from
@@ -94,10 +101,12 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -110,7 +119,8 @@ from golden.ddp_numpy import GoldenConfig, GoldenDDP  # noqa: E402
 from golden.fmpc_numpy import (  # noqa: E402
     GoldenFmpc, GoldenFmpcConfig, OscillatorGolden)
 from nmpc_tpu_torch import (  # noqa: E402
-    DDPConfig, DDPSolver, DDPStatus, FmpcConfig, FmpcSolver, FmpcStatus,
+    BoxQPConfig, DDPConfig, DDPSolver, DDPStatus, FmpcConfig, FmpcSolver,
+    FmpcStatus,
     FmpcVariable, fmpc_variable_reset)
 from nmpc_tpu_torch.core.problem import Problem  # noqa: E402
 from nmpc_tpu_torch.kernels import build as kbuild  # noqa: E402
@@ -151,10 +161,22 @@ CART_FORCE = (-15.0, 15.0)
 # lanes both call ok (benchmarks/parity_gate.py:61 for fp32; fp64 differs
 # only by FMA contraction, summation order and the math library).
 KERNEL_TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
-# End-to-end fp32 contract (benchmarks/parity_gate.py:72-73).
+# End-to-end fp32 contract of a kernel path against the plain path, as the
+# port holds it (PERF.md §2): u normalized <= E2E_U_NORM and cost rel <=
+# E2E_COST_REL (benchmarks/parity_gate.py:72-73).  Statuses and iterations
+# may part where an accept or termination test sits at rounding level:
+# every lane that parts is listed with its cost update and the threshold
+# in ulp of its cost (decision_flips).  fp64 holds statuses and
+# iterations equal.
 E2E_U_NORM, E2E_COST_REL = 1e-2, 1e-4
 # End-to-end fp64 contract of the boxed solves against the plain path.
 E2E_U_NORM_FP64 = 1e-8
+# fp32 lanes of the boxed solves whose status or iterations part from the
+# plain path, per (model, path).  K4 and K5 boxed equal their plain
+# versions bit for bit, so these come from the rest of each path (the
+# fused rollouts) and must not move when the boxed kernels change.
+BOXED_FP32_FLIPS = {("vertical", "K4"): 0, ("vertical", "auto"): 0,
+                    ("cart-pole", "K4"): 0, ("cart-pole", "auto"): 647}
 GOLDEN_TOL = 1e-8
 # (backward_impl, forward_impl) pairs that are timed; "auto" resolves to
 # the last on the card.
@@ -650,12 +672,28 @@ def phase_kernels(device):
     phase_kernels_boxed(device)
 
 
+def boxed_bit_equal(plain, out):
+    """Whether a boxed kernel's (ks, Ks, dV, ok) equal its plain version's
+    bit for bit: ok masks equal, and every value of the lanes that are ok
+    with finite gains (a NaN state leaves ok set with NaN gains)."""
+    if not torch.equal(plain[3], out[3]):
+        return False
+    finite = lambda ks: torch.isfinite(ks).flatten(0, -2).all(0)
+    lanes = plain[3] & finite(plain[0])
+    return (torch.equal(lanes, out[3] & finite(out[0]))
+            and all(torch.equal(a[..., lanes], b[..., lanes])
+                    for a, b in zip(plain[:3], out[:3])))
+
+
 def check_boxed(key, label, plain, out, B, config, stats, dtype):
-    """Ok masks, errors and the QP tails one boxed kernel check ran."""
+    """Ok masks, errors (the boxed kernels equal their plain versions bit
+    for bit) and the QP tails one boxed kernel check ran."""
     check_ok(f"{key} {label}", plain[3], out[3], B)
     err = report(f"{key} {label}", {
         n: norm_err(a, b, plain[3]) for n, a, b in
         zip(("ks", "Ks", "dV"), plain, out)}, dtype)
+    check(boxed_bit_equal(plain, out),
+          f"{key} {label}: not bit-equal to its plain version")
     KERNELS[key].max_abs_err = max(KERNELS[key].max_abs_err, err)
     tails = qp_tails(stats, config)
     print(f"[kernel] {key} {label}: lanes whose QP ran past unroll_iter="
@@ -702,7 +740,59 @@ def phase_kernels_boxed(device):
                                        VxxT5, lam, boxed=True)
             torch.cuda.synchronize()
             check_boxed("K5b", label, plain, out, B, config, stats, dtype)
+    for dtype in (torch.float32, torch.float64):
+        check_exhausted(device, dtype)
     phase_kernels_fmpc(device)
+
+
+def check_exhausted(device, dtype):
+    """K4 and K5 boxed vs their plain versions where one lane's QP runs the
+    whole Armijo schedule: ``min_step = 0``, so only the end of the
+    max_ls_iter + 1 = 105 steps stops a search that never accepts, on
+    vertical data of B = 1023 lanes (a ragged last block for every group
+    size), with lane 4 made NaN (K4: a NaN lower bound at the last stage;
+    K5 boxed: a NaN state mid-horizon).  Its Quu stays finite, so its QPs
+    exhaust with NaN gains and ok set, in both versions: ok masks equal,
+    the NaN lane's gains non-finite in both, the rest bit for bit."""
+    B, N = VERTICAL[0] - 1, VERTICAL[1]
+    dname = str(dtype)[6:]
+    config = boxed_config(N, boxqp=BoxQPConfig(min_step=0.0))
+    lam = torch.full((B,), 1e-6, dtype=dtype, device=device)
+    n_ls = config.boxqp.max_ls_iter + 1
+    D, bnd, VxT, VxxT = boxed_derivs("vertical", B, N, dtype, device)
+    bnd.lower[N - 1, 0, 4] = float("nan")
+    problem, t0, xs, us, VxT5, VxxT5 = boxed_remat_inputs(
+        "vertical", B, N, dtype, device)
+    xs[N // 2, 0, 4] = float("nan")
+    Dr = _stage_derivs_sweep(problem, config, t0, xs, us)
+    runs = {
+        "K4": (lambda stats: backward_stacked_boxed(
+                   config, D, bnd, VxT, VxxT, lam, stats=stats),
+               lambda: boxed.backward_fused_boxed(config, D, bnd, VxT, VxxT,
+                                                  lam)),
+        "K5b": (lambda stats: backward_stacked_boxed(
+                    config, StackedDerivs(*Dr[:7]), StackedBounds(*Dr[-3:]),
+                    VxT5, VxxT5, lam, stats=stats),
+                lambda: remat.backward_remat(problem, config, t0, xs, us,
+                                             VxT5, VxxT5, lam, boxed=True))}
+    for key, (plain_fn, kernel_fn) in runs.items():
+        stats = {}
+        plain = plain_fn(stats)
+        out = kernel_fn()
+        torch.cuda.synchronize()
+        visits = int(stats["ls_candidates"][:, 4].max())
+        nan_lane = bool(out[3][4]) and not any(
+            bool(torch.isfinite(r[0][..., 4]).all()) for r in (plain, out))
+        equal = boxed_bit_equal(plain, out)
+        print(f"[kernel] {key} exhausted schedule vertical B={B} N={N} "
+              f"{dname} min_step=0: the NaN lane visits {visits} of {n_ls} "
+              f"Armijo candidates in one iteration, ok with NaN gains in "
+              f"both {nan_lane}; ok lanes {int(out[3].sum())}/{B}, equal to "
+              f"the plain version bit for bit {equal}", flush=True)
+        check(visits == n_ls, f"{key} {dname}: the NaN lane did not run the "
+              "whole Armijo schedule")
+        check(nan_lane and equal, f"{key} exhausted schedule {dname}: "
+              "kernel and plain version differ")
 
 
 def e2e_compare(a, b):
@@ -910,6 +1000,11 @@ def phase_e2e_boxed(device):
                     if dtype == torch.float64:
                         check(st and it and du <= E2E_U_NORM_FP64,
                               f"boxed {model} fp64 {name} vs plain")
+                    else:
+                        want = BOXED_FP32_FLIPS[model, name]
+                        check(len(flips) == want, f"boxed {model} fp32 "
+                              f"{name}: {len(flips)} lanes part from the "
+                              f"plain path, {want} expected")
                     check(du <= E2E_U_NORM and dc <= E2E_COST_REL,
                           f"boxed {model} {dname} {name}: u or cost vs plain "
                           f"out of the contract")
@@ -1131,6 +1226,8 @@ def phase_times(device, card):
         backward_stacked_boxed(cfg, StackedDerivs(*Dr[:7]),
                                StackedBounds(*Dr[-3:]), VxT5, VxxT5, lam,
                                stats=stats5)
+        for key, stats in (("K4", stats4), ("K5b", stats5)):
+            print(qp_line(key, f"{model} B={B} N={N}", stats), flush=True)
         ric = riccati_ops(nx, nu, 1, True)
         gen = (program_ops(problem, "remat_boxed", "fields", nx, nu)
                + program_ops(problem, "remat_boxed", "aux", nx, nu))
@@ -1190,6 +1287,35 @@ def phase_times(device, card):
     phase_times_fmpc(device, card)
 
 
+def qp_group() -> int:
+    """The boxed kernels' threads per lane, kQpGroup of csrc/boxqp.cuh."""
+    text = (kbuild.CSRC / "boxqp.cuh").read_text()
+    return int(re.search(r"constexpr int kQpGroup = (\d+);", text).group(1))
+
+
+def qp_line(key, label, stats):
+    """The QP work a boxed kernel's input needs, from its plain version's
+    ``stats`` [N, B]: per lane and stage, QP iterations and Armijo
+    candidates (mean, p99, max); per (warp, stage), the slowest lane's, for
+    warps of 32 lanes (a thread per lane) and of 32 / kQpGroup lanes."""
+    G = qp_group()
+    parts = []
+    for name, what in (("qp_iters", "QP iterations"),
+                       ("ls_evals", "Armijo candidates")):
+        a = stats[name].double().cpu()
+        warp = []
+        for lanes in (32, 32 // G):
+            padded = torch.nn.functional.pad(a, (0, (-a.shape[1]) % lanes))
+            warp.append(padded.reshape(a.shape[0], -1, lanes).amax(-1)
+                        .mean().item())
+        parts.append(f"{what} mean {a.mean().item():.3f}, p99 "
+                     f"{torch.quantile(a.flatten(), 0.99).item():.0f}, max "
+                     f"{a.max().item():.0f}, slowest lane of a warp of 32 "
+                     f"lanes {warp[0]:.3f}, of {32 // G} lanes {warp[1]:.3f}")
+    return (f"[qp] {key} {label} fp32 (the timed input; the plain "
+            f"version's counts) per lane and stage: {'; '.join(parts)}")
+
+
 def timed_solves(solver, x0s, us0, reps):
     """Host seconds of ``reps`` synced solves after a warm one."""
     solver.solve_batch(0.0, x0s, us0)
@@ -1218,6 +1344,79 @@ def record_time(key, kernel, plain, nbytes, ops, label, keep, card,
     if keep:
         k = KERNELS[key]
         k.ms, k.plain_ms, k.bound_ms, k.bound_by = t_kern, t_plain, t_bound, by
+
+
+# The threads per lane --qp-groups builds the boxed kernels at.
+QP_GROUPS = (1, 4, 8, 16)
+
+
+def phase_qp_groups(device, card, baseline):
+    """K4 and K5 boxed built at every group size of QP_GROUPS and, with
+    ``baseline`` (another checkout's root), from that checkout's headers
+    at its own geometry: all built at once, each held to the plain
+    version bit for bit, then timed on the inputs of phase 5 in turns
+    (every variant once, then again in reverse order)."""
+    variants = [(f"G={g}", g, kbuild.CSRC) for g in QP_GROUPS]
+    if baseline:
+        variants.insert(0, ("baseline", None,
+                            Path(baseline).resolve() / "nmpc_tpu_torch"
+                            / "csrc"))
+    models = {"vertical": (VERTICAL, vertical_problem()),
+              "cart-pole": (HEADLINE, boxed_cartpole())}
+    units = []
+    for (B, N), problem in models.values():
+        nx, nu = problem.state_dim, problem.input_dim
+        for _, group, csrc in variants:
+            units.append((boxed.unit_name(nx, nu, torch.float32, group),
+                          boxed.unit_source(nx, nu, torch.float32, group),
+                          boxed.BOXED_FLAGS, csrc))
+            units.append((remat.unit_name(torch.float32, True, group),
+                          remat.unit_source(problem, nx, nu, torch.float32,
+                                            True, group),
+                          remat.unit_flags(True), csrc))
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        libs = list(pool.map(lambda u: kbuild.build_generated(*u), units))
+    print(f"[qp-groups] {len(libs)} units in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    for (name, _, _, csrc), lib in zip(units, libs):
+        print(f"[qp-groups] ptxas {lib.name} (headers "
+              f"{os.path.relpath(csrc, ROOT)}): {ptxas_report(lib)}",
+              flush=True)
+    for model, ((B, N), problem) in models.items():
+        nx, nu = problem.state_dim, problem.input_dim
+        dtype = torch.float32
+        cfg = boxed_config(N)
+        lam = torch.full((B,), 1e-6, device=device)
+        D, bnd, VxT, VxxT = boxed_derivs(model, B, N, dtype, device)
+        _, t0, xs, us, VxT5, VxxT5 = boxed_rollout(model, B, N, dtype,
+                                                   device)
+        plain = {"K4": backward_stacked_boxed(cfg, D, bnd, VxT, VxxT, lam),
+                 "K5b": remat.backward_remat_plain(
+                     problem, cfg, t0, xs, us, VxT5, VxxT5, lam, boxed=True)}
+        calls = {}
+        for label, group, csrc in variants:
+            f4 = boxed.launcher(nx, nu, dtype, group, csrc)
+            f5 = remat.launcher(problem, nx, nu, dtype, True, group, csrc)
+            calls["K4", label] = functools.partial(
+                boxed.launch, f4, cfg, D, bnd, VxT, VxxT, lam)
+            calls["K5b", label] = functools.partial(
+                remat.launch, f5, problem, cfg, t0, xs, us, VxT5, VxxT5, lam,
+                True)
+        for (key, label), fn in calls.items():
+            out = fn()
+            torch.cuda.synchronize()
+            check(boxed_bit_equal(plain[key], out),
+                  f"{key} {model} {label}: not bit-equal to the plain "
+                  "version")
+        times = collections.defaultdict(list)
+        for order in (list(calls), list(reversed(calls))):
+            for key in order:
+                times[key].append(cuda_ms(calls[key], inner=10))
+        for (key, label), ms in times.items():
+            print(f"[qp-groups] {key} {model} B={B} N={N} fp32 {label}: "
+                  f"{ms[0]:.4f} / {ms[1]:.4f} ms (in turns), bit-equal to "
+                  f"the plain version [{card}]", flush=True)
 
 
 LAYERS = ("_rollout_lanes", "_derivative_sweep_lanes", "_terminal_quad_lanes",
@@ -2281,6 +2480,13 @@ def main() -> int:
     parser.add_argument("--layers", action="store_true",
                         help="also print where one solve's time goes, per "
                              "layer, with the profiler's device busy time")
+    parser.add_argument("--qp-groups", action="store_true",
+                        help="also time the boxed kernels (K4, K5 boxed) at "
+                             "each group size of QP_GROUPS")
+    parser.add_argument("--baseline", metavar="DIR",
+                        help="with --qp-groups, also build them from the "
+                             "headers of the checkout at DIR and time them "
+                             "in turns with this one's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2302,6 +2508,9 @@ def main() -> int:
               ("driver", lambda: phase_driver(device, card)),
               ("times", lambda: phase_times(device, card)),
               ("times-variants", lambda: phase_times_variants(device, card))]
+    if args.qp_groups:
+        phases.append(("qp-groups", lambda: phase_qp_groups(
+            device, card, args.baseline)))
     if args.layers:
         phases.append(("layers", lambda: phase_layers(device, card)))
     try:

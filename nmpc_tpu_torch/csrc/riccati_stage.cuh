@@ -267,12 +267,14 @@ struct Bounds {
 // later stage's k (k_next, updated to this stage's k); the K rows
 // -free (Quu_F free block)^-1 (free Qux_reg) through the QP's last
 // factorization, zero on clamped inputs; the value update with the
-// unregularized Q terms.
-template <typename T, int NX, int NU>
+// unregularized Q terms.  Run by the G threads of the lane's group
+// (boxqp.cuh::LaneGroup) on the same arguments, so each computes the same
+// carry; `steps` is the block's fill_step_table schedule.
+template <typename T, int NX, int NU, int G>
 __device__ __forceinline__ void riccati_stage_boxed(
     const Stage<T, NX, NU>& cur, const Bounds<T, NU>& box, T lam,
-    int reg_type, const BoxQPParams& qp, Carry<T, NX>& carry, T k_next[NU],
-    T k[NU], T K[NU][NX]) {
+    int reg_type, const BoxQPParams& qp, const T* steps,
+    Carry<T, NX>& carry, T k_next[NU], T k[NU], T K[NU][NX]) {
   T Qu[NU], Qx[NX], Qux[NU][NX], Quu[NU][NU], Qxx[NX][NX];
   T Qux_reg[NU][NX], Quu_F[NU][NU];
   q_expansion<T, NX, NU>(cur, lam, reg_type, carry, Qu, Qx, Qux, Quu, Qxx,
@@ -283,7 +285,8 @@ __device__ __forceinline__ void riccati_stage_boxed(
     lo[a] = box.lower[a] - box.u[a];
     hi[a] = box.upper[a] - box.u[a];
   }
-  carry.ok = boxqp<T, NU>(Quu_F, Qu, lo, hi, k_next, qp, k, free, L) &&
+  carry.ok = boxqp<T, NU, G>(Quu_F, Qu, lo, hi, k_next, qp, steps, k, free,
+                             L) &&
              carry.ok;
   T rhs[NU][NX], sol[NU][NX];
 #pragma unroll

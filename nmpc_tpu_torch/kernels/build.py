@@ -71,12 +71,14 @@ def library_path(name: str, text: str, csrc: Path = CSRC,
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_generated(name: str, text: str, flags: tuple = ()) -> Path:
-    """Compile a generated unit (``text`` may include ``csrc/`` headers)
-    with nvcc's ``NVCC_FLAGS`` and ``flags`` unless an up-to-date library
+def build_generated(name: str, text: str, flags: tuple = (),
+                    csrc: Path = CSRC) -> Path:
+    """Compile a generated unit (``text`` may include the headers under
+    ``csrc``, this checkout's ``csrc/`` unless another is named) with
+    nvcc's ``NVCC_FLAGS`` and ``flags`` unless an up-to-date library
     exists; the source is written beside the library.  Raises
     ``RuntimeError`` with nvcc's output on failure."""
-    lib = library_path(name, text, flags=flags)
+    lib = library_path(name, text, csrc, flags)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -86,7 +88,7 @@ def build_generated(name: str, text: str, flags: tuple = ()) -> Path:
     os.replace(tmp, src)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, *flags, f"-I{CSRC}", "-o", str(tmp),
+        [nvcc_path(), *NVCC_FLAGS, *flags, f"-I{csrc}", "-o", str(tmp),
          str(src)],
         capture_output=True, text=True, check=False)
     if proc.returncode != 0:

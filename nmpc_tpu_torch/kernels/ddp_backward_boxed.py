@@ -2,11 +2,13 @@
 kernel's wrapper (TPU K4).
 
 Replaces ``nmpc_tpu/kernels/ddp_backward_pallas.py::backward_pallas_boxed``.
-Source: ``csrc/ddp_backward_boxed.cuh`` (one thread per lane; the stage
-``riccati_stage_boxed`` and the projected-Newton QP ``csrc/boxqp.cuh``),
-instantiated per (nx, nu, dtype) in a small generated unit that nvcc
-builds at first use.  As on the TPU the kernel takes nu <= ``MAX_NU``: the
-QP unrolls about nu^3 work per stage into registers.
+Source: ``csrc/ddp_backward_boxed.cuh`` (a group of ``kQpGroup`` threads
+per lane that evaluates the Armijo schedule that many candidates at a
+time; the stage ``riccati_stage_boxed`` and the projected-Newton QP
+``csrc/boxqp.cuh``), instantiated per (nx, nu, dtype) in a small
+generated unit that nvcc builds at first use.  As on the TPU the kernel
+takes nu <= ``MAX_NU``: the QP unrolls about nu^3 work per stage into
+registers.
 
 :func:`backward_fused_boxed` is a drop-in for
 ``kernels/ddp_backward.py::backward_stacked_boxed``.  On CPU tensors it
@@ -17,11 +19,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from pathlib import Path
 
 import torch
 
 from nmpc_tpu_torch.core.types import BoxQPConfig, DDPConfig
-from nmpc_tpu_torch.kernels.build import build_generated, load
+from nmpc_tpu_torch.kernels.build import CSRC, build_generated, load
 from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds,
                                                  StackedDerivs,
                                                  backward_stacked_boxed)
@@ -50,7 +53,12 @@ QP_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_double] * 5
 
 
 def qp_args(cfg: BoxQPConfig) -> tuple:
-    """``cfg`` as the arguments of :data:`QP_PARAMS_C`."""
+    """``cfg`` as the arguments of :data:`QP_PARAMS_C`.  The kernels need
+    at least one Armijo candidate (``max_ls_iter >= 0``), as the plain
+    version does."""
+    if cfg.max_ls_iter < 0:
+        raise ValueError(f"the boxed kernels take max_ls_iter >= 0, got "
+                         f"{cfg.max_ls_iter}")
     return (cfg.max_iter, cfg.max_ls_iter, cfg.grad_thre,
             cfg.rel_improve_thre, cfg.step_factor, cfg.min_step,
             cfg.armijo_param)
@@ -62,8 +70,11 @@ def boxed_kernel_supports(nu: int, dtype) -> bool:
     return nu <= MAX_NU and dtype in DTYPES
 
 
-def unit_source(nx: int, nu: int, dtype) -> str:
-    """The unit instantiating the kernel at (nx, nu, dtype)."""
+def unit_source(nx: int, nu: int, dtype, group: int | None = None) -> str:
+    """The unit instantiating the kernel at (nx, nu, dtype), with the
+    header's ``kQpGroup`` threads per lane, or ``group`` where a
+    measurement asks for another."""
+    g = "" if group is None else f", {group}"
     return (f"#include \"ddp_backward_boxed.cuh\"\n\n"
             f"extern \"C\" int boxed_backward_launch(\n"
             f"    int N, int B, int reg_type, const void* const* fields,\n"
@@ -71,22 +82,53 @@ def unit_source(nx: int, nu: int, dtype) -> str:
             f"    void* ks, void* Ks, void* dV, void* ok, void* stream,\n"
             f"    {QP_PARAMS_C}) {{\n{QP_STRUCT_C}"
             f"  return nmpc::launch_backward_boxed<{DTYPES[dtype]}, {nx}, "
-            f"{nu}>(\n      N, B, reg_type, qp, fields, VxT, VxxT, lam, ks, "
-            f"Ks, dV, ok, stream);\n}}\n")
+            f"{nu}{g}>(\n      N, B, reg_type, qp, fields, VxT, VxxT, lam, "
+            f"ks, Ks, dV, ok, stream);\n}}\n")
 
 
-def unit_name(nx: int, nu: int, dtype) -> str:
-    return f"ddp_backward_boxed_{nx}x{nu}_{str(dtype)[6:]}"
+def unit_name(nx: int, nu: int, dtype, group: int | None = None) -> str:
+    g = "" if group is None else f"_g{group}"
+    return f"ddp_backward_boxed_{nx}x{nu}_{str(dtype)[6:]}{g}"
 
 
 @functools.lru_cache(maxsize=16)
-def _launcher(nx: int, nu: int, dtype):
-    lib = load(build_generated(unit_name(nx, nu, dtype),
-                               unit_source(nx, nu, dtype), BOXED_FLAGS))
+def launcher(nx: int, nu: int, dtype, group: int | None = None,
+             csrc: Path = CSRC):
+    """The launch function of the unit at (nx, nu, dtype, group), built
+    from the headers under ``csrc`` (another checkout's, to time it
+    beside this one's)."""
+    lib = load(build_generated(unit_name(nx, nu, dtype, group),
+                               unit_source(nx, nu, dtype, group),
+                               BOXED_FLAGS, csrc))
     fn = lib.boxed_backward_launch
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + QP_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(fn, config: DDPConfig, D: StackedDerivs, bounds: StackedBounds,
+           Vx_T, Vxx_T, lam):
+    """One launch of the unit function ``fn`` (:func:`launcher`) on
+    checked CUDA tensors; raises on a CUDA error.  Counts nothing: the
+    wrapper counts its own launches."""
+    N, nx, nu = D.Fu.shape[0], D.Fu.shape[1], D.Fu.shape[2]
+    B = Vx_T.shape[-1]
+    dtype, device = Vx_T.dtype, Vx_T.device
+    ks = torch.empty((N, nu, B), dtype=dtype, device=device)
+    Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
+    dV = torch.empty((2, B), dtype=dtype, device=device)
+    ok = torch.empty((B,), dtype=torch.bool, device=device)
+    fields = (ctypes.c_void_p * 10)(*(a.data_ptr() for a in (*D, *bounds)))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(N, B, config.reg_type, fields, Vx_T.data_ptr(),
+                 Vxx_T.data_ptr(), lam.data_ptr(), ks.data_ptr(),
+                 Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream,
+                 *qp_args(config.boxqp))
+    if err != 0:
+        raise RuntimeError(f"boxed backward kernel launch failed: CUDA "
+                           f"error {err}")
+    return ks, Ks, dV, ok
 
 
 def backward_fused_boxed(config: DDPConfig, D: StackedDerivs,
@@ -121,24 +163,10 @@ def backward_fused_boxed(config: DDPConfig, D: StackedDerivs,
     if not boxed_kernel_supports(nu, dtype):
         raise ValueError(f"the boxed CUDA backward takes nu <= {MAX_NU} and "
                          f"float32/float64; got nu={nu} {dtype}")
-
-    ks = torch.empty((N, nu, B), dtype=dtype, device=device)
-    Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
-    dV = torch.empty((2, B), dtype=dtype, device=device)
-    ok = torch.empty((B,), dtype=torch.bool, device=device)
-    fields = (ctypes.c_void_p * 10)(*(a.data_ptr() for a in (*D, *bounds)))
-    launch = _launcher(nx, nu, dtype)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = launch(N, B, config.reg_type, fields, Vx_T.data_ptr(),
-                     Vxx_T.data_ptr(), lam.data_ptr(), ks.data_ptr(),
-                     Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream,
-                     *qp_args(config.boxqp))
-    if err != 0:
-        raise RuntimeError(f"boxed backward kernel launch failed: CUDA "
-                           f"error {err}")
+    out = launch(launcher(nx, nu, dtype), config, D, bounds, Vx_T, Vxx_T,
+                 lam)
     backward_fused_boxed.launches += 1
-    return ks, Ks, dV, ok
+    return out
 
 
 backward_fused_boxed.launches = 0

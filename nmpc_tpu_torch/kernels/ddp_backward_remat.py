@@ -7,11 +7,13 @@ boxed, its bounds) recomputed inside the kernel from (t_i, x_i, u_i), so
 the derivative sweep and its buffer go away.  The kernel is the template
 ``csrc/ddp_backward_remat.cuh`` instantiated in a unit generated from the
 problem's own callables (``kernels/tileval.py``: ``"remat"``, or
-``"remat_boxed"`` with the aux group), compiled by nvcc at first use and
-bound through ctypes.  Its plain version is :func:`backward_remat_plain`:
-the derivative sweep and ``backward_stacked`` (boxed:
-``backward_stacked_boxed``), independent of the generator, so that holding
-one against the other on the card checks the generator too.
+``"remat_boxed"`` with the aux group; boxed, a group of ``kQpGroup``
+threads per lane that evaluates the Armijo schedule that many candidates at
+a time), compiled by nvcc at first use and bound through ctypes.  Its plain
+version is :func:`backward_remat_plain`: the derivative sweep and
+``backward_stacked`` (boxed: ``backward_stacked_boxed``), independent of
+the generator, so that holding one against the other on the card checks the
+generator too.
 
 :func:`backward_remat` generates the problem's unit on any device, so a
 problem the generator rejects raises :class:`TileEvalError` everywhere;
@@ -24,12 +26,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from pathlib import Path
 
 import torch
 
 from nmpc_tpu_torch.core.types import DDPConfig
 from nmpc_tpu_torch.kernels import tileval
-from nmpc_tpu_torch.kernels.build import build_generated, load
+from nmpc_tpu_torch.kernels.build import CSRC, build_generated, load
 from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds,
                                                  StackedDerivs,
                                                  backward_stacked,
@@ -54,13 +57,18 @@ def remat_supported(problem, nx: int, nu: int, dtype,
             and tileval.tile_supported(problem, _kind(boxed), nx, nu, dtype))
 
 
-def unit_source(problem, nx: int, nu: int, dtype, boxed: bool = False) -> str:
-    """The generated translation unit for ``problem`` at ``dtype``."""
+def unit_source(problem, nx: int, nu: int, dtype, boxed: bool = False,
+                group: int | None = None) -> str:
+    """The generated translation unit for ``problem`` at ``dtype``; boxed,
+    with the header's ``kQpGroup`` threads per lane, or ``group`` where a
+    measurement asks for another."""
     unit = tileval.generate(problem, _kind(boxed), nx, nu, dtype)
     params = qp_struct = flag = qp = ""
     if boxed:   # the QP's parameters ride along to the boxed instantiation
         params, qp_struct, flag, qp = (f",\n    {QP_PARAMS_C}", QP_STRUCT_C,
                                        ", true", ", qp")
+        if group is not None:
+            flag += f", {group}"
     return (f"{unit.cpp}\n#include \"ddp_backward_remat.cuh\"\n\n"
             f"extern \"C\" int remat_backward_launch(\n"
             f"    int N, int B, int reg_type, double dt, const void* xs,\n"
@@ -72,8 +80,9 @@ def unit_source(problem, nx: int, nu: int, dtype, boxed: bool = False) -> str:
             f"lam, t0, ks, Ks, dV, ok, stream{qp});\n}}\n")
 
 
-def unit_name(dtype, boxed: bool = False) -> str:
-    return f"ddp_backward_{_kind(boxed)}_{str(dtype)[6:]}"
+def unit_name(dtype, boxed: bool = False, group: int | None = None) -> str:
+    g = "" if group is None else f"_g{group}"
+    return f"ddp_backward_{_kind(boxed)}_{str(dtype)[6:]}{g}"
 
 
 def unit_flags(boxed: bool = False) -> tuple:
@@ -82,15 +91,44 @@ def unit_flags(boxed: bool = False) -> tuple:
 
 
 @functools.lru_cache(maxsize=64)
-def _launcher(problem, nx: int, nu: int, dtype, boxed: bool):
-    lib = load(build_generated(unit_name(dtype, boxed),
-                               unit_source(problem, nx, nu, dtype, boxed),
-                               unit_flags(boxed)))
+def launcher(problem, nx: int, nu: int, dtype, boxed: bool,
+             group: int | None = None, csrc: Path = CSRC):
+    """The launch function of ``problem``'s unit, built from the headers
+    under ``csrc`` (another checkout's, to time it beside this one's)."""
+    lib = load(build_generated(unit_name(dtype, boxed, group),
+                               unit_source(problem, nx, nu, dtype, boxed,
+                                           group),
+                               unit_flags(boxed), csrc))
     fn = lib.remat_backward_launch
     fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_double]
                    + [ctypes.c_void_p] * 11 + (QP_ARGTYPES if boxed else []))
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(fn, problem, config: DDPConfig, t0, xs, us, Vx_T, Vxx_T, lam,
+           boxed: bool = False):
+    """One launch of the unit function ``fn`` (:func:`launcher`) on
+    checked CUDA tensors, t0 a device scalar; raises on a CUDA error.
+    Counts nothing: the wrapper counts its own launches."""
+    N, nu, B = us.shape
+    nx = xs.shape[1]
+    dtype, device = xs.dtype, xs.device
+    ks = torch.empty((N, nu, B), dtype=dtype, device=device)
+    Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
+    dV = torch.empty((2, B), dtype=dtype, device=device)
+    ok = torch.empty((B,), dtype=torch.bool, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(N, B, config.reg_type, float(problem.dt), xs.data_ptr(),
+                 us.data_ptr(), Vx_T.data_ptr(), Vxx_T.data_ptr(),
+                 lam.data_ptr(), t0.data_ptr(), ks.data_ptr(), Ks.data_ptr(),
+                 dV.data_ptr(), ok.data_ptr(), stream,
+                 *(qp_args(config.boxqp) if boxed else ()))
+    if err != 0:
+        raise RuntimeError(f"remat backward kernel launch failed: CUDA "
+                           f"error {err}")
+    return ks, Ks, dV, ok
 
 
 def backward_remat_plain(problem, config: DDPConfig, t0, xs, us, Vx_T,
@@ -144,26 +182,13 @@ def backward_remat(problem, config: DDPConfig, t0, xs, us, Vx_T, Vxx_T,
     if device.type != "cuda":
         raise ValueError(f"backward_remat takes CPU or CUDA tensors, got "
                          f"{device}")
-    ks = torch.empty((N, nu, B), dtype=dtype, device=device)
-    Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
-    dV = torch.empty((2, B), dtype=dtype, device=device)
-    ok = torch.empty((B,), dtype=torch.bool, device=device)
-    launch = _launcher(problem, nx, nu, dtype, boxed)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = launch(N, B, config.reg_type, float(problem.dt), xs.data_ptr(),
-                     us.data_ptr(), Vx_T.data_ptr(), Vxx_T.data_ptr(),
-                     lam.data_ptr(), t0.data_ptr(), ks.data_ptr(),
-                     Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream,
-                     *(qp_args(config.boxqp) if boxed else ()))
-    if err != 0:
-        raise RuntimeError(f"remat backward kernel launch failed: CUDA "
-                           f"error {err}")
+    out = launch(launcher(problem, nx, nu, dtype, boxed), problem, config,
+                 t0, xs, us, Vx_T, Vxx_T, lam, boxed)
     if boxed:
         backward_remat.boxed_launches += 1
     else:
         backward_remat.launches += 1
-    return ks, Ks, dV, ok
+    return out
 
 
 backward_remat.launches = 0

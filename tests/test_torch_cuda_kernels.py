@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from nmpc_tpu_torch import (DDPConfig, DDPSolver, FmpcConfig, FmpcSolver,
-                            FmpcVariable, fmpc_variable_reset)
+from nmpc_tpu_torch import (BoxQPConfig, DDPConfig, DDPSolver, FmpcConfig,
+                            FmpcSolver, FmpcVariable, fmpc_variable_reset)
 from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds, StackedDerivs,
                                                  backward_stacked,
                                                  backward_stacked_boxed)
@@ -266,28 +266,73 @@ def _vertical_trajectory(B, N, dtype, device, seed=5):
     return p, cfg, t0, xs, us, VxT, VxxT
 
 
+# The cases each boxed kernel is held to its plain version on: the planted
+# lanes at B=300; the same at B=303, so that the last block holds fewer
+# lanes than a block's 32 / kQpGroup (csrc/boxqp.cuh); B=1; and a lane made
+# NaN under min_step = 0 (see _exhausted), whose QPs run the whole
+# 105-candidate Armijo schedule.
+BOXED_CASES = ("planted", "ragged", "one", "exhausted")
+
+
+def _boxed_case(case):
+    """(B, the BoxQPConfig of the case)."""
+    B = {"planted": 300, "ragged": 303, "one": 1, "exhausted": 300}[case]
+    qp = BoxQPConfig(min_step=0.0) if case == "exhausted" else BoxQPConfig()
+    return B, qp
+
+
+def _hold_boxed(ref, out, stats, case, planted, B):
+    """The kernel's (ks, Ks, dV, ok) equal the plain version's bit for bit
+    on the ok lanes with finite gains, the ok masks equal; the planted
+    lanes fail (non-PD, NaN); the exhausted case's NaN lane (4) visits all
+    105 candidates in one QP iteration and ends ok with NaN gains in
+    both."""
+    assert torch.equal(out[3], ref[3])
+    fails = planted if B > max(planted) else ()
+    assert all(not out[3][lane] for lane in fails)
+    assert int(out[3].sum()) == B - len(fails)
+    finite = lambda ks: torch.isfinite(ks).flatten(0, -2).all(0)
+    lanes = ref[3] & finite(ref[0])
+    assert torch.equal(lanes, out[3] & finite(out[0]))
+    for a, b in zip(ref[:3], out[:3]):
+        assert torch.equal(a[..., lanes], b[..., lanes])
+    if case == "exhausted":
+        assert int(stats["ls_candidates"][:, 4].max()) == 105
+        assert bool(out[3][4]) and not bool(lanes[4])
+    else:
+        assert torch.equal(lanes, out[3])
+
+
+@pytest.mark.parametrize("case", BOXED_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("reg_type", [1, 2])
-def test_boxed_kernel_matches_plain(card, dtype, reg_type):
-    """K4 vs ``backward_stacked_boxed`` on vertical data (B=300, N=17), with
-    a non-PD lane (Luu = -10), a NaN lane (a NaN Fx) and a lane whose last
-    stage holds a QP of 5 iterations: ok masks equal, the rest within TOL
-    (the boxed units are built without FMA contraction)."""
-    B, N = 300, 17
+def test_boxed_kernel_matches_plain(card, dtype, reg_type, case):
+    """K4 vs ``backward_stacked_boxed`` on vertical data (N=17, the B of
+    BOXED_CASES), with a non-PD lane (Luu = -10), a NaN lane (a NaN Fx)
+    and a lane whose last stage holds a QP of 5 iterations where B allows
+    them, and in the exhausted case a NaN lower bound in lane 4's last
+    stage: bit for bit (the boxed units are built without FMA
+    contraction)."""
+    B, qp = _boxed_case(case)
+    N = 17
     p, cfg, t0, xs, us, VxT, VxxT = _vertical_trajectory(B, N, dtype, card)
     D = ddp._derivative_sweep_lanes(p, cfg, t0, xs, us)[0]
     D, bnd = StackedDerivs(*D[:7]), StackedBounds(*D[-3:])
-    D.Luu[:, :, :, 7] = -10.0
-    D.Fx[3, 0, 0, 299] = float("nan")
-    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=card)
-    D.Fu[N - 1, :, :, 11] = 0.0
-    D.Luu[N - 1, :, :, 11] = as_t([[2.38, 5.0], [5.0, 10.65]])
-    D.Lu[N - 1, :, 11] = as_t([-1.58, -2.98])
-    bnd.lower[N - 1, :, 11] = as_t([-0.11, -0.99])
-    bnd.upper[N - 1, :, 11] = as_t([1.22, 0.96])
-    bnd.u[N - 1, :, 11] = 0.0
+    planted = (7, 299)
+    if B > 299:
+        D.Luu[:, :, :, 7] = -10.0
+        D.Fx[3, 0, 0, 299] = float("nan")
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=card)
+        D.Fu[N - 1, :, :, 11] = 0.0
+        D.Luu[N - 1, :, :, 11] = as_t([[2.38, 5.0], [5.0, 10.65]])
+        D.Lu[N - 1, :, 11] = as_t([-1.58, -2.98])
+        bnd.lower[N - 1, :, 11] = as_t([-0.11, -0.99])
+        bnd.upper[N - 1, :, 11] = as_t([1.22, 0.96])
+        bnd.u[N - 1, :, 11] = 0.0
+    if case == "exhausted":
+        bnd.lower[N - 1, 0, 4] = float("nan")
     cfg = DDPConfig(horizon_steps=N, reg_type=reg_type,
-                    with_input_constraint=True)
+                    with_input_constraint=True, boxqp=qp)
     lam = torch.full((B,), 1e-6 if reg_type == 1 else 0.5, dtype=dtype,
                      device=card)
     before = backward_fused_boxed.launches
@@ -296,38 +341,45 @@ def test_boxed_kernel_matches_plain(card, dtype, reg_type):
     assert backward_fused_boxed.launches == before + 1
     stats = {}
     ref = backward_stacked_boxed(cfg, D, bnd, VxT, VxxT, lam, stats=stats)
-    assert int(stats["qp_iters"][N - 1, 11]) > 4
-    assert torch.equal(out[3], ref[3])
-    assert not out[3][7] and not out[3][299] and int(out[3].sum()) == B - 2
-    for a, b in zip(ref[:3], out[:3]):
-        assert _norm_err(a[..., ref[3]], b[..., ref[3]]) <= TOL[dtype]
+    if B > 299:
+        assert int(stats["qp_iters"][N - 1, 11]) > 4
+    _hold_boxed(ref, out, stats, case, planted, B)
 
 
+@pytest.mark.parametrize("case", BOXED_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("reg_type", [1, 2])
-def test_remat_boxed_kernel_matches_plain(card, dtype, reg_type):
+def test_remat_boxed_kernel_matches_plain(card, dtype, reg_type, case):
     """K5 boxed vs its plain version (the sweep with bounds and
-    ``backward_stacked_boxed``) on vertical data, with a non-PD lane (a
-    negative definite terminal Vxx under interior forces) and a NaN lane
-    (a NaN terminal Vxx): ok masks equal, the rest within TOL."""
-    B, N = 300, 17
+    ``backward_stacked_boxed``) on vertical data (N=17, the B of
+    BOXED_CASES), with a non-PD lane (a negative definite terminal Vxx
+    under interior forces) and a NaN lane (a NaN terminal Vxx) where B
+    allows them, and in the exhausted case a NaN state in lane 4 (Quu stays
+    finite): bit for bit."""
+    B, qp = _boxed_case(case)
+    N = 17
     p, cfg, t0, xs, us, VxT, VxxT = _vertical_trajectory(B, N, dtype, card)
-    us[:, :, 7] = 5.0
-    VxxT[:, :, 7] = -1e6 * torch.eye(2, dtype=dtype, device=card)
-    VxxT[1, 1, 299] = float("nan")
+    planted = (7, 299)
+    if B > 299:
+        us[:, :, 7] = 5.0
+        VxxT[:, :, 7] = -1e6 * torch.eye(2, dtype=dtype, device=card)
+        VxxT[1, 1, 299] = float("nan")
+    if case == "exhausted":
+        xs[N // 2, 0, 4] = float("nan")
     cfg = DDPConfig(horizon_steps=N, reg_type=reg_type,
-                    with_input_constraint=True)
+                    with_input_constraint=True, boxqp=qp)
     lam = torch.full((B,), 1e-6 if reg_type == 1 else 0.5, dtype=dtype,
                      device=card)
     before = backward_remat.boxed_launches
     out = backward_remat(p, cfg, t0, xs, us, VxT, VxxT, lam, boxed=True)
     torch.cuda.synchronize()
     assert backward_remat.boxed_launches == before + 1
-    ref = backward_remat_plain(p, cfg, t0, xs, us, VxT, VxxT, lam, boxed=True)
-    assert torch.equal(out[3], ref[3])
-    assert not out[3][7] and not out[3][299] and int(out[3].sum()) == B - 2
-    for a, b in zip(ref[:3], out[:3]):
-        assert _norm_err(a[..., ref[3]], b[..., ref[3]]) <= TOL[dtype]
+    stats = {}
+    D = ddp._derivative_sweep_lanes(p, cfg, t0, xs, us)[0]
+    ref = backward_stacked_boxed(cfg, StackedDerivs(*D[:7]),
+                                 StackedBounds(*D[-3:]), VxT, VxxT, lam,
+                                 stats=stats)
+    _hold_boxed(ref, out, stats, case, planted, B)
 
 
 @pytest.mark.parametrize("impls,counter", [
