@@ -9,18 +9,20 @@ Phases, one line each (a failed phase exits non-zero):
 
 1. build: generate the remat backward (K5), boxed remat backward (K5
    boxed) and rollout (K6, K7) units of the cart-pole and the
-   vertical-motion model from their callables, the sweep-fed backward in
+   vertical-motion model from their callables (and K5 of two cart-poles
+   on one force, nx = 8, at fp64), the sweep-fed backward in
    its three layouts (K1, K2 chunked, K3 packed) at (nx, nu) = (4, 1) and
    (2, 1), the sweep-fed boxed backward (K4) at (2, 2) and (4, 1), the
    FMPC backward in its three layouts (K8 streaming, K9 resident, K10
    packed) at (nx, nu, ng) = (2, 1, 3), (4, 1, 4), (2, 2, 2) and the FMPC
-   recursion (K11) at (2, 1), (4, 1), (2, 2), for fp32 and fp64; then
-   compile them with nvcc, all at once; print the seconds and ptxas'
-   registers and spills;
+   recursion (K11) at (2, 1), (4, 1), (2, 2), for fp32 and fp64 (K1-K5
+   and K8-K11 with -fmad=false); then compile them with nvcc, all at once;
+   print the seconds and ptxas' registers and spills;
 2. kernels: hold each kernel against its plain PyTorch version on the card,
    fp32 and fp64: K1 and K5 at the headline shape (B=4096, N=100) and the
    tick shape (B=256, N=200), each with one non-PD lane and one NaN lane;
-   K6 and K7 with gains from a real backward pass, and whether K7's
+   K5 at nx = 8, fp64, B=4096 (its field slab sized to the block's shared
+   memory); K6 and K7 with gains from a real backward pass, and whether K7's
    column for an alpha equals K6's sum bit for bit; K4 and K5 boxed on
    first-iteration vertical-motion data (B=1024, N=100, across the switch
    to two contacts, both regularization types), with a non-PD, a NaN and
@@ -33,8 +35,9 @@ Phases, one line each (a failed phase exits non-zero):
    ``break_if_llt_fails``, a non-PD and a NaN lane; the two-input non-PD
    case) and K11 against its plain recursion fed K8's gains; then the
    layout variants against their plain versions and, bit for bit, their
-   parent kernels: K2 and K3 against K1 at the headline shape and the
-   bipedal shape (B=2048, N=300), K9 against K8 at the oscillator's N=20
+   parent kernels (a failed check): K2 and K3 against K1 at the headline
+   shape and the bipedal shape (B=2048, N=300), K3 at B=1023 (P copied
+   once to a lane stride TMA takes), K9 against K8 at the oscillator's N=20
    (B=4096) and the cart-pole's largest N that fits, K10 at those and at
    both FMPC shapes of phase 2, K9 and K10 on the two-input case;
 3. end to end: ``DDPSolver.solve_batch`` at the headline shape through
@@ -56,7 +59,9 @@ Phases, one line each (a failed phase exits non-zero):
    ``auto`` with each ``backward_dma`` (K1, K2, K3 and the plain rollouts)
    and the plain path, and FMPC through ``backward_variant`` "resident"
    and "stream" (oscillator N=20, B=4096) and "packed" (cart-pole
-   serving), at fp64 and fp32 against the plain path;
+   serving), at fp64 and fp32 against the plain path; the fp32 lanes
+   whose decisions part from the other path are pinned
+   (``UNBOXED_FP32_FLIPS``, ``BOXED_FP32_FLIPS``);
 4. serving: ``make_closed_loop_batch`` with 256 cart-pole controllers,
    N=200, 3 iterations, 20 ticks, through the fused path; with 256
    boxed vertical-motion controllers, N=100, 3 iterations, 20 ticks from
@@ -69,16 +74,24 @@ Phases, one line each (a failed phase exits non-zero):
    and its last steps again on the plain path and with
    ``make_closed_loop``;
 5. times on the card: each kernel and its plain version (CUDA events)
-   beside its bound, the packs apart, the QP work of the boxed kernels'
-   timed inputs (``[qp]``), solves/s and tick p50/p99 for each
-   (backward, forward) pair, solves/s of the boxed vertical solve and of
+   beside its bound, the packs apart (and K3 with its pack beside K1), the
+   QP work of the boxed kernels' timed inputs (``[qp]``), solves/s and
+   tick p50/p99 for each (backward, forward) pair, solves/s of the boxed
+   vertical solve and of
    both FMPC configurations for each pair, and of the oscillator at N=20
    and the cart-pole serving shape for each ``backward_variant`` (phase
    3 prints the bipedal config's for each ``backward_dma``);
 6. with ``--qp-groups`` only: K4 and K5 boxed built with 1, 4, 8 and 16
    threads per lane (and, with ``--baseline DIR``, from the headers of
    the checkout at DIR), each held to its plain version bit for bit and
-   timed in turns, with ptxas' report of each;
+   timed in turns, with ptxas' report of each; then K5 (unboxed) and K3
+   built with 1, 2, 4 and 8 threads per lane (K3 at (2, 1): 1 and 2; K5
+   also at 0, one thread with the fields in registers),
+   every one held bit for bit to one thread per lane at fp32 and fp64 and
+   K3 to K1, K1 and K2 built with and without -fmad=false and, with
+   ``--baseline DIR``, K3 and K5 from that checkout, timed in turns (K5
+   at the headline and tick shapes, K3 at the headline and bipedal shapes
+   with the pack), with ptxas' report of each;
 7. with ``--layers`` only: where one solve's time goes at both shapes,
    for each pair, for the boxed vertical solve, the bipedal config's
    ``auto`` path at 2 iterations and the FMPC configurations (synced time
@@ -96,8 +109,10 @@ import argparse
 import collections
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -137,6 +152,7 @@ from nmpc_tpu_torch.kernels import fmpc_forward as k11  # noqa: E402
 from nmpc_tpu_torch.models.bipedal import (  # noqa: E402
     example_omega2_func, example_ref_zmp_func, make_bipedal_problem)
 from nmpc_tpu_torch.models.cartpole import (  # noqa: E402
+    CartPoleCostWeight, CartPoleParam, cartpole_xdot,
     make_cartpole_fmpc_problem, make_cartpole_problem)
 from nmpc_tpu_torch.models.oscillator import make_oscillator_problem  # noqa: E402
 from nmpc_tpu_torch.models.vertical import (  # noqa: E402
@@ -177,6 +193,15 @@ E2E_U_NORM_FP64 = 1e-8
 # fused rollouts) and must not move when the boxed kernels change.
 BOXED_FP32_FLIPS = {("vertical", "K4"): 0, ("vertical", "auto"): 0,
                     ("cart-pole", "K4"): 0, ("cart-pole", "auto"): 647}
+# fp32 lanes of the unboxed solves whose status or iterations part from
+# the other path: the bipedal config per backward_dma against the plain
+# path (K1, K2, K3 and plain rollouts), and the headline's mixed batch,
+# auto (K5, K6, K7) against the plain path and against (pallas, scan).
+# K1, K2, K3 and K5 build with -fmad=false, so the bipedal path follows the
+# plain path's decisions (895 of 2048 parted with FMA contraction).
+UNBOXED_FP32_FLIPS = {("bipedal", "stage"): 0, ("bipedal", "chunked"): 0,
+                      ("bipedal", "packed"): 0, ("mixed", "plain"): 0,
+                      ("mixed", "K1"): 0}
 GOLDEN_TOL = 1e-8
 # (backward_impl, forward_impl) pairs that are timed; "auto" resolves to
 # the last on the card.
@@ -547,10 +572,17 @@ def phase_build():
         for nx, nu in ((4, 1), (2, 1)):
             for dma in k1.DMA_MODES:
                 units.append((k1.unit_name(nx, nu, dtype, dma),
-                              k1.unit_source(nx, nu, dtype, dma), ()))
-        for mod in (remat, fwd):
-            units.append((mod.unit_name(dtype),
-                          mod.unit_source(cartpole, 4, 1, dtype), ()))
+                              k1.unit_source(nx, nu, dtype, dma),
+                              k1.UNIT_FLAGS))
+        units.append((remat.unit_name(dtype),
+                      remat.unit_source(cartpole, 4, 1, dtype),
+                      remat.unit_flags(False)))
+        if dtype == torch.float64:   # K5 at nx = 8 (check_wide_remat)
+            units.append((remat.unit_name(dtype),
+                          remat.unit_source(PAIR, 8, 1, dtype),
+                          remat.unit_flags(False)))
+        units.append((fwd.unit_name(dtype),
+                      fwd.unit_source(cartpole, 4, 1, dtype), ()))
         units.append((fwd.unit_name(dtype),
                       fwd.unit_source(vertical_problem(), 2, 2, dtype), ()))
         for problem, nx, nu in ((vertical_problem(), 2, 2),
@@ -606,6 +638,72 @@ def check_ok(label, ref_ok, out_ok, B):
     check(not bool(out_ok[1]) and not bool(out_ok[2]),
           f"{label}: the non-PD and NaN lanes must fail")
     check(int(out_ok.sum()) == B - 2, f"{label}: a clean lane failed")
+
+
+# K5 at a state wider than the cart-pole's: (B, N) of the check
+WIDE = (4096, 50)
+
+
+def pair_problem():
+    """Two cart-poles (pole lengths 2 m and 1 m) on one force, each with the
+    cart-pole's weights about the origin: nx = 8, nu = 1, F = 154 fields a
+    stage, whose K5 field slab at fp64 holds 16 lanes a block, not 32."""
+    a, b = CartPoleParam(), CartPoleParam(pole_length=1.0)
+    w = CartPoleCostWeight()
+
+    def dynamics(t, x, u):
+        # each pole's state by element (the kernel generator takes select
+        # and stack, not slices)
+        xa = torch.stack([x[0], x[1], x[2], x[3]])
+        xb = torch.stack([x[4], x[5], x[6], x[7]])
+        return torch.cat([xa + DT * cartpole_xdot(a, xa, u),
+                          xb + DT * cartpole_xdot(b, xb, u)])
+
+    def running_cost(t, x, u):
+        wx = torch.tensor(w.running_x * 2, dtype=x.dtype, device=x.device)
+        return (0.5 * torch.sum(wx * x**2)
+                + 0.5 * w.running_u[0] * torch.sum(u**2))
+
+    def terminal_cost(t, x):
+        wx = torch.tensor(w.terminal_x * 2, dtype=x.dtype, device=x.device)
+        return 0.5 * torch.sum(wx * x**2)
+
+    return Problem(dt=DT, state_dim=8, input_dim=1, dynamics=dynamics,
+                   running_cost=running_cost, terminal_cost=terminal_cost)
+
+
+PAIR = pair_problem()
+
+
+def check_wide_remat(device):
+    """K5 through its wrapper at nx = 8, fp64, B=4096 (:func:`pair_problem`:
+    a block of 16 lanes, its field slab within the 227 KB of shared memory)
+    against its plain version: ok masks equal, the rest within
+    KERNEL_TOL."""
+    B, N = WIDE
+    dtype = torch.float64
+    rng = np.random.default_rng(8)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    cfg = DDPConfig(horizon_steps=N)
+    x0s = (np.tile([0.0, np.pi, 0.0, 0.0], (B, 2))
+           + 0.05 * rng.normal(size=(B, 8)))
+    us = as_t(0.2 * rng.normal(size=(N, 1, B)))
+    t0 = as_t(0.3)
+    xs, _ = ddp_mod._rollout_lanes(PAIR, cfg, t0, as_t(x0s.T.copy()), us)
+    VxT, VxxT = (a.contiguous() for a in ddp_mod._terminal_quad_lanes(
+        PAIR, cfg, t0, xs))
+    lam = torch.full((B,), 1e-4, dtype=dtype, device=device)
+    plain = remat.backward_remat_plain(PAIR, cfg, t0, xs, us, VxT, VxxT, lam)
+    out = remat.backward_remat(PAIR, cfg, t0, xs, us, VxT, VxxT, lam)
+    torch.cuda.synchronize()
+    label = f"K5 two cart-poles (8, 1) B={B} N={N} float64"
+    ok_equal = torch.equal(plain[3], out[3])
+    print(f"[kernel] {label}: ok lanes {int(out[3].sum())}/{B}, masks equal "
+          f"{ok_equal}", flush=True)
+    check(ok_equal and bool(out[3].all()), f"{label}: ok masks differ or a "
+          "lane failed")
+    report(label, {n: norm_err(a, b) for n, a, b in
+                   zip(("ks", "Ks", "dV"), plain, out)}, dtype)
 
 
 def phase_kernels(device):
@@ -669,6 +767,7 @@ def phase_kernels(device):
                 same.append(torch.equal(out[j], sel))
             print(f"[kernel] K7 vs K6 {label}: alpha columns equal to K6's "
                   f"sum bit for bit: {sum(same)}/{len(same)}", flush=True)
+    check_wide_remat(device)
     phase_kernels_boxed(device)
 
 
@@ -906,6 +1005,10 @@ def phase_e2e(device):
             if dtype == torch.float64:
                 check(st and it, f"mixed batch fp64: status or iters differ "
                       f"from {other}")
+            else:
+                want = UNBOXED_FP32_FLIPS["mixed", other]
+                check(len(flips) == want, f"mixed batch fp32: {len(flips)} "
+                      f"lanes part from {other}, {want} expected")
 
     golden = GoldenDDP(CartPoleGolden(DT),
                        GoldenConfig(horizon_steps=N, max_iter=50))
@@ -1417,6 +1520,229 @@ def phase_qp_groups(device, card, baseline):
             print(f"[qp-groups] {key} {model} B={B} N={N} fp32 {label}: "
                   f"{ms[0]:.4f} / {ms[1]:.4f} ms (in turns), bit-equal to "
                   f"the plain version [{card}]", flush=True)
+
+
+# The threads per lane --qp-groups builds the unboxed group kernels (K3,
+# K5) at, per (nx, nu); K5 also at 0 (one thread per lane, the fields in
+# registers, the geometry of an F whose slab no block holds).
+ROW_GROUPS = {(4, 1): (1, 2, 4, 8), (2, 1): (1, 2)}
+REMAT_GROUPS = (0,) + ROW_GROUPS[4, 1]
+
+
+def same_bits(a, b):
+    """Whether two outputs are equal bit for bit, NaN lanes included (the
+    card makes one canonical NaN)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    view = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def parent_module(baseline, name):
+    """Another checkout's ``nmpc_tpu_torch/kernels/<name>.py``, loaded
+    under a name of its own (its imports resolve to this checkout)."""
+    path = Path(baseline) / "nmpc_tpu_torch" / "kernels" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"baseline_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parent_packed(lib, cfg, P, nx, VxT, VxxT, lam):
+    """One launch of a K3 unit of the baseline checkout, whose entry point
+    takes (N, B, reg_type, chunk) and one thread per lane."""
+    fn = lib.ddp_backward_launch
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
+    fn.restype = ctypes.c_int
+    N, _, B = P.shape
+    dtype, device = P.dtype, P.device
+    ks = torch.empty((N, 1, B), dtype=dtype, device=device)
+    Ks = torch.empty((N, 1, nx, B), dtype=dtype, device=device)
+    dV = torch.empty((2, B), dtype=dtype, device=device)
+    ok = torch.empty((B,), dtype=torch.bool, device=device)
+    ptrs = (ctypes.c_void_p * 1)(P.data_ptr())
+    err = fn(N, B, cfg.reg_type, 0, ptrs, VxT.data_ptr(), VxxT.data_ptr(),
+             lam.data_ptr(), ks.data_ptr(), Ks.data_ptr(), dV.data_ptr(),
+             ok.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    check(err == 0, f"the baseline K3 launch failed: CUDA error {err}")
+    return ks, Ks, dV, ok
+
+
+def timed_in_turns(calls, label, card, note=""):
+    """Time every call once in order, then again in reverse order, and
+    print both times of each."""
+    times = collections.defaultdict(list)
+    for order in (list(calls), list(reversed(calls))):
+        for key in order:
+            times[key].append(cuda_ms(calls[key], inner=10))
+    for key, ms in times.items():
+        print(f"[row-groups] {label} fp32 {key}: {ms[0]:.4f} / {ms[1]:.4f} "
+              f"ms (in turns){note} [{card}]", flush=True)
+
+
+def phase_row_groups(device, card, baseline):
+    """K5 (unboxed) built at every group size of REMAT_GROUPS and K3 at
+    every one of ROW_GROUPS, K1 and K2 with and without -fmad=false (each
+    bound from the library built here) and, with ``baseline`` (another
+    checkout's root), K3 and K5 from that checkout's headers, unit text and
+    flags: all built at once with ptxas' report of each; every G held bit
+    for bit to G = 1 (NaN lanes included) at fp32 and fp64, K5's G = 1 to
+    its plain version within KERNEL_TOL, K3's every G to K1 on K1's ok
+    lanes; then each family timed on the inputs of phase 5 in turns.  K5
+    at the headline and tick shapes, K3 at the headline and bipedal
+    shapes, with the pack timed apart."""
+    parent_csrc = (Path(baseline).resolve() / "nmpc_tpu_torch" / "csrc"
+                   if baseline else None)
+    cart = make_cartpole_problem(DT)
+    fp32 = torch.float32
+    units, index = [], {}
+
+    def unit(key, name, text, flags, csrc=kbuild.CSRC):
+        index[key] = len(units)
+        units.append((name, text, flags, csrc))
+
+    for dtype in (torch.float32, torch.float64):
+        for g in REMAT_GROUPS:
+            unit(("K5", dtype, g), remat.unit_name(dtype, False, g),
+                 remat.unit_source(cart, 4, 1, dtype, False, g),
+                 remat.unit_flags(False))
+        for (nx, nu), groups in ROW_GROUPS.items():
+            for g in groups:
+                unit(("K3", nx, dtype, g),
+                     k1.unit_name(nx, nu, dtype, "packed", g),
+                     k1.unit_source(nx, nu, dtype, "packed", g),
+                     k1.UNIT_FLAGS)
+    for nx in (4, 2):
+        for dma in ("stage", "chunked"):
+            for flags in (k1.UNIT_FLAGS, ()):
+                unit((dma, nx, flags), k1.unit_name(nx, 1, fp32, dma),
+                     k1.unit_source(nx, 1, fp32, dma), flags)
+    if baseline:
+        pk = parent_module(baseline, "ddp_backward_fused")
+        for nx in (4, 2):
+            unit(("K3 baseline", nx),
+                 k1.unit_name(nx, 1, fp32, "packed") + "_parent",
+                 pk.unit_source(nx, 1, fp32, "packed"), (), parent_csrc)
+        unit("K5 baseline", remat.unit_name(fp32),
+             remat.unit_source(cart, 4, 1, fp32), (), parent_csrc)
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        libs = list(pool.map(lambda u: kbuild.build_generated(*u), units))
+    print(f"[row-groups] {len(libs)} units in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    for (name, _, flags, csrc), path in zip(units, libs):
+        print(f"[row-groups] ptxas {path.name} (headers "
+              f"{os.path.relpath(csrc, ROOT)}, flags {' '.join(flags) or '-'}"
+              f"): {ptxas_report(path)}", flush=True)
+    loaded = {}
+
+    def lib(key):
+        """The library built for ``key``, loaded once."""
+        if key not in loaded:
+            loaded[key] = kbuild.load(libs[index[key]])
+        return loaded[key]
+
+    # K5: every G against G = 1 and the plain version
+    for B, N in (HEADLINE, TICK):
+        for dtype in (torch.float32, torch.float64):
+            problem, t0, xs, us, VxT, VxxT = remat_inputs(B, N, dtype,
+                                                          device)
+            cfg = DDPConfig(horizon_steps=N)
+            lam = torch.full((B,), 1e-4, dtype=dtype, device=device)
+            label = f"K5 B={B} N={N} {str(dtype)[6:]}"
+            plain = remat.backward_remat_plain(problem, cfg, t0, xs, us, VxT,
+                                               VxxT, lam)
+            calls = {f"G={g}": functools.partial(
+                remat.launch, remat.bind(lib(("K5", dtype, g))), problem,
+                cfg, t0, xs, us, VxT, VxxT, lam)
+                for g in REMAT_GROUPS}
+            outs = {key: fn() for key, fn in calls.items()}
+            torch.cuda.synchronize()
+            ref = outs["G=1"]
+            check_ok(label + " G=1", plain[3], ref[3], B)
+            report(label + " G=1", {n: norm_err(a, b, plain[3]) for n, a, b
+                                    in zip(("ks", "Ks", "dV"), plain, ref)},
+                   dtype)
+            equal_g = {key: all(same_bits(a, b) for a, b in zip(ref, out))
+                       for key, out in outs.items()}
+            plain_bits = bit_equal(plain[:3], ref[:3], plain[3])
+            print(f"[row-groups] {label}: bit-equal to G=1 {equal_g}; G=1 "
+                  f"bit-equal to the plain version on its ok lanes "
+                  f"{plain_bits}", flush=True)
+            check(all(equal_g.values()), f"{label}: a G differs from G=1")
+            if dtype == fp32:
+                # timed on phase 5's clean rollout: a NaN state sends sin
+                # and cos down their slow path in its lane's warp
+                problem, t0, xs, us, VxT, VxxT = rollout(B, N, dtype, device)
+                args = (problem, cfg, t0, xs, us, VxT, VxxT, lam)
+                calls = {f"G={g}": functools.partial(
+                    remat.launch, remat.bind(lib(("K5", dtype, g))), *args)
+                    for g in REMAT_GROUPS}
+                if baseline:
+                    calls["baseline"] = functools.partial(
+                        remat.launch, remat.bind(lib("K5 baseline")), *args)
+                timed_in_turns(calls, f"K5 B={B} N={N}", card)
+
+    # K3: every G against K1 (and G = 1), K1 / K2 under both flags
+    for model, (B, N) in (("cart-pole", HEADLINE), ("bipedal", BIPEDAL)):
+        for dtype in (torch.float32, torch.float64):
+            D, VxT, VxxT = (rollout_derivs if model == "cart-pole"
+                            else bipedal_derivs)(B, N, dtype, device)
+            nx = D.Fx.shape[1]
+            cfg = DDPConfig(horizon_steps=N)
+            lam = torch.full((B,), 1e-4, dtype=dtype, device=device)
+            P = k1.pack_derivs(D)
+            parent = backward_fused(cfg, D, VxT, VxxT, lam)
+            calls = {f"K3 G={g}": functools.partial(
+                k1.launch, k1.bind(lib(("K3", nx, dtype, g))), "packed",
+                cfg, N, nx, 1, (P,), VxT, VxxT, lam, B)
+                for g in ROW_GROUPS[nx, 1]}
+            outs = {key: fn() for key, fn in calls.items()}
+            torch.cuda.synchronize()
+            label = f"K3 {model} B={B} N={N} {str(dtype)[6:]}"
+            equal_k1 = {key: torch.equal(parent[3], out[3])
+                        and bit_equal(parent[:3], out[:3], parent[3])
+                        for key, out in outs.items()}
+            equal_g = {key: all(same_bits(a, b) for a, b in
+                                zip(outs["K3 G=1"], out))
+                       for key, out in outs.items()}
+            print(f"[row-groups] {label}: bit-equal to K1 on its ok lanes "
+                  f"{equal_k1}; bit-equal to G=1 {equal_g}", flush=True)
+            check(all(equal_k1.values()) and all(equal_g.values()),
+                  f"{label}: a G differs from K1 or from G=1")
+            if dtype != fp32:
+                continue
+            for dma in ("stage", "chunked"):
+                for flags, tag in ((k1.UNIT_FLAGS, "-fmad=false"),
+                                   ((), "fmad")):
+                    calls[f"K{1 if dma == 'stage' else 2} {tag}"] = (
+                        functools.partial(
+                            k1.launch, k1.bind(lib((dma, nx, flags))), dma,
+                            cfg, N, nx, 1, D, VxT, VxxT, lam))
+            if baseline:
+                calls["K3 baseline"] = functools.partial(
+                    parent_packed, lib(("K3 baseline", nx)), cfg, P, nx,
+                    VxT, VxxT, lam)
+            calls["pack_derivs"] = functools.partial(k1.pack_derivs, D)
+            timed_in_turns(calls, f"{model} B={B} N={N}", card)
+    # what bounds a lane's stage: one lane per SM against 31
+    B1, N = 132, HEADLINE[1]
+    per_stage = {}
+    for B in (B1, HEADLINE[0]):
+        D, VxT, VxxT = rollout_derivs(B, N, fp32, device)
+        cfg = DDPConfig(horizon_steps=N)
+        lam = torch.full((B,), 1e-4, device=device)
+        per_stage[B] = [cuda_ms(functools.partial(
+            k1.launch, k1.bind(lib(key)), dma, cfg, N, 4, 1, fields, VxT,
+            VxxT, lam, B), inner=10) * 1e3 / N
+            for dma, key, fields in (
+                ("stage", ("stage", 4, k1.UNIT_FLAGS), D),
+                ("packed", ("K3", 4, fp32, 1), (k1.pack_derivs(D),)))]
+    print(f"[row-groups] a lane's stage, cart-pole N={N} fp32, one thread "
+          f"per lane: K1 {per_stage[B1][0]:.3f} us at B={B1} (a lane per "
+          f"SM) / {per_stage[HEADLINE[0]][0]:.3f} us at B={HEADLINE[0]}; K3 "
+          f"G=1 {per_stage[B1][1]:.3f} / {per_stage[HEADLINE[0]][1]:.3f} us "
+          f"[{card}]", flush=True)
 
 
 LAYERS = ("_rollout_lanes", "_derivative_sweep_lanes", "_terminal_quad_lanes",
@@ -2118,6 +2444,8 @@ def phase_kernels_variants(device):
                 bits[key] += same
                 print(f"[kernel] {key} {label}: bit-equal to K1 on its ok "
                       f"lanes {same}", flush=True)
+                check(same, f"{key} {label}: not bit-equal to K1")
+    check_packed_ragged(device)
 
     def fmpc_case(label, problem, cfg, co, v, gms, eps, B):
         plain = fmpc_mod._backward_bm(problem, cfg, co, v.ss, v.nus, gms, eps)
@@ -2171,6 +2499,36 @@ def phase_kernels_variants(device):
                 pass
     print(f"[kernel] checks bit-equal to the parent kernel (K1 for K2/K3, K8 "
           f"for K9/K10): {dict(bits)}", flush=True)
+
+
+def check_packed_ragged(device):
+    """K3 at B=1023 (a lane stride TMA does not take at fp32 or fp64: the
+    wrapper copies P once into a padded buffer, counted) against K1, bit
+    for bit on K1's ok lanes, and against the plain version."""
+    B, N = 1023, HEADLINE[1]
+    for dtype in (torch.float32, torch.float64):
+        D, VxT, VxxT = rollout_derivs(B, N, dtype, device)
+        cfg = DDPConfig(horizon_steps=N)
+        lam = torch.full((B,), 1e-4, dtype=dtype, device=device)
+        plain = backward_stacked(cfg, D, VxT, VxxT, lam)
+        parent = backward_fused(cfg, D, VxT, VxxT, lam)
+        copies = k1.backward_packed.padded_copies
+        out = backward_fused(cfg, D, VxT, VxxT, lam, dma="packed")
+        torch.cuda.synchronize()
+        label = f"cart-pole B={B} N={N} {str(dtype)[6:]}"
+        check_ok(f"K3 {label}", plain[3], out[3], B)
+        err = report(f"K3 {label}", {
+            n: norm_err(a, b, plain[3]) for n, a, b in
+            zip(("ks", "Ks", "dV"), plain, out)}, dtype)
+        KERNELS["K3"].max_abs_err = max(KERNELS["K3"].max_abs_err, err)
+        same = (torch.equal(parent[3], out[3])
+                and bit_equal(parent[:3], out[:3], parent[3]))
+        padded = k1.backward_packed.padded_copies - copies
+        print(f"[kernel] K3 {label}: P copied to a padded lane stride "
+              f"{padded} time(s), bit-equal to K1 on its ok lanes {same}",
+              flush=True)
+        check(same and padded == 1, f"K3 {label}: not bit-equal to K1, or "
+              f"P not padded once")
 
 
 def resolved_impls(problem, cfg, dtype, device):
@@ -2232,6 +2590,11 @@ def phase_e2e_variants(device):
             if dtype == torch.float64:
                 check(st and it and du <= E2E_U_NORM_FP64,
                       f"bipedal fp64 {name} vs plain")
+            elif name != "plain":
+                want = UNBOXED_FP32_FLIPS["bipedal", name]
+                check(len(flips) == want, f"bipedal fp32 {name}: "
+                      f"{len(flips)} lanes part from the plain path, {want} "
+                      f"expected")
             if name == "plain":
                 check(not any(counts.values()),
                       "the plain bipedal solve launched a kernel")
@@ -2422,6 +2785,10 @@ def phase_times_variants(device, card):
                     lambda: backward_stacked(cfg, k1.unpack_derivs(P, nx, 1),
                                              VxT, VxxT, lam),
                     nbytes, ops, label, keep, card)
+        t_both = cuda_ms(lambda: k1.backward_packed(
+            cfg, k1.pack_derivs(D), nx, 1, VxT, VxxT, lam), inner=10)
+        print(f"[times] K3 + pack_derivs {label} fp32: {t_both:.4f} ms beside "
+              f"K1 {t_k1:.4f} ms [{card}]", flush=True)
 
     for key, model, (B, N), keep in (
             ("K9", "oscillator", FMPC_OSC_SHORT, True),
@@ -2482,11 +2849,13 @@ def main() -> int:
                              "layer, with the profiler's device busy time")
     parser.add_argument("--qp-groups", action="store_true",
                         help="also time the boxed kernels (K4, K5 boxed) at "
-                             "each group size of QP_GROUPS")
+                             "each group size of QP_GROUPS, the unboxed "
+                             "group kernels (K3, K5) at each of ROW_GROUPS, "
+                             "and K1 and K2 with and without -fmad=false")
     parser.add_argument("--baseline", metavar="DIR",
-                        help="with --qp-groups, also build them from the "
-                             "headers of the checkout at DIR and time them "
-                             "in turns with this one's")
+                        help="with --qp-groups, also build K3, K4 and the "
+                             "K5 kernels from the checkout at DIR and time "
+                             "them in turns with this one's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2510,6 +2879,8 @@ def main() -> int:
               ("times-variants", lambda: phase_times_variants(device, card))]
     if args.qp_groups:
         phases.append(("qp-groups", lambda: phase_qp_groups(
+            device, card, args.baseline)))
+        phases.append(("row-groups", lambda: phase_row_groups(
             device, card, args.baseline)))
     if args.layers:
         phases.append(("layers", lambda: phase_layers(device, card)))

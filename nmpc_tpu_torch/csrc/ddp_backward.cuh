@@ -7,12 +7,15 @@
 // backward_stacked; the math and the order of each sum follow
 // _riccati_stage.
 //
-// What bounds it on the card: device memory.  Per stage and lane it reads
-// the seven derivative fields (46 values at nx=4, nu=1) and writes k and
-// K (5 values), against roughly 10 flops per value read: far below the
-// H100's flop/byte ridge.  One thread per lane at B=4096 is only 4096
-// threads, too few loads in flight to reach full bandwidth, so the kernel
-// runs latency-limited below the roofline.
+// What bounds it on the card: the latency of each lane's chain of N
+// dependent stages, not device memory.  Per stage and lane it reads the
+// seven derivative fields (46 values at nx=4, nu=1) and writes k and K (5
+// values), ~84 MB at B=4096, N=100, in ~0.16 ms: 0.5 TB/s of the H100's
+// 3.35.  A stage takes a lane ~1.3-1.6 us whether an SM holds one lane or
+// 32 (PERF.md): its ~700 instructions issue from one warp, one at a time
+// behind their dependences.  The packed kernel (ddp_backward_packed.cuh)
+// splits the stage over a group of threads per lane; this one keeps one
+// thread per lane.
 //
 // What the design does about it:
 //   * one thread per lane, the (Vx, Vxx, dV, ok) carry in registers, and
@@ -77,21 +80,6 @@ __device__ __forceinline__ void load_stage(const DerivFields<T>& f, int i,
     for (int c = 0; c < NU; ++c) s.Luu[a][c] = f.Luu[idx3(i, a, c, NU, NU, b, B)];
   }
 }
-
-// Values per stage of the packed layout, and the offset of each field:
-// Fx, Fu, Lx, Lu, Lxx, Luu, Lxu, each row-major (ddp_backward_pallas.py::
-// _field_offsets; F = 46 at (4, 1), 16 at (2, 1)).
-template <int NX, int NU>
-struct PackedLayout {
-  static constexpr int Fx = 0;
-  static constexpr int Fu = Fx + NX * NX;
-  static constexpr int Lx = Fu + NX * NU;
-  static constexpr int Lu = Lx + NX;
-  static constexpr int Lxx = Lu + NU;
-  static constexpr int Luu = Lxx + NX * NX;
-  static constexpr int Lxu = Luu + NU * NU;
-  static constexpr int F = Lxu + NX * NU;
-};
 
 // One stage of one lane from a packed slab: value e of the stage at
 // p[e * stride] (device memory: stride B; a shared-memory chunk: stride

@@ -8,11 +8,10 @@
 // outputs as K1; the stage is riccati_stage.cuh::riccati_stage, unchanged,
 // so the result equals K1's bit for bit.
 //
-// What bounds it on the card: device memory, as K1 (46 values read per
-// stage and lane at (nx, nu) = (4, 1), ~10 flops per value).  K1 keeps
-// only the next stage's fields in flight per thread: one thread per lane
-// at B = 4096 is one warp per SM, so its loads leave the memory system
-// mostly idle.
+// What bounds it on the card: as K1 (ddp_backward.cuh), the latency of
+// each lane's chain of stages on one thread; of the loads (46 values per
+// stage and lane at (nx, nu) = (4, 1)), K1 keeps only the next stage's in
+// flight per thread.
 //
 // What the design does about it: a block of L = 32 lanes (one thread per
 // lane) keeps a whole chunk of C stages in flight with cp.async, which

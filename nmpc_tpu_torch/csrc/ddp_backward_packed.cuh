@@ -9,67 +9,159 @@
 // kernels/ddp_backward_fused.py::pack_derivs; its plain version unpacks
 // it and runs backward_stacked.
 //
-// What bounds it on the card: the same as K1, device memory read by too
-// few threads (one per lane) to keep enough loads in flight; the pack
-// that builds its input costs one more read and write of every field.
+// What bounds it on the card: not bytes but the latency of each lane's
+// chain of N dependent stages.  At (4, 1), fp32, one thread per lane takes
+// ~1.34 us a stage (~2,650 cycles at 1980 MHz) whether the batch puts one
+// lane or 32 on an SM (B = 132 or 4096; PERF.md): the stage's ~700
+// instructions issue from one warp, one at a time behind their
+// dependences, while the SM's other schedulers idle; K1 reads 83.9 MB at
+// B=4096 and K5 16.8 MB in about the same time.  At the bipedal shape
+// (B=2048) 64 one-warp blocks left half of the 132 SMs idle too.  With a
+// shorter stage, bytes count again: ~5.9 KB per 32 lanes and stage must
+// arrive in time, more than one stage of register prefetch keeps in
+// flight.
 //
-// What the design does about it: as K1, one thread per lane with the
-// carry in registers and the next stage's F values loaded before this
-// stage is computed, now from one contiguous [F, B] slab per stage (the
-// TPU kernel's one DMA per stage), so the F loads of a warp walk one
-// array at stride B instead of seven.  The stage is riccati_stage.cuh::
-// riccati_stage, unchanged, so the result equals K1's bit for bit.
+// What the design does about it:
+//   * a lane is a group of G = kRowGroup threads running
+//     riccati_stage.cuh::riccati_stage_group: each owns rows and columns
+//     of the NX-sized products and the group exchanges K, Qux, Vx and Vn
+//     by shuffles, with each value computed by one thread in
+//     riccati_stage's order, so the result equals K1's bit for bit (both
+//     built with -fmad=false);
+//   * a block holds row_lanes(B) lanes (row_group.cuh), so B=4096 fills 128
+//     blocks of four warps and B=2048 128 blocks instead of 64;
+//   * the buffer is read by the Tensor Memory Accelerator, each warp on its
+//     own: the warp's first thread loads boxes of C stages x F values x W
+//     lanes (W = 32 / G, the warp's lanes; [C][F][W] in shared memory, lane
+//     fastest: the group's reads are broadcasts, the lanes' neighbouring
+//     words, every offset a constant) into the warp's ring of kPackedRing
+//     buffers, each with its own mbarrier, so kPackedRing - 1 chunks are in
+//     flight while one is computed and no register or instruction of the
+//     consumers goes to the copy.  The warp meets once per chunk, before its
+//     first thread refills the buffer just consumed; no block barrier ties
+//     the warps together.  Chunks run from the end of the horizon
+//     (row_group.cuh::packed_chunk: the box at stage N - (c + 1) C, which
+//     the tensor map's bounds cut to stages max(0, N - (c + 1) C) .. N - c
+//     C - 1; a last chunk that starts below 0 arrives zero-filled in
+//     front).  The launch chooses C from the shared-memory budget
+//     (row_group.cuh::packed_chunk_stages), and a block's rings of
+//     one-stage chunks fit 227 KB at every (NX <= 8, NU <= 4), checked
+//     when the unit compiles;
+//   * TMA takes a lane stride (ld values) that is a multiple of 16 bytes:
+//     the wrapper copies a buffer whose B is not into one padded to such
+//     an ld; the lanes past B arrive zero-filled, a group past the batch's
+//     end reads the last lane's column and stores nothing, and a warp
+//     wholly past it returns at once.
 
 #pragma once
 
+#include "cp_async.cuh"
 #include "ddp_backward.cuh"
+#include "row_group.cuh"
+#include "tma.cuh"
 
 namespace nmpc {
 
-template <typename T, int NX, int NU>
-__global__ void __launch_bounds__(kLaneThreads)
-ddp_backward_packed_kernel(const T* __restrict__ P, const T* __restrict__ VxT,
+template <typename T, int NX, int NU, int G>
+__global__ void __launch_bounds__(kMaxRowLanes * 8)
+ddp_backward_packed_kernel(const __grid_constant__ CUtensorMap map,
+                           const T* __restrict__ VxT,
                            const T* __restrict__ VxxT,
                            const T* __restrict__ lam_in, T* __restrict__ ks,
                            T* __restrict__ Ks, T* __restrict__ dV,
                            unsigned char* __restrict__ ok_out, int N, int B,
-                           int reg_type) {
+                           int C, int reg_type) {
   constexpr int F = PackedLayout<NX, NU>::F;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  constexpr int W = 32 / G;                 // lanes of a warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  const int lane0 = blockIdx.x * (blockDim.x / G) + warp * W;
+  if (lane0 >= B) return;                   // a warp wholly past the batch
+  const int lane = lane0 + static_cast<int>(threadIdx.x % 32) / G;
+  const bool live = lane < B;
+  const int b = live ? lane : B - 1;
+  const bool leader = threadIdx.x % 32 == 0;
+  unsigned char* const part =
+      smem_raw + warp * packed_warp_bytes<T>(C, F, W);
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(part);
+  T* const ring = reinterpret_cast<T*>(part + 128);
+  const int buffer = static_cast<int>(packed_buffer_bytes<T>(C, F, W) /
+                                      sizeof(T));
+  const uint32_t bytes = static_cast<uint32_t>(C) * F * W * sizeof(T);
+  const int n_chunks = packed_chunks(N, C);
+
+  if (leader) {
+#pragma unroll
+    for (int s = 0; s < kPackedRing; ++s) mbar_init(&bars[s]);
+  }
+  __syncwarp();
+  if (leader) {
+    for (int c = 0; c < n_chunks && c < kPackedRing; ++c)
+      tma_load_3d(map, &bars[c], ring + c * buffer, lane0, 0,
+                  packed_chunk(c, N, C).start, bytes);
+  }
 
   Carry<T, NX> carry;
   init_carry<T, NX>(VxT, VxxT, b, B, carry);
   const T lam = lam_in[b];
-  const size_t stage = static_cast<size_t>(F) * B;
-
-  Stage<T, NX, NU> cur, nxt;
-  load_stage_packed<T, NX, NU>(P + (N - 1) * stage + b, B, cur);
-  for (int i = N - 1; i >= 0; --i) {
-    if (i > 0) load_stage_packed<T, NX, NU>(P + (i - 1) * stage + b, B, nxt);
-    T k[NU], K[NU][NX];
-    riccati_stage<T, NX, NU>(cur, lam, reg_type, carry, k, K);
-    store_gains<T, NX, NU>(k, K, i, b, B, ks, Ks);
-    cur = nxt;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int s = c % kPackedRing;
+    if (c > 0) {
+      // the warp is done with chunk c - 1: refill its buffer
+      __syncwarp();
+      const int next = c - 1 + kPackedRing;
+      if (leader && next < n_chunks)
+        tma_load_3d(map, &bars[next % kPackedRing],
+                    ring + (next % kPackedRing) * buffer, lane0, 0,
+                    packed_chunk(next, N, C).start, bytes);
+    }
+    mbar_wait(&bars[s], (c / kPackedRing) & 1);
+    const PackedChunk chunk = packed_chunk(c, N, C);
+    const T* slab = ring + s * buffer + (b - lane0);
+    for (int i = chunk.hi - 1; i >= chunk.lo; --i) {
+      T k[NU], K[NU][NX];
+      riccati_stage_group<T, NX, NU, G>(
+          slab + static_cast<size_t>(i - chunk.start) * F * W, W, lam,
+          reg_type, carry, k, K);
+      if (live) store_gains_group<T, NX, NU, G>(k, K, i, b, B, ks, Ks);
+    }
   }
-  store_result<T, NX>(carry, b, B, dV, ok_out);
+  if (live && LaneGroup<G>::rank() == 0)
+    store_result<T, NX>(carry, b, B, dV, ok_out);
 }
 
-// Launch on `stream`; returns cudaGetLastError() after the launch.
-// fields[0] is the packed [N, F, B] buffer; the rest as K1's launch.
-template <typename T, int NX, int NU>
-int launch_ddp_backward_packed(int N, int B, int reg_type,
+// Launch on `stream`; returns a CUDA error code: of the tensor map
+// (tma.cuh::encode_map_3d), of the shared-memory attribute, or
+// cudaGetLastError() after the launch.  fields[0] is the packed [N, F, B]
+// buffer with its lanes ld values apart (ld * sizeof(T) and its address
+// multiples of 16 bytes); the rest as K1's launch.  The chunk is
+// packed_chunk_stages' C (row_group.cuh).
+template <typename T, int NX, int NU, int G = kRowGroup<NX, NU>>
+int launch_ddp_backward_packed(int N, int B, int ld, int reg_type,
                                const void* const* fields, const void* VxT,
                                const void* VxxT, const void* lam, void* ks,
                                void* Ks, void* dV, void* ok, void* stream) {
+  constexpr int F = PackedLayout<NX, NU>::F;
+  constexpr int W = 32 / G;
+  static_assert((kMaxRowLanes / W) * packed_warp_bytes<T>(1, F, W) <=
+                    kMaxBlockSmem,
+                "a block's rings of one-stage chunks pass its shared memory");
   if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (B + kLaneThreads - 1) / kLaneThreads;
-  ddp_backward_packed_kernel<T, NX, NU>
-      <<<blocks, kLaneThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(fields[0]), static_cast<const T*>(VxT),
-          static_cast<const T*>(VxxT), static_cast<const T*>(lam),
-          static_cast<T*>(ks), static_cast<T*>(Ks), static_cast<T*>(dV),
-          static_cast<unsigned char*>(ok), N, B, reg_type);
+  const int C = packed_chunk_stages<T>(F, N);
+  const int L = row_lanes<G>(B);
+  CUtensorMap map;
+  int err = encode_map_3d<T>(&map, fields[0], B, F, N, ld, W, F, C);
+  if (err != 0) return err;
+  const size_t smem = (L / W) * packed_warp_bytes<T>(C, F, W);
+  err = allow_dynamic_smem(ddp_backward_packed_kernel<T, NX, NU, G>, smem);
+  if (err != 0) return err;
+  const int blocks = (B + L - 1) / L;
+  ddp_backward_packed_kernel<T, NX, NU, G>
+      <<<blocks, L * G, smem, static_cast<cudaStream_t>(stream)>>>(
+          map, static_cast<const T*>(VxT), static_cast<const T*>(VxxT),
+          static_cast<const T*>(lam), static_cast<T*>(ks),
+          static_cast<T*>(Ks), static_cast<T*>(dV),
+          static_cast<unsigned char*>(ok), N, B, C, reg_type);
   return static_cast<int>(cudaGetLastError());
 }
 

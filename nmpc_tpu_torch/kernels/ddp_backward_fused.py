@@ -1,23 +1,27 @@
 """Fused DDP Riccati backward: the hand-written CUDA kernels' wrappers.
 
 Replaces ``nmpc_tpu/kernels/ddp_backward_pallas.py::backward_pallas`` (the
-fused Pallas TPU kernel) in its three DMA modes, each a CUDA kernel with
-one thread per batch lane running the whole N-stage recursion with its
-carry in registers; each source's header says what bounds it on the card
-and what its design does about that:
+fused Pallas TPU kernel) in its three DMA modes, each a CUDA kernel that
+runs the whole N-stage recursion of a batch lane with its carry in
+registers; each source's header says what bounds it on the card and what
+its design does about that:
 
-* ``"stage"`` (K1, ``csrc/ddp_backward.cuh``): the next stage's fields
-  loaded into registers while this stage computes;
-* ``"chunked"`` (K2, ``csrc/ddp_backward_chunked.cuh``): the fields staged
-  in shared memory C stages at a time with ``cp.async``, double-buffered
-  by chunk (``_backward_pallas_call_chunked``);
+* ``"stage"`` (K1, ``csrc/ddp_backward.cuh``): one thread per lane, the
+  next stage's fields loaded into registers while this stage computes;
+* ``"chunked"`` (K2, ``csrc/ddp_backward_chunked.cuh``): one thread per
+  lane, the fields staged in shared memory C stages at a time with
+  ``cp.async``, double-buffered by chunk (``_backward_pallas_call_chunked``);
 * ``"packed"`` (K3, ``csrc/ddp_backward_packed.cuh``): the fields read
   from one ``[N, F, B]`` buffer built by :func:`pack_derivs`
-  (``_backward_pallas_call_packed``).
+  (``_backward_pallas_call_packed``), fetched by TMA a chunk of stages at
+  a time into a ring of buffers (``csrc/row_group.cuh`` sizes both), each
+  lane's stage run by a group of threads
+  (``csrc/riccati_stage.cuh::riccati_stage_group``).
 
 Each is instantiated per (nx, nu, dtype) in a small generated unit that
-nvcc builds at first use, with K1's flags (FMA contraction on); the three
-share ``csrc/riccati_stage.cuh::riccati_stage`` and agree bit for bit.
+nvcc builds at first use with ``UNIT_FLAGS`` (``-fmad=false``: no product
+is contracted into an FMA, so the three agree bit for bit by construction
+and the fp32 solve's decisions follow the plain path's).
 
 :func:`backward_fused` is a drop-in for
 ``kernels/ddp_backward.py::backward_stacked`` (same arguments, same
@@ -53,12 +57,14 @@ DMA_MODES = ("stage", "chunked", "packed")
 LANES = 32
 CHUNK_SMEM_BYTES = 96 * 1024
 MAX_CHUNK = 32
+# nvcc flags of every unit here beyond build.NVCC_FLAGS
+UNIT_FLAGS = ("-fmad=false",)
 # per mode: the header and the launch template with its leading arguments
 _UNITS = {"stage": ("ddp_backward.cuh", "launch_ddp_backward", ""),
           "chunked": ("ddp_backward_chunked.cuh",
                       "launch_ddp_backward_chunked", "chunk, "),
           "packed": ("ddp_backward_packed.cuh", "launch_ddp_backward_packed",
-                     "")}
+                     "ld, ")}
 
 
 def kernel_supports(nx: int, nu: int, dtype) -> bool:
@@ -127,34 +133,54 @@ def chunk_stages(nx: int, nu: int, N: int, dtype) -> int:
     return max(1, min(N, MAX_CHUNK, CHUNK_SMEM_BYTES // per_stage))
 
 
-def unit_source(nx: int, nu: int, dtype, dma: str = "stage") -> str:
-    """The unit instantiating the ``dma`` kernel at (nx, nu, dtype)."""
-    header, launch, chunk = _UNITS[dma]
+def packed_lane_stride(B: int, dtype) -> int:
+    """The lane stride K3's tensor map takes for B lanes: B rounded up to
+    a multiple of 16 bytes."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-B // per) * per
+
+
+def unit_source(nx: int, nu: int, dtype, dma: str = "stage",
+                group: int | None = None) -> str:
+    """The unit instantiating the ``dma`` kernel at (nx, nu, dtype); K3
+    with the header's ``kRowGroup`` threads per lane, or ``group`` where a
+    measurement asks for another."""
+    header, launch, lead = _UNITS[dma]
+    g = "" if group is None else f", {group}"
     return (f"#include \"{header}\"\n\n"
             f"extern \"C\" int ddp_backward_launch(\n"
-            f"    int N, int B, int reg_type, int chunk,\n"
+            f"    int N, int B, int reg_type, int chunk, int ld,\n"
             f"    const void* const* fields, const void* VxT,\n"
             f"    const void* VxxT, const void* lam, void* ks, void* Ks,\n"
             f"    void* dV, void* ok, void* stream) {{\n"
-            f"  (void)chunk;\n"
-            f"  return nmpc::{launch}<{DTYPES[dtype]}, {nx}, {nu}>(\n"
-            f"      N, B, {chunk}reg_type, fields, VxT, VxxT, lam, ks, Ks, "
+            f"  (void)chunk;\n  (void)ld;\n"
+            f"  return nmpc::{launch}<{DTYPES[dtype]}, {nx}, {nu}{g}>(\n"
+            f"      N, B, {lead}reg_type, fields, VxT, VxxT, lam, ks, Ks, "
             f"dV, ok,\n      stream);\n}}\n")
 
 
-def unit_name(nx: int, nu: int, dtype, dma: str = "stage") -> str:
+def unit_name(nx: int, nu: int, dtype, dma: str = "stage",
+              group: int | None = None) -> str:
     kind = "" if dma == "stage" else f"_{dma}"
-    return f"ddp_backward{kind}_{nx}x{nu}_{str(dtype)[6:]}"
+    g = "" if group is None else f"_g{group}"
+    return f"ddp_backward{kind}_{nx}x{nu}_{str(dtype)[6:]}{g}"
 
 
-@functools.lru_cache(maxsize=32)
-def _launcher(nx: int, nu: int, dtype, dma: str):
-    lib = load(build_generated(unit_name(nx, nu, dtype, dma),
-                               unit_source(nx, nu, dtype, dma)))
+def bind(lib):
+    """The launch function of a loaded unit (:func:`unit_source`)."""
     fn = lib.ddp_backward_launch
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=64)
+def launcher(nx: int, nu: int, dtype, dma: str, group: int | None = None):
+    """The launch function of the ``dma`` unit at (nx, nu, dtype), with
+    ``group`` threads per lane where a measurement asks for another."""
+    return bind(load(build_generated(unit_name(nx, nu, dtype, dma, group),
+                                     unit_source(nx, nu, dtype, dma, group),
+                                     UNIT_FLAGS)))
 
 
 def _check(name, a, shape, dtype, device):
@@ -179,9 +205,11 @@ def _check_carry(nx, B, Vx_T, Vxx_T, lam):
                          f"{device}")
 
 
-def _launch(dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam):
-    """Launch the ``dma`` kernel on ``fields`` (pointers); returns
-    (ks, Ks, dV, ok)."""
+def launch(fn, dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld=0):
+    """One launch of the unit function ``fn`` (:func:`launcher`) of the
+    ``dma`` kernel on ``fields`` (checked CUDA tensors; K3's with lanes
+    ``ld`` values apart); returns (ks, Ks, dV, ok) and raises on a CUDA
+    error.  Counts nothing: the wrappers count their own launches."""
     B, dtype, device = lam.shape[0], lam.dtype, lam.device
     if not kernel_supports(nx, nu, dtype):
         raise ValueError(
@@ -194,16 +222,21 @@ def _launch(dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam):
     ok = torch.empty((B,), dtype=torch.bool, device=device)
     chunk = chunk_stages(nx, nu, N, dtype) if dma == "chunked" else 0
     ptrs = (ctypes.c_void_p * len(fields))(*(a.data_ptr() for a in fields))
-    launch = _launcher(nx, nu, dtype, dma)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = launch(N, B, config.reg_type, chunk, ptrs, Vx_T.data_ptr(),
-                     Vxx_T.data_ptr(), lam.data_ptr(), ks.data_ptr(),
-                     Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream)
+        err = fn(N, B, config.reg_type, chunk, ld, ptrs, Vx_T.data_ptr(),
+                 Vxx_T.data_ptr(), lam.data_ptr(), ks.data_ptr(),
+                 Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ddp_backward ({dma}) kernel launch failed: CUDA "
                            f"error {err}")
     return ks, Ks, dV, ok
+
+
+def _launch(dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld=0):
+    """Launch the ``dma`` kernel the wrapper uses on ``fields``."""
+    return launch(launcher(nx, nu, lam.dtype, dma), dma, config, N, nx, nu,
+                  fields, Vx_T, Vxx_T, lam, ld)
 
 
 def backward_fused(config: DDPConfig, D: StackedDerivs, Vx_T, Vxx_T, lam,
@@ -246,11 +279,31 @@ backward_fused.launches = 0           # K1
 backward_fused.chunked_launches = 0   # K2
 
 
+def padded_packed(P: torch.Tensor):
+    """(P or a copy of it, its lane stride) as K3's tensor map takes them:
+    the lanes a multiple of 16 bytes apart from a 16-byte aligned address.
+    A P whose B is not such a multiple (B=1023 at fp32) is copied once
+    into ``[N, F, packed_lane_stride(B)]``, the lanes past B left unset
+    (the map's bounds stop at B); each such copy adds one to
+    ``backward_packed.padded_copies``."""
+    N, F, B = P.shape
+    ld = packed_lane_stride(B, P.dtype)
+    if ld == B and P.data_ptr() % 16 == 0:
+        return P, B
+    padded = torch.empty((N, F, ld), dtype=P.dtype, device=P.device)
+    padded[..., :B] = P
+    backward_packed.padded_copies += 1
+    return padded, ld
+
+
 def backward_packed(config: DDPConfig, P, nx: int, nu: int, Vx_T, Vxx_T,
                     lam):
     """Backward pass from the packed buffer P [N, F, B] (:func:`pack_derivs`)
     by K3; other arguments and the result as :func:`backward_fused`'s.  On
-    CPU tensors the plain version unpacks P and runs ``backward_stacked``."""
+    CPU tensors the plain version unpacks P and runs ``backward_stacked``.
+    On CUDA tensors the kernel reads P through a TMA tensor map, which
+    takes a lane stride of a multiple of 16 bytes: any other B is first
+    copied into a padded buffer (:func:`padded_packed`, counted)."""
     N, B = P.shape[0], Vx_T.shape[-1]
     _, F = field_offsets(nx, nu)
     _check("P", P, (N, F, B), Vx_T.dtype, Vx_T.device)
@@ -258,9 +311,11 @@ def backward_packed(config: DDPConfig, P, nx: int, nu: int, Vx_T, Vxx_T,
     if P.device.type == "cpu":
         return backward_stacked(config, unpack_derivs(P, nx, nu), Vx_T,
                                 Vxx_T, lam)
-    out = _launch("packed", config, N, nx, nu, (P,), Vx_T, Vxx_T, lam)
+    P, ld = padded_packed(P)
+    out = _launch("packed", config, N, nx, nu, (P,), Vx_T, Vxx_T, lam, ld)
     backward_packed.launches += 1
     return out
 
 
 backward_packed.launches = 0          # K3
+backward_packed.padded_copies = 0     # P copied to a 16-byte lane stride

@@ -7,9 +7,14 @@ boxed, its bounds) recomputed inside the kernel from (t_i, x_i, u_i), so
 the derivative sweep and its buffer go away.  The kernel is the template
 ``csrc/ddp_backward_remat.cuh`` instantiated in a unit generated from the
 problem's own callables (``kernels/tileval.py``: ``"remat"``, or
-``"remat_boxed"`` with the aux group; boxed, a group of ``kQpGroup``
-threads per lane that evaluates the Armijo schedule that many candidates at
-a time), compiled by nvcc at first use and bound through ctypes.  Its plain
+``"remat_boxed"`` with the aux group; unboxed, a group of ``kRematGroup``
+threads per lane that generates the fields of that many stages ahead into
+shared memory, one stage a thread, and splits the rows of each Riccati
+stage, with as many lanes a block as their shared memory allows (one
+thread per lane and the fields in registers where no slab fits); boxed,
+a group of ``kQpGroup`` threads per lane that evaluates the Armijo
+schedule that many candidates at a time), compiled by nvcc at first use
+with ``-fmad=false`` and bound through ctypes.  Its plain
 version is :func:`backward_remat_plain`: the derivative sweep and
 ``backward_stacked`` (boxed: ``backward_stacked_boxed``), independent of
 the generator, so that holding one against the other on the card checks the
@@ -59,16 +64,17 @@ def remat_supported(problem, nx: int, nu: int, dtype,
 
 def unit_source(problem, nx: int, nu: int, dtype, boxed: bool = False,
                 group: int | None = None) -> str:
-    """The generated translation unit for ``problem`` at ``dtype``; boxed,
-    with the header's ``kQpGroup`` threads per lane, or ``group`` where a
-    measurement asks for another."""
+    """The generated translation unit for ``problem`` at ``dtype``, with
+    the header's threads per lane (boxed ``kQpGroup``, unboxed
+    ``kRematLaneGroup``), or ``group`` where a measurement asks for
+    another (unboxed 0: one thread per lane, the fields in registers)."""
     unit = tileval.generate(problem, _kind(boxed), nx, nu, dtype)
     params = qp_struct = flag = qp = ""
     if boxed:   # the QP's parameters ride along to the boxed instantiation
         params, qp_struct, flag, qp = (f",\n    {QP_PARAMS_C}", QP_STRUCT_C,
                                        ", true", ", qp")
-        if group is not None:
-            flag += f", {group}"
+    if group is not None:
+        flag = f"{flag or ', false'}, {group}"
     return (f"{unit.cpp}\n#include \"ddp_backward_remat.cuh\"\n\n"
             f"extern \"C\" int remat_backward_launch(\n"
             f"    int N, int B, int reg_type, double dt, const void* xs,\n"
@@ -86,8 +92,18 @@ def unit_name(dtype, boxed: bool = False, group: int | None = None) -> str:
 
 
 def unit_flags(boxed: bool = False) -> tuple:
-    """The unit's nvcc flags beyond ``build.NVCC_FLAGS``."""
-    return BOXED_FLAGS if boxed else ()
+    """The unit's nvcc flags beyond ``build.NVCC_FLAGS``: no FMA
+    contraction, boxed or not (``BOXED_FLAGS``)."""
+    return BOXED_FLAGS
+
+
+def bind(lib, boxed: bool = False):
+    """The launch function of a loaded unit (:func:`unit_source`)."""
+    fn = lib.remat_backward_launch
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_double]
+                   + [ctypes.c_void_p] * 11 + (QP_ARGTYPES if boxed else []))
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=64)
@@ -95,15 +111,10 @@ def launcher(problem, nx: int, nu: int, dtype, boxed: bool,
              group: int | None = None, csrc: Path = CSRC):
     """The launch function of ``problem``'s unit, built from the headers
     under ``csrc`` (another checkout's, to time it beside this one's)."""
-    lib = load(build_generated(unit_name(dtype, boxed, group),
-                               unit_source(problem, nx, nu, dtype, boxed,
-                                           group),
-                               unit_flags(boxed), csrc))
-    fn = lib.remat_backward_launch
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_double]
-                   + [ctypes.c_void_p] * 11 + (QP_ARGTYPES if boxed else []))
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(load(build_generated(
+        unit_name(dtype, boxed, group),
+        unit_source(problem, nx, nu, dtype, boxed, group), unit_flags(boxed),
+        csrc)), boxed)
 
 
 def launch(fn, problem, config: DDPConfig, t0, xs, us, Vx_T, Vxx_T, lam,

@@ -4,7 +4,9 @@ backward (K5, unboxed and boxed), the fused rollouts (K6, K7), and FMPC's
 condensed Riccati backward (K8) and Δx/Δu recursion (K11), and the
 layout variants that must equal their parents bit for bit: the chunked
 and packed DDP backward (K2, K3) against K1, the resident and packed FMPC
-backward (K9, K10) against K8, with the solver keywords that select them.
+backward (K9, K10) against K8, with the solver keywords that select them;
+the group kernels (K3, K5 unboxed) at every group size against one thread
+per lane, and K3 at a lane stride TMA does not take.
 Every test
 here is marked ``cuda`` and skips without a card; the file imports no JAX,
 so on the GPU machine it runs without the JAX package's conftest:
@@ -24,9 +26,12 @@ from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds, StackedDerivs,
                                                  backward_stacked,
                                                  backward_stacked_boxed)
 from nmpc_tpu_torch.kernels.ddp_backward_boxed import backward_fused_boxed
+from nmpc_tpu_torch.kernels import ddp_backward_fused as fused
+from nmpc_tpu_torch.kernels import ddp_backward_remat as remat
 from nmpc_tpu_torch.kernels.ddp_backward_fused import (backward_fused,
                                                        backward_packed,
-                                                       chunk_stages)
+                                                       chunk_stages,
+                                                       pack_derivs)
 from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
                                                        backward_remat_plain)
 from nmpc_tpu_torch.kernels.ddp_forward_remat import (forward_costs_remat,
@@ -36,7 +41,10 @@ from nmpc_tpu_torch.kernels.fmpc_backward import (backward_fmpc_fused,
 from nmpc_tpu_torch.kernels.fmpc_forward import (forward_fmpc_deltas_fused,
                                                  forward_fmpc_deltas_plain)
 from nmpc_tpu_torch.kernels.tileval import TileEvalError
-from nmpc_tpu_torch.models.cartpole import (make_cartpole_fmpc_problem,
+from nmpc_tpu_torch.core.problem import Problem
+from nmpc_tpu_torch.models.cartpole import (CartPoleCostWeight,
+                                            CartPoleParam, cartpole_xdot,
+                                            make_cartpole_fmpc_problem,
                                             make_cartpole_problem)
 from nmpc_tpu_torch.models.bipedal import (example_omega2_func,
                                            example_ref_zmp_func,
@@ -540,6 +548,160 @@ def test_chunked_and_packed_equal_k1(card, dtype, N):
     for out in (k2, k3):
         assert torch.equal(out[3], k1[3])
         assert _equal_on(k1[:3], out[:3], k1[3])
+
+
+def _bits(a):
+    """``a``'s bit pattern (the card makes one canonical NaN)."""
+    if not a.is_floating_point():
+        return a
+    return a.contiguous().view({torch.float32: torch.int32,
+                                torch.float64: torch.int64}[a.dtype])
+
+
+# the group sizes of riccati_stage_group measured on the card, per nx
+ROW_GROUPS = {4: (1, 2, 4, 8), 2: (1, 2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("reg_type", [1, 2])
+def test_remat_groups_equal_one_thread(card, dtype, reg_type):
+    """K5 built at every group size on a ragged batch (B=300, N=17, a
+    short last round at G = 2, 4, 8) with a NaN state and a non-PD lane,
+    and at G = 0 (one thread per lane, the fields in registers): every
+    output equal to G = 1's bit for bit, NaN lanes included."""
+    B, N = 300, 17
+    p, t0, xs, us, VxT, VxxT = _trajectory(B, N, dtype, card)
+    xs[5, 1, 299] = float("nan")
+    VxxT[:, :, 7] = -1e6 * torch.eye(4, dtype=dtype, device=card)
+    cfg = DDPConfig(horizon_steps=N, reg_type=reg_type)
+    lam = torch.full((B,), 1e-4 if reg_type == 1 else 0.5, dtype=dtype,
+                     device=card)
+    outs = {g: remat.launch(remat.launcher(p, 4, 1, dtype, False, g), p, cfg,
+                            t0, xs, us, VxT, VxxT, lam)
+            for g in (0,) + ROW_GROUPS[4]}
+    torch.cuda.synchronize()
+    assert not outs[1][3][7] and not outs[1][3][299]
+    for g, out in outs.items():
+        for a, b in zip(outs[1], out):
+            assert torch.equal(_bits(a), _bits(b)), g
+
+
+def _pair_problem():
+    """Two cart-poles (pole lengths 2 m and 1 m) on one force, each with the
+    cart-pole's weights about the origin: nx = 8,
+    nu = 1, F = 154 fields a stage, whose K5 slab at fp64 holds 16 lanes a
+    block instead of 32."""
+    a, b = CartPoleParam(), CartPoleParam(pole_length=1.0)
+    w = CartPoleCostWeight()
+
+    def dynamics(t, x, u):
+        # each pole's state by element (the kernel generator takes select
+        # and stack, not slices)
+        xa = torch.stack([x[0], x[1], x[2], x[3]])
+        xb = torch.stack([x[4], x[5], x[6], x[7]])
+        return torch.cat([xa + DT * cartpole_xdot(a, xa, u),
+                          xb + DT * cartpole_xdot(b, xb, u)])
+
+    def running_cost(t, x, u):
+        wx = torch.tensor(w.running_x * 2, dtype=x.dtype, device=x.device)
+        return (0.5 * torch.sum(wx * x**2)
+                + 0.5 * w.running_u[0] * torch.sum(u**2))
+
+    def terminal_cost(t, x):
+        wx = torch.tensor(w.terminal_x * 2, dtype=x.dtype, device=x.device)
+        return 0.5 * torch.sum(wx * x**2)
+
+    return Problem(dt=DT, state_dim=8, input_dim=1, dynamics=dynamics,
+                   running_cost=running_cost, terminal_cost=terminal_cost)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_remat_wide_state_fits_shared_memory(card, dtype):
+    """K5 at nx = 8 (:func:`_pair_problem`), B=4096, through the wrapper:
+    the launch sizes its blocks to the field slab (fp64: 16 lanes of 8
+    threads), ok masks equal to the plain version's and the rest within
+    TOL, and every output equal bit for bit to G = 0's (one thread per
+    lane, the fields in registers)."""
+    B, N = 4096, 12
+    p = _pair_problem()
+    rng = np.random.default_rng(8)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=card)
+    cfg = DDPConfig(horizon_steps=N)
+    x0s = (np.tile([0.0, np.pi, 0.0, 0.0], (B, 2))
+           + 0.05 * rng.normal(size=(B, 8)))
+    us = as_t(0.2 * rng.normal(size=(N, 1, B)))
+    t0 = as_t(0.3)
+    xs, _ = ddp._rollout_lanes(p, cfg, t0, as_t(x0s.T.copy()), us)
+    VxT, VxxT = (a.contiguous() for a in ddp._terminal_quad_lanes(
+        p, cfg, t0, xs))
+    lam = torch.full((B,), 1e-4, dtype=dtype, device=card)
+    before = backward_remat.launches
+    out = backward_remat(p, cfg, t0, xs, us, VxT, VxxT, lam)
+    one = remat.launch(remat.launcher(p, 8, 1, dtype, False, 0), p, cfg, t0,
+                       xs, us, VxT, VxxT, lam)
+    torch.cuda.synchronize()
+    assert backward_remat.launches == before + 1
+    ref = backward_remat_plain(p, cfg, t0, xs, us, VxT, VxxT, lam)
+    assert torch.equal(out[3], ref[3]) and int(out[3].sum()) == B
+    for a, b in zip(ref[:3], out[:3]):
+        assert _norm_err(a, b) <= TOL[dtype]
+    for a, b in zip(one, out):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx", [4, 2])
+def test_packed_groups_equal_k1(card, dtype, nx):
+    """K3 built at every group size (cart-pole fields, or the cart-pole's
+    first two states' block as a (2, 1) case) on a ragged batch (B=300,
+    N=23, chunks cut short at the horizon's start) with a non-PD and a NaN
+    lane: bit-equal to K1 on K1's ok lanes with the same ok mask, and to
+    G = 1 everywhere."""
+    B, N = 300, 23
+    D, VxT, VxxT = _derivs(B, N, dtype, card)
+    if nx == 2:
+        D = StackedDerivs(D.Fx[:, :2, :2].contiguous(),
+                          D.Fu[:, :2].contiguous(), D.Lx[:, :2].contiguous(),
+                          D.Lu, D.Lxx[:, :2, :2].contiguous(), D.Luu,
+                          D.Lxu[:, :2].contiguous())
+        VxT, VxxT = VxT[:2].contiguous(), VxxT[:2, :2].contiguous()
+    D.Luu[:, :, :, 7] = -10.0
+    D.Fx[3, 1, 1, 299] = float("nan")
+    cfg = DDPConfig(horizon_steps=N)
+    lam = torch.full((B,), 1e-4, dtype=dtype, device=card)
+    k1 = backward_fused(cfg, D, VxT, VxxT, lam)
+    P = pack_derivs(D)
+    outs = {g: fused.launch(fused.launcher(nx, 1, dtype, "packed", g),
+                            "packed", cfg, N, nx, 1, (P,), VxT, VxxT, lam, B)
+            for g in ROW_GROUPS[nx]}
+    torch.cuda.synchronize()
+    assert not k1[3][7] and not k1[3][299]
+    for g, out in outs.items():
+        assert torch.equal(out[3], k1[3]), g
+        assert _equal_on(k1[:3], out[:3], k1[3]), g
+        for a, b in zip(outs[1], out):
+            assert torch.equal(_bits(a), _bits(b)), g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_packed_ragged_lane_stride(card, dtype):
+    """K3 at B=1023, whose lane stride TMA does not take: the wrapper
+    copies P once into a padded buffer (counted) and the result equals
+    K1's bit for bit on K1's ok lanes, with the same ok mask."""
+    B, N = 1023, 30
+    D, VxT, VxxT = _derivs(B, N, dtype, card)
+    D.Luu[:, :, :, 1022] = -10.0
+    cfg = DDPConfig(horizon_steps=N)
+    lam = torch.full((B,), 1e-4, dtype=dtype, device=card)
+    k1 = backward_fused(cfg, D, VxT, VxxT, lam)
+    before = (backward_packed.padded_copies, backward_packed.launches)
+    k3 = backward_fused(cfg, D, VxT, VxxT, lam, dma="packed")
+    torch.cuda.synchronize()
+    assert (backward_packed.padded_copies, backward_packed.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert not k1[3][1022] and int(k1[3].sum()) == B - 1
+    assert torch.equal(k3[3], k1[3])
+    assert _equal_on(k1[:3], k3[:3], k1[3])
 
 
 def _osc_case(B, N, dtype, device, seed=6):

@@ -240,7 +240,7 @@ def test_kernel_module_imports_without_nvcc_or_gpu(tmp_path):
             "import nmpc_tpu_torch.kernels.ddp_backward_fused as m\n"
             "assert shutil.which('nvcc') is None\n"
             "assert not torch.cuda.is_available()\n"
-            "assert m._launcher.cache_info().currsize == 0\n"
+            "assert m.launcher.cache_info().currsize == 0\n"
             "assert m.backward_fused.launches == 0\n")
     env = dict(os.environ, CUDA_HOME=str(tmp_path / "no-cuda"),
                CUDA_VISIBLE_DEVICES="",

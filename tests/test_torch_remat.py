@@ -291,7 +291,7 @@ def test_library_name_follows_included_headers(tmp_path):
                       for text in (k1, gen)]
     assert {p.name for p in build.included_headers(gen, csrc)} == {
         "ddp_backward_remat.cuh", "cp_async.cuh", "remat_common.cuh",
-        "riccati_stage.cuh", "boxqp.cuh", "linalg.cuh"}
+        "riccati_stage.cuh", "boxqp.cuh", "linalg.cuh", "row_group.cuh"}
     fwd = csrc / "ddp_forward_remat.cuh"
     fwd.write_text(fwd.read_text() + "\n// edited\n")
     assert before == [build.library_path("k", text, csrc)
