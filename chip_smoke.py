@@ -12,7 +12,8 @@ Phases, one line each (a failed phase exits non-zero):
    vertical-motion model from their callables (and K5 of two cart-poles
    on one force, nx = 8, at fp64), the sweep-fed backward in
    its three layouts (K1, K2 chunked, K3 packed) at (nx, nu) = (4, 1) and
-   (2, 1), the sweep-fed boxed backward (K4) at (2, 2) and (4, 1), the
+   (2, 1) (and (8, 4) at fp64), the sweep-fed boxed backward (K4) at (2,
+   2) and (4, 1), the
    FMPC backward in its three layouts (K8 streaming, K9 resident, K10
    packed) at (nx, nu, ng) = (2, 1, 3), (4, 1, 4), (2, 2, 2) and the FMPC
    recursion (K11) at (2, 1), (4, 1), (2, 2), for fp32 and fp64 (K1-K5
@@ -36,8 +37,10 @@ Phases, one line each (a failed phase exits non-zero):
    case) and K11 against its plain recursion fed K8's gains; then the
    layout variants against their plain versions and, bit for bit, their
    parent kernels (a failed check): K2 and K3 against K1 at the headline
-   shape and the bipedal shape (B=2048, N=300), K3 at B=1023 (P copied
-   once to a lane stride TMA takes), K9 against K8 at the oscillator's N=20
+   shape and the bipedal shape (B=2048, N=300), K1, K2 and K3 at B=1023
+   (K1's fields and K3's P copied once to a lane stride TMA takes), with
+   a field at a 4-byte offset (K1 copies it) and at (8, 4) fp64, K9
+   against K8 at the oscillator's N=20
    (B=4096) and the cart-pole's largest N that fits, K10 at those and at
    both FMPC shapes of phase 2, K9 and K10 on the two-input case;
 3. end to end: ``DDPSolver.solve_batch`` at the headline shape through
@@ -59,7 +62,9 @@ Phases, one line each (a failed phase exits non-zero):
    ``auto`` with each ``backward_dma`` (K1, K2, K3 and the plain rollouts)
    and the plain path, and FMPC through ``backward_variant`` "resident"
    and "stream" (oscillator N=20, B=4096) and "packed" (cart-pole
-   serving), at fp64 and fp32 against the plain path; the fp32 lanes
+   serving), at fp64 and fp32 against the plain path, and the headline
+   cart-pole solve with ``deriv_dtype="float64"`` (``auto``: K1) against
+   the plain path; the fp32 lanes
    whose decisions part from the other path are pinned
    (``UNBOXED_FP32_FLIPS``, ``BOXED_FP32_FLIPS``);
 4. serving: ``make_closed_loop_batch`` with 256 cart-pole controllers,
@@ -74,7 +79,8 @@ Phases, one line each (a failed phase exits non-zero):
    and its last steps again on the plain path and with
    ``make_closed_loop``;
 5. times on the card: each kernel and its plain version (CUDA events)
-   beside its bound, the packs apart (and K3 with its pack beside K1), the
+   beside its bound, the packs apart (and K3 with its pack beside K1), K8
+   and K9 also without the wrapper's condensation, the
    QP work of the boxed kernels' timed inputs (``[qp]``), solves/s and
    tick p50/p99 for each (backward, forward) pair, solves/s of the boxed
    vertical solve and of
@@ -84,14 +90,15 @@ Phases, one line each (a failed phase exits non-zero):
 6. with ``--qp-groups`` only: K4 and K5 boxed built with 1, 4, 8 and 16
    threads per lane (and, with ``--baseline DIR``, from the headers of
    the checkout at DIR), each held to its plain version bit for bit and
-   timed in turns, with ptxas' report of each; then K5 (unboxed) and K3
-   built with 1, 2, 4 and 8 threads per lane (K3 at (2, 1): 1 and 2; K5
-   also at 0, one thread with the fields in registers),
-   every one held bit for bit to one thread per lane at fp32 and fp64 and
-   K3 to K1, K1 and K2 built with and without -fmad=false and, with
-   ``--baseline DIR``, K3 and K5 from that checkout, timed in turns (K5
-   at the headline and tick shapes, K3 at the headline and bipedal shapes
-   with the pack), with ptxas' report of each;
+   timed in turns, with ptxas' report of each; then K5 (unboxed) built
+   with 0, 1, 2, 4 and 8 threads per lane and K1, K2 and K3 with 1, 2, 4
+   and 8 at (4, 1), 1 and 2 at (2, 1), 1 and 4 at (8, 4) fp64 (and, with
+   ``--baseline DIR``, K1, K2, K3 and K5 from that checkout): every one
+   held bit for bit to G = 1, and K1, K2, K3 to the baseline's K1 at fp32
+   and fp64, both reg_types, the headline, bipedal and tick shapes, a
+   ragged B and N and (8, 4); timed in turns with the baseline's (K5 at
+   the headline and tick shapes, K1, K2, K3 at the headline, bipedal and
+   tick shapes with the pack), with ptxas' report of each;
 7. with ``--layers`` only: where one solve's time goes at both shapes,
    for each pair, for the boxed vertical solve, the bipedal config's
    ``auto`` path at 2 iterations and the FMPC configurations (synced time
@@ -299,6 +306,12 @@ FMPC_PATH = ("K8", "K11")
 BIPEDAL = (2048, 300)
 BIPEDAL_END_T = 20.0
 DMA_KERNEL = {"stage": "K1", "chunked": "K2", "packed": "K3"}
+# (nx, nu) the sweep-fed units are built at per dtype: the cart-pole, the
+# bipedal model and, at fp64, the kernels' largest (WIDE_SWEEP), where
+# K1's ring and K2's slots hold the fewest stages a block.
+WIDE_SWEEP = (8, 4)
+SWEEP_SHAPES = {torch.float32: ((4, 1), (2, 1)),
+                torch.float64: ((4, 1), (2, 1), WIDE_SWEEP)}
 # The receding-horizon driver: one bipedal controller, fp64, N=300,
 # max_iter=500 (tests/test_ddp_models.py:22-40), from x=0 at t=0 to
 # DRIVER_END (each solve's 3 s horizon crosses the footsteps at 1.5, 2
@@ -568,8 +581,9 @@ def phase_build():
     units = []
     for dtype in (torch.float32, torch.float64):
         # the sweep-fed backward in its three layouts (K1, K2, K3): the
-        # cart-pole and the bipedal model
-        for nx, nu in ((4, 1), (2, 1)):
+        # cart-pole, the bipedal model and, at fp64, the widest shape
+        # (check_ragged)
+        for nx, nu in SWEEP_SHAPES[dtype]:
             for dma in k1.DMA_MODES:
                 units.append((k1.unit_name(nx, nu, dtype, dma),
                               k1.unit_source(nx, nu, dtype, dma),
@@ -1522,11 +1536,19 @@ def phase_qp_groups(device, card, baseline):
                   f"the plain version [{card}]", flush=True)
 
 
-# The threads per lane --qp-groups builds the unboxed group kernels (K3,
-# K5) at, per (nx, nu); K5 also at 0 (one thread per lane, the fields in
-# registers, the geometry of an F whose slab no block holds).
-ROW_GROUPS = {(4, 1): (1, 2, 4, 8), (2, 1): (1, 2)}
+# The threads per lane --qp-groups builds the unboxed group kernels (K1,
+# K2, K3, K5) at, per (nx, nu); K5 also at 0 (one thread per lane, the
+# fields in registers, the geometry of an F whose slab no block holds);
+# the widest sweep-fed shape (fp64 only) at one thread and kRowGroup.
+ROW_GROUPS = {(4, 1): (1, 2, 4, 8), (2, 1): (1, 2), WIDE_SWEEP: (1, 4)}
 REMAT_GROUPS = (0,) + ROW_GROUPS[4, 1]
+# The inputs K1, K2 and K3 are held to the baseline's K1 on (model, (B, N),
+# timed at fp32): the headline, bipedal and tick shapes (timed), a ragged
+# B and N (K1's fields copied to a padded stride; N past no multiple of a
+# ring or chunk) and the widest shape (fp64).
+SWEEP_CASES = (("cart-pole", HEADLINE, True), ("bipedal", BIPEDAL, True),
+               ("cart-pole", TICK, True), ("cart-pole", (1023, 37), False),
+               ("wide", (1023, 37), False))
 
 
 def same_bits(a, b):
@@ -1548,26 +1570,6 @@ def parent_module(baseline, name):
     return mod
 
 
-def parent_packed(lib, cfg, P, nx, VxT, VxxT, lam):
-    """One launch of a K3 unit of the baseline checkout, whose entry point
-    takes (N, B, reg_type, chunk) and one thread per lane."""
-    fn = lib.ddp_backward_launch
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
-    fn.restype = ctypes.c_int
-    N, _, B = P.shape
-    dtype, device = P.dtype, P.device
-    ks = torch.empty((N, 1, B), dtype=dtype, device=device)
-    Ks = torch.empty((N, 1, nx, B), dtype=dtype, device=device)
-    dV = torch.empty((2, B), dtype=dtype, device=device)
-    ok = torch.empty((B,), dtype=torch.bool, device=device)
-    ptrs = (ctypes.c_void_p * 1)(P.data_ptr())
-    err = fn(N, B, cfg.reg_type, 0, ptrs, VxT.data_ptr(), VxxT.data_ptr(),
-             lam.data_ptr(), ks.data_ptr(), Ks.data_ptr(), dV.data_ptr(),
-             ok.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    check(err == 0, f"the baseline K3 launch failed: CUDA error {err}")
-    return ks, Ks, dV, ok
-
-
 def timed_in_turns(calls, label, card, note=""):
     """Time every call once in order, then again in reverse order, and
     print both times of each."""
@@ -1580,53 +1582,65 @@ def timed_in_turns(calls, label, card, note=""):
               f"ms (in turns){note} [{card}]", flush=True)
 
 
+def sweep_inputs(model, B, N, dtype, device):
+    """(D, Vx_T, Vxx_T) of a SWEEP_CASES entry."""
+    if model == "wide":
+        return wide_derivs(B, N, dtype, device)
+    return (rollout_derivs if model == "cart-pole" else bipedal_derivs)(
+        B, N, dtype, device)
+
+
 def phase_row_groups(device, card, baseline):
-    """K5 (unboxed) built at every group size of REMAT_GROUPS and K3 at
-    every one of ROW_GROUPS, K1 and K2 with and without -fmad=false (each
-    bound from the library built here) and, with ``baseline`` (another
-    checkout's root), K3 and K5 from that checkout's headers, unit text and
-    flags: all built at once with ptxas' report of each; every G held bit
-    for bit to G = 1 (NaN lanes included) at fp32 and fp64, K5's G = 1 to
-    its plain version within KERNEL_TOL, K3's every G to K1 on K1's ok
-    lanes; then each family timed on the inputs of phase 5 in turns.  K5
-    at the headline and tick shapes, K3 at the headline and bipedal
-    shapes, with the pack timed apart."""
+    """K5 (unboxed) built at every group size of REMAT_GROUPS and K1, K2
+    and K3 at every one of ROW_GROUPS and, with ``baseline`` (another
+    checkout's root), K1, K2, K3 and K5 from that checkout's headers, unit
+    text and flags: all built at once with ptxas' report of each.  K5:
+    every G held bit for bit to G = 1 (NaN lanes included), G = 1 to its
+    plain version within KERNEL_TOL, fp32 and fp64.  K1, K2, K3: on every
+    input of SWEEP_CASES at fp32 and fp64 (the widest shape fp64 only) and
+    both reg_types, every G bit for bit to the same kernel at G = 1 and,
+    on its ok lanes with the same ok mask, to the baseline's K1 (without a
+    baseline: this K1 at G = 1).  Then each family timed on the inputs of
+    phase 5 in turns with the baseline's: K5 at the headline and tick
+    shapes, K1, K2, K3 at the headline, bipedal and tick shapes (K3 with
+    its pack timed apart, K1's padding copies at the ragged shape)."""
     parent_csrc = (Path(baseline).resolve() / "nmpc_tpu_torch" / "csrc"
                    if baseline else None)
     cart = make_cartpole_problem(DT)
-    fp32 = torch.float32
+    fp32, fp64 = torch.float32, torch.float64
     units, index = [], {}
 
     def unit(key, name, text, flags, csrc=kbuild.CSRC):
         index[key] = len(units)
         units.append((name, text, flags, csrc))
 
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (fp32, fp64):
         for g in REMAT_GROUPS:
             unit(("K5", dtype, g), remat.unit_name(dtype, False, g),
                  remat.unit_source(cart, 4, 1, dtype, False, g),
                  remat.unit_flags(False))
-        for (nx, nu), groups in ROW_GROUPS.items():
-            for g in groups:
-                unit(("K3", nx, dtype, g),
-                     k1.unit_name(nx, nu, dtype, "packed", g),
-                     k1.unit_source(nx, nu, dtype, "packed", g),
-                     k1.UNIT_FLAGS)
-    for nx in (4, 2):
-        for dma in ("stage", "chunked"):
-            for flags in (k1.UNIT_FLAGS, ()):
-                unit((dma, nx, flags), k1.unit_name(nx, 1, fp32, dma),
-                     k1.unit_source(nx, 1, fp32, dma), flags)
+        for nx, nu in SWEEP_SHAPES[dtype]:
+            for dma in k1.DMA_MODES:
+                for g in ROW_GROUPS[nx, nu]:
+                    unit((dma, nx, nu, dtype, g),
+                         k1.unit_name(nx, nu, dtype, dma, g),
+                         k1.unit_source(nx, nu, dtype, dma, g),
+                         k1.UNIT_FLAGS)
     if baseline:
         pk = parent_module(baseline, "ddp_backward_fused")
-        for nx in (4, 2):
-            unit(("K3 baseline", nx),
-                 k1.unit_name(nx, 1, fp32, "packed") + "_parent",
-                 pk.unit_source(nx, 1, fp32, "packed"), (), parent_csrc)
-        unit("K5 baseline", remat.unit_name(fp32),
-             remat.unit_source(cart, 4, 1, fp32), (), parent_csrc)
+        pr = parent_module(baseline, "ddp_backward_remat")
+        for dtype in (fp32, fp64):
+            for nx, nu in SWEEP_SHAPES[dtype]:
+                for dma in k1.DMA_MODES:
+                    unit(("baseline", dma, nx, nu, dtype),
+                         k1.unit_name(nx, nu, dtype, dma) + "_parent",
+                         pk.unit_source(nx, nu, dtype, dma), pk.UNIT_FLAGS,
+                         parent_csrc)
+        unit("K5 baseline", remat.unit_name(fp32) + "_parent",
+             pr.unit_source(cart, 4, 1, fp32), pr.unit_flags(False),
+             parent_csrc)
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(16) as pool:
         libs = list(pool.map(lambda u: kbuild.build_generated(*u), units))
     print(f"[row-groups] {len(libs)} units in "
           f"{time.perf_counter() - start:.1f} s", flush=True)
@@ -1644,7 +1658,7 @@ def phase_row_groups(device, card, baseline):
 
     # K5: every G against G = 1 and the plain version
     for B, N in (HEADLINE, TICK):
-        for dtype in (torch.float32, torch.float64):
+        for dtype in (fp32, fp64):
             problem, t0, xs, us, VxT, VxxT = remat_inputs(B, N, dtype,
                                                           device)
             cfg = DDPConfig(horizon_steps=N)
@@ -1680,68 +1694,83 @@ def phase_row_groups(device, card, baseline):
                     for g in REMAT_GROUPS}
                 if baseline:
                     calls["baseline"] = functools.partial(
-                        remat.launch, remat.bind(lib("K5 baseline")), *args)
+                        remat.launch, pr.bind(lib("K5 baseline"), False),
+                        *args)
                 timed_in_turns(calls, f"K5 B={B} N={N}", card)
 
-    # K3: every G against K1 (and G = 1), K1 / K2 under both flags
-    for model, (B, N) in (("cart-pole", HEADLINE), ("bipedal", BIPEDAL)):
-        for dtype in (torch.float32, torch.float64):
-            D, VxT, VxxT = (rollout_derivs if model == "cart-pole"
-                            else bipedal_derivs)(B, N, dtype, device)
-            nx = D.Fx.shape[1]
-            cfg = DDPConfig(horizon_steps=N)
-            lam = torch.full((B,), 1e-4, dtype=dtype, device=device)
-            P = k1.pack_derivs(D)
-            parent = backward_fused(cfg, D, VxT, VxxT, lam)
-            calls = {f"K3 G={g}": functools.partial(
-                k1.launch, k1.bind(lib(("K3", nx, dtype, g))), "packed",
-                cfg, N, nx, 1, (P,), VxT, VxxT, lam, B)
-                for g in ROW_GROUPS[nx, 1]}
-            outs = {key: fn() for key, fn in calls.items()}
-            torch.cuda.synchronize()
-            label = f"K3 {model} B={B} N={N} {str(dtype)[6:]}"
-            equal_k1 = {key: torch.equal(parent[3], out[3])
-                        and bit_equal(parent[:3], out[:3], parent[3])
-                        for key, out in outs.items()}
-            equal_g = {key: all(same_bits(a, b) for a, b in
-                                zip(outs["K3 G=1"], out))
-                       for key, out in outs.items()}
-            print(f"[row-groups] {label}: bit-equal to K1 on its ok lanes "
-                  f"{equal_k1}; bit-equal to G=1 {equal_g}", flush=True)
-            check(all(equal_k1.values()) and all(equal_g.values()),
-                  f"{label}: a G differs from K1 or from G=1")
-            if dtype != fp32:
+    # K1, K2, K3: every G against G = 1 and the baseline's K1
+    for model, (B, N), timed in SWEEP_CASES:
+        for dtype in (fp32, fp64):
+            if model == "wide" and dtype == fp32:
                 continue
-            for dma in ("stage", "chunked"):
-                for flags, tag in ((k1.UNIT_FLAGS, "-fmad=false"),
-                                   ((), "fmad")):
-                    calls[f"K{1 if dma == 'stage' else 2} {tag}"] = (
-                        functools.partial(
-                            k1.launch, k1.bind(lib((dma, nx, flags))), dma,
-                            cfg, N, nx, 1, D, VxT, VxxT, lam))
-            if baseline:
-                calls["K3 baseline"] = functools.partial(
-                    parent_packed, lib(("K3 baseline", nx)), cfg, P, nx,
-                    VxT, VxxT, lam)
-            calls["pack_derivs"] = functools.partial(k1.pack_derivs, D)
-            timed_in_turns(calls, f"{model} B={B} N={N}", card)
+            D, VxT, VxxT = sweep_inputs(model, B, N, dtype, device)
+            nx, nu = D.Fx.shape[1], D.Fu.shape[2]
+            fields, ld1 = k1.tma_fields(D)
+            P, ld3 = k1.padded_packed(k1.pack_derivs(D))
+            data = {"stage": (fields, ld1), "chunked": (D, 0),
+                    "packed": ((P,), ld3)}
+            for reg_type, lam_val in ((1, 1e-4), (2, 0.5)):
+                cfg = DDPConfig(horizon_steps=N, reg_type=reg_type)
+                lam = torch.full((B,), lam_val, dtype=dtype, device=device)
+                calls = {f"{DMA_KERNEL[dma]} G={g}": functools.partial(
+                    k1.launch, k1.bind(lib((dma, nx, nu, dtype, g))), dma,
+                    cfg, N, nx, nu, *data[dma][:1], VxT, VxxT, lam,
+                    data[dma][1])
+                    for dma in k1.DMA_MODES for g in ROW_GROUPS[nx, nu]}
+                if baseline:
+                    for dma in k1.DMA_MODES:
+                        calls[f"{DMA_KERNEL[dma]} baseline"] = (
+                            functools.partial(
+                                pk.launch,
+                                pk.bind(lib(("baseline", dma, nx, nu,
+                                             dtype))),
+                                dma, cfg, N, nx, nu,
+                                (P,) if dma == "packed" else D, VxT,
+                                VxxT, lam, ld3 if dma == "packed" else 0))
+                outs = {key: fn() for key, fn in calls.items()}
+                torch.cuda.synchronize()
+                ref = outs["K1 baseline" if baseline else "K1 G=1"]
+                label = (f"K1/K2/K3 {model} ({nx}, {nu}) B={B} N={N} "
+                         f"{str(dtype)[6:]} reg_type={reg_type}")
+                to_ref = {key: torch.equal(ref[3], out[3])
+                          and bit_equal(ref[:3], out[:3], ref[3])
+                          for key, out in outs.items()}
+                to_g1 = {key: all(same_bits(a, b) for a, b in zip(
+                    outs[key.split()[0] + " G=1"], out))
+                    for key, out in outs.items() if "G=" in key}
+                print(f"[row-groups] {label}: ok lanes "
+                      f"{int(ref[3].sum())}/{B}; bit-equal to the "
+                      f"{'baseline' if baseline else 'G=1'} K1 on its ok "
+                      f"lanes {to_ref}; bit-equal to the kernel's G=1 "
+                      f"{to_g1}", flush=True)
+                check(all(to_ref.values()) and all(to_g1.values()),
+                      f"{label}: a kernel differs from the reference K1 or "
+                      f"from its G=1")
+                if not (timed and dtype == fp32 and reg_type == 1):
+                    continue
+                calls["pack_derivs"] = functools.partial(k1.pack_derivs, D)
+                timed_in_turns(calls, f"{model} B={B} N={N}", card)
+    D, VxT, VxxT = rollout_derivs(1023, HEADLINE[1], fp32, device)
+    t_pad = cuda_ms(functools.partial(k1.tma_fields, D), inner=10)
+    print(f"[row-groups] K1's padding copies (tma_fields, seven fields) "
+          f"cart-pole B=1023 N={HEADLINE[1]} fp32: {t_pad:.4f} ms [{card}]",
+          flush=True)
     # what bounds a lane's stage: one lane per SM against 31
     B1, N = 132, HEADLINE[1]
+    G4 = ROW_GROUPS[4, 1][2]
     per_stage = {}
     for B in (B1, HEADLINE[0]):
         D, VxT, VxxT = rollout_derivs(B, N, fp32, device)
         cfg = DDPConfig(horizon_steps=N)
         lam = torch.full((B,), 1e-4, device=device)
         per_stage[B] = [cuda_ms(functools.partial(
-            k1.launch, k1.bind(lib(key)), dma, cfg, N, 4, 1, fields, VxT,
-            VxxT, lam, B), inner=10) * 1e3 / N
-            for dma, key, fields in (
-                ("stage", ("stage", 4, k1.UNIT_FLAGS), D),
-                ("packed", ("K3", 4, fp32, 1), (k1.pack_derivs(D),)))]
-    print(f"[row-groups] a lane's stage, cart-pole N={N} fp32, one thread "
-          f"per lane: K1 {per_stage[B1][0]:.3f} us at B={B1} (a lane per "
-          f"SM) / {per_stage[HEADLINE[0]][0]:.3f} us at B={HEADLINE[0]}; K3 "
-          f"G=1 {per_stage[B1][1]:.3f} / {per_stage[HEADLINE[0]][1]:.3f} us "
+            k1.launch, k1.bind(lib(("stage", 4, 1, fp32, g))), "stage", cfg,
+            N, 4, 1, D, VxT, VxxT, lam, B), inner=10) * 1e3 / N
+            for g in (1, G4)]
+    print(f"[row-groups] a lane's stage, K1 cart-pole N={N} fp32: G=1 "
+          f"{per_stage[B1][0]:.3f} us at B={B1} (a lane per SM) / "
+          f"{per_stage[HEADLINE[0]][0]:.3f} us at B={HEADLINE[0]}; G={G4} "
+          f"{per_stage[B1][1]:.3f} / {per_stage[HEADLINE[0]][1]:.3f} us "
           f"[{card}]", flush=True)
 
 
@@ -2234,10 +2263,12 @@ def phase_serving_fmpc(device, card):
           "the FMPC tick loop skipped a kernel")
 
 
-def fmpc_stage_ops(nx, nu, ng):
+def fmpc_stage_ops(nx, nu, ng, alone=False):
     """Arithmetic operations of one stage of csrc/fmpc_stage.cuh (the
-    Cholesky path) and of the wrapper's condensation of that stage."""
-    cond = (nx * nx + nx * nu + nu * nu) * (3 * ng + 1) + (nx + nu) * 2 * ng
+    Cholesky path) and, unless ``alone``, of the wrapper's condensation of
+    that stage."""
+    cond = 0 if alone else ((nx * nx + nx * nu + nu * nu) * (3 * ng + 1)
+                            + (nx + nu) * 2 * ng)
     products = (nx * nx * (2 * nx - 1) + nx * nu * (2 * nx - 1)
                 + nx * (2 * nx - 1) + nx * nx * 2 * nx + nx * nu * 2 * nx
                 + nu * nu * 2 * nx + nu * 3 * nx)
@@ -2248,20 +2279,59 @@ def fmpc_stage_ops(nx, nu, ng):
     return cond + products + factor + value + 5 * ng
 
 
-def fmpc_bytes(key, B, N, itemsize, nx, nu, ng):
+def fmpc_bytes(key, B, N, itemsize, nx, nu, ng, alone=False):
     """Bytes K8 or K11 must move at (B, N): inputs read once, outputs
     written once.  K8 reads ten coefficient fields, g_bar, s and nu per
-    stage, the terminal (s, P) and eps, and writes k, K and the N+1 rows
-    of s and P, and two flag bytes; K11 reads A, B, x_bar, k, K per stage
-    and dx0, and writes N+1 dx and N du."""
+    stage (``alone``, the kernel without the wrapper's condensation: the
+    two condensed scalings nu_s and tilde in their place), the terminal
+    (s, P) and eps, and writes k, K and the N+1 rows of s and P, and two
+    flag bytes; K11 reads A, B, x_bar, k, K per stage and dx0, and writes
+    N+1 dx and N du."""
     if key == "K8":
         fields = (2 * nx * nx + 2 * nx * nu + ng * nx + ng * nu + nu * nu
-                  + 2 * nx + nu + 3 * ng)
+                  + 2 * nx + nu + (2 if alone else 3) * ng)
         return (itemsize * B * (N * fields + nx + nx * nx + 1
                                 + N * (nu + nu * nx)
                                 + (N + 1) * (nx + nx * nx)) + 2 * B)
     stage = nx * nx + 2 * nx * nu + nx + nu
     return itemsize * B * (N * stage + nx + (N + 1) * nx + N * nu)
+
+
+def fmpc_kernel_alone(problem, cfg, co, v, gms, eps, variant="stream"):
+    """K8's or K9's launch as ``backward_fmpc_fused`` makes it, on the
+    condensation computed once (the wrapper computes it with torch ops at
+    every call), into outputs allocated once."""
+    N, nx, nu, ng = co.A.shape[0], co.A.shape[1], co.B.shape[2], co.C.shape[1]
+    B, dtype, device = eps.shape[0], eps.dtype, eps.device
+    nu_s, tilde = k8.condensation(co, v.ss, v.nus, gms, eps)
+    s_T = -co.Lx_bar_term
+    outs = [torch.empty(shape, dtype=dtype, device=device) for shape in
+            ((N, nu, B), (N, nu, nx, B), (N + 1, nx, B), (N + 1, nx, nx, B))]
+    outs += [torch.empty((B,), dtype=torch.bool, device=device)
+             for _ in range(2)]
+    ins = [getattr(co, name) for name in k8._FIELDS] + [nu_s, tilde]
+    fields = (ctypes.c_void_p * len(ins))(*(a.data_ptr() for a in ins))
+    fn = k8._launcher(nx, nu, ng, dtype, variant)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def call():
+        err = fn(N, B, float(problem.dt), int(cfg.break_if_llt_fails),
+                 int(cfg.check_nan), fields, s_T.data_ptr(),
+                 co.Lxx_term.data_ptr(), *(o.data_ptr() for o in outs),
+                 stream)
+        check(err == 0, f"the {variant} FMPC kernel's launch failed: CUDA "
+              f"error {err}")
+    return call
+
+
+def time_kernel_alone(key, call, B, N, nx, nu, ng, label, card):
+    """Print the time of K8's or K9's launch alone beside its own bound."""
+    t = cuda_ms(call, inner=10)
+    t_bound, by = bound(fmpc_bytes("K8", B, N, 4, nx, nu, ng, alone=True),
+                        B * N * fmpc_stage_ops(nx, nu, ng, alone=True))
+    print(f"[times] {key} kernel alone (no condensation) {label} fp32: "
+          f"{t:.4f} ms, bound {t_bound * 1e3:.2f} us ({by}) [{card}]",
+          flush=True)
 
 
 def timed_fmpc(solver, x0s, var, eps, reps):
@@ -2305,6 +2375,9 @@ def phase_times_fmpc(device, card):
             record_time(key, kernel, plain,
                         fmpc_bytes(key, B, N, 4, nx, nu, ng), n_ops,
                         f"{model} B={B} N={N}", model == "cart-pole", card)
+        time_kernel_alone("K8", fmpc_kernel_alone(problem, cfg, co, v, gms,
+                                                  eps),
+                          B, N, nx, nu, ng, f"{model} B={B} N={N}", card)
 
     for model, (B, N) in (("cart-pole", FMPC_SERVING),
                           ("oscillator", FMPC_OSC)):
@@ -2445,7 +2518,7 @@ def phase_kernels_variants(device):
                 print(f"[kernel] {key} {label}: bit-equal to K1 on its ok "
                       f"lanes {same}", flush=True)
                 check(same, f"{key} {label}: not bit-equal to K1")
-    check_packed_ragged(device)
+    check_ragged(device)
 
     def fmpc_case(label, problem, cfg, co, v, gms, eps, B):
         plain = fmpc_mod._backward_bm(problem, cfg, co, v.ss, v.nus, gms, eps)
@@ -2501,34 +2574,87 @@ def phase_kernels_variants(device):
           f"for K9/K10): {dict(bits)}", flush=True)
 
 
-def check_packed_ragged(device):
-    """K3 at B=1023 (a lane stride TMA does not take at fp32 or fp64: the
-    wrapper copies P once into a padded buffer, counted) against K1, bit
-    for bit on K1's ok lanes, and against the plain version."""
-    B, N = 1023, HEADLINE[1]
-    for dtype in (torch.float32, torch.float64):
-        D, VxT, VxxT = rollout_derivs(B, N, dtype, device)
+def wide_derivs(B, N, dtype, device, nx=WIDE_SWEEP[0], nu=WIDE_SWEEP[1]):
+    """Stage fields of a random linear-quadratic problem at (nx, nu), made
+    from a seed: Fx near the identity, positive definite Lxx, Luu and
+    Vxx_T; lane 1 non-PD (Luu = -10 I), lane 2 NaN from stage N/2."""
+    rng = np.random.default_rng(9)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+
+    def spd(n, scale):
+        M = rng.normal(size=(N, B, n, n))
+        return np.moveaxis(M @ np.swapaxes(M, -1, -2) / n
+                           + scale * np.eye(n), 1, -1)
+
+    D = StackedDerivs(
+        as_t(np.eye(nx)[None, :, :, None] + 0.05 * rng.normal(
+            size=(N, nx, nx, B))),
+        as_t(0.1 * rng.normal(size=(N, nx, nu, B))),
+        as_t(0.1 * rng.normal(size=(N, nx, B))),
+        as_t(0.1 * rng.normal(size=(N, nu, B))),
+        as_t(spd(nx, 0.1)), as_t(spd(nu, 1.0)),
+        as_t(0.01 * rng.normal(size=(N, nx, nu, B))))
+    D = StackedDerivs(*(a.contiguous() for a in D))
+    D.Luu[:, :, :, 1] = -10.0 * torch.eye(nu, dtype=dtype, device=device)
+    D.Fx[N // 2, 0, 0, 2] = float("nan")
+    VxT = as_t(0.1 * rng.normal(size=(nx, B)))
+    VxxT = as_t(spd(nx, 1.0)[0]).contiguous()
+    return D, VxT, VxxT
+
+
+def check_ragged(device):
+    """K1, K2 and K3 where TMA does not take a field as it is, where a
+    block has warps past the batch, and at the kernels' widest shape: the
+    cart-pole at B=1023 (K1 copies its seven fields and K3 its buffer once
+    to a padded lane stride, K2 copies nothing), fp32 and fp64, at B=4100
+    (blocks of 32 lanes: the last block's K1 ring waits for one consumer
+    warp of four), and with Lxx given as a view at a 4-byte offset
+    (B=1024: K1 copies that field alone); (8, 4) fp64 at B=1023,
+    N=37 (K1's ring of two one-stage buffers, K2's one-stage slots).  K1
+    within KERNEL_TOL of the plain version with the same ok mask, K2 and
+    K3 bit for bit to K1 on its ok lanes, each copy counted."""
+    N = HEADLINE[1]
+    cases = [(f"cart-pole B=1023 N={N} {str(dtype)[6:]}", dtype,
+              rollout_derivs(1023, N, dtype, device), 7, 1)
+             for dtype in (torch.float32, torch.float64)]
+    cases.append((f"cart-pole B=4100 N={N} float32 (a last block of four "
+                  f"warps, one with lanes)", torch.float32,
+                  rollout_derivs(4100, N, torch.float32, device), 0, 0))
+    D, VxT, VxxT = rollout_derivs(1024, N, torch.float32, device)
+    flat = torch.empty(D.Lxx.numel() + 1, device=device)
+    view = flat[1:].view(D.Lxx.shape)
+    view.copy_(D.Lxx)
+    cases.append((f"cart-pole B=1024 N={N} float32, Lxx at a 4-byte offset",
+                  torch.float32, (D._replace(Lxx=view), VxT, VxxT), 1, 0))
+    cases.append(("(8, 4) B=1023 N=37 float64", torch.float64,
+                  wide_derivs(1023, 37, torch.float64, device), 7, 1))
+    for label, dtype, (D, VxT, VxxT), k1_copies, k3_copies in cases:
+        B, N = VxT.shape[-1], D.Fx.shape[0]
         cfg = DDPConfig(horizon_steps=N)
         lam = torch.full((B,), 1e-4, dtype=dtype, device=device)
         plain = backward_stacked(cfg, D, VxT, VxxT, lam)
-        parent = backward_fused(cfg, D, VxT, VxxT, lam)
-        copies = k1.backward_packed.padded_copies
-        out = backward_fused(cfg, D, VxT, VxxT, lam, dma="packed")
+        before = (backward_fused.padded_copies,
+                  k1.backward_packed.padded_copies)
+        outs = {key: backward_fused(cfg, D, VxT, VxxT, lam, dma=dma)
+                for dma, key in DMA_KERNEL.items()}
         torch.cuda.synchronize()
-        label = f"cart-pole B={B} N={N} {str(dtype)[6:]}"
-        check_ok(f"K3 {label}", plain[3], out[3], B)
-        err = report(f"K3 {label}", {
+        copies = (backward_fused.padded_copies - before[0],
+                  k1.backward_packed.padded_copies - before[1])
+        parent = outs["K1"]
+        check_ok(f"K1 {label}", plain[3], parent[3], B)
+        err = report(f"K1 {label}", {
             n: norm_err(a, b, plain[3]) for n, a, b in
-            zip(("ks", "Ks", "dV"), plain, out)}, dtype)
-        KERNELS["K3"].max_abs_err = max(KERNELS["K3"].max_abs_err, err)
-        same = (torch.equal(parent[3], out[3])
-                and bit_equal(parent[:3], out[:3], parent[3]))
-        padded = k1.backward_packed.padded_copies - copies
-        print(f"[kernel] K3 {label}: P copied to a padded lane stride "
-              f"{padded} time(s), bit-equal to K1 on its ok lanes {same}",
-              flush=True)
-        check(same and padded == 1, f"K3 {label}: not bit-equal to K1, or "
-              f"P not padded once")
+            zip(("ks", "Ks", "dV"), plain, parent)}, dtype)
+        KERNELS["K1"].max_abs_err = max(KERNELS["K1"].max_abs_err, err)
+        same = {key: torch.equal(parent[3], out[3])
+                and bit_equal(parent[:3], out[:3], parent[3])
+                for key, out in outs.items() if key != "K1"}
+        print(f"[kernel] K1/K2/K3 {label}: fields copied to a padded lane "
+              f"stride K1 {copies[0]}, K3 {copies[1]}; bit-equal to K1 on "
+              f"its ok lanes {same}", flush=True)
+        check(all(same.values()) and copies == (k1_copies, k3_copies),
+              f"{label}: K2 or K3 not bit-equal to K1, or the copies are "
+              f"not {(k1_copies, k3_copies)}")
 
 
 def resolved_impls(problem, cfg, dtype, device):
@@ -2606,6 +2732,8 @@ def phase_e2e_variants(device):
             if dtype == torch.float32:
                 KERNELS[key].launches = counts[key]
 
+    check_deriv64(device)
+
     def fmpc_runs(model, B, N, dtype, cfg, variants):
         problem, x0s, var, eps = fmpc_start(model, B, N, dtype, device)
         out = {}
@@ -2673,6 +2801,36 @@ def phase_e2e_variants(device):
                   f"(tol {E2E_FMPC_U:g})", flush=True)
             check(same and du <= E2E_FMPC_U and (n_conv >= B // 4 or st),
                   f"FMPC {model} fp32 {variant}: converged-lane contract")
+
+
+def check_deriv64(device):
+    """The headline cart-pole solve at fp32 with ``deriv_dtype="float64"``,
+    which ``auto`` sends to K1 (fp64 unit, plain rollouts) where the
+    generator would otherwise take it, against the plain path with the
+    same derivatives: statuses and iterations equal, u within
+    E2E_U_NORM_FP64."""
+    B, N = HEADLINE
+    problem = make_cartpole_problem(DT)
+    cfg = DDPConfig(horizon_steps=N, max_iter=10, deriv_dtype="float64")
+    x0s, us0 = hanging_inputs(B, N, torch.float32, device)
+    impl = ddp_mod._resolve_backward_impl(cfg, problem, torch.float32,
+                                          device, False, False)
+    res, counts, _ = solve_counted(problem, cfg, x0s, us0)
+    ref, ref_counts, _ = solve_counted(problem, dataclasses.replace(
+        cfg, backward_impl="stacked", forward_impl="scan"), x0s, us0)
+    st, it, du, dc = e2e_compare(res, ref)
+    print(f"[e2e] cart-pole B={B} N={N} max_iter=10 float32 "
+          f"deriv_dtype=float64: auto's backward {impl}, launches "
+          f"{counts}; vs plain: status equal {st}, iters equal {it}, u norm "
+          f"diff {du:.3e} (tol {E2E_U_NORM_FP64:g}), cost rel diff {dc:.3e}",
+          flush=True)
+    others = {key for key in KERNELS if key != "K1"}
+    check(impl == "pallas" and counts["K1"] > 0
+          and not any(counts[k] for k in others)
+          and not any(ref_counts.values()),
+          "deriv_dtype=float64: auto did not run K1 alone")
+    check(st and it and du <= E2E_U_NORM_FP64,
+          "deriv_dtype=float64: K1 path vs plain out of the contract")
 
 
 def phase_driver(device, card):
@@ -2810,6 +2968,10 @@ def phase_times_variants(device, card):
                 problem, cfg, co, v.ss, v.nus, gms, eps, variant="resident"),
                 plain, fmpc_bytes("K8", B, N, 4, nx, nu, ng),
                 B * N * fmpc_stage_ops(nx, nu, ng), label, keep, card)
+            for k, variant in (("K9", "resident"), ("K8", "stream")):
+                time_kernel_alone(k, fmpc_kernel_alone(
+                    problem, cfg, co, v, gms, eps, variant), B, N, nx, nu,
+                    ng, label, card)
             continue
         P_in, s_T, P_T, pack = fmpc_packed_parts(problem, cfg, co, v, gms,
                                                  eps)
@@ -2849,13 +3011,13 @@ def main() -> int:
                              "layer, with the profiler's device busy time")
     parser.add_argument("--qp-groups", action="store_true",
                         help="also time the boxed kernels (K4, K5 boxed) at "
-                             "each group size of QP_GROUPS, the unboxed "
-                             "group kernels (K3, K5) at each of ROW_GROUPS, "
-                             "and K1 and K2 with and without -fmad=false")
+                             "each group size of QP_GROUPS and the unboxed "
+                             "group kernels (K1, K2, K3, K5) at each of "
+                             "ROW_GROUPS")
     parser.add_argument("--baseline", metavar="DIR",
-                        help="with --qp-groups, also build K3, K4 and the "
-                             "K5 kernels from the checkout at DIR and time "
-                             "them in turns with this one's")
+                        help="with --qp-groups, also build K1-K5 from the "
+                             "checkout at DIR, hold this one's K1-K3 to its "
+                             "K1 and time them in turns with this one's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "

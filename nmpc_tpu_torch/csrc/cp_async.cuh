@@ -3,13 +3,13 @@
 // backward (ddp_backward_chunked.cuh) and the resident FMPC backward
 // (fmpc_backward_resident.cuh).
 //
-// Each copy moves one scalar of one lane: the warp's 32 copies of a field
-// element cover 32 neighbouring lanes, so they coalesce into one request
-// per 128 (float) or 256 (double) bytes.  A copy holds no register while
-// it is in flight, so a thread can have a whole chunk of stages in flight
-// at once.  After cp_async_wait the executing thread sees its own copies;
-// the kernels read back only what the same thread copied, so no block
-// barrier is needed.
+// Each copy moves one scalar of one lane: a warp's copies of a field
+// element cover neighbouring lanes, so they coalesce into one request per
+// run of lanes.  A copy holds no register while it is in flight, so a
+// thread can have a whole chunk of stages in flight at once.  After
+// cp_async_wait the executing thread sees its own copies; K9 reads back
+// only what the same thread copied, K2 meets its warp at __syncwarp
+// before it reads values another thread copied.
 
 #pragma once
 

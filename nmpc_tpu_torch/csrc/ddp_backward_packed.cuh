@@ -23,28 +23,21 @@
 //
 // What the design does about it:
 //   * a lane is a group of G = kRowGroup threads running
-//     riccati_stage.cuh::riccati_stage_group: each owns rows and columns
-//     of the NX-sized products and the group exchanges K, Qux, Vx and Vn
-//     by shuffles, with each value computed by one thread in
-//     riccati_stage's order, so the result equals K1's bit for bit (both
-//     built with -fmad=false);
-//   * a block holds row_lanes(B) lanes (row_group.cuh), so B=4096 fills 128
-//     blocks of four warps and B=2048 128 blocks instead of 64;
+//     riccati_stage.cuh::riccati_stage_group in ddp_backward.cuh::
+//     group_backward, the loop K1 and K2 run, so the result equals K1's
+//     bit for bit (all built with -fmad=false); a block holds
+//     row_lanes(B) lanes (row_group.cuh);
 //   * the buffer is read by the Tensor Memory Accelerator, each warp on its
 //     own: the warp's first thread loads boxes of C stages x F values x W
 //     lanes (W = 32 / G, the warp's lanes; [C][F][W] in shared memory, lane
-//     fastest: the group's reads are broadcasts, the lanes' neighbouring
-//     words, every offset a constant) into the warp's ring of kPackedRing
-//     buffers, each with its own mbarrier, so kPackedRing - 1 chunks are in
-//     flight while one is computed and no register or instruction of the
-//     consumers goes to the copy.  The warp meets once per chunk, before its
-//     first thread refills the buffer just consumed; no block barrier ties
-//     the warps together.  Chunks run from the end of the horizon
-//     (row_group.cuh::packed_chunk: the box at stage N - (c + 1) C, which
-//     the tensor map's bounds cut to stages max(0, N - (c + 1) C) .. N - c
-//     C - 1; a last chunk that starts below 0 arrives zero-filled in
-//     front).  The launch chooses C from the shared-memory budget
-//     (row_group.cuh::packed_chunk_stages), and a block's rings of
+//     fastest) into the warp's ring of kPackedRing buffers, each with its
+//     own mbarrier (TmaRingFeed), so kPackedRing - 1
+//     chunks are in flight while one is computed.  Chunks run from the end
+//     of the horizon (row_group.cuh::packed_chunk: the box at stage N - (c
+//     + 1) C, which the tensor map's bounds cut to stages max(0, N - (c +
+//     1) C) .. N - c C - 1; a last chunk that starts below 0 arrives
+//     zero-filled in front).  The launch chooses C from the shared-memory
+//     budget (row_group.cuh::packed_chunk_stages), and a block's rings of
 //     one-stage chunks fit 227 KB at every (NX <= 8, NU <= 4), checked
 //     when the unit compiles;
 //   * TMA takes a lane stride (ld values) that is a multiple of 16 bytes:
@@ -55,79 +48,83 @@
 
 #pragma once
 
-#include "cp_async.cuh"
 #include "ddp_backward.cuh"
-#include "row_group.cuh"
-#include "tma.cuh"
 
 namespace nmpc {
 
-template <typename T, int NX, int NU, int G>
-__global__ void __launch_bounds__(kMaxRowLanes * 8)
-ddp_backward_packed_kernel(const __grid_constant__ CUtensorMap map,
-                           const T* __restrict__ VxT,
-                           const T* __restrict__ VxxT,
-                           const T* __restrict__ lam_in, T* __restrict__ ks,
-                           T* __restrict__ Ks, T* __restrict__ dV,
-                           unsigned char* __restrict__ ok_out, int N, int B,
-                           int C, int reg_type) {
-  constexpr int F = PackedLayout<NX, NU>::F;
-  constexpr int W = 32 / G;                 // lanes of a warp
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int warp = static_cast<int>(threadIdx.x) / 32;
-  const int lane0 = blockIdx.x * (blockDim.x / G) + warp * W;
-  if (lane0 >= B) return;                   // a warp wholly past the batch
-  const int lane = lane0 + static_cast<int>(threadIdx.x % 32) / G;
-  const bool live = lane < B;
-  const int b = live ? lane : B - 1;
-  const bool leader = threadIdx.x % 32 == 0;
-  unsigned char* const part =
-      smem_raw + warp * packed_warp_bytes<T>(C, F, W);
-  uint64_t* const bars = reinterpret_cast<uint64_t*>(part);
-  T* const ring = reinterpret_cast<T*>(part + 128);
-  const int buffer = static_cast<int>(packed_buffer_bytes<T>(C, F, W) /
-                                      sizeof(T));
-  const uint32_t bytes = static_cast<uint32_t>(C) * F * W * sizeof(T);
-  const int n_chunks = packed_chunks(N, C);
+// A warp's ring of R chunk buffers of `buffer` values each (W lanes a
+// value), one mbarrier per buffer (in the first 128 bytes of the warp's
+// part), filled by the warp's first thread: load(c, dst, bar) arms `bar`
+// and issues chunk c's boxes into `dst` (row_group.cuh: chunk c in buffer
+// c % R, its (c / R)-th use; chunk c - 1 + R issued once the warp is done
+// with c - 1).
+template <typename T, int R, int W, typename Load>
+struct TmaRingFeed {
+  static_assert(R >= 1 && R * 8 <= 128, "a ring's barriers take 128 bytes");
+  static constexpr int stride = W;
+  uint64_t* bars;
+  T* ring;
+  size_t buffer;
+  int n, col;
+  bool leader;
+  Load load;
 
-  if (leader) {
+  __device__ TmaRingFeed(unsigned char* part, size_t buffer_bytes,
+                         int chunks, int column, bool is_leader, Load loader)
+      : bars(reinterpret_cast<uint64_t*>(part)),
+        ring(reinterpret_cast<T*>(part + 128)),
+        buffer(buffer_bytes / sizeof(T)),
+        n(chunks),
+        col(column),
+        leader(is_leader),
+        load(loader) {
+    if (leader) {
 #pragma unroll
-    for (int s = 0; s < kPackedRing; ++s) mbar_init(&bars[s]);
-  }
-  __syncwarp();
-  if (leader) {
-    for (int c = 0; c < n_chunks && c < kPackedRing; ++c)
-      tma_load_3d(map, &bars[c], ring + c * buffer, lane0, 0,
-                  packed_chunk(c, N, C).start, bytes);
+      for (int s = 0; s < R; ++s) mbar_init(&bars[s]);
+    }
+    __syncwarp();
+    if (leader) {
+      for (int c = 0; c < n && c < R; ++c) load(c, ring + c * buffer, &bars[c]);
+    }
   }
 
-  Carry<T, NX> carry;
-  init_carry<T, NX>(VxT, VxxT, b, B, carry);
-  const T lam = lam_in[b];
-  for (int c = 0; c < n_chunks; ++c) {
-    const int s = c % kPackedRing;
+  __device__ const T* acquire(int c) {
     if (c > 0) {
       // the warp is done with chunk c - 1: refill its buffer
       __syncwarp();
-      const int next = c - 1 + kPackedRing;
-      if (leader && next < n_chunks)
-        tma_load_3d(map, &bars[next % kPackedRing],
-                    ring + (next % kPackedRing) * buffer, lane0, 0,
-                    packed_chunk(next, N, C).start, bytes);
+      const int next = c - 1 + R;
+      if (leader && next < n)
+        load(next, ring + (next % R) * buffer, &bars[next % R]);
     }
-    mbar_wait(&bars[s], (c / kPackedRing) & 1);
-    const PackedChunk chunk = packed_chunk(c, N, C);
-    const T* slab = ring + s * buffer + (b - lane0);
-    for (int i = chunk.hi - 1; i >= chunk.lo; --i) {
-      T k[NU], K[NU][NX];
-      riccati_stage_group<T, NX, NU, G>(
-          slab + static_cast<size_t>(i - chunk.start) * F * W, W, lam,
-          reg_type, carry, k, K);
-      if (live) store_gains_group<T, NX, NU, G>(k, K, i, b, B, ks, Ks);
-    }
+    mbar_wait(&bars[c % R], static_cast<uint32_t>((c / R) & 1));
+    return ring + (c % R) * buffer + col;
   }
-  if (live && LaneGroup<G>::rank() == 0)
-    store_result<T, NX>(carry, b, B, dV, ok_out);
+};
+
+template <typename T, int NX, int NU, int G>
+__global__ void __launch_bounds__(kMaxRowLanes * G)
+ddp_backward_packed_kernel(const __grid_constant__ CUtensorMap map,
+                           const T* __restrict__ VxT,
+                           const T* __restrict__ VxxT,
+                           const T* __restrict__ lam_in, BackwardOut<T> out,
+                           int N, int B, int C, int reg_type) {
+  constexpr int F = PackedLayout<NX, NU>::F;
+  constexpr int W = 32 / G;                 // lanes of a warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const GroupLane<G> at(B, static_cast<int>(blockDim.x) / G);
+  if (at.lane0 >= B) return;                // a warp wholly past the batch
+  const int lane0 = at.lane0;
+  const uint32_t bytes = static_cast<uint32_t>(C) * F * W * sizeof(T);
+  auto load = [&map, lane0, N, C, bytes](int c, T* dst, uint64_t* bar) {
+    mbar_arm(bar, bytes);
+    tma_load_3d(map, bar, dst, lane0, 0, packed_chunk(c, N, C).start);
+  };
+  TmaRingFeed<T, kPackedRing, W, decltype(load)> feed(
+      smem_raw + at.warp * ring_bytes<T>(kPackedRing, C, F, W),
+      packed_buffer_bytes<T>(C, F, W), packed_chunks(N, C), at.b - lane0,
+      at.leader(), load);
+  group_backward<T, NX, NU, G, PackedLayout<NX, NU>>(
+      feed, at, N, C, B, reg_type, VxT, VxxT, lam_in, out);
 }
 
 // Launch on `stream`; returns a CUDA error code: of the tensor map
@@ -143,7 +140,8 @@ int launch_ddp_backward_packed(int N, int B, int ld, int reg_type,
                                void* Ks, void* dV, void* ok, void* stream) {
   constexpr int F = PackedLayout<NX, NU>::F;
   constexpr int W = 32 / G;
-  static_assert((kMaxRowLanes / W) * packed_warp_bytes<T>(1, F, W) <=
+  static_assert((kMaxRowLanes / W) * ring_bytes<T>(kPackedRing, 1, F,
+                                                        W) <=
                     kMaxBlockSmem,
                 "a block's rings of one-stage chunks pass its shared memory");
   if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -152,16 +150,16 @@ int launch_ddp_backward_packed(int N, int B, int ld, int reg_type,
   CUtensorMap map;
   int err = encode_map_3d<T>(&map, fields[0], B, F, N, ld, W, F, C);
   if (err != 0) return err;
-  const size_t smem = (L / W) * packed_warp_bytes<T>(C, F, W);
+  const size_t smem = (L / W) * ring_bytes<T>(kPackedRing, C, F, W);
   err = allow_dynamic_smem(ddp_backward_packed_kernel<T, NX, NU, G>, smem);
   if (err != 0) return err;
-  const int blocks = (B + L - 1) / L;
+  const BackwardOut<T> out{static_cast<T*>(ks), static_cast<T*>(Ks),
+                           static_cast<T*>(dV),
+                           static_cast<unsigned char*>(ok)};
   ddp_backward_packed_kernel<T, NX, NU, G>
-      <<<blocks, L * G, smem, static_cast<cudaStream_t>(stream)>>>(
+      <<<(B + L - 1) / L, L * G, smem, static_cast<cudaStream_t>(stream)>>>(
           map, static_cast<const T*>(VxT), static_cast<const T*>(VxxT),
-          static_cast<const T*>(lam), static_cast<T*>(ks),
-          static_cast<T*>(Ks), static_cast<T*>(dV),
-          static_cast<unsigned char*>(ok), N, B, C, reg_type);
+          static_cast<const T*>(lam), out, N, B, C, reg_type);
   return static_cast<int>(cudaGetLastError());
 }
 

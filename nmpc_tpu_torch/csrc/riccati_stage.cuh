@@ -1,8 +1,8 @@
 // The DDP Riccati stages as device functions, shared by the backward
-// kernels: ddp_backward.cuh (sweep-fed, TPU K1) and ddp_backward_chunked
-// .cuh (K2) run riccati_stage on one thread per lane; ddp_backward_packed
-// .cuh (K3) and the generated remat backward (ddp_backward_remat.cuh, TPU
-// K5, unboxed) run riccati_stage_group on a group of threads per lane;
+// kernels: the sweep-fed ones (ddp_backward.cuh, TPU K1; ddp_backward_
+// chunked.cuh, K2; ddp_backward_packed.cuh, K3) and the generated remat
+// backward (ddp_backward_remat.cuh, TPU K5, unboxed) run
+// riccati_stage_group on a group of threads per lane;
 // ddp_backward_boxed.cuh (K4) and the boxed remat backward run
 // riccati_stage_boxed, as the TPU kernels share nmpc_tpu/kernels/
 // ddp_backward_pallas.py::_riccati_stage and _riccati_stage_boxed.  The
@@ -30,19 +30,26 @@ struct Stage {
 
 // Values per stage of the packed layout, and the offset of each field:
 // Fx, Fu, Lx, Lu, Lxx, Luu, Lxu, each row-major (ddp_backward_pallas.py::
-// _field_offsets; F = 46 at (4, 1), 16 at (2, 1)).  K2's chunks, K3's
-// buffer and K5's generated fields hold a stage in this order.
-template <int NX, int NU>
-struct PackedLayout {
+// _field_offsets; F = 46 at (4, 1), 16 at (2, 1)), each offset rounded up
+// to a multiple of Q values (F rounded too).  Q = 1 is the packed order
+// itself (PackedLayout): K2's chunks, K3's buffer and K5's generated
+// fields hold a stage in it.  K1's TMA boxes land a field only at an
+// aligned shared-memory address, so its buffers take a Q > 1
+// (row_group.cuh::StageRingLayout).
+template <int NX, int NU, int Q = 1>
+struct StageLayout {
+  static constexpr int up(int v) { return (v + Q - 1) / Q * Q; }
   static constexpr int Fx = 0;
-  static constexpr int Fu = Fx + NX * NX;
-  static constexpr int Lx = Fu + NX * NU;
-  static constexpr int Lu = Lx + NX;
-  static constexpr int Lxx = Lu + NU;
-  static constexpr int Luu = Lxx + NX * NX;
-  static constexpr int Lxu = Luu + NU * NU;
-  static constexpr int F = Lxu + NX * NU;
+  static constexpr int Fu = up(Fx + NX * NX);
+  static constexpr int Lx = up(Fu + NX * NU);
+  static constexpr int Lu = up(Lx + NX);
+  static constexpr int Lxx = up(Lu + NU);
+  static constexpr int Luu = up(Lxx + NX * NX);
+  static constexpr int Lxu = up(Luu + NU * NU);
+  static constexpr int F = up(Lxu + NX * NU);
 };
+template <int NX, int NU>
+using PackedLayout = StageLayout<NX, NU>;
 
 // The (Vx, Vxx, dV, ok) value-function carry of one lane.
 template <typename T, int NX>
@@ -245,32 +252,6 @@ __device__ __forceinline__ void value_update(
   }
 }
 
-// One backward Riccati stage, the TPU kernel's _riccati_stage: the
-// Q-function expansion, the gains k = -Quu_F^-1 Qu and K = -Quu_F^-1
-// Qux_reg from the unrolled Cholesky, and the carry update with the
-// unregularized Q terms and a symmetrized Vxx.
-template <typename T, int NX, int NU>
-__device__ __forceinline__ void riccati_stage(const Stage<T, NX, NU>& cur,
-                                              T lam, int reg_type,
-                                              Carry<T, NX>& carry, T k[NU],
-                                              T K[NU][NX]) {
-  T Qu[NU], Qx[NX], Qux[NU][NX], Quu[NU][NU], Qxx[NX][NX];
-  T Qux_reg[NU][NX], Quu_F[NU][NU];
-  q_expansion<T, NX, NU>(cur, lam, reg_type, carry, Qu, Qx, Qux, Quu, Qxx,
-                         Qux_reg, Quu_F);
-  // Gains from the Cholesky factor of Quu_F.
-  T L[NU][NU];
-  carry.ok = cholesky<T, NU>(Quu_F, L) && carry.ok;
-  T Qu_col[NU][1], k_col[NU][1];
-#pragma unroll
-  for (int a = 0; a < NU; ++a) Qu_col[a][0] = Qu[a];
-  neg_chol_solve<T, NU, 1>(L, Qu_col, k_col);
-  neg_chol_solve<T, NU, NX>(L, Qux_reg, K);
-#pragma unroll
-  for (int a = 0; a < NU; ++a) k[a] = k_col[a][0];
-  value_update<T, NX, NU>(Qu, Qx, Qux, Quu, Qxx, k, K, carry);
-}
-
 // v[a] for a row index a known only at run time (a < N), by selects: an
 // array indexed at run time would leave the registers for local memory.
 template <typename T, int N>
@@ -281,11 +262,16 @@ __device__ __forceinline__ T pick(const T (&v)[N], int a) {
   return out;
 }
 
-// riccati_stage run by the G threads of one lane's group (LaneGroup<G>:
-// G a power of two, aligned in the warp), each holding the whole carry.
-// The stage's fields are read from `p`, value e of the packed layout at
-// p[e * stride] (a lane's column of a slab in shared memory: K3's TMA
-// chunks, K5's generated fields).  Thread r owns the indices a = r, r + G,
+// One backward Riccati stage, the TPU kernel's _riccati_stage (the
+// Q-function expansion, the gains k = -Quu_F^-1 Qu and K = -Quu_F^-1
+// Qux_reg from the unrolled Cholesky, the carry update with the
+// unregularized Q terms and a symmetrized Vxx), run by the G threads of
+// one lane's group (LaneGroup<G>: G a power of two, aligned in the warp),
+// each holding the whole carry.  The stage's fields are read from `p`,
+// value e of Layout (PackedLayout, or a StageLayout with padded offsets)
+// at p[e * stride] (a lane's column of a slab in shared memory: K1's TMA
+// stages, K2's cp.async chunks, K3's TMA chunks, K5's generated fields).
+// Thread r owns the indices a = r, r + G,
 // ... < NX: row a of FxT Vxx, Qxx and Vn = Qxx + K^T Quu K + T2 + T2^T,
 // entry a of Qx and Vx, column a of Qux, Qux_reg and K.  Every thread runs
 // the NU-sized rest alike: Qu, FuT Vxx, Quu, the regularized Quu_F, the
@@ -293,22 +279,24 @@ __device__ __forceinline__ T pick(const T (&v)[N], int a) {
 // the group.  The group exchanges K and Qux once the gains are known, and
 // Vn and Vx at the end, by shuffles over the whole warp; every thread then
 // forms the symmetrized Vxx.  Each value is computed by one thread with
-// the operations and the order of each sum of riccati_stage (a column of
-// K by neg_chol_solve on that column alone, as neg_chol_solve solves its
+// the operations and the order of each sum of q_expansion and
+// value_update (the plain backward_stacked's order; a column of K by
+// neg_chol_solve on that column alone, as neg_chol_solve solves its
 // columns independently); only which thread computes it depends on G, so
-// every G gives riccati_stage's bits (under the same contraction flags;
-// the units build with -fmad=false).  An owned index is never part of a
+// every G gives G = 1's bits (under the same contraction flags; the units
+// build with -fmad=false).  An owned index is never part of a
 // condition: indices past NX (G > NX, or NX not a multiple of G) repeat
 // index NX - 1 and are never exchanged.  Every thread of the warp must
 // call it at the same point.  Returns k and K in every thread of the
 // group.
-template <typename T, int NX, int NU, int G>
+template <typename T, int NX, int NU, int G,
+          typename Layout = PackedLayout<NX, NU>>
 __device__ __forceinline__ void riccati_stage_group(const T* __restrict__ p,
                                                     int stride, T lam,
                                                     int reg_type,
                                                     Carry<T, NX>& carry,
                                                     T k[NU], T K[NU][NX]) {
-  using P = PackedLayout<NX, NU>;
+  using P = Layout;
   constexpr int J = (NX + G - 1) / G;   // indices per thread
   const int r = LaneGroup<G>::rank();
   int own[J];
@@ -428,7 +416,7 @@ __device__ __forceinline__ void riccati_stage_group(const T* __restrict__ p,
     }
   }
 
-  // The gains, as riccati_stage: k alike in every thread, the own columns
+  // The gains: k alike in every thread, the own columns
   // of K, then K and Qux exchanged.
   T L[NU][NU];
   carry.ok = cholesky<T, NU>(Quu_F, L) && carry.ok;
@@ -564,7 +552,7 @@ struct Bounds {
 };
 
 // One boxed backward stage, the TPU kernel's _riccati_stage_boxed
-// (DDPSolver.hpp:450-497): the Q expansion of riccati_stage; k from the
+// (DDPSolver.hpp:450-497): the Q expansion (q_expansion); k from the
 // BoxQP on (Quu_F, Qu) over [lower - u, upper - u], warm-started from the
 // later stage's k (k_next, updated to this stage's k); the K rows
 // -free (Quu_F free block)^-1 (free Qux_reg) through the QP's last

@@ -1,15 +1,18 @@
 // The lane-group geometry of the unboxed DDP backward kernels that run
-// riccati_stage.cuh::riccati_stage_group: the packed backward (K3,
-// ddp_backward_packed.cuh) and the unboxed remat backward (K5,
-// ddp_backward_remat.cuh).  A block holds L lanes of G threads each
+// riccati_stage.cuh::riccati_stage_group: the sweep-fed backward (K1,
+// ddp_backward.cuh), the chunked (K2, ddp_backward_chunked.cuh) and
+// packed (K3, ddp_backward_packed.cuh) ones and the unboxed remat backward
+// (K5, ddp_backward_remat.cuh).  A block holds L lanes of G threads each
 // (thread t is rank t % G of the block's lane t / G); the groups of a warp
 // exchange rows by whole-warp shuffles, so a block is a whole number of
 // warps and a lane past the batch's end runs the last lane's data and
 // stores nothing.  Also here: what each kernel keeps in shared memory per
-// warp (K3's ring of TMA chunk buffers, K5's field slab), so that every
-// launch stays within a block's shared memory, and K3's chunk schedule.
-// Every size rule is a host-and-device function, so the launch and the
-// kernel compute it alike.
+// block or warp (K1's block ring of one-stage TMA buffers, K2's two
+// cp.async chunk slots a warp, K3's ring of TMA chunk buffers a warp, K5's
+// field slab a warp), so that every launch stays within a block's shared
+// memory, and the chunk schedule K1, K2 and K3 share.  Every size rule is
+// a host-and-device function, so the launch and the kernel compute it
+// alike.
 
 #pragma once
 
@@ -52,44 +55,103 @@ __host__ __device__ inline int row_lanes(int B) {
   return L;
 }
 
-// K3: each warp's ring of kPackedRing chunk buffers of C stages; C as many
-// stages as the rings of a 32-lane block hold within kPackedBudget, at
-// most kMaxPackedChunk.
-constexpr int kPackedRing = 4;
-constexpr size_t kPackedBudget = 96 * 1024;
-constexpr int kMaxPackedChunk = 32;
+// The stage buffers of K1, K2 and K3 take at most kStageBudget bytes in a
+// 32-lane block (more only where one stage a buffer passes it): how many
+// stages of F values fit it `copies` times over, at least 1, at most
+// `most`.
+constexpr size_t kStageBudget = 96 * 1024;
+
+template <typename T>
+__host__ __device__ constexpr int stages_within(int copies, int F,
+                                                int most) {
+  const int fit = static_cast<int>(
+      kStageBudget /
+      (static_cast<size_t>(copies) * F * kMaxRowLanes * sizeof(T)));
+  return fit < 1 ? 1 : (fit < most ? fit : most);
+}
 
 // Bytes of one chunk buffer: C stages of F values of L lanes, rounded up to
-// 128 bytes so that every buffer of the ring stays aligned for TMA.
+// 128 bytes so that every buffer of a ring stays aligned for TMA.
 template <typename T>
 __host__ __device__ constexpr size_t packed_buffer_bytes(int C, int F,
                                                          int L) {
   return (static_cast<size_t>(C) * F * L * sizeof(T) + 127) / 128 * 128;
 }
 
-// Bytes of one warp's part of the block's shared memory: its kPackedRing
-// barriers (in the first 128 bytes) and chunk buffers of C stages of W
-// lanes.
+// Bytes of a ring in the block's shared memory (K1's, the block's; K3's,
+// each warp's): its barriers (in the first 128 bytes) and R chunk buffers
+// of C stages of F values of `lanes` lanes.
 template <typename T>
-__host__ __device__ constexpr size_t packed_warp_bytes(int C, int F, int W) {
-  return 128 + kPackedRing * packed_buffer_bytes<T>(C, F, W);
+__host__ __device__ constexpr size_t ring_bytes(int R, int C, int F,
+                                                int lanes) {
+  return 128 + R * packed_buffer_bytes<T>(C, F, lanes);
 }
 
-// K3's stages per chunk for F values a stage and a horizon of N: (4, 1)
-// fp32 4, fp64 2; (2, 1) fp32 12, fp64 6; at least 1, at most N.
+// K1: each block's ring of one-stage buffers, each filled by seven TMA
+// boxes (one per field).  A box lands only at a 128-byte aligned address
+// and a field's value of the block's L lanes takes L sizeof(T) bytes, L a
+// multiple of a warp's W = 32 / G lanes (row_lanes), so each field's
+// offset is rounded up to a multiple of stage_align = 128 / (W sizeof(T))
+// values (StageRingLayout: (4, 1) fp32 at G = 4, F = 46 -> 52; (2, 1)
+// fp32 at G = 2, 16 -> 18; G = 1 at fp32, and fp64 at G <= 2,
+// unpadded).  The ring holds as many buffers as fit kStageBudget, at least
+// 2, at most kMaxStageRing: 8 at (4, 1) and (2, 1); 2 at (8, 4) fp64 (F =
+// 220), 110 KB a block.
+constexpr int kMaxStageRing = 8;
+
+template <typename T, int G>
+__host__ __device__ constexpr int stage_align() {
+  return (32 / G) * static_cast<int>(sizeof(T)) >= 128
+             ? 1
+             : 128 / ((32 / G) * static_cast<int>(sizeof(T)));
+}
+template <typename T, int NX, int NU, int G>
+using StageRingLayout = StageLayout<NX, NU, stage_align<T, G>()>;
+
+template <typename T>
+__host__ __device__ constexpr int stage_ring(int F) {
+  const int R = stages_within<T>(1, F, kMaxStageRing);
+  return R < 2 ? 2 : R;
+}
+
+// K2: each warp's two slots of C stages (cp.async, double-buffered by
+// chunk), packed order, no padding; C as many stages as the two slots fit
+// kStageBudget, at most kMaxChunk and N: (4, 1) fp32 8, fp64 4; (2, 1)
+// fp32 24, fp64 12; (8, 4) fp64 1 (110 KB a block).  kernels/
+// ddp_backward_fused.py::chunk_stages mirrors it.
+constexpr int kMaxChunk = 32;
+
+template <typename T>
+__host__ __device__ constexpr int chunked_chunk_stages(int F, int N) {
+  const int C = stages_within<T>(2, F, kMaxChunk);
+  return C < N ? C : N;
+}
+
+// Bytes of one warp's two K2 slots of C stages of F values of W lanes.
+template <typename T>
+__host__ __device__ constexpr size_t chunked_warp_bytes(int C, int F, int W) {
+  return 2 * static_cast<size_t>(C) * F * W * sizeof(T);
+}
+
+// K3: each warp's ring of kPackedRing chunk buffers of C stages; C as many
+// stages as the rings fit kStageBudget, at most kMaxChunk and N: (4, 1)
+// fp32 4, fp64 2; (2, 1) fp32 12, fp64 6.
+constexpr int kPackedRing = 4;
+
 template <typename T>
 __host__ __device__ constexpr int packed_chunk_stages(int F, int N) {
-  const size_t per_stage = static_cast<size_t>(kPackedRing) * F *
-                           kMaxRowLanes * sizeof(T);
-  const int fit = static_cast<int>(kPackedBudget / per_stage);
-  const int C = fit < kMaxPackedChunk ? fit : kMaxPackedChunk;
-  return C < 1 ? 1 : (C < N ? C : N);
+  const int C = stages_within<T>(kPackedRing, F, kMaxChunk);
+  return C < N ? C : N;
 }
 
-// K3's chunks, from the end of the horizon: chunk c of a horizon of N in
-// chunks of C is the box of C stages at `start` = N - (c + 1) C, which the
-// tensor map's bounds cut to stages lo = max(0, start) .. hi - 1 = N - c C
-// - 1 (a last chunk that starts below 0 arrives zero-filled in front).
+// The chunks of K1 (C = 1), K2 and K3, from the end of the horizon: chunk
+// c of a horizon of N in chunks of C is the C stages from `start` = N -
+// (c + 1) C, of which stages lo = max(0, start) .. hi - 1 = N - c C - 1
+// exist; stage i sits at position i - start of its chunk's buffer (K3's
+// tensor map fills the positions below 0 with zeros, K2 leaves them
+// unset).  In a ring of R buffers chunk c takes buffer c % R in its (c /
+// R)-th use, the parity its barrier's wait names; the first R chunks are
+// issued at once, chunk c + R once every consumer is done with chunk c.
 struct PackedChunk {
   int start, lo, hi;
 };

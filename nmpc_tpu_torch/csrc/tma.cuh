@@ -1,15 +1,16 @@
 // Tensor Memory Accelerator (TMA, sm_90) loads into shared memory with an
-// mbarrier per buffer, for the packed DDP backward (ddp_backward_packed
-// .cuh).
+// mbarrier per buffer, for the sweep-fed and packed DDP backward
+// (ddp_backward.cuh, ddp_backward_packed.cuh).
 //
 // The host encodes a tensor map of a 3-D batch-minor array with
 // cuTensorMapEncodeTiled, taken from libcuda at run time through the CUDA
 // runtime's entry-point query, so a unit needs no -lcuda; the kernel takes
 // the map as a __grid_constant__ argument.  One thread arms a buffer's
-// barrier with the bytes it expects and issues the copy of a box; every
-// thread that reads the buffer waits on the barrier's phase.  A box that
-// reaches past the array's bounds, below 0 included, is filled with zeros
-// and still counts its full size.
+// barrier once with the bytes all its boxes bring and issues the copy of
+// each box; every thread that reads the buffer waits on the barrier's
+// phase.  A box that reaches past the array's bounds, below 0 included, is
+// filled with zeros and still counts its full size.  A box lands at a
+// 128-byte aligned shared-memory address.
 
 #pragma once
 
@@ -89,32 +90,45 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Initialize a barrier for one arrival per phase (the thread that arms it);
-// the threads that use it meet at a barrier (of the warp or the block)
-// before they do.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
+// Initialize a barrier for `count` arrivals per phase (a buffer's: the
+// thread that arms it); the threads that use it meet at a barrier (of the
+// warp or the block) before they do.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
                : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// Arm `bar` for `bytes` and load the box at (c0, c1, c2) of `map` into
-// `dst` (16-byte aligned shared memory).  One thread.
-__device__ __forceinline__ void tma_load_3d(const CUtensorMap& map,
-                                            uint64_t* bar, void* dst,
-                                            int c0, int c1, int c2,
-                                            uint32_t bytes) {
-  const uint32_t b = smem_addr(bar);
+// One arrival on `bar` (a consumer that is done with a buffer).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Arm `bar` for the `bytes` of this phase's boxes: one arrival, the one
+// the barrier was initialized for.  One thread, before it issues the
+// boxes.
+__device__ __forceinline__ void mbar_arm(uint64_t* bar, uint32_t bytes) {
   asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// Load the box at (c0, c1, c2) of `map` into `dst` (128-byte aligned
+// shared memory), its bytes counted on `bar`.  One thread.
+__device__ __forceinline__ void tma_load_3d(const CUtensorMap& map,
+                                            uint64_t* bar, void* dst,
+                                            int c0, int c1, int c2) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(b), "r"(c0), "r"(c1),
-      "r"(c2)
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -2,25 +2,30 @@
 
 Replaces ``nmpc_tpu/kernels/ddp_backward_pallas.py::backward_pallas`` (the
 fused Pallas TPU kernel) in its three DMA modes, each a CUDA kernel that
-runs the whole N-stage recursion of a batch lane with its carry in
-registers; each source's header says what bounds it on the card and what
-its design does about that:
+runs the whole N-stage recursion of a batch lane on a group of threads
+(``csrc/riccati_stage.cuh::riccati_stage_group``, ``kRowGroup`` threads a
+lane) with its carry in registers, in one loop that reads each stage from
+shared memory (``csrc/ddp_backward.cuh::group_backward``); the modes differ
+in how a stage gets there, and each source's header says what bounds it
+on the card and what its design does about that:
 
-* ``"stage"`` (K1, ``csrc/ddp_backward.cuh``): one thread per lane, the
-  next stage's fields loaded into registers while this stage computes;
-* ``"chunked"`` (K2, ``csrc/ddp_backward_chunked.cuh``): one thread per
-  lane, the fields staged in shared memory C stages at a time with
-  ``cp.async``, double-buffered by chunk (``_backward_pallas_call_chunked``);
+* ``"stage"`` (K1, ``csrc/ddp_backward.cuh``): a ring of one-stage
+  buffers per block, each filled by a producer warp with seven TMA boxes,
+  one per field (a tensor map per field; fields whose lanes or address
+  TMA does not take are copied once by :func:`tma_fields`);
+* ``"chunked"`` (K2, ``csrc/ddp_backward_chunked.cuh``): two slots of C
+  stages per warp filled with ``cp.async``, double-buffered by chunk
+  (``_backward_pallas_call_chunked``), the threads of a lane splitting its
+  values;
 * ``"packed"`` (K3, ``csrc/ddp_backward_packed.cuh``): the fields read
   from one ``[N, F, B]`` buffer built by :func:`pack_derivs`
   (``_backward_pallas_call_packed``), fetched by TMA a chunk of stages at
-  a time into a ring of buffers (``csrc/row_group.cuh`` sizes both), each
-  lane's stage run by a group of threads
-  (``csrc/riccati_stage.cuh::riccati_stage_group``).
+  a time into a ring of buffers.
 
-Each is instantiated per (nx, nu, dtype) in a small generated unit that
-nvcc builds at first use with ``UNIT_FLAGS`` (``-fmad=false``: no product
-is contracted into an FMA, so the three agree bit for bit by construction
+``csrc/row_group.cuh`` sizes every ring, slot and block.  Each is
+instantiated per (nx, nu, dtype) in a small generated unit that nvcc
+builds at first use with ``UNIT_FLAGS`` (``-fmad=false``: no product is
+contracted into an FMA, so the three agree bit for bit by construction
 and the fp32 solve's decisions follow the plain path's).
 
 :func:`backward_fused` is a drop-in for
@@ -50,19 +55,20 @@ MAX_NX, MAX_NU = 8, 4
 # the kernels' scalar types (the generated units' T)
 DTYPES = {torch.float32: "float", torch.float64: "double"}
 DMA_MODES = ("stage", "chunked", "packed")
-# Lanes per block of the kernels that stage fields in shared memory (K2,
-# K9; one thread each, csrc/remat_common.cuh::kLaneThreads); K2's budget
-# for its two chunk slots and its most stages in a chunk (the TPU
-# chooser's cap).
+# Lanes per block of K9 (one thread each, csrc/remat_common.cuh::
+# kLaneThreads) and the most lanes of a block of the group kernels (K1-K3,
+# csrc/row_group.cuh::kMaxRowLanes); K2's budget for a 32-lane block's two
+# chunk slots and its most stages in a chunk (the TPU chooser's cap;
+# row_group.cuh::kStageBudget, kMaxChunk).
 LANES = 32
 CHUNK_SMEM_BYTES = 96 * 1024
 MAX_CHUNK = 32
 # nvcc flags of every unit here beyond build.NVCC_FLAGS
 UNIT_FLAGS = ("-fmad=false",)
 # per mode: the header and the launch template with its leading arguments
-_UNITS = {"stage": ("ddp_backward.cuh", "launch_ddp_backward", ""),
+_UNITS = {"stage": ("ddp_backward.cuh", "launch_ddp_backward", "ld, "),
           "chunked": ("ddp_backward_chunked.cuh",
-                      "launch_ddp_backward_chunked", "chunk, "),
+                      "launch_ddp_backward_chunked", ""),
           "packed": ("ddp_backward_packed.cuh", "launch_ddp_backward_packed",
                      "ld, ")}
 
@@ -124,36 +130,38 @@ def unpack_derivs(P: torch.Tensor, nx: int, nu: int) -> StackedDerivs:
 
 
 def chunk_stages(nx: int, nu: int, N: int, dtype) -> int:
-    """K2's stages per chunk: as many as two chunk slots of a 32-lane block
-    hold within ``CHUNK_SMEM_BYTES`` (at most 32 and N); the last chunk
-    takes the rest when C does not divide N.  (4, 1) fp32: 8; (2, 1) fp32:
-    24."""
+    """K2's stages per chunk, as its launch picks them
+    (``csrc/row_group.cuh::chunked_chunk_stages``): as many as two chunk
+    slots of a 32-lane block hold within ``CHUNK_SMEM_BYTES`` (at most 32
+    and N); the last chunk takes the rest when C does not divide N.
+    (4, 1) fp32: 8; (2, 1) fp32: 24."""
     _, F = field_offsets(nx, nu)
     per_stage = 2 * F * LANES * torch.empty((), dtype=dtype).element_size()
     return max(1, min(N, MAX_CHUNK, CHUNK_SMEM_BYTES // per_stage))
 
 
 def packed_lane_stride(B: int, dtype) -> int:
-    """The lane stride K3's tensor map takes for B lanes: B rounded up to
-    a multiple of 16 bytes."""
+    """The lane stride a TMA tensor map (K1's, K3's) takes for B lanes: B
+    rounded up to a multiple of 16 bytes."""
     per = 16 // torch.empty((), dtype=dtype).element_size()
     return -(-B // per) * per
 
 
 def unit_source(nx: int, nu: int, dtype, dma: str = "stage",
                 group: int | None = None) -> str:
-    """The unit instantiating the ``dma`` kernel at (nx, nu, dtype); K3
-    with the header's ``kRowGroup`` threads per lane, or ``group`` where a
+    """The unit instantiating the ``dma`` kernel at (nx, nu, dtype) with
+    the header's ``kRowGroup`` threads per lane, or ``group`` where a
     measurement asks for another."""
     header, launch, lead = _UNITS[dma]
     g = "" if group is None else f", {group}"
+    unused = "" if lead else "  (void)ld;\n"
     return (f"#include \"{header}\"\n\n"
             f"extern \"C\" int ddp_backward_launch(\n"
-            f"    int N, int B, int reg_type, int chunk, int ld,\n"
+            f"    int N, int B, int reg_type, int ld,\n"
             f"    const void* const* fields, const void* VxT,\n"
             f"    const void* VxxT, const void* lam, void* ks, void* Ks,\n"
             f"    void* dV, void* ok, void* stream) {{\n"
-            f"  (void)chunk;\n  (void)ld;\n"
+            f"{unused}"
             f"  return nmpc::{launch}<{DTYPES[dtype]}, {nx}, {nu}{g}>(\n"
             f"      N, B, {lead}reg_type, fields, VxT, VxxT, lam, ks, Ks, "
             f"dV, ok,\n      stream);\n}}\n")
@@ -169,7 +177,7 @@ def unit_name(nx: int, nu: int, dtype, dma: str = "stage",
 def bind(lib):
     """The launch function of a loaded unit (:func:`unit_source`)."""
     fn = lib.ddp_backward_launch
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
     fn.restype = ctypes.c_int
     return fn
 
@@ -207,9 +215,11 @@ def _check_carry(nx, B, Vx_T, Vxx_T, lam):
 
 def launch(fn, dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld=0):
     """One launch of the unit function ``fn`` (:func:`launcher`) of the
-    ``dma`` kernel on ``fields`` (checked CUDA tensors; K3's with lanes
-    ``ld`` values apart); returns (ks, Ks, dV, ok) and raises on a CUDA
-    error.  Counts nothing: the wrappers count their own launches."""
+    ``dma`` kernel on ``fields`` (checked CUDA tensors; K1's and K3's with
+    lanes ``ld`` values apart, as :func:`tma_fields` and
+    :func:`padded_packed` give them); returns (ks, Ks, dV, ok) and raises
+    on a CUDA error.  Counts nothing: the wrappers count their own
+    launches."""
     B, dtype, device = lam.shape[0], lam.dtype, lam.device
     if not kernel_supports(nx, nu, dtype):
         raise ValueError(
@@ -220,11 +230,10 @@ def launch(fn, dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld=0):
     Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
     dV = torch.empty((2, B), dtype=dtype, device=device)
     ok = torch.empty((B,), dtype=torch.bool, device=device)
-    chunk = chunk_stages(nx, nu, N, dtype) if dma == "chunked" else 0
     ptrs = (ctypes.c_void_p * len(fields))(*(a.data_ptr() for a in fields))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = fn(N, B, config.reg_type, chunk, ld, ptrs, Vx_T.data_ptr(),
+        err = fn(N, B, config.reg_type, ld, ptrs, Vx_T.data_ptr(),
                  Vxx_T.data_ptr(), lam.data_ptr(), ks.data_ptr(),
                  Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream)
     if err != 0:
@@ -267,33 +276,62 @@ def backward_fused(config: DDPConfig, D: StackedDerivs, Vx_T, Vxx_T, lam,
                                lam)
     if device.type == "cpu":
         return backward_stacked(config, D, Vx_T, Vxx_T, lam)
-    out = _launch(dma, config, N, nx, nu, D, Vx_T, Vxx_T, lam)
     if dma == "chunked":
+        out = _launch(dma, config, N, nx, nu, D, Vx_T, Vxx_T, lam)
         backward_fused.chunked_launches += 1
-    else:
-        backward_fused.launches += 1
+        return out
+    fields, ld = tma_fields(D)
+    out = _launch(dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld)
+    backward_fused.launches += 1
     return out
 
 
 backward_fused.launches = 0           # K1
 backward_fused.chunked_launches = 0   # K2
+backward_fused.padded_copies = 0      # a field copied to a TMA lane stride
+
+
+def padded_lanes(a: torch.Tensor):
+    """(a, its lane stride) where a TMA tensor map takes ``a`` [..., B] as
+    it is: at a 16-byte aligned address with B a multiple of 16 bytes;
+    else (a copy of ``a`` into [..., packed_lane_stride(B)] at a fresh
+    address, that stride), the lanes past B left unset (the map's bounds
+    stop at B)."""
+    B = a.shape[-1]
+    ld = packed_lane_stride(B, a.dtype)
+    if ld == B and a.data_ptr() % 16 == 0:
+        return a, B
+    padded = torch.empty((*a.shape[:-1], ld), dtype=a.dtype, device=a.device)
+    padded[..., :B] = a
+    return padded, ld
+
+
+def tma_fields(D: StackedDerivs):
+    """(the seven fields as K1's tensor maps take them, their lane stride):
+    where B is a multiple of 16 bytes, each field as it is unless it lies
+    at an address that is not 16-byte aligned (a view at an offset), which
+    is copied once; else every field copied once into a buffer padded to
+    :func:`packed_lane_stride`.  Each copy adds one to
+    ``backward_fused.padded_copies``."""
+    fields, lds = [], set()
+    for a in D:
+        out, ld = padded_lanes(a)
+        backward_fused.padded_copies += out is not a
+        fields.append(out)
+        lds.add(ld)
+    (ld,) = lds
+    return fields, ld
 
 
 def padded_packed(P: torch.Tensor):
-    """(P or a copy of it, its lane stride) as K3's tensor map takes them:
-    the lanes a multiple of 16 bytes apart from a 16-byte aligned address.
-    A P whose B is not such a multiple (B=1023 at fp32) is copied once
-    into ``[N, F, packed_lane_stride(B)]``, the lanes past B left unset
-    (the map's bounds stop at B); each such copy adds one to
+    """(P or a copy of it, its lane stride) as K3's tensor map takes them
+    (:func:`padded_lanes`): a P whose B is not a multiple of 16 bytes
+    (B=1023 at fp32) is copied once into ``[N, F,
+    packed_lane_stride(B)]``; each such copy adds one to
     ``backward_packed.padded_copies``."""
-    N, F, B = P.shape
-    ld = packed_lane_stride(B, P.dtype)
-    if ld == B and P.data_ptr() % 16 == 0:
-        return P, B
-    padded = torch.empty((N, F, ld), dtype=P.dtype, device=P.device)
-    padded[..., :B] = P
-    backward_packed.padded_copies += 1
-    return padded, ld
+    out, ld = padded_lanes(P)
+    backward_packed.padded_copies += out is not P
+    return out, ld
 
 
 def backward_packed(config: DDPConfig, P, nx: int, nu: int, Vx_T, Vxx_T,

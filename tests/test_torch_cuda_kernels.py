@@ -5,8 +5,9 @@ condensed Riccati backward (K8) and Δx/Δu recursion (K11), and the
 layout variants that must equal their parents bit for bit: the chunked
 and packed DDP backward (K2, K3) against K1, the resident and packed FMPC
 backward (K9, K10) against K8, with the solver keywords that select them;
-the group kernels (K3, K5 unboxed) at every group size against one thread
-per lane, and K3 at a lane stride TMA does not take.
+the group kernels (K1, K2, K3, K5 unboxed) at every group size against
+one thread per lane, and K1 and K3 where TMA does not take a field or
+buffer as it is.
 Every test
 here is marked ``cuda`` and skips without a card; the file imports no JAX,
 so on the GPU machine it runs without the JAX package's conftest:
@@ -524,30 +525,95 @@ def _equal_on(ref, out, lanes):
                for a, b in zip(ref, out))
 
 
+def _wide_derivs(B, N, dtype, device, nx=8, nu=4):
+    """Stage fields of a random linear-quadratic problem at (nx, nu), the
+    kernels' largest: Fx near the identity, positive definite Lxx, Luu
+    and Vxx_T (K1's ring and K2's slots hold the fewest stages there)."""
+    rng = np.random.default_rng(9)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+
+    def spd(n, scale):
+        M = rng.normal(size=(N, B, n, n))
+        return np.moveaxis(M @ np.swapaxes(M, -1, -2) / n
+                           + scale * np.eye(n), 1, -1)
+
+    D = StackedDerivs(*(as_t(a).contiguous() for a in (
+        np.eye(nx)[None, :, :, None] + 0.05 * rng.normal(
+            size=(N, nx, nx, B)),
+        0.1 * rng.normal(size=(N, nx, nu, B)),
+        0.1 * rng.normal(size=(N, nx, B)), 0.1 * rng.normal(size=(N, nu, B)),
+        spd(nx, 0.1), spd(nu, 1.0), 0.01 * rng.normal(size=(N, nx, nu, B)))))
+    return (D, as_t(0.1 * rng.normal(size=(nx, B))),
+            as_t(spd(nx, 1.0)[0]).contiguous())
+
+
+# inputs of the sweep-fed kernels' checks: B=300 (not a multiple of a
+# warp's lanes, a lane stride TMA takes), B=1023 (one it does not: K1
+# copies its seven fields, K3 its buffer, K2 nothing), B=4100 (blocks of
+# four warps at (4, 1), the last with one warp that has lanes), Lxx at a
+# 4-byte offset (K1 copies that field alone), the widest shape (8, 4)
+SWEEP_CASES = {"B300": (300, 0, 0), "B1023": (1023, 7, 1),
+               "B4100": (4100, 0, 0), "offset": (1024, 1, 0),
+               "wide": (1023, 7, 1)}
+
+
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("N", [17, 100])
-def test_chunked_and_packed_equal_k1(card, dtype, N):
-    """K2 and K3 vs K1 on a ragged batch (B=300) with a non-PD and a NaN
-    lane: bit-equal on every lane K1 calls ok, ok masks equal, one launch
-    each.  N=100 runs K2 with a shorter last chunk at fp32 (C=8)."""
-    B = 300
-    D, VxT, VxxT = _derivs(B, N, dtype, card)
-    D.Luu[:, :, :, 7] = -10.0
+def test_chunked_and_packed_equal_k1(card, dtype, N, case):
+    """K1 against the plain version (ok masks equal, the rest within TOL)
+    and K2 and K3 against K1 (bit-equal on every lane K1 calls ok, ok masks
+    equal), one launch each, with a non-PD and a NaN lane, at each
+    SWEEP_CASES input, each copy to a padded lane stride counted; each of
+    the three built at one thread per lane equal to its kRowGroup build
+    bit for bit.  N=17 and 100 are multiples of no ring depth or chunk
+    (K2 at (4, 1) fp32: C=8, a shorter last chunk)."""
+    B, k1_copies, k3_copies = SWEEP_CASES[case]
+    if case == "wide":
+        D, VxT, VxxT = _wide_derivs(B, N, dtype, card)
+    else:
+        D, VxT, VxxT = _derivs(B, N, dtype, card)
+    if case == "offset":
+        flat = torch.empty(D.Lxx.numel() + 1, dtype=dtype, device=card)
+        view = flat[1:].view(D.Lxx.shape)
+        view.copy_(D.Lxx)
+        D = D._replace(Lxx=view)
+    nx, nu = D.Fx.shape[1], D.Fu.shape[2]
+    D.Luu[:, :, :, 7] = -10.0 * torch.eye(nu, dtype=dtype, device=card)
     D.Fx[3, 2, 1, 299] = float("nan")
     cfg = DDPConfig(horizon_steps=N)
     lam = torch.full((B,), 1e-4, dtype=dtype, device=card)
+    before = (backward_fused.launches, backward_fused.chunked_launches,
+              backward_packed.launches, backward_fused.padded_copies,
+              backward_packed.padded_copies)
     k1 = backward_fused(cfg, D, VxT, VxxT, lam)
-    before = (backward_fused.chunked_launches, backward_packed.launches)
     k2 = backward_fused(cfg, D, VxT, VxxT, lam, dma="chunked")
     k3 = backward_fused(cfg, D, VxT, VxxT, lam, dma="packed")
+    fields, ld1 = fused.tma_fields(D)
+    P, ld3 = fused.padded_packed(pack_derivs(D))
+    one = {dma: fused.launch(fused.launcher(nx, nu, dtype, dma, 1), dma, cfg,
+                             N, nx, nu, x, VxT, VxxT, lam, ld)
+           for dma, x, ld in (("stage", fields, ld1), ("chunked", D, 0),
+                              ("packed", (P,), ld3))}
     torch.cuda.synchronize()
-    assert (backward_fused.chunked_launches, backward_packed.launches) == (
-        before[0] + 1, before[1] + 1)
-    if dtype == torch.float32 and N == 100:
+    after = (backward_fused.launches, backward_fused.chunked_launches,
+             backward_packed.launches, backward_fused.padded_copies,
+             backward_packed.padded_copies)
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        1, 1, 1, 2 * k1_copies, 2 * k3_copies)
+    if dtype == torch.float32 and N == 100 and case != "wide":
         assert N % chunk_stages(4, 1, N, dtype) != 0
+    ref = backward_stacked(cfg, D, VxT, VxxT, lam)
+    assert torch.equal(k1[3], ref[3])
+    assert not k1[3][7] and not k1[3][299] and int(k1[3].sum()) == B - 2
+    for a, b in zip(ref[:3], k1[:3]):
+        assert _norm_err(a[..., ref[3]], b[..., ref[3]]) <= TOL[dtype]
     for out in (k2, k3):
         assert torch.equal(out[3], k1[3])
         assert _equal_on(k1[:3], out[:3], k1[3])
+    for dma, out in zip(fused.DMA_MODES, (k1, k2, k3)):
+        for a, b in zip(one[dma], out):
+            assert torch.equal(_bits(a), _bits(b)), dma
 
 
 def _bits(a):
@@ -652,11 +718,12 @@ def test_remat_wide_state_fits_shared_memory(card, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nx", [4, 2])
 def test_packed_groups_equal_k1(card, dtype, nx):
-    """K3 built at every group size (cart-pole fields, or the cart-pole's
-    first two states' block as a (2, 1) case) on a ragged batch (B=300,
-    N=23, chunks cut short at the horizon's start) with a non-PD and a NaN
-    lane: bit-equal to K1 on K1's ok lanes with the same ok mask, and to
-    G = 1 everywhere."""
+    """K1, K2 and K3 built at every group size (cart-pole fields, or the
+    cart-pole's first two states' block as a (2, 1) case) on a ragged
+    batch (B=300, N=23, rings and chunks cut short at the horizon's start)
+    with a non-PD and a NaN lane: bit-equal to K1 (its default build) on
+    K1's ok lanes with the same ok mask, and to the same kernel at G = 1
+    everywhere."""
     B, N = 300, 23
     D, VxT, VxxT = _derivs(B, N, dtype, card)
     if nx == 2:
@@ -670,17 +737,19 @@ def test_packed_groups_equal_k1(card, dtype, nx):
     cfg = DDPConfig(horizon_steps=N)
     lam = torch.full((B,), 1e-4, dtype=dtype, device=card)
     k1 = backward_fused(cfg, D, VxT, VxxT, lam)
-    P = pack_derivs(D)
-    outs = {g: fused.launch(fused.launcher(nx, 1, dtype, "packed", g),
-                            "packed", cfg, N, nx, 1, (P,), VxT, VxxT, lam, B)
-            for g in ROW_GROUPS[nx]}
+    fields, ld = fused.tma_fields(D)
+    data = {"stage": fields, "chunked": D, "packed": (pack_derivs(D),)}
+    outs = {(dma, g): fused.launch(fused.launcher(nx, 1, dtype, dma, g), dma,
+                                   cfg, N, nx, 1, data[dma], VxT, VxxT, lam,
+                                   ld)
+            for dma in fused.DMA_MODES for g in ROW_GROUPS[nx]}
     torch.cuda.synchronize()
     assert not k1[3][7] and not k1[3][299]
-    for g, out in outs.items():
-        assert torch.equal(out[3], k1[3]), g
-        assert _equal_on(k1[:3], out[:3], k1[3]), g
-        for a, b in zip(outs[1], out):
-            assert torch.equal(_bits(a), _bits(b)), g
+    for (dma, g), out in outs.items():
+        assert torch.equal(out[3], k1[3]), (dma, g)
+        assert _equal_on(k1[:3], out[:3], k1[3]), (dma, g)
+        for a, b in zip(outs[dma, 1], out):
+            assert torch.equal(_bits(a), _bits(b)), (dma, g)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -764,28 +833,40 @@ def test_resident_raises_where_it_does_not_fit(card):
                             variant="resident")
 
 
+@pytest.mark.parametrize("model", ["bipedal", "cart-pole deriv64"])
 @pytest.mark.parametrize("dma,counter", [
     ("stage", lambda: backward_fused.launches),
     ("chunked", lambda: backward_fused.chunked_launches),
     ("packed", lambda: backward_packed.launches)])
-def test_bipedal_solve_reaches_each_dma_kernel(card, dma, counter):
-    """fp64 bipedal ``solve_batch`` (B=64, N=60) through ``auto`` with each
-    ``backward_dma`` launches that kernel (K1, K2 or K3 at (2, 1): the
-    generator rejects the model) and agrees with the plain path: statuses
-    and iterations equal, u within 1e-8."""
+def test_bipedal_solve_reaches_each_dma_kernel(card, dma, counter, model):
+    """``solve_batch`` (B=64, N=60, 10 iterations) through ``auto`` with
+    each ``backward_dma`` launches that kernel and agrees with the plain
+    path: statuses and iterations equal, u within 1e-8.  The bipedal model
+    at fp64 (K1, K2 or K3 at (2, 1): the generator rejects the model); the
+    cart-pole at fp32 with ``deriv_dtype="float64"`` (the kernels at (4,
+    1) fp64, the generator's path being refused: its derivatives are at
+    the solve dtype)."""
     B, N = 64, 60
-    p = make_bipedal_problem(DT, example_ref_zmp_func(20.0),
-                             example_omega2_func())
     rng = np.random.default_rng(2)
-    x0s = torch.as_tensor(0.05 * rng.normal(size=(B, 2)), device=card)
-    us0 = torch.zeros((B, N, 1), dtype=torch.float64, device=card)
-    cfg = DDPConfig(horizon_steps=N, max_iter=10)
+    if model == "bipedal":
+        p = make_bipedal_problem(DT, example_ref_zmp_func(20.0),
+                                 example_omega2_func())
+        t0, dtype = 1.2, torch.float64
+        x0s = torch.as_tensor(0.05 * rng.normal(size=(B, 2)), device=card)
+        cfg = DDPConfig(horizon_steps=N, max_iter=10)
+    else:
+        p, t0, dtype = make_cartpole_problem(DT), 0.0, torch.float32
+        x0s = torch.as_tensor(np.tile([0.0, np.pi, 0.0, 0.0], (B, 1))
+                              + 0.05 * rng.normal(size=(B, 4)), dtype=dtype,
+                              device=card)
+        cfg = DDPConfig(horizon_steps=N, max_iter=10, deriv_dtype="float64")
+    us0 = torch.zeros((B, N, 1), dtype=dtype, device=card)
     before = counter()
-    res = DDPSolver(p, cfg, backward_dma=dma).solve_batch(1.2, x0s, us0)
+    res = DDPSolver(p, cfg, backward_dma=dma).solve_batch(t0, x0s, us0)
     assert counter() > before
     ref = DDPSolver(p, dataclasses.replace(
         cfg, backward_impl="stacked", forward_impl="scan")).solve_batch(
-            1.2, x0s, us0)
+            t0, x0s, us0)
     assert torch.equal(res.status, ref.status)
     assert torch.equal(res.iters, ref.iters)
     assert (res.us - ref.us).abs().max().item() <= 1e-8

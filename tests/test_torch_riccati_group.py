@@ -27,6 +27,7 @@ one thread in the order of the one-thread stage.  Held here:
   (``padded_packed``).
 """
 
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -54,7 +55,8 @@ GROUPS = {(4, 1): (1, 2, 4, 8), (2, 1): (1, 2)}
 _SHIM = r"""
 // riccati_stage.cuh on the host: a 32-thread warp is 32 std::threads that
 // meet at each shuffle (riccati_stage_group's LaneGroup<G>::bcast over the
-// whole warp) at a barrier; a thread that named another mask stops the run.
+// whole warp) at its warp's barrier; a thread that named another mask
+// stops the run.
 #include <algorithm>
 #include <barrier>
 #include <cmath>
@@ -73,10 +75,19 @@ using std::sqrt;
 #define __restrict__
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 thread_local Dim3 threadIdx;
-static std::barrier<> g_warp(32);
-static int g_votes[32];
-static unsigned long long g_slots[32];
-inline void __syncthreads() {}
+// one barrier and exchange slots per warp of a block; a block barrier
+// where a launch runs the block's warps together
+static std::barrier<> g_warps[] = {
+    std::barrier<>(32), std::barrier<>(32), std::barrier<>(32),
+    std::barrier<>(32), std::barrier<>(32), std::barrier<>(32),
+    std::barrier<>(32), std::barrier<>(32), std::barrier<>(32)};
+static int g_votes[9][32];
+static unsigned long long g_slots[9][32];
+static std::barrier<>* g_block = nullptr;
+inline std::barrier<>& g_warp_of() { return g_warps[threadIdx.x / 32]; }
+inline void __syncthreads() {
+  if (g_block) g_block->arrive_and_wait();
+}
 inline int __ffs(int v) { return __builtin_ffs(v); }
 static void whole_warp(unsigned mask) {
   if (mask != 0xffffffffu) {
@@ -86,12 +97,13 @@ static void whole_warp(unsigned mask) {
 }
 inline unsigned __ballot_sync(unsigned mask, int pred) {
   whole_warp(mask);
-  g_votes[threadIdx.x] = pred != 0;
-  g_warp.arrive_and_wait();
+  int* votes = g_votes[threadIdx.x / 32];
+  votes[threadIdx.x & 31] = pred != 0;
+  g_warp_of().arrive_and_wait();
   unsigned bits = 0;
   for (int t = 0; t < 32; ++t)
-    if (g_votes[t]) bits |= 1u << t;
-  g_warp.arrive_and_wait();
+    if (votes[t]) bits |= 1u << t;
+  g_warp_of().arrive_and_wait();
   return bits;
 }
 inline bool __any_sync(unsigned mask, int pred) {
@@ -100,13 +112,14 @@ inline bool __any_sync(unsigned mask, int pred) {
 template <typename T>
 T __shfl_sync(unsigned mask, T v, int src, int width) {
   whole_warp(mask);
-  std::memcpy(&g_slots[threadIdx.x], &v, sizeof(T));
-  g_warp.arrive_and_wait();
+  unsigned long long* slots = g_slots[threadIdx.x / 32];
+  std::memcpy(&slots[threadIdx.x & 31], &v, sizeof(T));
+  g_warp_of().arrive_and_wait();
   T out;
-  const int from = (static_cast<int>(threadIdx.x) & ~(width - 1)) +
+  const int from = (static_cast<int>(threadIdx.x & 31) & ~(width - 1)) +
                    src % width;
-  std::memcpy(&out, &g_slots[from], sizeof(T));
-  g_warp.arrive_and_wait();
+  std::memcpy(&out, &slots[from], sizeof(T));
+  g_warp_of().arrive_and_wait();
   return out;
 }
 """
@@ -373,8 +386,25 @@ void packed_line(int N, int B) {
   const int C = nmpc::packed_chunk_stages<T>(F, N);
   const int L = nmpc::row_lanes<G>(B);
   std::printf("packed %d %d %d %d %d %d %d %zu\n", int(sizeof(T)), NX, NU, G,
-              N, B, C, (L / (32 / G)) * nmpc::packed_warp_bytes<T>(C, F,
-                                                                   32 / G));
+              N, B, C, (L / (32 / G)) * nmpc::ring_bytes<T>(
+                                             nmpc::kPackedRing, C, F, 32 / G));
+}
+
+// K1's padded stage (its offsets), ring and block bytes; K2's chunk and
+// block bytes, at (N, B)
+template <typename T, int NX, int NU, int G>
+void sweep_line(int N, int B) {
+  using S = nmpc::StageRingLayout<T, NX, NU, G>;
+  constexpr int F = nmpc::PackedLayout<NX, NU>::F;
+  constexpr int W = 32 / G;
+  const int R = nmpc::stage_ring<T>(S::F);
+  const int C = nmpc::chunked_chunk_stages<T>(F, N);
+  const int L = nmpc::row_lanes<G>(B);
+  std::printf("sweep %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %zu %d "
+              "%zu\n", int(sizeof(T)), NX, NU, G, N, B, S::Fx, S::Fu, S::Lx,
+              S::Lu, S::Lxx, S::Luu, S::Lxu, S::F, R, L,
+              nmpc::ring_bytes<T>(R, 1, S::F, L), C,
+              (L / W) * nmpc::chunked_warp_bytes<T>(C, F, W));
 }
 
 template <typename T>
@@ -414,6 +444,12 @@ def _geometry_body():
                 for N, B in ((100, 4096), (300, 2048), (5, 300)):
                     lines.append(f"packed_line<{T}, {nx}, {nu}, {G}>({N}, "
                                  f"{B});")
+        for nx in range(1, 9):
+            for nu in range(1, 5):
+                for G in (1, 2, 4, 8):
+                    for N, B in ((100, 4096), (300, 2048), (7, 37)):
+                        lines.append(f"sweep_line<{T}, {nx}, {nu}, {G}>({N}, "
+                                     f"{B});")
         lines.append(f"threshold_line<{T}>();")
         for nx, nu in PACKED_SHAPES:
             for N in (100, 300, 7):
@@ -429,7 +465,10 @@ def geometry(tmp_path_factory):
     """What ``csrc/row_group.cuh``'s size rules give, from the header built
     by g++ as host code: {"remat": {(itemsize, nx, nu, B): (F, G, L,
     row_lanes, smem)}, "packed": {(itemsize, nx, nu, G, N, B): (C, smem)},
-    "threshold": {itemsize: F}, "chunks": {(N, C): [(start, lo, hi)]}}."""
+    "threshold": {itemsize: F}, "chunks": {(N, C): [(start, lo, hi)]},
+    "sweep": {(itemsize, nx, nu, G, N, B): (Fx, Fu, Lx, Lu, Lxx, Luu, Lxu,
+    F, R, L, smem, C, smem)} (K1's padded stage, ring and block bytes, K2's
+    chunk and block bytes)}."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ on PATH")
@@ -443,7 +482,8 @@ def geometry(tmp_path_factory):
                    check=True, capture_output=True, timeout=600)
     out = subprocess.run([str(exe)], check=True, capture_output=True,
                          text=True, timeout=60).stdout
-    found = {"remat": {}, "packed": {}, "threshold": {}, "chunks": {}}
+    found = {"remat": {}, "packed": {}, "threshold": {}, "chunks": {},
+             "sweep": {}}
     for line in out.splitlines():
         kind, *rest = line.split()
         if kind == "chunks":
@@ -453,7 +493,7 @@ def geometry(tmp_path_factory):
         v = list(map(int, rest))
         if kind == "remat":
             found[kind][tuple(v[:4])] = tuple(v[4:])
-        elif kind == "packed":
+        elif kind in ("packed", "sweep"):
             found[kind][tuple(v[:6])] = tuple(v[6:])
         else:
             found[kind][v[0]] = v[1]
@@ -540,3 +580,583 @@ def test_padded_packed_copies_only_a_ragged_stride():
     assert ld == 1024 and padded.shape == (3, 16, 1024)
     assert torch.equal(padded[..., :1023], ragged)
     assert K.backward_packed.padded_copies == before + 1
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_stage_ring_and_chunk_slots_fit_shared_memory(geometry, itemsize):
+    """K1's ring of one-stage buffers and K2's two chunk slots
+    (``row_group.cuh::stage_ring``, ``chunked_chunk_stages``) keep a block
+    within its shared memory at every (nx <= 8, nu <= 4) and G the kernels
+    are built at, with at least two buffers or one stage a slot; K1's
+    padded stage puts every field on a 128-byte boundary (TMA lands a box
+    only there) with the packed order's sizes, and pads nothing where a
+    value's row of lanes already takes 128 bytes."""
+    seen = 0
+    for (size, nx, nu, G, N, B), v in geometry["sweep"].items():
+        if size != itemsize:
+            continue
+        seen += 1
+        *off, F, R, L, smem1, C, smem2 = v
+        sizes = (nx * nx, nx * nu, nx, nu, nx * nx, nu * nu, nx * nu)
+        W = 32 // G
+        for o, o_next, n in zip(off, off[1:] + [F], sizes):
+            assert (o * W * size) % 128 == 0 and o_next - o >= n
+            if W * size >= 128:
+                assert o_next - o == n
+        assert 2 <= R <= 8 and smem1 <= BLOCK_SMEM, (nx, nu, G, N, B)
+        assert 1 <= C <= min(N, 32) and smem2 <= BLOCK_SMEM, (nx, nu, G, N)
+        assert L <= 32 and L % W == 0
+    assert seen == 8 * 4 * 4 * 3
+    cart = geometry["sweep"][itemsize, 4, 1, 4, 100, 4096]
+    bip = geometry["sweep"][itemsize, 2, 1, 2, 300, 2048]
+    if itemsize == 4:
+        assert (cart[7], cart[8], cart[11]) == (52, 8, 8)
+        assert (bip[7], bip[8], bip[11]) == (18, 8, 24)
+    else:
+        assert (cart[7], cart[8], cart[11]) == (48, 8, 4)
+        assert geometry["sweep"][8, 8, 4, 4, 100, 4096][7:9] == (220, 2)
+
+
+def test_chunk_stages_is_the_header_rule(geometry):
+    """The wrapper's ``chunk_stages`` (labels, tests) equals the chunk K2's
+    launch picks (``row_group.cuh::chunked_chunk_stages``) at every shape
+    and N."""
+    for (size, nx, nu, _, N, _), v in geometry["sweep"].items():
+        dtype = torch.float32 if size == 4 else torch.float64
+        assert K.chunk_stages(nx, nu, N, dtype) == v[11], (size, nx, nu, N)
+
+
+def test_tma_fields_pad_as_padded_packed():
+    """K1's fields as its tensor maps take them (``tma_fields``): at a B
+    whose lanes are a multiple of 16 bytes every field as it is; at B=1023
+    every field copied once to the lane stride ``padded_packed`` gives K3's
+    buffer; a field given as a view at a 4-byte offset copied alone, at
+    the same stride; each copy counted and equal to its field."""
+    rng = np.random.default_rng(3)
+    shapes = ((4, 4), (4, 1), (4,), (1,), (4, 4), (1, 1), (4, 1))
+
+    def fields(B, dtype):
+        return StackedDerivs(*(torch.as_tensor(rng.normal(
+            size=(5, *s, B)), dtype=dtype) for s in shapes))
+
+    for dtype in (torch.float32, torch.float64):
+        D = fields(1024, dtype)
+        before = K.backward_fused.padded_copies
+        out, ld = K.tma_fields(D)
+        assert ld == 1024 and all(a is b for a, b in zip(out, D))
+        assert K.backward_fused.padded_copies == before
+        D = fields(1023, dtype)
+        out, ld = K.tma_fields(D)
+        assert ld == K.padded_packed(K.pack_derivs(D))[1] == 1024
+        assert K.backward_fused.padded_copies == before + 7
+        for a, b in zip(D, out):
+            assert b.shape[-1] == ld and torch.equal(a, b[..., :1023])
+        D = fields(1024, dtype)
+        flat = torch.empty(D.Lxx.numel() + 1, dtype=dtype)
+        view = flat[1:].view(D.Lxx.shape)
+        view.copy_(D.Lxx)
+        assert view.data_ptr() % 16 != 0
+        out, ld = K.tma_fields(D._replace(Lxx=view))
+        assert ld == 1024
+        assert K.backward_fused.padded_copies == before + 8
+        assert out[4] is not view and torch.equal(out[4], view)
+        assert all(a is b for j, (a, b) in enumerate(zip(out, D)) if j != 4)
+
+
+# The sweep-fed kernels (K1, K2, K3) on the host: the headers of csrc/
+# copied with the launch syntax turned into a call of host_launch (every
+# block, each warp as 32 threads, in turn), tma.cuh and cp_async.cuh
+# replaced by stand-ins that copy at once, and the launch functions called
+# as the units call them.
+_HOST_RUNTIME = r"""
+#pragma once
+#include <cstddef>
+#define __global__
+#define __launch_bounds__(...)
+#define __grid_constant__
+#define __shared__
+#define __align__(x)
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+"""
+
+_HOST_CP_ASYNC = r"""
+// cp_async.cuh on the host: a copy lands at once; the kernel's __syncwarp
+// orders it for the other threads.
+#pragma once
+#include <cuda_runtime.h>
+namespace nmpc {
+template <typename T>
+inline void cp_async(T* smem, const T* gmem) { *smem = *gmem; }
+inline void cp_async_commit() {}
+template <int PENDING>
+inline void cp_async_wait() {}
+template <typename Kernel>
+int allow_dynamic_smem(Kernel, size_t bytes) {
+  return bytes <= 227 * 1024 ? 0 : 1;
+}
+}  // namespace nmpc
+"""
+
+_HOST_TMA = r"""
+// tma.cuh on the host: encode_map_3d with the card's checks; a box lands
+// at once (zero-filled past the array's bounds) and counts its bytes on
+// its barrier, whose word holds the phases completed.  A wait checks that
+// the phase it waits on completes, and that the barrier did not complete
+// a later phase first (a buffer refilled before this thread read it);
+// every arm, box and first-thread wait goes to the log with its block and
+// warp.
+#pragma once
+#include <atomic>
+#include <chrono>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <map>
+#include <mutex>
+#include <thread>
+#include <vector>
+namespace nmpc {
+struct CUtensorMap {
+  const unsigned char* base;
+  int n0, n1, n2, ld, b0, b1, b2, size;
+};
+template <typename T>
+int encode_map_3d(CUtensorMap* map, const void* base, int n0, int n1,
+                  int n2, int ld, int b0, int b1, int b2) {
+  const uint64_t row = static_cast<uint64_t>(ld) * sizeof(T);
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || row % 16 != 0 ||
+      ld < n0 || (b0 * sizeof(T)) % 16 != 0 || b0 > 256 || b1 > 256 ||
+      b2 > 256 || b0 <= 0 || b1 <= 0 || b2 <= 0)
+    return 1;
+  *map = {static_cast<const unsigned char*>(base), n0, n1, n2, ld, b0, b1,
+          b2, static_cast<int>(sizeof(T))};
+  return 0;
+}
+struct Pending {
+  int count = 1, left = 1;
+  int64_t bytes = 0;
+};
+inline std::mutex g_lock;
+inline std::map<const uint64_t*, Pending> g_pending;
+inline FILE* g_log = nullptr;
+thread_local std::map<const uint64_t*, uint64_t> t_waits;
+inline void fail(int code, const char* what) {
+  std::fprintf(stderr, "%s\n", what);
+  std::exit(code);
+}
+inline int offset(const void* p) {
+  return static_cast<int>(static_cast<const unsigned char*>(p) - smem_raw);
+}
+inline void log_event(const char* what, int a, int b = 0, int c = 0,
+                      int d = 0) {
+  if (g_log)
+    std::fprintf(g_log, "%s %u %u %d %d %d %d\n", what, blockIdx.x,
+                 threadIdx.x / 32, a, b, c, d);
+}
+// under g_lock: the phase completes once every arrival and byte is in
+inline void settle(uint64_t* bar, Pending& p) {
+  if (p.left < 0) fail(9, "more arrivals than a barrier's count");
+  if (p.left == 0 && p.bytes == 0) {
+    p.left = p.count;
+    std::atomic_ref<uint64_t>(*bar).fetch_add(1);
+  }
+}
+inline void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  std::lock_guard<std::mutex> hold(g_lock);
+  std::atomic_ref<uint64_t>(*bar).store(0);
+  g_pending[bar] = Pending{static_cast<int>(count),
+                           static_cast<int>(count), 0};
+}
+inline void mbar_arm(uint64_t* bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> hold(g_lock);
+  Pending& p = g_pending[bar];
+  p.bytes += bytes;
+  --p.left;
+  log_event("A", offset(bar), static_cast<int>(bytes));
+  settle(bar, p);
+}
+inline void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> hold(g_lock);
+  Pending& p = g_pending[bar];
+  --p.left;
+  settle(bar, p);
+}
+inline void tma_load_3d(const CUtensorMap& m, uint64_t* bar, void* dst,
+                        int c0, int c1, int c2) {
+  if (reinterpret_cast<uintptr_t>(dst) % 128 != 0)
+    fail(8, "a box lands at a shared address not 128-byte aligned");
+  unsigned char* out = static_cast<unsigned char*>(dst);
+  for (int z = 0; z < m.b2; ++z)
+    for (int y = 0; y < m.b1; ++y)
+      for (int x = 0; x < m.b0; ++x, out += m.size) {
+        const int i0 = c0 + x, i1 = c1 + y, i2 = c2 + z;
+        if (i0 < 0 || i0 >= m.n0 || i1 < 0 || i1 >= m.n1 || i2 < 0 ||
+            i2 >= m.n2) {
+          std::memset(out, 0, m.size);
+          continue;
+        }
+        std::memcpy(out, m.base + ((static_cast<size_t>(i2) * m.n1 + i1) *
+                                       m.ld + i0) * m.size,
+                    m.size);
+      }
+  std::lock_guard<std::mutex> hold(g_lock);
+  const int bytes = m.b0 * m.b1 * m.b2 * m.size;
+  log_event("L", c0, c2, offset(dst), bytes);
+  Pending& p = g_pending[bar];
+  p.bytes -= bytes;
+  settle(bar, p);
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint64_t use = t_waits[bar]++;
+  if ((use & 1) != parity) fail(11, "a wait names the wrong parity");
+  const auto until = std::chrono::steady_clock::now() +
+                     std::chrono::seconds(20);
+  uint64_t done;
+  while ((done = std::atomic_ref<uint64_t>(*bar).load()) <= use) {
+    if (std::chrono::steady_clock::now() > until)
+      fail(6, "a wait on a phase that never completes");
+    std::this_thread::yield();
+  }
+  if (done != use + 1) fail(7, "a buffer refilled before this thread read it");
+  if (threadIdx.x % 32 == 0) {
+    std::lock_guard<std::mutex> hold(g_lock);
+    log_event("W", offset(bar));
+  }
+}
+}  // namespace nmpc
+"""
+
+_KERNELS_HOST = _SHIM + r"""
+#include <cuda_runtime.h>
+thread_local Dim3 blockIdx, blockDim;
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  whole_warp(mask);
+  g_warp_of().arrive_and_wait();
+}
+namespace nmpc {
+alignas(128) unsigned char smem_raw[1 << 20];
+}
+#include "tma.cuh"
+// every block in turn, its threads all together (the warps of a block
+// meet at __syncthreads and K1's ring); shared memory poisoned (NaN)
+// before a block and checked past the launch's size after
+template <typename Kernel>
+auto host_launch(int grid, int block, size_t smem, cudaStream_t,
+                 Kernel* kernel) {
+  return [=](auto... args) {
+    if (smem + 4096 > sizeof(nmpc::smem_raw) || block > 9 * 32 ||
+        block % 32 != 0)
+      std::exit(12);
+    for (int bx = 0; bx < grid; ++bx) {
+      std::memset(nmpc::smem_raw, 0xff, sizeof(nmpc::smem_raw));
+      std::barrier<> all(block);
+      g_block = &all;
+      std::vector<std::thread> threads;
+      for (int t = 0; t < block; ++t)
+        threads.emplace_back([&, t] {
+          blockIdx.x = bx;
+          blockDim.x = block;
+          threadIdx.x = t;
+          kernel(args...);
+        });
+      for (auto& th : threads) th.join();
+      g_block = nullptr;
+      for (size_t i = smem; i < smem + 4096; ++i)
+        if (nmpc::smem_raw[i] != 0xff) std::exit(10);
+    }
+  };
+}
+#include "ddp_backward_chunked.cuh"
+#include "ddp_backward_packed.cuh"
+
+// in: K1's fields at lane stride ld1 (each [N][size][ld1]), K3's P
+// [N][F][ld3], K2's fields at B, VxT, VxxT, lam; out: per kernel ks [N][B], Ks [N][NX][B],
+// dV [2][B], ok [B]
+template <typename T, int NX, int G>
+int run(int N, int B, int reg_type, int ld1, int ld3, const T* in, T* out,
+        FILE* log) {
+  constexpr int F = nmpc::PackedLayout<NX, 1>::F;
+  const int sizes[7] = {NX * NX, NX, NX, 1, NX * NX, 1, NX};
+  const void* k1[7];
+  const void* k2[7];
+  const T* p = in;
+  for (int f = 0; f < 7; ++f) {
+    k1[f] = p;
+    p += static_cast<size_t>(N) * sizes[f] * ld1;
+  }
+  const void* P[1] = {p};
+  p += static_cast<size_t>(N) * F * ld3;
+  for (int f = 0; f < 7; ++f) {
+    k2[f] = p;
+    p += static_cast<size_t>(N) * sizes[f] * B;
+  }
+  const T* VxT = p;
+  const T* VxxT = VxT + static_cast<size_t>(NX) * B;
+  const T* lam = VxxT + static_cast<size_t>(NX) * NX * B;
+  const size_t each = static_cast<size_t>(N) * (NX + 1) * B + 3 * B;
+  std::vector<unsigned char> ok(B);
+  for (int k = 0; k < 3; ++k) {
+    T* o = out + k * each;
+    nmpc::g_log = k == 1 ? nullptr : log;
+    if (log) std::fprintf(log, "K %d\n", k + 1);
+    int err;
+    if (k == 0)
+      err = nmpc::launch_ddp_backward<T, NX, 1, G>(
+          N, B, ld1, reg_type, k1, VxT, VxxT, lam, o, o + N * B,
+          o + N * (NX + 1) * B, ok.data(), nullptr);
+    else if (k == 1)
+      err = nmpc::launch_ddp_backward_chunked<T, NX, 1, G>(
+          N, B, reg_type, k2, VxT, VxxT, lam, o, o + N * B,
+          o + N * (NX + 1) * B, ok.data(), nullptr);
+    else
+      err = nmpc::launch_ddp_backward_packed<T, NX, 1, G>(
+          N, B, ld3, reg_type, P, VxT, VxxT, lam, o, o + N * B,
+          o + N * (NX + 1) * B, ok.data(), nullptr);
+    if (err) return 20 + err;
+    for (int b = 0; b < B; ++b) o[N * (NX + 1) * B + 2 * B + b] = ok[b];
+  }
+  return 0;
+}
+
+template <typename T>
+int main_t(int nx, int G, int N, int B, int reg_type, int ld1, int ld3,
+           const char* in_path, const char* out_path, FILE* log) {
+  const int F = 2 * nx * nx + 2 * nx + nx + 1 + 1;
+  const size_t n_in = static_cast<size_t>(N) * F * (ld1 + B + ld3) +
+                      static_cast<size_t>(nx + nx * nx + 1) * B;
+  const size_t n_out = 3 * (static_cast<size_t>(N) * (nx + 1) * B + 3 * B);
+  std::vector<T> in(n_in), out(n_out);
+  FILE* f = std::fopen(in_path, "rb");
+  if (!f || std::fread(in.data(), sizeof(T), n_in, f) != n_in) return 4;
+  std::fclose(f);
+  int err = 2;
+#define RUN(NX_, G_)                                                   \
+  if (nx == NX_ && G == G_)                                            \
+    err = run<T, NX_, G_>(N, B, reg_type, ld1, ld3, in.data(), out.data(), \
+                          log);
+  RUN(4, 1) RUN(4, 4) RUN(2, 1) RUN(2, 2)
+#undef RUN
+  if (err) return err;
+  f = std::fopen(out_path, "wb");
+  if (!f || std::fwrite(out.data(), sizeof(T), n_out, f) != n_out) return 5;
+  std::fclose(f);
+  return 0;
+}
+
+// kernels_host float|double nx G N B reg_type ld1 ld3 in out log
+int main(int argc, char** argv) {
+  if (argc != 12) return 1;
+  const int nx = std::atoi(argv[2]), G = std::atoi(argv[3]),
+            N = std::atoi(argv[4]), B = std::atoi(argv[5]),
+            reg_type = std::atoi(argv[6]), ld1 = std::atoi(argv[7]),
+            ld3 = std::atoi(argv[8]);
+  FILE* log = std::fopen(argv[11], "w");
+  int err;
+  if (std::strcmp(argv[1], "float") == 0)
+    err = main_t<float>(nx, G, N, B, reg_type, ld1, ld3, argv[9], argv[10],
+                        log);
+  else
+    err = main_t<double>(nx, G, N, B, reg_type, ld1, ld3, argv[9], argv[10],
+                         log);
+  std::fclose(log);
+  return err;
+}
+"""
+
+# the kernels' threads per lane on the host: one, and kRowGroup
+HOST_GROUPS = {4: (1, 4), 2: (1, 2)}
+
+
+@pytest.fixture(scope="module")
+def kernels_host(tmp_path_factory):
+    """The sweep-fed kernels' harness (``_KERNELS_HOST``) built by g++ from
+    a copy of csrc/ with the host stand-ins, without contraction."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ on PATH")
+    d = tmp_path_factory.mktemp("kernels_host")
+    inc = d / "csrc"
+    inc.mkdir()
+    launch = re.compile(r"(\w+<[^<>;]*>)\s*<<<(.*?)>>>", re.DOTALL)
+    for header in CSRC.glob("*.cuh"):
+        (inc / header.name).write_text(
+            launch.sub(r"::host_launch(\2, \1)", header.read_text()))
+    (inc / "tma.cuh").write_text(_HOST_TMA)
+    (inc / "cp_async.cuh").write_text(_HOST_CP_ASYNC)
+    (d / "cuda_runtime.h").write_text(_HOST_RUNTIME)
+    (d / "kernels_host.cpp").write_text(_KERNELS_HOST)
+    exe = d / "kernels_host"
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
+                           "-pthread", f"-I{d}", f"-I{inc}", "-o", str(exe),
+                           str(d / "kernels_host.cpp")],
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[:4000]
+    return exe
+
+
+def _kernels_run(exe, D, VxT, VxxT, lam, reg_type, G, workdir: Path):
+    """{kernel: (ks, Ks, dV, ok)} of K1, K2, K3 from the harness at G
+    threads per lane, fed as the wrappers feed them (K1's fields by
+    ``tma_fields``, K3's buffer by ``padded_packed``), and the log of the
+    TMA kernels' first threads."""
+    N, nx, B = D.Fx.shape[0], D.Fx.shape[1], lam.shape[0]
+    dtype = lam.dtype
+    k1, ld1 = K.tma_fields(D)
+    P, ld3 = K.padded_packed(K.pack_derivs(D))
+    flat = torch.cat([a.flatten() for a in k1] + [P.flatten()]
+                     + [a.flatten() for a in D]
+                     + [VxT.flatten(), VxxT.flatten(), lam])
+    tag = f"{G}_{reg_type}"
+    inp, outp, logp = (workdir / f"k{tag}.in", workdir / f"k{tag}.out",
+                       workdir / f"k{tag}.log")
+    inp.write_bytes(flat.numpy().tobytes())
+    proc = subprocess.run(
+        [str(exe), "float" if dtype == torch.float32 else "double", str(nx),
+         str(G), str(N), str(B), str(reg_type), str(ld1), str(ld3),
+         str(inp), str(outp), str(logp)], capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr)
+    each = N * (nx + 1) * B + 3 * B
+    o = torch.from_numpy(np.frombuffer(
+        outp.read_bytes(), dtype=np.float32 if dtype == torch.float32
+        else np.float64).copy()).reshape(3, each)
+    outs = {}
+    for k, name in enumerate(("K1", "K2", "K3")):
+        ks = o[k, :N * B].reshape(N, 1, B)
+        Ks = o[k, N * B:N * (nx + 1) * B].reshape(N, 1, nx, B)
+        dV = o[k, N * (nx + 1) * B:N * (nx + 1) * B + 2 * B].reshape(2, B)
+        outs[name] = (ks, Ks, dV, o[k, -B:] != 0)
+    return outs, logp.read_text().splitlines()
+
+
+@pytest.fixture(scope="module")
+def kernel_runs(kernels_host, tmp_path_factory):
+    """The harness's runs, by (model, dtype, reg_type, G): B=37 lanes (a
+    lane stride TMA does not take: K1's fields and K3's buffer copied; not
+    a multiple of a warp's lanes), N=13 (not a multiple of K1's ring, K2's
+    or K3's chunk), with a non-PD and a NaN lane."""
+    cache = {}
+
+    def get(model, dtype, reg_type, G):
+        key = (model, dtype, reg_type, G)
+        if key not in cache:
+            D, VxT, VxxT = _stage_case(model, dtype, N=13)
+            lam = torch.full((VxT.shape[1],), 1e-4 if reg_type == 1 else 0.5,
+                             dtype=dtype)
+            cache[key] = (D, VxT, VxxT, lam) + _kernels_run(
+                kernels_host, D, VxT, VxxT, lam, reg_type, G,
+                tmp_path_factory.mktemp("runs"))
+        return cache[key]
+    return get
+
+
+@pytest.mark.parametrize("reg_type", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model", ["cart-pole", "bipedal"])
+def test_sweep_kernels_as_host_cpp(kernel_runs, monkeypatch, model, dtype,
+                                   reg_type):
+    """K1, K2 and K3 on the host through their launch functions, at one
+    thread per lane and at kRowGroup: every kernel and G equal to K1 at one
+    thread bit for bit (NaN lanes NaN where they are), and that equal to
+    ``backward_stacked`` with a correctly rounded sqrt on every lane it
+    calls ok, with the same ok mask; no block touches shared memory past
+    its launch's size, no box lands off a 128-byte boundary, and every
+    barrier wait completes on the buffer's own fill."""
+    nx = 4 if model == "cart-pole" else 2
+    runs = {G: kernel_runs(model, dtype, reg_type, G)
+            for G in HOST_GROUPS[nx]}
+    D, VxT, VxxT, lam, ref1, _ = runs[1]
+    for G, run in runs.items():
+        for name, out in run[4].items():
+            for field, a, b in zip(("ks", "Ks", "dV"), ref1["K1"][:3],
+                                   out[:3]):
+                assert _same(a, b), (G, name, field)
+            assert torch.equal(ref1["K1"][3], out[3]), (G, name)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sqrt", _exact_sqrt)
+        ref = backward_stacked(DDPConfig(horizon_steps=D.Fx.shape[0],
+                                         reg_type=reg_type), D, VxT, VxxT,
+                               lam)
+    ok = ref[3]
+    assert torch.equal(ref1["K1"][3], ok)
+    assert not ok[1] and not ok[2] and int(ok.sum()) == lam.shape[0] - 2
+    for name, a, b in zip(("ks", "Ks", "dV"), ref[:3], ref1["K1"][:3]):
+        assert torch.equal(_bits(a[..., ok]), _bits(b[..., ok])), name
+
+
+def _events(log):
+    """{kernel: {(block, warp): [(kind, values...)]}} from the harness's
+    log (each thread's events in its own order)."""
+    out, kernel = {}, None
+    for line in log:
+        kind, *v = line.split()
+        if kind == "K":
+            kernel = out.setdefault(int(v[0]), {})
+            continue
+        blk, warp, *rest = map(int, v)
+        kernel.setdefault((blk, warp), []).append((kind, *rest))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model", ["cart-pole", "bipedal"])
+def test_stage_ring_issues_every_stage_once(kernel_runs, geometry, model,
+                                            dtype):
+    """K1's ring as its blocks ran it on the host: each block's producer
+    issues every stage once, from the end of the horizon, as seven boxes of
+    the block's lanes (one per field, at the padded offsets of
+    ``StageRingLayout``, into one buffer) under one arm of the stage's
+    bytes on the buffer's full barrier (stage c in buffer c % R); it waits
+    on an empty barrier only from the ring's (R + 1)-th stage on, once a
+    stage; each consumer warp waits once a stage.  K3's rings issue each
+    chunk of C stages once, from the end."""
+    nx = 4 if model == "cart-pole" else 2
+    size = 4 if dtype == torch.float32 else 8
+    packed = 2 * nx * nx + 3 * nx + 2
+    for G in HOST_GROUPS[nx]:
+        D, *_, log = kernel_runs(model, dtype, 1, G)
+        N, B = D.Fx.shape[0], D.Fx.shape[-1]
+        Fx, Fu, Lx, Lu, Lxx, Luu, Lxu, _, R, L = geometry["sweep"][
+            size, nx, 1, G, 7, 37][:10]
+        W = 32 // G
+        offsets = sorted(o * L * size for o in (Fx, Fu, Lx, Lu, Lxx, Luu,
+                                                Lxu))
+        events = _events(log)
+        producer = L * G // 32
+        blocks = -(-B // L)
+        assert {blk for blk, _ in events[1]} == set(range(blocks))
+        for blk in range(blocks):
+            ev = events[1][blk, producer]
+            arms = [j for j, e in enumerate(ev) if e[0] == "A"]
+            assert len(arms) == N
+            stages = []
+            for c, j in enumerate(arms):
+                assert ev[j][1:3] == (8 * (c % R), packed * L * size)
+                boxes = ev[j + 1:j + 8]
+                assert [e[0] for e in boxes] == ["L"] * 7
+                assert {e[1] for e in boxes} == {blk * L}
+                (stage,) = {e[2] for e in boxes}
+                stages.append(stage)
+                base = min(e[3] for e in boxes)
+                assert sorted(e[3] - base for e in boxes) == offsets
+            assert stages == list(reversed(range(N))), (G, blk)
+            waits = [j for j, e in enumerate(ev) if e[0] == "W"]
+            assert len(waits) == max(0, N - R)
+            assert all(ev[j][1] >= 8 * R for j in waits)
+            assert not waits or waits[0] == arms[R] - 1
+            warps = -(-min(L, B - blk * L) // W)
+            for w in range(warps):
+                full = [e for e in events[1][blk, w] if e[0] == "W"]
+                assert len(full) == N and all(e[1] < 8 * R for e in full)
+        for events3 in events[3].values():
+            starts = [e[2] for e in events3 if e[0] == "L"]
+            assert len(starts) == sum(e[0] == "A" for e in events3)
+            (C,) = {a - b for a, b in zip(starts, starts[1:])}
+            assert starts[0] == N - C and len(starts) == -(-N // C)
