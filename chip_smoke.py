@@ -34,7 +34,9 @@ Phases, one line each (a failed phase exits non-zero):
    the boxed kernels bit for bit; K8 against ``_backward_bm`` on first-
    iteration FMPC data (cart-pole B=4096, oscillator B=1024, N=100, both
    ``break_if_llt_fails``, a non-PD and a NaN lane; the two-input non-PD
-   case) and K11 against its plain recursion fed K8's gains; then the
+   case) and K11 against its plain recursion fed K8's gains; the device
+   kernels one ``backward_fmpc_fused`` call runs (``torch.profiler``: K8
+   condenses in its kernel, K9 after the wrapper's torch ops); then the
    layout variants against their plain versions and, bit for bit, their
    parent kernels (a failed check): K2 and K3 against K1 at the headline
    shape and the bipedal shape (B=2048, N=300), K1, K2 and K3 at B=1023
@@ -57,7 +59,8 @@ Phases, one line each (a failed phase exits non-zero):
    ``FmpcSolver.solve_batch`` at the cart-pole serving shape (B=4096,
    N=100, 5 iterations) through ``auto`` (K8 + K11) and the plain path:
    fp64 on the stabilization and swing-up populations, fp32's converged
-   set; fp64 ``solve`` of the oscillator against the NumPy golden FMPC;
+   set; fp64 with ``enable_line_search``; fp64 ``solve`` of the
+   oscillator against the NumPy golden FMPC;
    then the bipedal config #2 (B=2048, N=300, 10 iterations) through
    ``auto`` with each ``backward_dma`` (K1, K2, K3 and the plain rollouts)
    and the plain path, and FMPC through ``backward_variant`` "resident"
@@ -98,7 +101,16 @@ Phases, one line each (a failed phase exits non-zero):
    and fp64, both reg_types, the headline, bipedal and tick shapes, a
    ragged B and N and (8, 4); timed in turns with the baseline's (K5 at
    the headline and tick shapes, K1, K2, K3 at the headline, bipedal and
-   tick shapes with the pack), with ptxas' report of each;
+   tick shapes with the pack), with ptxas' report of each; then K8 and K10
+   with 1, 2, 4 and 8 threads per lane at (4, 1, 4), 1, 2 and 4 at (2, 1,
+   3), 1 and 2 at (2, 2, 2), each with the group's rows of P A, P B and P
+   x_bar exchanged and computed by every thread (and, with ``--baseline
+   DIR``, that checkout's K8 and K10): every one bit for bit to G = 1, K8
+   to the baseline's K8, K10 to K8, at fp32 and fp64, both
+   ``break_if_llt_fails``, the FMPC shapes, the two-input case and a
+   ragged B and N; timed in turns with the baseline's at the FMPC shapes,
+   fp32 and fp64 (kernels alone, and K8's call beside the baseline's with
+   its condensation);
 7. with ``--layers`` only: where one solve's time goes at both shapes,
    for each pair, for the boxed vertical solve, the bipedal config's
    ``auto`` path at 2 iterations and the FMPC configurations (synced time
@@ -1570,7 +1582,8 @@ def parent_module(baseline, name):
     return mod
 
 
-def timed_in_turns(calls, label, card, note=""):
+def timed_in_turns(calls, label, card, note="", tag="row-groups",
+                   dtype="fp32"):
     """Time every call once in order, then again in reverse order, and
     print both times of each."""
     times = collections.defaultdict(list)
@@ -1578,7 +1591,7 @@ def timed_in_turns(calls, label, card, note=""):
         for key in order:
             times[key].append(cuda_ms(calls[key], inner=10))
     for key, ms in times.items():
-        print(f"[row-groups] {label} fp32 {key}: {ms[0]:.4f} / {ms[1]:.4f} "
+        print(f"[{tag}] {label} {dtype} {key}: {ms[0]:.4f} / {ms[1]:.4f} "
               f"ms (in turns){note} [{card}]", flush=True)
 
 
@@ -1724,9 +1737,8 @@ def phase_row_groups(device, card, baseline):
                                 pk.launch,
                                 pk.bind(lib(("baseline", dma, nx, nu,
                                              dtype))),
-                                dma, cfg, N, nx, nu,
-                                (P,) if dma == "packed" else D, VxT,
-                                VxxT, lam, ld3 if dma == "packed" else 0))
+                                dma, cfg, N, nx, nu, *data[dma][:1], VxT,
+                                VxxT, lam, data[dma][1]))
                 outs = {key: fn() for key, fn in calls.items()}
                 torch.cuda.synchronize()
                 ref = outs["K1 baseline" if baseline else "K1 G=1"]
@@ -1772,6 +1784,198 @@ def phase_row_groups(device, card, baseline):
           f"{per_stage[HEADLINE[0]][0]:.3f} us at B={HEADLINE[0]}; G={G4} "
           f"{per_stage[B1][1]:.3f} / {per_stage[HEADLINE[0]][1]:.3f} us "
           f"[{card}]", flush=True)
+
+
+# The FMPC group kernels (K8, K10) are built at, per (nx, nu, ng): every
+# G measured, each with the group's rows of P A, P B and P x_bar exchanged
+# by shuffles (share) and computed by every thread (redundant).
+FMPC_GROUPS = {(4, 1, 4): (1, 2, 4, 8), (2, 1, 3): (1, 2, 4),
+               (2, 2, 2): (1, 2)}
+# The inputs every G, K10 and the baseline's K8 are held on (model, (B, N),
+# timed): the three FMPC shapes of §4 (timed at fp32 and fp64), the
+# two-input non-PD case and a ragged B with an odd N (K8's fields copied
+# to a padded stride).
+FMPC_GROUP_CASES = (("cart-pole", FMPC_SERVING, True),
+                    ("oscillator", FMPC_OSC, True),
+                    ("oscillator", FMPC_OSC_SHORT, True),
+                    ("two-input", (128, 8), False),
+                    ("cart-pole", (1023, 37), False))
+
+
+def fmpc_group_inputs(model, B, N, dtype, device):
+    """(problem, config, coefficients, variable, masks, eps) of a
+    FMPC_GROUP_CASES entry, with its non-PD and NaN lanes."""
+    if model == "two-input":
+        problem, co, v, gms, eps = two_input_inputs(dtype, device, B, N)
+        return problem, FmpcConfig(horizon_steps=N), co, v, gms, eps
+    problem, config, co, v, gms, eps, _ = fmpc_kernel_inputs(
+        model, B, N, dtype, device)
+    return problem, config, co, v, gms, eps
+
+
+def bind_parent_packed(lib):
+    """The launch function of a K10 unit without the lane-stride argument
+    (the baseline's)."""
+    fn = lib.fmpc_backward_launch
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
+                    ctypes.c_int] + [ctypes.c_void_p] * 7)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def as_k8_outputs(out, nx, nu, N):
+    """(ks, Ks, s, P, ok, finite) of rows 0 .. N-1 from a K8 result or a
+    K10 one (its [N, Fout, B] buffer unpacked)."""
+    if len(out) == 3:
+        o = k8.unpack_fields(out[0], k8._out_shapes(nx, nu))
+        return o["k"], o["K"], o["svec"], o["P"], out[1], out[2]
+    return out[0], out[1], out[2][:N], out[3][:N], out[4], out[5]
+
+
+def phase_fmpc_groups(device, card, baseline):
+    """K8 and K10 built at every group size of FMPC_GROUPS, with and
+    without ``share``, and, with ``baseline`` (another checkout's root),
+    the baseline's K8 and K10 from that checkout's headers, unit text and
+    flags: all built at once with ptxas' report of each.  On every input
+    of FMPC_GROUP_CASES at fp32 and fp64 and both break_if_llt_fails:
+    every G of K8 and of K10 bit for bit equal to the same kernel at G = 1
+    (NaN lanes included), K8 at G = 1 equal to the baseline's K8 (fed the
+    baseline wrapper's condensation; without a baseline: this K8) and
+    each K10 equal to this K8 on its finite lanes with the same ok and
+    finite masks.  Then each timed in turns with the baseline's at the
+    first three shapes, fp32 and fp64: the kernels alone on inputs
+    prepared once, and the calls (K8 through ``launch_stream``, its host
+    work included; the baseline's K8 after the condensation's torch ops,
+    as its wrapper called it)."""
+    parent_csrc = (Path(baseline).resolve() / "nmpc_tpu_torch" / "csrc"
+                   if baseline else None)
+    fp32, fp64 = torch.float32, torch.float64
+    units, index = [], {}
+
+    def unit(key, name, text, flags, csrc=kbuild.CSRC):
+        index[key] = len(units)
+        units.append((name, text, flags, csrc))
+
+    for dtype in (fp32, fp64):
+        for shape, groups in FMPC_GROUPS.items():
+            for variant in ("stream", "packed"):
+                for g, share in ((g, share) for g in groups
+                                 for share in (True, False)):
+                    unit((variant, shape, dtype, g, share),
+                         k8.unit_name(*shape, dtype, variant, g, share),
+                         k8.unit_source(*shape, dtype, variant, g, share),
+                         k8.FMPC_FLAGS)
+    if baseline:
+        pk8 = parent_module(baseline, "fmpc_backward")
+        for dtype in (fp32, fp64):
+            for shape in FMPC_GROUPS:
+                for variant in ("stream", "packed"):
+                    unit(("baseline", variant, shape, dtype),
+                         k8.unit_name(*shape, dtype, variant) + "_parent",
+                         pk8.unit_source(*shape, dtype, variant),
+                         pk8.FMPC_FLAGS, parent_csrc)
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(16) as pool:
+        libs = list(pool.map(lambda u: kbuild.build_generated(*u), units))
+    print(f"[fmpc-groups] {len(libs)} units in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    for (name, _, flags, csrc), path in zip(units, libs):
+        print(f"[fmpc-groups] ptxas {path.name} (headers "
+              f"{os.path.relpath(csrc, ROOT)}, flags {' '.join(flags) or '-'}"
+              f"): {ptxas_report(path)}", flush=True)
+
+    def launcher(key):
+        lib = kbuild.load(libs[index[key]])
+        if key[0] == "baseline":
+            return (k8.bind(lib, "resident") if key[1] == "stream"
+                    else bind_parent_packed(lib))
+        return k8.bind(lib, key[0])
+
+    for model, (B, N), timed in FMPC_GROUP_CASES:
+        for dtype in (fp32, fp64):
+            dname = str(dtype)[6:]
+            problem, config, co, v, gms, eps = fmpc_group_inputs(
+                model, B, N, dtype, device)
+            shape = (problem.state_dim, problem.input_dim, problem.ineq_dim)
+            nx, nu, ng = shape
+            nu_s, tilde = k8.condensation(co, v.ss, v.nus, gms, eps)
+            P_in, ld3 = k8.padded_lanes(k8.pack_fmpc_inputs(co, nu_s, tilde))
+            s_T, P_T = -co.Lx_bar_term, co.Lxx_term
+            keys = [key for key in index if key[0] != "baseline"
+                    and key[1] == shape and key[2] == dtype]
+            for brk in (False, True):
+                cfg = dataclasses.replace(config, break_if_llt_fails=brk)
+                calls = {}
+                for key in keys:
+                    name = (f"{'K8' if key[0] == 'stream' else 'K10'} "
+                            f"G={key[3]}{'' if key[4] else ' redundant'}")
+                    if key[0] == "stream":
+                        calls[name] = functools.partial(
+                            k8.launch_stream, launcher(key), problem, cfg, co,
+                            v.ss, v.nus, gms, eps)
+                    else:
+                        calls[name] = functools.partial(
+                            k8.launch_packed, launcher(key), problem, cfg,
+                            P_in, ld3, s_T, P_T, nx, nu, ng)
+                if baseline:
+                    for variant, kname in (("stream", "K8"),
+                                           ("packed", "K10")):
+                        calls[f"{kname} baseline"] = condensed_call(
+                            launcher(("baseline", variant, shape, dtype)),
+                            problem, cfg, co, nu_s, tilde, variant)
+                outs = {key: as_k8_outputs(fn(), nx, nu, N)
+                        for key, fn in calls.items()}
+                torch.cuda.synchronize()
+                ref = outs["K8 baseline" if baseline else "K8 G=1"]
+                k8_one = outs["K8 G=1"]
+                label = (f"K8/K10 {model} {shape} B={B} N={N} {dname} "
+                         f"break_if_llt_fails={brk}")
+
+                def equal_on(a, b, lanes):
+                    return (torch.equal(a[4], b[4])
+                            and torch.equal(a[5], b[5])
+                            and bit_equal(a[:4], b[:4], lanes))
+
+                to_g1 = {key: all(same_bits(a, b) for a, b in zip(
+                    outs[key.split()[0] + " G=1"], out))
+                    for key, out in outs.items() if "G=" in key}
+                to_ref = {key: equal_on(ref, out, ref[5])
+                          for key, out in outs.items()}
+                print(f"[fmpc-groups] {label}: ok {int(ref[4].sum())}/{B}, "
+                      f"finite {int(ref[5].sum())}/{B}; bit-equal to the "
+                      f"kernel's G=1 {to_g1}; K8 G=1 equal to the "
+                      f"{'baseline' if baseline else 'G=1'} K8 on its finite "
+                      f"lanes {to_ref['K8 G=1']}; every kernel equal to it "
+                      f"{to_ref}", flush=True)
+                check(all(to_g1.values()) and all(to_ref.values())
+                      and equal_on(k8_one, outs["K10 G=1"], k8_one[5]),
+                      f"{label}: a kernel differs from G=1 or from the "
+                      f"reference K8")
+                if not (timed and not brk):
+                    continue
+                times = {}
+                for key in keys:
+                    name = (f"{'K8' if key[0] == 'stream' else 'K10'} "
+                            f"G={key[3]}{'' if key[4] else ' redundant'}")
+                    if key[0] == "stream":
+                        times[name + " alone"] = fmpc_kernel_alone(
+                            problem, cfg, co, v, gms, eps,
+                            fn=launcher(key))
+                        times[name + " call"] = calls[name]
+                    else:
+                        times[name] = calls[name]
+                if baseline:
+                    times["K8 baseline alone"] = calls["K8 baseline"]
+                    times["K10 baseline"] = calls["K10 baseline"]
+                    parent_k8 = calls["K8 baseline"]
+
+                    def parent_call():
+                        k8.condensation(co, v.ss, v.nus, gms, eps)
+                        return parent_k8()
+                    times["K8 baseline call (with its condensation)"] = (
+                        parent_call)
+                timed_in_turns(times, f"{model} B={B} N={N}", card,
+                               tag="fmpc-groups", dtype=dname)
 
 
 LAYERS = ("_rollout_lanes", "_derivative_sweep_lanes", "_terminal_quad_lanes",
@@ -2095,6 +2299,38 @@ def phase_kernels_fmpc(device):
             KERNELS["K8"].max_abs_err = max(KERNELS["K8"].max_abs_err, err)
     print(f"[kernel] K8 checks bit-equal to the plain version on every "
           f"finite lane: {dict(bit_equal)} of 4 per dtype", flush=True)
+    # what one call of a wrapper launches on the card: K8 condenses in its
+    # kernel, K9 after the wrapper's torch ops (at its design point)
+    for key, variant, model, (B, N) in (
+            ("K8", "stream", "cart-pole", FMPC_SERVING),
+            ("K9", "resident", "oscillator", FMPC_OSC_SHORT)):
+        problem, cfg, co, v, gms, eps, _ = fmpc_kernel_inputs(
+            model, B, N, torch.float32, device, poison=False)
+        names = device_kernels(lambda: k8.backward_fmpc_fused(
+            problem, cfg, co, v.ss, v.nus, gms, eps, variant=variant))
+        own = [n for n in names if "fmpc_backward" in n]
+        print(f"[kernel] {key} one backward_fmpc_fused call ({model} B={B} "
+              f"N={N} fp32): {len(names)} device kernels by torch.profiler, "
+              f"{len(own)} of the FMPC backward, {len(names) - len(own)} "
+              f"other {sorted(set(n[:48] for n in names if n not in own))}",
+              flush=True)
+        if key == "K8":
+            check(len(own) == 1 and len(names) == 1,
+                  "K8's call launched another kernel than its own")
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs, as
+    torch.profiler traces them (after a warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def fmpc_solve_counted(problem, cfg, x0s, var, eps, t0=0.0):
@@ -2161,6 +2397,23 @@ def phase_e2e_fmpc(device):
               "FMPC fp64: auto skipped a kernel or plain launched one")
         check(st and it and dv <= E2E_FMPC_FP64,
               f"FMPC fp64 {population}: auto vs plain out of the contract")
+
+    # the l1-merit line search through K8 at fp64 (ROADMAP C2)
+    problem, x0s, var, eps = fmpc_start("cart-pole", B, N, torch.float64,
+                                        device)
+    cfg_ls = fmpc_config("cart-pole", N, enable_line_search=True)
+    a, ca, _ = fmpc_solve_counted(problem, cfg_ls, x0s, var, eps)
+    b, cb, _ = fmpc_solve_counted(problem, dataclasses.replace(
+        cfg_ls, **plain_kw), x0s, var, eps)
+    st, it, dv, n_status = fmpc_compare(a, b)
+    print(f"[e2e] FMPC cart-pole stabilization B={B} N={N} max_iter=5 fp64 "
+          f"enable_line_search=True: auto launches {ca}, status counts "
+          f"{n_status}; auto vs plain: status equal {st}, iters equal {it}, "
+          f"variable norm diff {dv:.3e} (tol {E2E_FMPC_FP64:g})", flush=True)
+    check(ca["K8"] > 0 and not any(cb.values()),
+          "FMPC line search: auto skipped K8 or plain launched a kernel")
+    check(st and it and dv <= E2E_FMPC_FP64,
+          "FMPC fp64 line search: auto vs plain out of the contract")
 
     problem, x0s, var, eps = fmpc_start("cart-pole", B, N, torch.float32,
                                         device)
@@ -2282,8 +2535,8 @@ def fmpc_stage_ops(nx, nu, ng, alone=False):
 def fmpc_bytes(key, B, N, itemsize, nx, nu, ng, alone=False):
     """Bytes K8 or K11 must move at (B, N): inputs read once, outputs
     written once.  K8 reads ten coefficient fields, g_bar, s and nu per
-    stage (``alone``, the kernel without the wrapper's condensation: the
-    two condensed scalings nu_s and tilde in their place), the terminal
+    stage (``alone``, a kernel fed the two condensed scalings nu_s and
+    tilde in their place: K9), the terminal
     (s, P) and eps, and writes k, K and the N+1 rows of s and P, and two
     flag bytes; K11 reads A, B, x_bar, k, K per stage and dx0, and writes
     N+1 dx and N du."""
@@ -2297,40 +2550,84 @@ def fmpc_bytes(key, B, N, itemsize, nx, nu, ng, alone=False):
     return itemsize * B * (N * stage + nx + (N + 1) * nx + N * nu)
 
 
-def fmpc_kernel_alone(problem, cfg, co, v, gms, eps, variant="stream"):
-    """K8's or K9's launch as ``backward_fmpc_fused`` makes it, on the
-    condensation computed once (the wrapper computes it with torch ops at
-    every call), into outputs allocated once."""
-    N, nx, nu, ng = co.A.shape[0], co.A.shape[1], co.B.shape[2], co.C.shape[1]
-    B, dtype, device = eps.shape[0], eps.dtype, eps.device
-    nu_s, tilde = k8.condensation(co, v.ss, v.nus, gms, eps)
+def condensed_call(fn, problem, cfg, co, nu_s, tilde, variant):
+    """A launch of a unit that takes the condensation scalings from its
+    caller (K9's; the baseline's K8 and K10 in phase_fmpc_groups) on
+    ``nu_s`` and ``tilde`` computed once, into outputs allocated once:
+    ``variant`` "stream" (K9, the baseline's K8: the 12 fields) or
+    "packed" (the baseline's K10: the packed buffer)."""
+    N, nx, nu = co.A.shape[0], co.A.shape[1], co.B.shape[2]
+    B, dtype, device = nu_s.shape[-1], nu_s.dtype, nu_s.device
     s_T = -co.Lx_bar_term
+    if variant == "packed":
+        _, _, _, Fout = k8.field_offsets(nx, nu, co.C.shape[1])
+        P_in = k8.pack_fmpc_inputs(co, nu_s, tilde)
+        outs = [torch.empty((N, Fout, B), dtype=dtype, device=device)]
+        ptrs, held = [P_in.data_ptr()], [P_in]
+    else:
+        outs = [torch.empty(shape, dtype=dtype, device=device) for shape in
+                ((N, nu, B), (N, nu, nx, B), (N + 1, nx, B),
+                 (N + 1, nx, nx, B))]
+        held = [getattr(co, name) for name in k8._FIELDS] + [nu_s, tilde]
+        ptrs = [(ctypes.c_void_p * len(held))(*(a.data_ptr() for a in held))]
+    outs += [torch.empty((B,), dtype=torch.bool, device=device)
+             for _ in range(2)]
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def call(_inputs=held):   # holds the inputs while the call may run
+        err = fn(N, B, float(problem.dt), int(cfg.break_if_llt_fails),
+                 int(cfg.check_nan), *ptrs, s_T.data_ptr(),
+                 co.Lxx_term.data_ptr(), *(o.data_ptr() for o in outs),
+                 stream)
+        check(err == 0, f"a condensed FMPC kernel's launch failed: CUDA "
+              f"error {err}")
+        return outs
+    return call
+
+
+def fmpc_kernel_alone(problem, cfg, co, v, gms, eps, variant="stream",
+                      fn=None):
+    """K8's or K9's launch as ``backward_fmpc_fused`` makes it, on inputs
+    prepared once (K8's fields as its tensor maps take them; K9's
+    condensation, which the wrapper computes with torch ops at every call),
+    into outputs allocated once; ``fn`` another build of K8's unit."""
+    nx, nu, ng = co.A.shape[1], co.B.shape[2], co.C.shape[1]
+    dtype = eps.dtype
+    if variant == "resident":
+        nu_s, tilde = k8.condensation(co, v.ss, v.nus, gms, eps)
+        return condensed_call(k8.launcher(nx, nu, ng, dtype, variant),
+                              problem, cfg, co, nu_s, tilde, "stream")
+    N, B, device = co.A.shape[0], eps.shape[0], eps.device
+    fn = fn or k8.launcher(nx, nu, ng, dtype)
+    fields, ld = k8.tma_fields(co, v.ss, v.nus)
+    ptrs = (ctypes.c_void_p * len(fields))(*(a.data_ptr() for a in fields))
     outs = [torch.empty(shape, dtype=dtype, device=device) for shape in
             ((N, nu, B), (N, nu, nx, B), (N + 1, nx, B), (N + 1, nx, nx, B))]
     outs += [torch.empty((B,), dtype=torch.bool, device=device)
              for _ in range(2)]
-    ins = [getattr(co, name) for name in k8._FIELDS] + [nu_s, tilde]
-    fields = (ctypes.c_void_p * len(ins))(*(a.data_ptr() for a in ins))
-    fn = k8._launcher(nx, nu, ng, dtype, variant)
     stream = torch.cuda.current_stream(device).cuda_stream
 
-    def call():
-        err = fn(N, B, float(problem.dt), int(cfg.break_if_llt_fails),
-                 int(cfg.check_nan), fields, s_T.data_ptr(),
-                 co.Lxx_term.data_ptr(), *(o.data_ptr() for o in outs),
-                 stream)
-        check(err == 0, f"the {variant} FMPC kernel's launch failed: CUDA "
+    def call(_inputs=fields):   # holds the inputs while the call may run
+        err = fn(N, B, ld, float(problem.dt), int(cfg.break_if_llt_fails),
+                 int(cfg.check_nan), ptrs, gms.data_ptr(), gms.stride(0),
+                 eps.data_ptr(),
+                 co.Lx_bar_term.data_ptr(), co.Lxx_term.data_ptr(),
+                 *(o.data_ptr() for o in outs), stream)
+        check(err == 0, f"the FMPC stream kernel's launch failed: CUDA "
               f"error {err}")
+        return outs
     return call
 
 
 def time_kernel_alone(key, call, B, N, nx, nu, ng, label, card):
-    """Print the time of K8's or K9's launch alone beside its own bound."""
+    """Print the time of K8's or K9's launch alone beside its own bound
+    (K8 reads s, nu and g_bar and condenses; K9 reads the two scalings)."""
     t = cuda_ms(call, inner=10)
-    t_bound, by = bound(fmpc_bytes("K8", B, N, 4, nx, nu, ng, alone=True),
-                        B * N * fmpc_stage_ops(nx, nu, ng, alone=True))
-    print(f"[times] {key} kernel alone (no condensation) {label} fp32: "
-          f"{t:.4f} ms, bound {t_bound * 1e3:.2f} us ({by}) [{card}]",
+    alone = key == "K9"
+    t_bound, by = bound(fmpc_bytes("K8", B, N, 4, nx, nu, ng, alone=alone),
+                        B * N * fmpc_stage_ops(nx, nu, ng, alone=alone))
+    print(f"[times] {key} kernel alone (its inputs prepared once) {label} "
+          f"fp32: {t:.4f} ms, bound {t_bound * 1e3:.2f} us ({by}) [{card}]",
           flush=True)
 
 
@@ -3011,13 +3308,15 @@ def main() -> int:
                              "layer, with the profiler's device busy time")
     parser.add_argument("--qp-groups", action="store_true",
                         help="also time the boxed kernels (K4, K5 boxed) at "
-                             "each group size of QP_GROUPS and the unboxed "
+                             "each group size of QP_GROUPS, the unboxed "
                              "group kernels (K1, K2, K3, K5) at each of "
-                             "ROW_GROUPS")
+                             "ROW_GROUPS and the FMPC ones (K8, K10) at each "
+                             "of FMPC_GROUPS")
     parser.add_argument("--baseline", metavar="DIR",
-                        help="with --qp-groups, also build K1-K5 from the "
-                             "checkout at DIR, hold this one's K1-K3 to its "
-                             "K1 and time them in turns with this one's")
+                        help="with --qp-groups, also build K1-K5, K8 and K10 "
+                             "from the checkout at DIR, hold this one's K1-K3 "
+                             "to its K1 and K8, K10 to its K8, and time them "
+                             "in turns with this one's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3043,6 +3342,8 @@ def main() -> int:
         phases.append(("qp-groups", lambda: phase_qp_groups(
             device, card, args.baseline)))
         phases.append(("row-groups", lambda: phase_row_groups(
+            device, card, args.baseline)))
+        phases.append(("fmpc-groups", lambda: phase_fmpc_groups(
             device, card, args.baseline)))
     if args.layers:
         phases.append(("layers", lambda: phase_layers(device, card)))

@@ -4,20 +4,22 @@
 // Replaces the TPU kernel nmpc_tpu/kernels/fmpc_backward_pallas.py::
 // _fmpc_backward_pallas_call_resident (kernel _make_kernel_resident):
 // K8's recursion (fmpc_backward.cuh) for short horizons, N <= 32
-// (_RESIDENT_MAX_N), with the same inputs and outputs as K8.  The stage is
-// fmpc_stage.cuh::fmpc_stage, unchanged: built without FMA contraction as
-// K8 is, the result equals K8's bit for bit.
+// (_RESIDENT_MAX_N), with K8's outputs; it takes the condensation
+// scalings nu_s and tilde from the wrapper (kernels/fmpc_backward.py::
+// condensation).  The stage is fmpc_stage.cuh::fmpc_stage, one thread per
+// lane: built without FMA contraction as K8 is, the result equals K8's bit
+// for bit.
 //
 // What bounds it on the card: the per-lane dependent chain of N stages
 // (~600 flops each at the cart-pole's (4, 1, 4)) and, at a short horizon,
-// the latency of the first loads: K8 waits on each stage's 12 fields
-// before it can start that stage.
+// the latency of the first loads: a kernel that streams the stages waits
+// on each stage's fields before it can start that stage.
 //
 // What the design does about it: a block of L = 32 lanes (one thread per
 // lane, so that B = 4096 still spreads over 128 SMs) first issues every
 // copy of its lanes' whole horizon into dynamic shared memory with
 // cp.async, laid out [stage][field element][lane] in the packed order of
-// fmpc_backward_packed.cuh (a warp's copies of one element are 32
+// fmpc_group.cuh::FmpcPackedLayout (a warp's copies of one element are 32
 // neighbouring lanes: one coalesced request; its reads hit 32 neighbouring
 // words: no bank conflict), so all N * Fin loads of a lane are in flight
 // together instead of one stage's at a time.  It writes the terminal row
@@ -32,9 +34,103 @@
 #pragma once
 
 #include "cp_async.cuh"
-#include "fmpc_backward_packed.cuh"
+#include "fmpc_group.cuh"
+#include "fmpc_stage.cuh"
+#include "remat_common.cuh"
 
 namespace nmpc {
+
+// The stage fields of the resident kernel, each a batch-minor device
+// array.
+template <typename T>
+struct FmpcFields {
+  const T* __restrict__ A;
+  const T* __restrict__ Bm;
+  const T* __restrict__ C;
+  const T* __restrict__ D;
+  const T* __restrict__ Lxx;
+  const T* __restrict__ Luu;
+  const T* __restrict__ Lxu;
+  const T* __restrict__ xb;
+  const T* __restrict__ Lxb;
+  const T* __restrict__ Lub;
+  const T* __restrict__ nu_s;
+  const T* __restrict__ tilde;
+};
+
+// One stage of one lane from a packed slab: value e at p[e * stride]
+// (shared memory: stride the block's lane count).
+template <typename T, int NX, int NU, int NG>
+__device__ __forceinline__ void load_fmpc_packed(
+    const T* __restrict__ p, size_t stride, FmpcStage<T, NX, NU, NG>& s) {
+  using O = FmpcPackedLayout<NX, NU, NG>;
+#pragma unroll
+  for (int a = 0; a < NX; ++a) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      s.A[a][c] = p[(O::A + a * NX + c) * stride];
+      s.Lxx[a][c] = p[(O::Lxx + a * NX + c) * stride];
+    }
+#pragma unroll
+    for (int c = 0; c < NU; ++c) {
+      s.Bm[a][c] = p[(O::Bm + a * NU + c) * stride];
+      s.Lxu[a][c] = p[(O::Lxu + a * NU + c) * stride];
+    }
+    s.xb[a] = p[(O::xb + a) * stride];
+    s.Lxb[a] = p[(O::Lxb + a) * stride];
+  }
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) s.C[g][c] = p[(O::C + g * NX + c) * stride];
+#pragma unroll
+    for (int c = 0; c < NU; ++c) s.D[g][c] = p[(O::D + g * NU + c) * stride];
+    s.nu_s[g] = p[(O::nu_s + g) * stride];
+    s.tilde[g] = p[(O::tilde + g) * stride];
+  }
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    s.Lub[a] = p[(O::Lub + a) * stride];
+#pragma unroll
+    for (int c = 0; c < NU; ++c) s.Luu[a][c] = p[(O::Luu + a * NU + c) * stride];
+  }
+}
+
+// The terminal carry (s_T, P_T, ok) of lane b.
+template <typename T, int NX>
+__device__ __forceinline__ void init_fmpc_carry(const T* __restrict__ sT,
+                                                const T* __restrict__ PT,
+                                                int b, int B,
+                                                FmpcCarry<T, NX>& c) {
+#pragma unroll
+  for (int a = 0; a < NX; ++a) {
+    c.s[a] = sT[static_cast<size_t>(a) * B + b];
+#pragma unroll
+    for (int e = 0; e < NX; ++e)
+      c.P[a][e] = PT[(static_cast<size_t>(a) * NX + e) * B + b];
+  }
+  c.ok = true;
+}
+
+// Row i of svecs [N+1, NX, B] and Ps [N+1, NX, NX, B] from the carry;
+// returns whether every value is finite.
+template <typename T, int NX>
+__device__ __forceinline__ bool store_carry(const FmpcCarry<T, NX>& c, int i,
+                                            int b, int B, T* __restrict__ sv,
+                                            T* __restrict__ Ps) {
+  bool fin = true;
+#pragma unroll
+  for (int a = 0; a < NX; ++a) {
+    sv[idx2(i, a, NX, b, B)] = c.s[a];
+    fin = fin && finite(c.s[a]);
+#pragma unroll
+    for (int e = 0; e < NX; ++e) {
+      Ps[idx3(i, a, e, NX, NX, b, B)] = c.P[a][e];
+      fin = fin && finite(c.P[a][e]);
+    }
+  }
+  return fin;
+}
 
 // Copy field `src` ([N, SIZE, B]) of every stage of lane b into the slab:
 // element j of stage i at slab[(i Fin + off + j) L].
@@ -69,18 +165,18 @@ fmpc_backward_resident_kernel(FmpcFields<T> f, const T* __restrict__ sT,
   if (b >= B) return;
   T* slab = reinterpret_cast<T*>(smem_raw) + t;       // this lane's column
 
-  stage_fmpc_field<T, NX * NX>(f.A, O::A, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NX * NU>(f.Bm, O::Bm, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NG * NX>(f.C, O::C, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NG * NU>(f.D, O::D, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NX * NX>(f.Lxx, O::Lxx, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NU * NU>(f.Luu, O::Luu, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NX * NU>(f.Lxu, O::Lxu, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NX>(f.xb, O::xb, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NX>(f.Lxb, O::Lxb, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NU>(f.Lub, O::Lub, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NG>(f.nu_s, O::nu_s, O::Fin, N, b, B, slab, L);
-  stage_fmpc_field<T, NG>(f.tilde, O::tilde, O::Fin, N, b, B, slab, L);
+  stage_fmpc_field<T, NX * NX>(f.A, O::A, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NX * NU>(f.Bm, O::Bm, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NG * NX>(f.C, O::C, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NG * NU>(f.D, O::D, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NX * NX>(f.Lxx, O::Lxx, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NU * NU>(f.Luu, O::Luu, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NX * NU>(f.Lxu, O::Lxu, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NX>(f.xb, O::xb, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NX>(f.Lxb, O::Lxb, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NU>(f.Lub, O::Lub, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NG>(f.nu_s, O::nu_s, O::F, N, b, B, slab, L);
+  stage_fmpc_field<T, NG>(f.tilde, O::tilde, O::F, N, b, B, slab, L);
   cp_async_commit();
 
   FmpcCarry<T, NX> c;
@@ -91,7 +187,7 @@ fmpc_backward_resident_kernel(FmpcFields<T> f, const T* __restrict__ sT,
 
   for (int i = N - 1; i >= 0; --i) {
     FmpcStage<T, NX, NU, NG> cur;
-    load_fmpc_packed<T, NX, NU, NG>(slab + static_cast<size_t>(i) * O::Fin * L,
+    load_fmpc_packed<T, NX, NU, NG>(slab + static_cast<size_t>(i) * O::F * L,
                                     L, cur);
     T k[NU], K[NU][NX];
     fmpc_stage<T, NX, NU, NG>(cur, dt, brk, c, k, K);
@@ -114,7 +210,9 @@ fmpc_backward_resident_kernel(FmpcFields<T> f, const T* __restrict__ sT,
 // Launch on `stream` with N * Fin * 32 scalars of dynamic shared memory
 // (the opt-in above 48 KB is set here); returns the CUDA error of the
 // attribute call or cudaGetLastError() after the launch.  Arguments as
-// launch_fmpc_backward's (fmpc_backward.cuh).
+// the wrapper passes them (kernels/fmpc_backward.py): fields A, B, C, D,
+// Lxx, Luu, Lxu, x_bar, Lx_bar, Lu_bar, nu_s, tilde [N, ..., B], sT [NX,
+// B], PT [NX, NX, B], the outputs as K8's.
 template <typename T, int NX, int NU, int NG>
 int launch_fmpc_backward_resident(int N, int B, double dt,
                                   int break_if_llt_fails, int check_nan,
@@ -127,7 +225,7 @@ int launch_fmpc_backward_resident(int N, int B, double dt,
   const FmpcFields<T> f{at(0), at(1), at(2), at(3), at(4),  at(5),
                         at(6), at(7), at(8), at(9), at(10), at(11)};
   const size_t smem = static_cast<size_t>(N) *
-                      FmpcPackedLayout<NX, NU, NG>::Fin * kLaneThreads *
+                      FmpcPackedLayout<NX, NU, NG>::F * kLaneThreads *
                       sizeof(T);
   const int err = allow_dynamic_smem(
       fmpc_backward_resident_kernel<T, NX, NU, NG>, smem);

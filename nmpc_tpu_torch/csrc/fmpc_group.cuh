@@ -1,0 +1,247 @@
+// The lane-group geometry of the FMPC condensed Riccati backward kernels
+// that run fmpc_stage.cuh::fmpc_stage_group: the streaming one (K8,
+// fmpc_backward.cuh) and the packed one (K10, fmpc_backward_packed.cuh).
+// A block holds L lanes of G threads each (thread t is rank t % G of the
+// block's lane t / G), as row_group.cuh lays out the DDP kernels, and
+// each kernel keeps its stages in shared memory: K8 a ring of one-stage
+// buffers per block (row_group.cuh::stage_ring, filled by a producer
+// warp), K10 a ring of kPackedRing chunk buffers per warp.  Here: the
+// threads per lane, the fields of a stage and their offsets in each
+// kernel's buffers, and the rules that keep a launch within a block's
+// shared memory at every (NX <= 8, NU <= 4, NG <= 16).  Every rule is a
+// host-and-device function, so the launch and the kernel compute it
+// alike.
+
+#pragma once
+
+#include "row_group.cuh"
+
+namespace nmpc {
+
+// Threads per lane of fmpc_stage_group, and whether the group exchanges
+// its rows of P A, P B and P x_bar (share) or every thread computes them,
+// chosen by measurement on the H100 among G = 1, 2, 4, 8 at the
+// cart-pole's (4, 1, 4) and 1, 2, 4 at the oscillator's (2, 1, 3), each
+// with and without share (chip_smoke.py --qp-groups; PERF.md, Findings):
+//   K8 (kFmpcGroup): 4 at both, where it also splits the condensation's
+//     rows (8 at (4, 1, 4) idles half its ranks, 1 and 2 leave the
+//     oscillator's divisions on fewer threads);
+//   K10 (kFmpcPackedGroup): 4 at (4, 1, 4), 2 at (2, 1, 3) (its stage
+//     reads the scalings, and 4 threads on two rows only add exchanges);
+//   share at nx >= 4 (kFmpcShare; level with computing the rows at (2, 1,
+//     3), 1-3 % faster at (4, 1, 4) fp64).
+// Other shapes follow the nearest measured one: nx >= 4 as (4, 1, 4),
+// nx < 4 as (2, 1, 3).
+__host__ __device__ constexpr int fmpc_group(int, int) { return 4; }
+__host__ __device__ constexpr int fmpc_packed_group(int nx, int) {
+  return nx >= 4 ? 4 : 2;
+}
+template <int NX, int NU>
+constexpr int kFmpcGroup = fmpc_group(NX, NU);
+template <int NX, int NU>
+constexpr int kFmpcPackedGroup = fmpc_packed_group(NX, NU);
+template <int NX>
+constexpr bool kFmpcShare = NX >= 4;
+
+__host__ __device__ constexpr int round_up(int v, int q) {
+  return (v + q - 1) / q * q;
+}
+
+// The offsets of one stage's fields, each row-major, each rounded up to a
+// multiple of q values: the ten coefficient fields A, B, C, D, Lxx, Luu,
+// Lxu, x_bar, Lx_bar, Lu_bar, then
+//   * K8's stage (packed = false): s, nu and g_bar, the inputs of the
+//     (s, nu) condensation the kernel folds in;
+//   * the packed stage (packed = true, q = 1): nu/s and tilde, the
+//     condensed scalings (fmpc_backward_pallas.py::_field_offsets; Fin =
+//     78 at the cart-pole's (4, 1, 4)), and the packed outputs k, K, s, P
+//     (Fout = 25 there).
+// F is the stage's values (rounded up to q).
+struct FmpcOffsets {
+  int A, Bm, C, D, Lxx, Luu, Lxu, xb, Lxb, Lub;
+  int ss, nu, gbar, nu_s, tilde;
+  int F;
+  int k, K, s, P, Fout;
+};
+
+__host__ __device__ constexpr FmpcOffsets fmpc_offsets(int nx, int nu,
+                                                       int ng, bool packed,
+                                                       int q) {
+  FmpcOffsets o{};
+  o.A = 0;
+  o.Bm = round_up(o.A + nx * nx, q);
+  o.C = round_up(o.Bm + nx * nu, q);
+  o.D = round_up(o.C + ng * nx, q);
+  o.Lxx = round_up(o.D + ng * nu, q);
+  o.Luu = round_up(o.Lxx + nx * nx, q);
+  o.Lxu = round_up(o.Luu + nu * nu, q);
+  o.xb = round_up(o.Lxu + nx * nu, q);
+  o.Lxb = round_up(o.xb + nx, q);
+  o.Lub = round_up(o.Lxb + nx, q);
+  const int rest = round_up(o.Lub + nu, q);
+  if (packed) {
+    o.nu_s = rest;
+    o.tilde = round_up(o.nu_s + ng, q);
+    o.F = round_up(o.tilde + ng, q);
+    o.ss = o.nu = o.gbar = -1;
+  } else {
+    o.ss = rest;
+    o.nu = round_up(o.ss + ng, q);
+    o.gbar = round_up(o.nu + ng, q);
+    o.F = round_up(o.gbar + ng, q);
+    o.nu_s = o.tilde = -1;
+  }
+  o.k = 0;
+  o.K = nu;
+  o.s = o.K + nu * nx;
+  o.P = o.s + nx;
+  o.Fout = o.P + nx * nx;
+  return o;
+}
+
+template <int NX, int NU, int NG, bool PACKED, int Q>
+struct FmpcLayout {
+  static constexpr FmpcOffsets o = fmpc_offsets(NX, NU, NG, PACKED, Q);
+  static constexpr int A = o.A, Bm = o.Bm, C = o.C, D = o.D, Lxx = o.Lxx,
+                       Luu = o.Luu, Lxu = o.Lxu, xb = o.xb, Lxb = o.Lxb,
+                       Lub = o.Lub, ss = o.ss, nu = o.nu, gbar = o.gbar,
+                       nu_s = o.nu_s, tilde = o.tilde, F = o.F, k = o.k,
+                       K = o.K, s = o.s, P = o.P, Fout = o.Fout;
+};
+
+// The packed stage of K10 and K9: inputs [Fin = F] and outputs [Fout].
+template <int NX, int NU, int NG>
+using FmpcPackedLayout = FmpcLayout<NX, NU, NG, true, 1>;
+
+// K8's stage layout: the 13 fields, each offset a multiple of
+// stage_align<T, G> values (row_group.cuh; (4, 1, 4) fp32 at G = 4: 82
+// values padded to 88), so that a field's region of a chunk of the
+// block's L lanes starts on a 128-byte boundary (a TMA box lands only
+// there; L is a multiple of a warp's W = 32 / G lanes).
+template <typename T, int NX, int NU, int NG, int G>
+using FmpcStreamLayout = FmpcLayout<NX, NU, NG, false, stage_align<T, G>()>;
+
+// K8's ring: kFmpcRing buffers of C stages, each filled by one TMA box per
+// field of C stages (double-buffered by chunk); C as many stages as the
+// two buffers of a 32-lane block fit in kStageBudget, at most
+// kMaxStreamChunk: (4, 1, 4) at G = 4 fp32 4, fp64 2; (2, 1, 3) at G =
+// 2 fp32 8, fp64 5; (8, 4, 16) fp64 1.
+constexpr int kFmpcRing = 2;
+constexpr int kMaxStreamChunk = 8;
+template <typename T>
+__host__ __device__ constexpr int fmpc_stream_chunk(int F) {
+  return stages_within<T>(kFmpcRing, F, kMaxStreamChunk);
+}
+
+// K8's lanes per block: row_lanes, halved while the block's ring passes
+// kMaxBlockSmem, down to a warp's lanes and 4 (a box row of 16 bytes).
+// The cart-pole and the oscillator keep row_lanes; (8, 4, 16) at fp64
+// (F = 468 at G = 4, chunks of one stage) takes 16 lanes at B = 4096.
+template <typename T, int G>
+__host__ __device__ inline int fmpc_stream_lanes(int F, int B) {
+  const int C = fmpc_stream_chunk<T>(F);
+  const int least = (32 / G) > 4 ? 32 / G : 4;
+  int L = row_lanes<G>(B);
+  while (L > least && ring_bytes<T>(kFmpcRing, C, F, L) > kMaxBlockSmem)
+    L /= 2;
+  return L;
+}
+
+// A stage's fields as fmpc_stage_group and fmpc_condense_group read them:
+// value e of each field, of one lane (K8's scalings: CondensedStageFields).
+//   * K10's packed stage (PackedStageFields): value e of a field at p[(off
+//     + e) stride], p the lane's column of the stage, stride the buffer's
+//     lanes;
+//   * K8's chunk (ChunkStageFields): each field's CH stages together, as
+//     a TMA box [lanes, size, CH stages] lands them, field X's region at
+//     Layout::X CH rows of `stride` lanes, so stage s's value e of X at
+//     (Layout::X CH + s size_X + e) stride.
+template <typename T, int NX, int NU, int NG>
+struct PackedStageFields {
+  using O = FmpcPackedLayout<NX, NU, NG>;
+  const T* __restrict__ p;
+  int stride;
+  __device__ T at(int off, int e) const { return p[(off + e) * stride]; }
+  __device__ T A(int e) const { return at(O::A, e); }
+  __device__ T Bm(int e) const { return at(O::Bm, e); }
+  __device__ T C(int e) const { return at(O::C, e); }
+  __device__ T D(int e) const { return at(O::D, e); }
+  __device__ T Lxx(int e) const { return at(O::Lxx, e); }
+  __device__ T Luu(int e) const { return at(O::Luu, e); }
+  __device__ T Lxu(int e) const { return at(O::Lxu, e); }
+  __device__ T xb(int e) const { return at(O::xb, e); }
+  __device__ T Lxb(int e) const { return at(O::Lxb, e); }
+  __device__ T Lub(int e) const { return at(O::Lub, e); }
+  __device__ T nu_s(int e) const { return at(O::nu_s, e); }
+  __device__ T tilde(int e) const { return at(O::tilde, e); }
+};
+
+template <typename T, int NX, int NU, int NG, typename Layout, int CH>
+struct ChunkStageFields {
+  using O = Layout;
+  const T* __restrict__ p;
+  int s, stride;
+  __device__ T at(int off, int size, int e) const {
+    return p[(off * CH + s * size + e) * stride];
+  }
+  __device__ T A(int e) const { return at(O::A, NX * NX, e); }
+  __device__ T Bm(int e) const { return at(O::Bm, NX * NU, e); }
+  __device__ T C(int e) const { return at(O::C, NG * NX, e); }
+  __device__ T D(int e) const { return at(O::D, NG * NU, e); }
+  __device__ T Lxx(int e) const { return at(O::Lxx, NX * NX, e); }
+  __device__ T Luu(int e) const { return at(O::Luu, NU * NU, e); }
+  __device__ T Lxu(int e) const { return at(O::Lxu, NX * NU, e); }
+  __device__ T xb(int e) const { return at(O::xb, NX, e); }
+  __device__ T Lxb(int e) const { return at(O::Lxb, NX, e); }
+  __device__ T Lub(int e) const { return at(O::Lub, NU, e); }
+  __device__ T ss(int e) const { return at(O::ss, NG, e); }
+  __device__ T nu(int e) const { return at(O::nu, NG, e); }
+  __device__ T gbar(int e) const { return at(O::gbar, NG, e); }
+};
+
+// K8's stage as fmpc_stage_group reads it: the chunk's fields, and the
+// condensation scalings the group formed (fmpc_stage.cuh::
+// fmpc_condense_group) in registers.
+template <typename T, int NG, typename Fields>
+struct CondensedStageFields : Fields {
+  T scale[NG], shift[NG];   // nu_s, tilde
+  __device__ T nu_s(int g) const { return scale[g]; }
+  __device__ T tilde(int g) const { return shift[g]; }
+};
+
+// K10's chunk: C stages of the packed [N, Fin, B] buffer of a warp's W
+// lanes by one TMA box, as K3's (row_group.cuh::packed_chunk_stages), in
+// a ring of kPackedRing buffers.  A box takes at most 256 values of a
+// stage: past that (Fin = 452 at (8, 4, 16)) the chunk is one stage,
+// fetched as `pieces` boxes of `box` values, each buffer holding
+// pieces * box values (the last box zero-filled past Fin).
+__host__ __device__ constexpr int fmpc_box_values(int Fin) {
+  return Fin < 256 ? Fin : 256;
+}
+__host__ __device__ constexpr int fmpc_box_pieces(int Fin) {
+  return (Fin + 255) / 256;
+}
+__host__ __device__ constexpr int fmpc_slot_values(int Fin) {
+  return fmpc_box_pieces(Fin) * fmpc_box_values(Fin);
+}
+template <typename T>
+__host__ __device__ constexpr int fmpc_packed_chunk_stages(int Fin, int N) {
+  return Fin > 256 ? 1 : packed_chunk_stages<T>(Fin, N);
+}
+
+// K10's lanes per block: row_lanes, halved while the warps' rings pass
+// kMaxBlockSmem, down to one warp (the cart-pole and the oscillator keep
+// row_lanes; (8, 4, 16) at fp64, 128 KB a warp at G = 4, one warp).
+template <typename T, int G>
+__host__ __device__ inline int fmpc_packed_lanes(int Fin, int C, int B) {
+  constexpr int W = 32 / G;
+  int L = row_lanes<G>(B);
+  while (L > W && static_cast<size_t>(L / W) *
+                          ring_bytes<T>(kPackedRing, C, fmpc_slot_values(Fin),
+                                        W) >
+                      kMaxBlockSmem)
+    L /= 2;
+  return L;
+}
+
+}  // namespace nmpc

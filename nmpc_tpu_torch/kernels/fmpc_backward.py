@@ -2,22 +2,29 @@
 kernels' wrappers (TPU K8, K9, K10).
 
 Replaces ``nmpc_tpu/kernels/fmpc_backward_pallas.py::backward_fmpc_pallas``
-in its three variants, each a CUDA kernel with one thread per lane and the
-(s, P, ok) carry in registers, on the stage ``csrc/fmpc_stage.cuh::
-fmpc_stage`` (LU fallback ``csrc/linalg.cuh::gauss_jordan_inverse``):
+in its three variants, each a CUDA kernel that runs the whole N-stage
+recursion of a batch lane with its (s, P, ok) carry in registers (LU
+fallback ``csrc/linalg.cuh::gauss_jordan_inverse``):
 
-* ``"stream"`` (K8, ``csrc/fmpc_backward.cuh``): each stage's 12 fields
-  streamed from device memory, the next stage's loaded ahead at fp32;
-* ``"resident"`` (K9, ``csrc/fmpc_backward_resident.cuh``): the whole
-  horizon of a block's lanes copied into shared memory first, for
-  N <= 32 where it fits (:func:`resident_fits`);
-* ``"packed"`` (K10, ``csrc/fmpc_backward_packed.cuh``): inputs from one
-  ``[N, Fin, B]`` buffer, outputs to one ``[N, Fout, B]`` buffer
-  (:func:`pack_fmpc_inputs`, :func:`backward_fmpc_packed`).
+* ``"stream"`` (K8, ``csrc/fmpc_backward.cuh``): a group of threads per
+  lane running ``csrc/fmpc_stage.cuh::fmpc_stage_group``, each stage's 13
+  fields brought into shared memory by a producer warp's TMA ring; the
+  kernel forms the (s, nu) condensation itself from s, nu, g_bar, the
+  masks and eps, so the wrapper launches nothing else (fields TMA does
+  not take as they are are copied once, :func:`tma_fields`);
+* ``"resident"`` (K9, ``csrc/fmpc_backward_resident.cuh``): one thread per
+  lane on ``fmpc_stage.cuh::fmpc_stage``, the whole horizon of a block's
+  lanes copied into shared memory first, for N <= 32 where it fits
+  (:func:`resident_fits`), after the wrapper's :func:`condensation`;
+* ``"packed"`` (K10, ``csrc/fmpc_backward_packed.cuh``): K8's loop with
+  inputs from one ``[N, Fin, B]`` buffer (:func:`pack_fmpc_inputs`, after
+  :func:`condensation`) fetched by TMA a chunk of stages at a time, and
+  outputs to one ``[N, Fout, B]`` buffer (:func:`backward_fmpc_packed`).
 
 Each is instantiated per (nx, nu, ng, dtype) in a small generated unit that
 nvcc builds at first use without FMA contraction, so all three equal the
-plain version bit for bit.  The headers say what bounds each on the card.
+plain version bit for bit.  ``csrc/fmpc_group.cuh`` sizes the groups, rings
+and blocks; the headers say what bounds each kernel on the card.
 
 :func:`backward_fmpc_fused` is a drop-in for
 ``solvers/fmpc.py::_backward_bm``.  On CPU tensors it runs that plain
@@ -35,7 +42,10 @@ import torch
 
 from nmpc_tpu_torch.kernels.build import build_generated, load
 from nmpc_tpu_torch.kernels.ddp_backward_fused import (LANES, _check,
-                                                       offsets, pack_fields,
+                                                       offsets,
+                                                       pack_fields,
+                                                       packed_lane_stride,
+                                                       padded_lanes,
                                                        unpack_fields)
 
 # The largest (nx, nu, ng) a unit is instantiated for: every stage field
@@ -106,58 +116,85 @@ def pack_fmpc_inputs(co, nu_s, tilde):
                        + [nu_s, tilde])
 
 
-def unit_source(nx: int, nu: int, ng: int, dtype,
-                variant: str = "stream") -> str:
+def unit_source(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
+                group: int | None = None, share: bool | None = None) -> str:
     """The unit instantiating the ``variant`` kernel at (nx, nu, ng, dtype);
-    the fp64 units of the streaming kernels (K8, K10) load each stage when
-    they need it (no prefetch)."""
-    prefetch = "true" if dtype == torch.float32 else "false"
+    K8 and K10 with the threads per lane of ``csrc/fmpc_group.cuh``'s
+    rules, or ``group`` where a measurement asks for another, and with the
+    group's rows of P A, P B and P x_bar exchanged or computed by every
+    thread as its rule says, or as ``share`` says
+    (``csrc/fmpc_stage.cuh::fmpc_stage_group``)."""
     T = DTYPES[dtype]
+    if variant == "resident":
+        return (f"#include \"fmpc_backward_resident.cuh\"\n\n"
+                f"extern \"C\" int fmpc_backward_launch(\n"
+                f"    int N, int B, double dt, int break_if_llt_fails,\n"
+                f"    int check_nan, const void* const* fields, const void* sT,\n"
+                f"    const void* PT, void* ks, void* Ks, void* sv, void* Ps,\n"
+                f"    void* ok, void* finite, void* stream) {{\n"
+                f"  return nmpc::launch_fmpc_backward_resident<{T}, {nx}, {nu}, "
+                f"{ng}>(\n      N, B, dt, break_if_llt_fails, check_nan, "
+                f"fields, sT, PT, ks, Ks, sv, Ps,\n      ok, finite, "
+                f"stream);\n}}\n")
+    rule = "kFmpcGroup" if variant == "stream" else "kFmpcPackedGroup"
+    g = f"nmpc::{rule}<{nx}, {nu}>" if group is None else str(group)
+    sh = (f"nmpc::kFmpcShare<{nx}>" if share is None
+          else "true" if share else "false")
+    args = f"{T}, {nx}, {nu}, {ng}, {g}, {sh}"
     if variant == "packed":
         return (f"#include \"fmpc_backward_packed.cuh\"\n\n"
                 f"extern \"C\" int fmpc_backward_launch(\n"
-                f"    int N, int B, double dt, int break_if_llt_fails,\n"
+                f"    int N, int B, int ld, double dt, int break_if_llt_fails,\n"
                 f"    int check_nan, const void* Pin, const void* sT,\n"
                 f"    const void* PT, void* out, void* ok, void* finite,\n"
                 f"    void* stream) {{\n"
-                f"  return nmpc::launch_fmpc_backward_packed<{T}, {nx}, {nu}, "
-                f"{ng}, {prefetch}>(\n      N, B, dt, break_if_llt_fails, "
-                f"check_nan, Pin, sT, PT, out, ok, finite,\n      "
-                f"stream);\n}}\n")
-    if variant == "resident":
-        header, launch = "fmpc_backward_resident.cuh", (
-            f"launch_fmpc_backward_resident<{T}, {nx}, {nu}, {ng}>")
-    else:
-        header, launch = "fmpc_backward.cuh", (
-            f"launch_fmpc_backward<{T}, {nx}, {nu}, {ng}, {prefetch}>")
-    return (f"#include \"{header}\"\n\n"
+                f"  return nmpc::launch_fmpc_backward_packed<{args}>(\n"
+                f"      N, B, ld, dt, break_if_llt_fails, check_nan, Pin, sT, "
+                f"PT, out, ok,\n      finite, stream);\n}}\n")
+    return (f"#include \"fmpc_backward.cuh\"\n\n"
             f"extern \"C\" int fmpc_backward_launch(\n"
-            f"    int N, int B, double dt, int break_if_llt_fails,\n"
-            f"    int check_nan, const void* const* fields, const void* sT,\n"
-            f"    const void* PT, void* ks, void* Ks, void* sv, void* Ps,\n"
-            f"    void* ok, void* finite, void* stream) {{\n"
-            f"  return nmpc::{launch}(\n      N, B, dt, break_if_llt_fails, "
-            f"check_nan, fields, sT, PT, ks, Ks, sv, Ps,\n      ok, finite, "
+            f"    int N, int B, int ld, double dt, int break_if_llt_fails,\n"
+            f"    int check_nan, const void* const* fields, const void* gms,\n"
+            f"    int gms_ld, const void* eps, const void* LxT, const void* PT,\n"
+            f"    void* ks, void* Ks, void* sv, void* Ps, void* ok,\n"
+            f"    void* finite, void* stream) {{\n"
+            f"  return nmpc::launch_fmpc_backward<{args}>(\n"
+            f"      N, B, ld, dt, break_if_llt_fails, check_nan, fields, gms, "
+            f"gms_ld, eps,\n      LxT, PT, ks, Ks, sv, Ps, ok, finite, "
             f"stream);\n}}\n")
 
 
-def unit_name(nx: int, nu: int, ng: int, dtype,
-              variant: str = "stream") -> str:
+def unit_name(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
+              group: int | None = None, share: bool | None = None) -> str:
     kind = "" if variant == "stream" else f"_{variant}"
-    return f"fmpc_backward{kind}_{nx}x{nu}x{ng}_{str(dtype)[6:]}"
+    g = "" if group is None else f"_g{group}"
+    sh = {None: "", True: "_share", False: "_redundant"}[share]
+    return f"fmpc_backward{kind}_{nx}x{nu}x{ng}_{str(dtype)[6:]}{g}{sh}"
+
+
+def bind(lib, variant: str = "stream"):
+    """The launch function of a loaded ``variant`` unit
+    (:func:`unit_source`)."""
+    i, d, p = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
+    fn = lib.fmpc_backward_launch
+    fn.argtypes = {   # the unit's arguments, as unit_source writes them
+        "stream": [i, i, i, d, i, i, p, p, i] + [p] * 10,
+        "packed": [i, i, i, d, i, i] + [p] * 7,
+        "resident": [i, i, d, i, i] + [p] * 10}[variant]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=32)
-def _launcher(nx: int, nu: int, ng: int, dtype, variant: str = "stream"):
-    lib = load(build_generated(unit_name(nx, nu, ng, dtype, variant),
-                               unit_source(nx, nu, ng, dtype, variant),
-                               FMPC_FLAGS))
-    fn = lib.fmpc_backward_launch
-    n_ptrs = 7 if variant == "packed" else 10
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                    ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * n_ptrs)
-    fn.restype = ctypes.c_int
-    return fn
+def launcher(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
+             group: int | None = None, share: bool | None = None):
+    """The launch function of the ``variant`` unit at (nx, nu, ng, dtype),
+    with ``group`` threads per lane or without ``share`` where a
+    measurement asks for them."""
+    return bind(load(build_generated(
+        unit_name(nx, nu, ng, dtype, variant, group, share),
+        unit_source(nx, nu, ng, dtype, variant, group, share), FMPC_FLAGS)),
+        variant)
 
 
 def condensation(co, ss, nus, gms, barrier_eps):
@@ -219,37 +256,106 @@ def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps,
         from nmpc_tpu_torch.solvers.fmpc import _backward_bm
         return _backward_bm(problem, config, co, ss, nus, gms, barrier_eps)
     _check_shape(nx, nu, ng, dtype)
-
-    nu_s, tilde = condensation(co, ss, nus, gms, barrier_eps)
-    s_T = -co.Lx_bar_term
-    ks = torch.empty((N, nu, B), dtype=dtype, device=device)
-    Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
-    svecs = torch.empty((N + 1, nx, B), dtype=dtype, device=device)
-    Ps = torch.empty((N + 1, nx, nx, B), dtype=dtype, device=device)
-    ok = torch.empty((B,), dtype=torch.bool, device=device)
-    finite = torch.empty((B,), dtype=torch.bool, device=device)
-    ins = [getattr(co, name) for name in _FIELDS] + [nu_s, tilde]
-    fields = (ctypes.c_void_p * 12)(*(a.data_ptr() for a in ins))
-    launch = _launcher(nx, nu, ng, dtype, variant)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = launch(N, B, float(problem.dt), int(config.break_if_llt_fails),
-                     int(config.check_nan), fields, s_T.data_ptr(),
-                     co.Lxx_term.data_ptr(), ks.data_ptr(), Ks.data_ptr(),
-                     svecs.data_ptr(), Ps.data_ptr(), ok.data_ptr(),
-                     finite.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"FMPC backward ({variant}) kernel launch failed: "
-                           f"CUDA error {err}")
     if variant == "resident":
+        out = _launch_resident(problem, config, co, ss, nus, gms, barrier_eps)
         backward_fmpc_fused.resident_launches += 1
-    else:
-        backward_fmpc_fused.launches += 1
-    return ks, Ks, svecs, Ps, ok, finite
+        return out
+    _check("barrier_eps", barrier_eps, (B,), dtype, device)
+    if gms.dtype != dtype or gms.device != device:
+        raise ValueError(f"gms must be {dtype} on {device}, got {gms.dtype} "
+                         f"on {gms.device}")
+    out = launch_stream(launcher(nx, nu, ng, dtype), problem, config, co, ss,
+                        nus, gms, barrier_eps)
+    backward_fmpc_fused.launches += 1
+    return out
 
 
 backward_fmpc_fused.launches = 0            # K8
 backward_fmpc_fused.resident_launches = 0   # K9
+backward_fmpc_fused.padded_copies = 0       # a K8 field copied for TMA
+
+
+def _outputs(N, nx, nu, B, dtype, device):
+    """Empty (ks, Ks, svecs, Ps, ok, finite) of a K8 or K9 launch."""
+    return ([torch.empty(shape, dtype=dtype, device=device) for shape in
+             ((N, nu, B), (N, nu, nx, B), (N + 1, nx, B), (N + 1, nx, nx, B))]
+            + [torch.empty((B,), dtype=torch.bool, device=device)
+               for _ in range(2)])
+
+
+def _raise_on(err, variant):
+    if err != 0:
+        raise RuntimeError(f"FMPC backward ({variant}) kernel launch failed: "
+                           f"CUDA error {err}")
+
+
+def tma_fields(co, ss, nus):
+    """(K8's 13 fields as its tensor maps take them, their lane stride):
+    A, B, C, D, Lxx, Luu, Lxu, x_bar, Lx_bar, Lu_bar, s, nu, g_bar, each as
+    it is where its B is a multiple of 16 bytes and its address 16-byte
+    aligned, else copied once into a buffer padded to the lane stride TMA
+    takes (``ddp_backward_fused.padded_lanes``); each copy adds one to
+    ``backward_fmpc_fused.padded_copies``."""
+    fields = [getattr(co, name) for name in _FIELDS] + [ss, nus, co.g_bar]
+    B = ss.shape[-1]
+    if (packed_lane_stride(B, ss.dtype) == B
+            and all(a.data_ptr() % 16 == 0 for a in fields)):
+        return fields, B
+    out, lds = [], set()
+    for a in fields:
+        padded, ld = padded_lanes(a)
+        backward_fmpc_fused.padded_copies += padded is not a
+        out.append(padded)
+        lds.add(ld)
+    (ld,) = lds
+    return out, ld
+
+
+def launch_stream(fn, problem, config, co, ss, nus, gms, barrier_eps):
+    """One launch of the K8 unit function ``fn`` (:func:`launcher`) on
+    checked CUDA inputs (the arguments of :func:`backward_fmpc_fused`),
+    its fields as :func:`tma_fields` gives them, ``gms`` read with its row
+    stride (0 where every stage has one mask row; a copy only if its rows
+    are not contiguous); returns (ks, Ks, svecs, Ps, ok, finite) and raises
+    on a CUDA error.  Counts no launch."""
+    N, nx = co.A.shape[0], co.A.shape[1]
+    nu, B = co.B.shape[2], barrier_eps.shape[0]
+    device = barrier_eps.device
+    outs = _outputs(N, nx, nu, B, barrier_eps.dtype, device)
+    fields, ld = tma_fields(co, ss, nus)
+    ptrs = (ctypes.c_void_p * len(fields))(*(a.data_ptr() for a in fields))
+    if gms.shape[1] > 1 and gms.stride(1) != 1:
+        gms = gms.contiguous()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(N, B, ld, float(problem.dt), int(config.break_if_llt_fails),
+                 int(config.check_nan), ptrs, gms.data_ptr(), gms.stride(0),
+                 barrier_eps.data_ptr(), co.Lx_bar_term.data_ptr(),
+                 co.Lxx_term.data_ptr(), *(o.data_ptr() for o in outs),
+                 stream)
+    _raise_on(err, "stream")
+    return tuple(outs)
+
+
+def _launch_resident(problem, config, co, ss, nus, gms, barrier_eps):
+    """K9 on the wrapper's :func:`condensation`."""
+    N, nx = co.A.shape[0], co.A.shape[1]
+    nu, ng, B = co.B.shape[2], co.C.shape[1], barrier_eps.shape[0]
+    dtype, device = barrier_eps.dtype, barrier_eps.device
+    nu_s, tilde = condensation(co, ss, nus, gms, barrier_eps)
+    s_T = -co.Lx_bar_term
+    outs = _outputs(N, nx, nu, B, dtype, device)
+    ins = [getattr(co, name) for name in _FIELDS] + [nu_s, tilde]
+    fields = (ctypes.c_void_p * len(ins))(*(a.data_ptr() for a in ins))
+    launch = launcher(nx, nu, ng, dtype, "resident")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = launch(N, B, float(problem.dt), int(config.break_if_llt_fails),
+                     int(config.check_nan), fields, s_T.data_ptr(),
+                     co.Lxx_term.data_ptr(), *(o.data_ptr() for o in outs),
+                     stream)
+    _raise_on(err, "resident")
+    return tuple(outs)
 
 
 def _check_shape(nx, nu, ng, dtype):
@@ -294,24 +400,38 @@ def backward_fmpc_packed(problem, config, P_in, s_T, P_T, nx: int, nu: int,
         return backward_fmpc_packed_plain(problem, config, P_in, s_T, P_T,
                                           nx, nu, ng)
     _check_shape(nx, nu, ng, dtype)
+    padded, ld = padded_lanes(P_in)
+    backward_fmpc_packed.padded_copies += padded is not P_in
+    out = launch_packed(launcher(nx, nu, ng, dtype, "packed"), problem,
+                        config, padded, ld, s_T, P_T, nx, nu, ng)
+    backward_fmpc_packed.launches += 1
+    return out
+
+
+def launch_packed(fn, problem, config, P_in, ld, s_T, P_T, nx: int, nu: int,
+                  ng: int):
+    """One launch of the K10 unit function ``fn`` (:func:`launcher`) on
+    checked CUDA inputs, P_in [N, Fin, ld] (its first B lanes read);
+    returns (out, ok, finite) and raises on a CUDA error.  Counts no
+    launch."""
+    N, B = P_in.shape[0], s_T.shape[-1]
+    dtype, device = s_T.dtype, s_T.device
+    _, _, _, Fout = field_offsets(nx, nu, ng)
     out = torch.empty((N, Fout, B), dtype=dtype, device=device)
     ok = torch.empty((B,), dtype=torch.bool, device=device)
     finite = torch.empty((B,), dtype=torch.bool, device=device)
-    launch = _launcher(nx, nu, ng, dtype, "packed")
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = launch(N, B, float(problem.dt), int(config.break_if_llt_fails),
-                     int(config.check_nan), P_in.data_ptr(), s_T.data_ptr(),
-                     P_T.data_ptr(), out.data_ptr(), ok.data_ptr(),
-                     finite.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"FMPC backward (packed) kernel launch failed: "
-                           f"CUDA error {err}")
-    backward_fmpc_packed.launches += 1
+        err = fn(N, B, ld, float(problem.dt), int(config.break_if_llt_fails),
+                 int(config.check_nan), P_in.data_ptr(), s_T.data_ptr(),
+                 P_T.data_ptr(), out.data_ptr(), ok.data_ptr(),
+                 finite.data_ptr(), stream)
+    _raise_on(err, "packed")
     return out, ok, finite
 
 
 backward_fmpc_packed.launches = 0           # K10
+backward_fmpc_packed.padded_copies = 0      # P_in copied for TMA
 
 
 def backward_fmpc_packed_plain(problem, config, P_in, s_T, P_T, nx: int,

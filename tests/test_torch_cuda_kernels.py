@@ -5,9 +5,9 @@ condensed Riccati backward (K8) and Δx/Δu recursion (K11), and the
 layout variants that must equal their parents bit for bit: the chunked
 and packed DDP backward (K2, K3) against K1, the resident and packed FMPC
 backward (K9, K10) against K8, with the solver keywords that select them;
-the group kernels (K1, K2, K3, K5 unboxed) at every group size against
-one thread per lane, and K1 and K3 where TMA does not take a field or
-buffer as it is.
+the group kernels (K1, K2, K3, K5 unboxed, K8, K10) at every group size
+against one thread per lane, and K1, K3, K8 and K10 where TMA does not
+take a field or buffer as it is.
 Every test
 here is marked ``cuda`` and skips without a card; the file imports no JAX,
 so on the GPU machine it runs without the JAX package's conftest:
@@ -37,6 +37,7 @@ from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
                                                        backward_remat_plain)
 from nmpc_tpu_torch.kernels.ddp_forward_remat import (forward_costs_remat,
                                                       forward_selected_remat)
+from nmpc_tpu_torch.kernels import fmpc_backward
 from nmpc_tpu_torch.kernels.fmpc_backward import (backward_fmpc_fused,
                                                   backward_fmpc_packed)
 from nmpc_tpu_torch.kernels.fmpc_forward import (forward_fmpc_deltas_fused,
@@ -819,6 +820,81 @@ def test_resident_and_packed_equal_k8(card, dtype, break_if_llt_fails,
     for out in (k9, k10):
         assert torch.equal(out[4], k8[4]) and torch.equal(out[5], k8[5])
         assert _equal_on(k8[:4], out[:4], k8[5])
+
+
+# the group sizes of fmpc_stage_group measured on the card, per model
+FMPC_GROUPS = {"cart-pole": (1, 2, 4, 8), "oscillator": (1, 2, 4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("break_if_llt_fails", [False, True])
+@pytest.mark.parametrize("model", ["oscillator", "cart-pole"])
+def test_fmpc_groups_equal_one_thread(card, dtype, break_if_llt_fails,
+                                      model):
+    """K8 and K10 built at every group size (and at G = 4 with every
+    thread computing every row of P A, P B and P x_bar) on a ragged batch
+    (B=300, N=17) with a non-PD and a NaN lane: every output equal to the
+    same kernel's at G = 1 bit for bit, K8 at G = 1 equal to the wrapper's
+    K8 bit for bit, and K10 equal to K8 on its finite lanes with the same
+    masks."""
+    B, N = 300, 17
+    p, co, var, gms, eps = (_osc_case if model == "oscillator"
+                            else _fmpc_case)(B, N, dtype, card)
+    nx, nu, ng = p.state_dim, p.input_dim, p.ineq_dim
+    cfg = FmpcConfig(horizon_steps=N, break_if_llt_fails=break_if_llt_fails)
+    k8 = backward_fmpc_fused(p, cfg, co, var.ss, var.nus, gms, eps)
+    nu_s, tilde = fmpc_backward.condensation(co, var.ss, var.nus, gms, eps)
+    P, ld = fmpc_backward.padded_lanes(
+        fmpc_backward.pack_fmpc_inputs(co, nu_s, tilde))
+    groups = FMPC_GROUPS[model]
+    variants = [(g, True) for g in groups] + [(4, False)]
+    outs = {}
+    for g, share in variants:
+        fn = fmpc_backward.launcher(nx, nu, ng, dtype, "stream", g, share)
+        outs["K8", g, share] = fmpc_backward.launch_stream(
+            fn, p, cfg, co, var.ss, var.nus, gms, eps)
+        fn = fmpc_backward.launcher(nx, nu, ng, dtype, "packed", g, share)
+        out, ok, finite = fmpc_backward.launch_packed(
+            fn, p, cfg, P, ld, -co.Lx_bar_term, co.Lxx_term, nx, nu, ng)
+        o = fmpc_backward.unpack_fields(out, fmpc_backward._out_shapes(nx,
+                                                                        nu))
+        outs["K10", g, share] = (o["k"], o["K"], o["svec"], o["P"], ok,
+                                 finite)
+    torch.cuda.synchronize()
+    for (kernel, g, share), out in outs.items():
+        for a, b in zip(outs[kernel, 1, True], out):
+            assert torch.equal(_bits(a), _bits(b)), (kernel, g, share)
+    for a, b in zip(k8, outs["K8", 1, True]):
+        assert torch.equal(_bits(a), _bits(b))
+    k10 = outs["K10", 1, True]
+    assert torch.equal(k10[4], k8[4]) and torch.equal(k10[5], k8[5])
+    assert _equal_on(k8[:2] + tuple(a[:N] for a in k8[2:4]), k10[:4], k8[5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fmpc_ragged_lane_stride(card, dtype):
+    """K8 and K10 at B=1023, whose lane stride TMA does not take:
+    K8's 13 fields and K10's buffer are copied once to a padded stride
+    (counted), K8 holds to ``_backward_bm`` within TOL with the same
+    masks and K10 equals K8 bit for bit on its finite lanes."""
+    B, N = 1023, 30
+    p, co, var, gms, eps = _fmpc_case(B, N, dtype, card)
+    cfg = FmpcConfig(horizon_steps=N)
+    before = (backward_fmpc_fused.padded_copies,
+              backward_fmpc_packed.padded_copies)
+    k8 = backward_fmpc_fused(p, cfg, co, var.ss, var.nus, gms, eps)
+    k10 = backward_fmpc_fused(p, cfg, co, var.ss, var.nus, gms, eps,
+                              variant="packed")
+    torch.cuda.synchronize()
+    assert (backward_fmpc_fused.padded_copies,
+            backward_fmpc_packed.padded_copies) == (before[0] + 13,
+                                                    before[1] + 1)
+    ref = fmpc._backward_bm(p, cfg, co, var.ss, var.nus, gms, eps)
+    assert torch.equal(k8[4], ref[4]) and torch.equal(k8[5], ref[5])
+    for a, b in zip(ref[:4], k8[:4]):
+        assert _norm_err(a[..., ref[5]], b[..., ref[5]]) <= TOL[dtype]
+    assert torch.equal(k10[4], k8[4]) and torch.equal(k10[5], k8[5])
+    assert _equal_on(k8[:4], k10[:4], k8[5])
 
 
 def test_resident_raises_where_it_does_not_fit(card):
