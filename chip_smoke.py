@@ -24,7 +24,9 @@ Phases, one line each (a failed phase exits non-zero):
    tick shape (B=256, N=200), each with one non-PD lane and one NaN lane;
    K5 at nx = 8, fp64, B=4096 (its field slab sized to the block's shared
    memory); K6 and K7 with gains from a real backward pass, and whether K7's
-   column for an alpha equals K6's sum bit for bit; K4 and K5 boxed on
+   column for an alpha equals K6's sum bit for bit; K6 where it launches
+   its TMA ring (the boxed vertical model's step) at B=1024, N=100, B=256
+   and a ragged B=1023 (its references copied once); K4 and K5 boxed on
    first-iteration vertical-motion data (B=1024, N=100, across the switch
    to two contacts, both regularization types), with a non-PD, a NaN and
    (K4) a planted long-QP lane, and how many lanes ran the QP's iteration
@@ -110,7 +112,17 @@ Phases, one line each (a failed phase exits non-zero):
    ``break_if_llt_fails``, the FMPC shapes, the two-input case and a
    ragged B and N; timed in turns with the baseline's at the FMPC shapes,
    fp32 and fp64 (kernels alone, and K8's call beside the baseline's with
-   its condensation);
+   its condensation); then (``fwd-groups``) K6 at every chunk of stages
+   of its TMA ring (1, 2, 4, 8) and at 0 (its register prefetch), and
+   K11 at every (chunk, 1, 2 or 4 threads per lane) at (4, 1), (2, 1)
+   and (2, 2) (and, with ``--baseline DIR``, that checkout's K6 and K11):
+   every one bit for bit to the one-stage build and the baseline's, K11
+   to its plain version, K7's columns to K6's sums, at fp32 and fp64 on
+   the headline, tick and boxed vertical shapes (K6), the FMPC shapes,
+   the oscillator tick shape and the two-input problem (K11) and a
+   ragged B and N; timed in turns with the baseline's, K6 on one warp
+   (B=32, N=100: its chain floor), and (with ``--baseline``) K6's and
+   K11's wrappers in turns with the baseline's wrappers;
 7. with ``--layers`` only: where one solve's time goes at both shapes,
    for each pair, for the boxed vertical solve, the bipedal config's
    ``auto`` path at 2 iterations and the FMPC configurations (synced time
@@ -576,6 +588,23 @@ def cuda_ms(fn, reps=20, inner=1, warmup=2):
     return statistics.median(times)
 
 
+def host_us(fn, reps=20, inner=10, warmup=2):
+    """Median over ``reps`` samples of the host's time per call in us,
+    each sample ``inner`` back-to-back calls with no synchronize among
+    them (the card drains between samples)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        times.append((time.perf_counter() - start) / inner * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def ptxas_report(lib):
     log = lib.with_suffix(".log")
     if not log.exists():
@@ -793,8 +822,48 @@ def phase_kernels(device):
                 same.append(torch.equal(out[j], sel))
             print(f"[kernel] K7 vs K6 {label}: alpha columns equal to K6's "
                   f"sum bit for bit: {sum(same)}/{len(same)}", flush=True)
+    check_k6_ring(device)
     check_wide_remat(device)
     phase_kernels_boxed(device)
+
+
+def check_k6_ring(device):
+    """K6 through its wrapper where it launches its TMA ring (``ref_chunk``
+    8: the boxed vertical model's step, which the boxed vertical solve and
+    its tick loop drive; the cart-pole's takes the register prefetch, held
+    above) vs ``_forward_selected_lanes``: the vertical model's first
+    iteration at its solve and tick shapes and a ragged B=1023, N=37
+    (every reference copied once to a lane stride TMA takes), fp32 and
+    fp64."""
+    problem = vertical_problem()
+    for dtype in (torch.float32, torch.float64):
+        check(fwd.ref_chunk(problem, 2, 2, dtype) == 8
+              and fwd.ref_chunk(make_cartpole_problem(DT), 4, 1, dtype) == 0,
+              "K6's feed rule: the vertical step takes the ring, the "
+              "cart-pole's the register prefetch")
+        dname = str(dtype)[6:]
+        for B, N in (VERTICAL, VERTICAL_TICK, (1023, 37)):
+            _, t0, xs, us, ks, Ks, alpha = k6_inputs("vertical", B, N, dtype,
+                                                     device)
+            cfg = DDPConfig(horizon_steps=N)
+            label = f"vertical B={B} N={N} {dname}"
+            before = fwd.forward_selected_remat.padded_copies
+            out = fwd.forward_selected_remat(problem, cfg, t0, xs, us, ks, Ks,
+                                             alpha)
+            copies = fwd.forward_selected_remat.padded_copies - before
+            plain = ddp_mod._forward_selected_lanes(problem, cfg, t0, xs, us,
+                                                    ks, Ks, alpha, dtype)
+            torch.cuda.synchronize()
+            err = report(f"K6 (TMA ring) {label}", {
+                n: norm_err(a, b) for n, a, b in
+                zip(("xs", "us", "costs", "sum"), plain, out)}, dtype)
+            KERNELS["K6"].max_abs_err = max(KERNELS["K6"].max_abs_err, err)
+            untaken = sum((a.shape[-1] * a.element_size()) % 16 != 0
+                          or a.data_ptr() % 16 != 0
+                          for a in (xs, us, ks, Ks))
+            check(copies == untaken and (B != 1023 or copies == 4),
+                  f"K6 {label}: {copies} references copied for TMA, "
+                  f"{untaken} it does not take")
 
 
 def boxed_bit_equal(plain, out):
@@ -1813,16 +1882,6 @@ def fmpc_group_inputs(model, B, N, dtype, device):
     return problem, config, co, v, gms, eps
 
 
-def bind_parent_packed(lib):
-    """The launch function of a K10 unit without the lane-stride argument
-    (the baseline's)."""
-    fn = lib.fmpc_backward_launch
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
-                    ctypes.c_int] + [ctypes.c_void_p] * 7)
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def as_k8_outputs(out, nx, nu, N):
     """(ks, Ks, s, P, ok, finite) of rows 0 .. N-1 from a K8 result or a
     K10 one (its [N, Fout, B] buffer unpacked)."""
@@ -1839,14 +1898,13 @@ def phase_fmpc_groups(device, card, baseline):
     flags: all built at once with ptxas' report of each.  On every input
     of FMPC_GROUP_CASES at fp32 and fp64 and both break_if_llt_fails:
     every G of K8 and of K10 bit for bit equal to the same kernel at G = 1
-    (NaN lanes included), K8 at G = 1 equal to the baseline's K8 (fed the
-    baseline wrapper's condensation; without a baseline: this K8) and
-    each K10 equal to this K8 on its finite lanes with the same ok and
-    finite masks.  Then each timed in turns with the baseline's at the
-    first three shapes, fp32 and fp64: the kernels alone on inputs
-    prepared once, and the calls (K8 through ``launch_stream``, its host
-    work included; the baseline's K8 after the condensation's torch ops,
-    as its wrapper called it)."""
+    (NaN lanes included), K8 at G = 1 equal to the baseline's K8 (launched
+    by the baseline module's own ``launch_stream``; without a baseline:
+    this K8) and each K10 equal to this K8 on its finite lanes with the
+    same ok and finite masks.  Then each timed in turns with the
+    baseline's at the first three shapes, fp32 and fp64: the kernels
+    alone on inputs prepared once, and the calls (K8 through
+    ``launch_stream``, its host work included)."""
     parent_csrc = (Path(baseline).resolve() / "nmpc_tpu_torch" / "csrc"
                    if baseline else None)
     fp32, fp64 = torch.float32, torch.float64
@@ -1887,8 +1945,7 @@ def phase_fmpc_groups(device, card, baseline):
     def launcher(key):
         lib = kbuild.load(libs[index[key]])
         if key[0] == "baseline":
-            return (k8.bind(lib, "resident") if key[1] == "stream"
-                    else bind_parent_packed(lib))
+            return pk8.bind(lib, key[1])
         return k8.bind(lib, key[0])
 
     for model, (B, N), timed in FMPC_GROUP_CASES:
@@ -1918,11 +1975,14 @@ def phase_fmpc_groups(device, card, baseline):
                             k8.launch_packed, launcher(key), problem, cfg,
                             P_in, ld3, s_T, P_T, nx, nu, ng)
                 if baseline:
-                    for variant, kname in (("stream", "K8"),
-                                           ("packed", "K10")):
-                        calls[f"{kname} baseline"] = condensed_call(
-                            launcher(("baseline", variant, shape, dtype)),
-                            problem, cfg, co, nu_s, tilde, variant)
+                    calls["K8 baseline"] = functools.partial(
+                        pk8.launch_stream,
+                        launcher(("baseline", "stream", shape, dtype)),
+                        problem, cfg, co, v.ss, v.nus, gms, eps)
+                    calls["K10 baseline"] = functools.partial(
+                        pk8.launch_packed,
+                        launcher(("baseline", "packed", shape, dtype)),
+                        problem, cfg, P_in, ld3, s_T, P_T, nx, nu, ng)
                 outs = {key: as_k8_outputs(fn(), nx, nu, N)
                         for key, fn in calls.items()}
                 torch.cuda.synchronize()
@@ -1965,17 +2025,379 @@ def phase_fmpc_groups(device, card, baseline):
                     else:
                         times[name] = calls[name]
                 if baseline:
-                    times["K8 baseline alone"] = calls["K8 baseline"]
+                    times["K8 baseline alone"] = fmpc_kernel_alone(
+                        problem, cfg, co, v, gms, eps,
+                        fn=launcher(("baseline", "stream", shape, dtype)))
+                    times["K8 baseline call"] = calls["K8 baseline"]
                     times["K10 baseline"] = calls["K10 baseline"]
-                    parent_k8 = calls["K8 baseline"]
-
-                    def parent_call():
-                        k8.condensation(co, v.ss, v.nus, gms, eps)
-                        return parent_k8()
-                    times["K8 baseline call (with its condensation)"] = (
-                        parent_call)
                 timed_in_turns(times, f"{model} B={B} N={N}", card,
                                tag="fmpc-groups", dtype=dname)
+
+
+# The forward recursions (K6, K11) are built at every chunk of stages of
+# FWD_CHUNKS of their TMA ring (csrc/fwd_ring.cuh), K6 also at 0 (its
+# one-stage register prefetch, the parent's design), K11 also at every
+# threads per lane of FWD_GROUPS.
+FWD_CHUNKS = (1, 2, 4, 8)
+FWD_GROUPS = {(4, 1): (1, 2, 4), (2, 1): (1, 2, 4), (2, 2): (1, 2, 4)}
+# The inputs each build is held and timed on, (model, (B, N), timed): K6
+# at the headline, tick and boxed vertical shapes; K11 at the FMPC
+# cart-pole serving shape, the oscillator at B=1024 and at N=20, the
+# oscillator tick shape and the two-input problem; both at a ragged B with
+# an odd N (the ring's fields copied to a padded stride, a last chunk
+# shorter than C).
+K6_CASES = (("cart-pole", HEADLINE, True), ("cart-pole", TICK, True),
+            ("vertical", VERTICAL, True), ("cart-pole", (1023, 37), False))
+K11_CASES = (("cart-pole", FMPC_SERVING, True),
+             ("oscillator", FMPC_OSC, True),
+             ("oscillator", FMPC_OSC_SHORT, True),
+             ("oscillator", FMPC_TICK, True), ("two-input", (1024, 100), True),
+             ("cart-pole", (1023, 37), False),
+             ("oscillator", (1023, 37), False),
+             ("two-input", (1023, 37), False))
+# K6's chain floor: one warp's lanes, the headline's horizon
+CHAIN_FLOOR = (32, 100)
+
+
+def k6_inputs(model, B, N, dtype, device):
+    """(problem, t0, xs, us, ks, Ks, alpha) of a K6_CASES entry: the
+    cart-pole's rollout_refs, or the boxed vertical model's first
+    iteration with the gains of its boxed backward (K5 boxed)."""
+    if model == "cart-pole":
+        return rollout_refs(B, N, dtype, device)
+    problem, t0, xs, us, VxT, VxxT = boxed_rollout(model, B, N, dtype,
+                                                   device)
+    lam = torch.full((B,), 1e-6, dtype=dtype, device=device)
+    ks, Ks, _, _ = remat.backward_remat(problem, boxed_config(N), t0, xs, us,
+                                        VxT, VxxT, lam, boxed=True)
+    alpha = torch.as_tensor(np.random.default_rng(3).uniform(0.1, 1.0, B),
+                            dtype=dtype, device=device)
+    return problem, t0, xs, us, ks, Ks, alpha
+
+
+def k11_inputs(model, B, N, dtype, device):
+    """(A, Bm, x_bar, ks, Ks, dx0) of a K11_CASES entry: first-iteration
+    FMPC coefficients (fmpc_kernel_inputs, a non-PD and a NaN lane; the
+    two-input problem's random iterate, half its lanes pivoting) and K8's
+    gains, dx0 = 0.1 x0 (the two-input problem's from a seed)."""
+    if model == "two-input":
+        problem, co, v, gms, eps = two_input_inputs(dtype, device, B, N)
+        x0 = torch.as_tensor(np.random.default_rng(9).normal(size=(2, B)),
+                             dtype=dtype, device=device)
+    else:
+        problem, _, co, v, gms, eps, x0 = fmpc_kernel_inputs(
+            model, B, N, dtype, device)
+    ks, Ks = k8.backward_fmpc_fused(problem, FmpcConfig(horizon_steps=N),
+                                    co, v.ss, v.nus, gms, eps)[:2]
+    return co.A, co.B, co.x_bar, ks, Ks, (0.1 * x0).contiguous()
+
+
+def bare_launch(fn, *args):
+    """A call of the unit function ``fn`` on ``args`` (ints, floats,
+    tensors for their addresses), its outputs allocated by the caller:
+    the kernel's launch and no other host work, for timing."""
+    flat = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(_inputs=args):   # holds the tensors while the call may run
+        err = fn(*flat, stream)
+        if err != 0:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+    return call
+
+
+def bind_parent_k6(lib):
+    """K6's launch function of a unit without the lane-stride argument
+    (the baseline's)."""
+    fn = lib.forward_selected_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_double] * 2
+                   + [ctypes.c_void_p] * 11)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bind_parent_k11(lib):
+    """K11's launch function of a unit without the lane-stride argument
+    (the baseline's)."""
+    fn = lib.fmpc_forward_launch
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tma_taken(fields):
+    """``fields`` as the wrappers hand them to the TMA ring
+    (``ddp_backward_fused.padded_fields``: copied once where TMA does not
+    take them as they are)."""
+    return k1.padded_fields(fields)[0]
+
+
+def parent_wrapper(baseline, name):
+    """Another checkout's wrapper module ``name`` (``parent_module``) with
+    its units built from that checkout's headers."""
+    mod = parent_module(baseline, name)
+    mod.build_generated = functools.partial(
+        kbuild.build_generated,
+        csrc=Path(baseline).resolve() / "nmpc_tpu_torch" / "csrc")
+    return mod
+
+
+def phase_fwd_groups(device, card, baseline):
+    """K6 built at every chunk of FWD_CHUNKS and at 0 (its register
+    prefetch), K11 at every (chunk, threads per lane of FWD_GROUPS), and,
+    with ``baseline`` (another checkout's root), the baseline's K6 and K11
+    from that checkout's headers, unit text and flags: all built at once,
+    with ptxas' report of each.  K6 on every input of K6_CASES and K11 on
+    every one of K11_CASES, fp32 and fp64, each build on the fields as its
+    wrapper hands them (the ring's copied once where TMA does not take
+    them): every one bit for bit equal to the one-stage build (K6: C = 0;
+    K11: C = 1, G = 1) and to the baseline's kernel (NaN lanes included);
+    K11's one-stage build equal to ``forward_fmpc_deltas_plain`` on its
+    finite lanes; K7's columns of the first, sixth and last alpha equal to
+    every K6 build's sum at that alpha.  Then each build timed in turns
+    with the baseline's on the timed shapes (the unit's launch alone,
+    outputs allocated once), K6 at B=32, N=100 (one warp: its chain
+    floor), and, with ``baseline``, K6's and K11's wrappers in turns with
+    the baseline's wrappers (their host work included)."""
+    parent_csrc = (Path(baseline).resolve() / "nmpc_tpu_torch" / "csrc"
+                   if baseline else None)
+    fp32, fp64 = torch.float32, torch.float64
+    models = {"cart-pole": make_cartpole_problem(DT),
+              "vertical": vertical_problem()}
+    units, index = [], {}
+
+    def unit(key, name, text, flags, csrc=kbuild.CSRC):
+        index[key] = len(units)
+        units.append((name, text, flags, csrc))
+
+    for dtype in (fp32, fp64):
+        for model, problem in models.items():
+            nx, nu = problem.state_dim, problem.input_dim
+            for c in (0,) + FWD_CHUNKS:
+                unit(("K6", model, dtype, c),
+                     fwd.unit_name(dtype, c) + f"_{model}",
+                     fwd.unit_source(problem, nx, nu, dtype, c), ())
+        for (nx, nu), groups in FWD_GROUPS.items():
+            for g in groups:
+                for c in FWD_CHUNKS:
+                    unit(("K11", (nx, nu), dtype, g, c),
+                         k11.unit_name(nx, nu, dtype, g, c),
+                         k11.unit_source(nx, nu, dtype, g, c), k8.FMPC_FLAGS)
+    if baseline:
+        pf = parent_wrapper(baseline, "ddp_forward_remat")
+        p11 = parent_wrapper(baseline, "fmpc_forward")
+        for dtype in (fp32, fp64):
+            for model, problem in models.items():
+                unit(("K6", model, dtype, "baseline"),
+                     fwd.unit_name(dtype) + f"_{model}_parent",
+                     pf.unit_source(problem, problem.state_dim,
+                                    problem.input_dim, dtype), (),
+                     parent_csrc)
+            for nx, nu in FWD_GROUPS:
+                unit(("K11", (nx, nu), dtype, "baseline"),
+                     k11.unit_name(nx, nu, dtype) + "_parent",
+                     p11.unit_source(nx, nu, dtype), k8.FMPC_FLAGS,
+                     parent_csrc)
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(16) as pool:
+        libs = list(pool.map(lambda u: kbuild.build_generated(*u), units))
+    print(f"[fwd-groups] {len(libs)} units in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    for (name, _, flags, csrc), path in zip(units, libs):
+        print(f"[fwd-groups] ptxas {path.name} (headers "
+              f"{os.path.relpath(csrc, ROOT)}, flags {' '.join(flags) or '-'}"
+              f"): {ptxas_report(path)}", flush=True)
+
+    def lib(key):
+        return kbuild.load(libs[index[key]])
+
+    def runs(kernel, prefix):
+        """(label, key) of every build of ``prefix``, the baseline's
+        last."""
+        keys = [k for k in index if k[:3] == prefix]
+        label = (lambda k: f"C={k[3]}" if kernel == "K6"
+                 else f"G={k[3]} C={k[4]}")
+        return ([(label(k), k) for k in keys if k[-1] != "baseline"]
+                + [("baseline", k) for k in keys if k[-1] == "baseline"])
+
+    def k6_launch(key, problem, refs, ring, a, t0, out):
+        """A bare launch of the K6 build ``key`` on references ``refs``
+        (the untouched ones for the register prefetch and the baseline,
+        ``ring`` for the TMA ring) at alphas ``a``, into ``out``."""
+        N, B = out[1].shape[0], a.shape[0]
+        args = (float(problem.dt), N * problem.dt)
+        if key[-1] == "baseline":
+            return bare_launch(bind_parent_k6(lib(key)), N, B, *args, *refs,
+                               a, t0, *out)
+        take = ring if key[3] else refs
+        return bare_launch(fwd.bind(lib(key), key[3]).selected, N, B,
+                           take[0].shape[-1], *args, *take, a, t0, *out)
+
+    # K6: every build against the one-stage build, the baseline and K7
+    for model, (B, N), timed in K6_CASES:
+        for dtype in (fp32, fp64):
+            dname = str(dtype)[6:]
+            problem, t0, xs, us, ks, Ks, alpha = k6_inputs(model, B, N, dtype,
+                                                           device)
+            nx, nu = problem.state_dim, problem.input_dim
+            refs = (xs, us, ks, Ks)
+            ring = tma_taken(refs)
+            new = lambda *shape: torch.empty(shape, dtype=dtype,
+                                             device=device)
+            builds = runs("K6", ("K6", model, dtype))
+
+            def run_all(a):
+                outs = {}
+                for label, key in builds:
+                    out = (new(N + 1, nx, B), new(N, nu, B), new(N + 1, B),
+                           new(B))
+                    k6_launch(key, problem, refs, ring, a, t0, out)()
+                    outs[label] = out
+                return outs
+
+            outs = run_all(alpha)
+            torch.cuda.synchronize()
+            ref = outs["C=0"]
+            to_one = {k: all(same_bits(a, b) for a, b in zip(ref, o))
+                      for k, o in outs.items()}
+            alphas = torch.tensor(DDPConfig().alpha_list, dtype=dtype,
+                                  device=device)
+            cols = fwd.forward_costs_remat(problem, DDPConfig(
+                horizon_steps=N), t0, xs, us, ks, Ks, alphas)
+            k7 = collections.defaultdict(list)
+            for j in (0, 5, len(alphas) - 1):
+                for label, o in run_all(alphas[j].expand(B).contiguous()
+                                        ).items():
+                    k7[label].append(same_bits(cols[j], o[3]))
+            torch.cuda.synchronize()
+            k7 = {k: all(v) for k, v in k7.items()}
+            label = f"K6 {model} B={B} N={N} {dname}"
+            print(f"[fwd-groups] {label}: bit-equal to C=0 (register "
+                  f"prefetch) {to_one}; K7's alpha columns equal to the sum "
+                  f"{k7}", flush=True)
+            check(all(to_one.values()) and all(k7.values()),
+                  f"{label}: a build differs from the one-stage build, the "
+                  f"baseline or K7")
+            if not timed:
+                continue
+            t_bound, by = bound(moved_bytes("K6", B, N, dtype.itemsize, nx,
+                                            nu), 0)
+            out = (new(N + 1, nx, B), new(N, nu, B), new(N + 1, B), new(B))
+            timed_in_turns({label: k6_launch(key, problem, refs, ring, alpha,
+                                             t0, out)
+                            for label, key in builds},
+                           f"K6 {model} B={B} N={N}", card,
+                           note=f", bound {t_bound * 1e3:.2f} us ({by})",
+                           tag="fwd-groups", dtype=dname)
+
+    # K6's chain floor: the headline's horizon on one warp, fp32
+    B, N = CHAIN_FLOOR
+    problem, t0, xs, us, ks, Ks, alpha = k6_inputs("cart-pole", B, N, fp32,
+                                                   device)
+    out = [torch.empty(shape, device=device) for shape in
+           ((N + 1, 4, B), (N, 1, B), (N + 1, B), (B,))]
+    refs = (xs, us, ks, Ks)
+    timed_in_turns({label: k6_launch(key, problem, refs, tma_taken(refs),
+                                     alpha, t0, out)
+                    for label, key in runs("K6", ("K6", "cart-pole", fp32))},
+                   f"K6 chain floor (one warp) cart-pole B={B} N={N}", card,
+                   tag="fwd-groups")
+
+    # K11: every build against the one-stage build, the baseline and the
+    # plain version
+    for model, (B, N), timed in K11_CASES:
+        for dtype in (fp32, fp64):
+            dname = str(dtype)[6:]
+            args = k11_inputs(model, B, N, dtype, device)
+            nx, nu = args[0].shape[1], args[1].shape[2]
+            fields = tma_taken(args[:5])
+            new = lambda *shape: torch.empty(shape, dtype=dtype,
+                                             device=device)
+            builds = runs("K11", ("K11", (nx, nu), dtype))
+
+            def k11_launch(key, out):
+                if key[-1] == "baseline":
+                    return bare_launch(bind_parent_k11(lib(key)), N, B,
+                                       *args, *out)
+                return bare_launch(k11.bind(lib(key)), N, B,
+                                   fields[0].shape[-1], *fields, args[5],
+                                   *out)
+
+            outs = {}
+            for label, key in builds:
+                outs[label] = (new(N + 1, nx, B), new(N, nu, B))
+                k11_launch(key, outs[label])()
+            torch.cuda.synchronize()
+            ref = outs["G=1 C=1"]
+            plain = k11.forward_fmpc_deltas_plain(*args)
+            finite = fmpc_mod._finite(plain[0]) & fmpc_mod._finite(plain[1])
+            to_plain = bit_equal(plain, ref, finite)
+            to_one = {k: all(same_bits(a, b) for a, b in zip(ref, o))
+                      for k, o in outs.items()}
+            label = f"K11 {model} ({nx}, {nu}) B={B} N={N} {dname}"
+            print(f"[fwd-groups] {label}: finite lanes "
+                  f"{int(finite.sum())}/{B}; G=1 C=1 bit-equal to the plain "
+                  f"version on them {to_plain}; bit-equal to G=1 C=1 "
+                  f"{to_one}", flush=True)
+            check(to_plain and all(to_one.values()),
+                  f"{label}: a build differs from the one-stage build, the "
+                  f"baseline or the plain version")
+            if not timed:
+                continue
+            t_bound, by = bound(fmpc_bytes("K11", B, N, dtype.itemsize, nx,
+                                           nu, 0), 0)
+            out = (new(N + 1, nx, B), new(N, nu, B))
+            timed_in_turns({label: k11_launch(key, out)
+                            for label, key in builds},
+                           f"K11 {model} B={B} N={N}", card,
+                           note=f", bound {t_bound * 1e3:.2f} us ({by})",
+                           tag="fwd-groups", dtype=dname)
+
+    if not baseline:
+        return
+
+    def wrapper_turns(calls, label):
+        """CUDA-event ms a call, then the host's us a call, in turns."""
+        for call in calls.values():
+            call()
+        timed_in_turns(calls, label, card, tag="fwd-groups")
+        times = collections.defaultdict(list)
+        for order in (list(calls), list(reversed(calls))):
+            for key in order:
+                times[key].append(host_us(calls[key]))
+        for key, us in times.items():
+            print(f"[fwd-groups] {label} fp32 {key}: host {us[0]:.1f} / "
+                  f"{us[1]:.1f} us a call (in turns) [{card}]", flush=True)
+
+    # the wrappers, host work included, in turns with the baseline's; on
+    # the vertical model also the bare launches of its ring (C = 8), of
+    # its register prefetch (C = 0) and of the baseline's unit
+    for model, (B, N) in (("cart-pole", HEADLINE), ("cart-pole", TICK),
+                          ("vertical", VERTICAL)):
+        problem, t0, xs, us, ks, Ks, alpha = k6_inputs(model, B, N, fp32,
+                                                       device)
+        cfg = DDPConfig(horizon_steps=N)
+        wrapper_turns({mod_label: functools.partial(
+            mod.forward_selected_remat, problem, cfg, t0, xs, us, ks, Ks,
+            alpha) for mod_label, mod in (("this", fwd), ("baseline", pf))},
+            f"K6 wrapper (forward_selected_remat) {model} B={B} N={N}")
+        if model == "vertical":
+            refs = (xs, us, ks, Ks)
+            out = (torch.empty(N + 1, 2, B, device=device),
+                   torch.empty(N, 2, B, device=device),
+                   torch.empty(N + 1, B, device=device),
+                   torch.empty(B, device=device))
+            wrapper_turns({label: k6_launch(key, problem, refs, refs, alpha,
+                                            t0, out)
+                           for label, key in runs("K6", ("K6", model, fp32))
+                           if label in ("C=0", "C=8", "baseline")},
+                          f"K6 bare launch {model} B={B} N={N}")
+    args = k11_inputs("cart-pole", *FMPC_SERVING, fp32, device)
+    wrapper_turns({mod_label: functools.partial(
+        mod.forward_fmpc_deltas_fused, *args)
+        for mod_label, mod in (("this", k11), ("baseline", p11))},
+        f"K11 wrapper (forward_fmpc_deltas_fused) cart-pole "
+        f"B={FMPC_SERVING[0]} N={FMPC_SERVING[1]}")
 
 
 LAYERS = ("_rollout_lanes", "_derivative_sweep_lanes", "_terminal_quad_lanes",
@@ -2552,10 +2974,9 @@ def fmpc_bytes(key, B, N, itemsize, nx, nu, ng, alone=False):
 
 def condensed_call(fn, problem, cfg, co, nu_s, tilde, variant):
     """A launch of a unit that takes the condensation scalings from its
-    caller (K9's; the baseline's K8 and K10 in phase_fmpc_groups) on
-    ``nu_s`` and ``tilde`` computed once, into outputs allocated once:
-    ``variant`` "stream" (K9, the baseline's K8: the 12 fields) or
-    "packed" (the baseline's K10: the packed buffer)."""
+    caller (K9's) on ``nu_s`` and ``tilde`` computed once, into outputs
+    allocated once: ``variant`` "stream" (K9: the 12 fields) or "packed"
+    (the packed buffer)."""
     N, nx, nu = co.A.shape[0], co.A.shape[1], co.B.shape[2]
     B, dtype, device = nu_s.shape[-1], nu_s.dtype, nu_s.device
     s_T = -co.Lx_bar_term
@@ -3310,13 +3731,16 @@ def main() -> int:
                         help="also time the boxed kernels (K4, K5 boxed) at "
                              "each group size of QP_GROUPS, the unboxed "
                              "group kernels (K1, K2, K3, K5) at each of "
-                             "ROW_GROUPS and the FMPC ones (K8, K10) at each "
-                             "of FMPC_GROUPS")
+                             "ROW_GROUPS, the FMPC ones (K8, K10) at each "
+                             "of FMPC_GROUPS and the forward recursions "
+                             "(K6, K11) at each chunk of FWD_CHUNKS and "
+                             "(K11) group of FWD_GROUPS")
     parser.add_argument("--baseline", metavar="DIR",
-                        help="with --qp-groups, also build K1-K5, K8 and K10 "
-                             "from the checkout at DIR, hold this one's K1-K3 "
-                             "to its K1 and K8, K10 to its K8, and time them "
-                             "in turns with this one's")
+                        help="with --qp-groups, also build K1-K6, K8, K10 and "
+                             "K11 from the checkout at DIR, hold this one's "
+                             "K1-K3 to its K1, K8, K10 to its K8 and K6, K11 "
+                             "to its K6, K11, and time them in turns with "
+                             "this one's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3344,6 +3768,8 @@ def main() -> int:
         phases.append(("row-groups", lambda: phase_row_groups(
             device, card, args.baseline)))
         phases.append(("fmpc-groups", lambda: phase_fmpc_groups(
+            device, card, args.baseline)))
+        phases.append(("fwd-groups", lambda: phase_fwd_groups(
             device, card, args.baseline)))
     if args.layers:
         phases.append(("layers", lambda: phase_layers(device, card)))

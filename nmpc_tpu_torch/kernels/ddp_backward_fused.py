@@ -291,35 +291,48 @@ backward_fused.chunked_launches = 0   # K2
 backward_fused.padded_copies = 0      # a field copied to a TMA lane stride
 
 
+def tma_takes(a: torch.Tensor) -> bool:
+    """Whether a TMA tensor map takes ``a`` [..., B] as it is: at a
+    16-byte aligned address with B a multiple of 16 bytes."""
+    return (a.shape[-1] * a.element_size()) % 16 == 0 and (
+        a.data_ptr() % 16 == 0)
+
+
 def padded_lanes(a: torch.Tensor):
-    """(a, its lane stride) where a TMA tensor map takes ``a`` [..., B] as
-    it is: at a 16-byte aligned address with B a multiple of 16 bytes;
-    else (a copy of ``a`` into [..., packed_lane_stride(B)] at a fresh
-    address, that stride), the lanes past B left unset (the map's bounds
-    stop at B)."""
+    """(a, its lane stride) where :func:`tma_takes` ``a``; else (a copy of
+    ``a`` into [..., packed_lane_stride(B)] at a fresh address, that
+    stride), the lanes past B left unset (the map's bounds stop at B)."""
     B = a.shape[-1]
-    ld = packed_lane_stride(B, a.dtype)
-    if ld == B and a.data_ptr() % 16 == 0:
+    if tma_takes(a):
         return a, B
+    per = 16 // a.element_size()
+    ld = -(-B // per) * per   # packed_lane_stride(B, a.dtype)
     padded = torch.empty((*a.shape[:-1], ld), dtype=a.dtype, device=a.device)
     padded[..., :B] = a
     return padded, ld
 
 
+def padded_fields(fields):
+    """(``fields`` [..., B] as TMA tensor maps take them, their common lane
+    stride, how many were copied), each by :func:`padded_lanes`: where B
+    is a multiple of 16 bytes, each field as it is unless it lies at an
+    address that is not 16-byte aligned (a view at an offset), which is
+    copied once; else every field copied once into a buffer padded to
+    :func:`packed_lane_stride`."""
+    if all(map(tma_takes, fields)):
+        return list(fields), fields[0].shape[-1], 0
+    out = [padded_lanes(a) for a in fields]
+    (ld,) = {ld for _, ld in out}
+    return ([a for a, _ in out], ld,
+            sum(p is not a for (p, _), a in zip(out, fields)))
+
+
 def tma_fields(D: StackedDerivs):
-    """(the seven fields as K1's tensor maps take them, their lane stride):
-    where B is a multiple of 16 bytes, each field as it is unless it lies
-    at an address that is not 16-byte aligned (a view at an offset), which
-    is copied once; else every field copied once into a buffer padded to
-    :func:`packed_lane_stride`.  Each copy adds one to
+    """(the seven fields as K1's tensor maps take them, their lane stride)
+    by :func:`padded_fields`; each copy adds one to
     ``backward_fused.padded_copies``."""
-    fields, lds = [], set()
-    for a in D:
-        out, ld = padded_lanes(a)
-        backward_fused.padded_copies += out is not a
-        fields.append(out)
-        lds.add(ld)
-    (ld,) = lds
+    fields, ld, copies = padded_fields(D)
+    backward_fused.padded_copies += copies
     return fields, ld
 
 

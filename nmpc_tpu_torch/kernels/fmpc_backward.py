@@ -44,7 +44,7 @@ from nmpc_tpu_torch.kernels.build import build_generated, load
 from nmpc_tpu_torch.kernels.ddp_backward_fused import (LANES, _check,
                                                        offsets,
                                                        pack_fields,
-                                                       packed_lane_stride,
+                                                       padded_fields,
                                                        padded_lanes,
                                                        unpack_fields)
 
@@ -294,21 +294,12 @@ def tma_fields(co, ss, nus):
     A, B, C, D, Lxx, Luu, Lxu, x_bar, Lx_bar, Lu_bar, s, nu, g_bar, each as
     it is where its B is a multiple of 16 bytes and its address 16-byte
     aligned, else copied once into a buffer padded to the lane stride TMA
-    takes (``ddp_backward_fused.padded_lanes``); each copy adds one to
+    takes (``ddp_backward_fused.padded_fields``); each copy adds one to
     ``backward_fmpc_fused.padded_copies``."""
-    fields = [getattr(co, name) for name in _FIELDS] + [ss, nus, co.g_bar]
-    B = ss.shape[-1]
-    if (packed_lane_stride(B, ss.dtype) == B
-            and all(a.data_ptr() % 16 == 0 for a in fields)):
-        return fields, B
-    out, lds = [], set()
-    for a in fields:
-        padded, ld = padded_lanes(a)
-        backward_fmpc_fused.padded_copies += padded is not a
-        out.append(padded)
-        lds.add(ld)
-    (ld,) = lds
-    return out, ld
+    fields, ld, copies = padded_fields(
+        [getattr(co, name) for name in _FIELDS] + [ss, nus, co.g_bar])
+    backward_fmpc_fused.padded_copies += copies
+    return fields, ld
 
 
 def launch_stream(fn, problem, config, co, ss, nus, gms, barrier_eps):

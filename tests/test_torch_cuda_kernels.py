@@ -6,8 +6,10 @@ layout variants that must equal their parents bit for bit: the chunked
 and packed DDP backward (K2, K3) against K1, the resident and packed FMPC
 backward (K9, K10) against K8, with the solver keywords that select them;
 the group kernels (K1, K2, K3, K5 unboxed, K8, K10) at every group size
-against one thread per lane, and K1, K3, K8 and K10 where TMA does not
-take a field or buffer as it is.
+against one thread per lane, the forward recursions (K6, K11) at every
+chunk of their ring, feed and group size against the one-stage build,
+and K1, K3, K8, K10 and K11 where TMA does not take a field or buffer as
+it is.
 Every test
 here is marked ``cuda`` and skips without a card; the file imports no JAX,
 so on the GPU machine it runs without the JAX package's conftest:
@@ -35,11 +37,13 @@ from nmpc_tpu_torch.kernels.ddp_backward_fused import (backward_fused,
                                                        pack_derivs)
 from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
                                                        backward_remat_plain)
+from nmpc_tpu_torch.kernels import ddp_forward_remat as fwd
 from nmpc_tpu_torch.kernels.ddp_forward_remat import (forward_costs_remat,
                                                       forward_selected_remat)
 from nmpc_tpu_torch.kernels import fmpc_backward
 from nmpc_tpu_torch.kernels.fmpc_backward import (backward_fmpc_fused,
                                                   backward_fmpc_packed)
+from nmpc_tpu_torch.kernels import fmpc_forward
 from nmpc_tpu_torch.kernels.fmpc_forward import (forward_fmpc_deltas_fused,
                                                  forward_fmpc_deltas_plain)
 from nmpc_tpu_torch.kernels.tileval import TileEvalError
@@ -979,3 +983,98 @@ def test_fmpc_variant_reaches_its_kernel(card, variant, N, counter):
     for f in ("xs", "us", "lambdas", "ss", "nus"):
         assert torch.equal(getattr(ref.variable, f),
                            getattr(res.variable, f))
+
+
+# the chunks of stages of the forward recursions' ring (csrc/fwd_ring.cuh;
+# K6 at 0: its one-stage register prefetch) and K11's group sizes, as
+# measured on the card
+FWD_CHUNKS = (1, 2, 4, 8)
+FWD_GROUPS = (1, 2, 4)
+
+
+def _fmpc_forward_args(B, N, dtype, device):
+    """(A, Bm, x_bar, ks, Ks, dx0) of ``_fmpc_case`` (lane 7 NaN) with the
+    plain backward's gains, and the plain result's finite lanes."""
+    p, co, var, gms, eps = _fmpc_case(B, N, dtype, device)
+    ks, Ks, *_ = fmpc._backward_bm(p, FmpcConfig(horizon_steps=N), co,
+                                   var.ss, var.nus, gms, eps)
+    dx0 = torch.as_tensor(np.random.default_rng(5).normal(size=(4, B)),
+                          dtype=dtype, device=device)
+    args = (co.A, co.B, co.x_bar, ks, Ks, dx0)
+    plain = forward_fmpc_deltas_plain(*args)
+    finite = fmpc._finite(plain[0]) & fmpc._finite(plain[1])
+    return args, plain, finite
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_forward_rings_equal_one_stage(card, dtype):
+    """K6 built at every chunk C of its TMA ring, and K11 at every (C, G),
+    on a ragged batch (B=300, N=17: a last chunk shorter than C) with a
+    NaN lane (K6: a NaN state; K11: a NaN A): every output equal bit for
+    bit to the one-stage build (K6: its register prefetch, C = 0; K11: C =
+    1, G = 1), NaN lanes included; K11's equal to the plain version on its
+    finite lanes."""
+    B, N = 300, 17
+    p, t0, xs, us, VxT, VxxT = _trajectory(B, N, dtype, card)
+    cfg = DDPConfig(horizon_steps=N)
+    lam = torch.full((B,), 1e-4, dtype=dtype, device=card)
+    ks, Ks, _, ok = backward_remat_plain(p, cfg, t0, xs, us, VxT, VxxT, lam)
+    assert bool(ok.all())
+    xs[5, 1, 299] = float("nan")
+    alpha = torch.as_tensor(np.random.default_rng(3).uniform(0.1, 1.0, B),
+                            dtype=dtype, device=card)
+    refs = fused.padded_fields((xs, us, ks, Ks))[0]
+    outs = {c: fwd.launch_selected(fwd.launchers(p, 4, 1, dtype, c), p, t0,
+                                   *(refs if c else (xs, us, ks, Ks)), alpha)
+            for c in (0,) + FWD_CHUNKS}
+    torch.cuda.synchronize()
+    ref = outs[0]
+    assert bool(torch.isnan(ref[3][299])) and bool(
+        torch.isfinite(ref[3][:299]).all())
+    for key, out in outs.items():
+        for a, b in zip(ref, out):
+            assert torch.equal(_bits(a), _bits(b)), key
+    args, plain, finite = _fmpc_forward_args(B, N, dtype, card)
+    fields = fused.padded_fields(args[:5])[0]
+    outs = {(g, c): fmpc_forward.launch(
+        fmpc_forward.launcher(4, 1, dtype, g, c), *fields, args[5])
+        for g in FWD_GROUPS for c in FWD_CHUNKS}
+    torch.cuda.synchronize()
+    ref = outs[1, 1]
+    assert not finite[7] and int(finite.sum()) == B - 1
+    assert _equal_on(plain, ref, finite)
+    for key, out in outs.items():
+        for a, b in zip(ref, out):
+            assert torch.equal(_bits(a), _bits(b)), key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fmpc_forward_ragged_lane_stride(card, dtype):
+    """K11 through its wrapper at B=1023, whose lane stride TMA does not
+    take, and at B=1024 with A a view at a one-value offset: the wrapper
+    copies each such field once (all five at B=1023, A alone for the
+    view), launches once, and its
+    result equals bit for bit the one-stage build's (G = 1, C = 1) on the
+    same copies and the plain version's on the finite lanes."""
+    for B in (1023, 1024):
+        args, plain, finite = _fmpc_forward_args(B, 30, dtype, card)
+        if B == 1024:
+            A = torch.empty(args[0].numel() + 1, dtype=dtype, device=card)
+            A = A[1:].view(args[0].shape)
+            A.copy_(args[0])
+            assert A.data_ptr() % 16 != 0
+            args = (A,) + args[1:]
+        copies = 1 if B == 1024 else 5
+        fields = fused.padded_fields(args[:5])[0]
+        ref = fmpc_forward.launch(fmpc_forward.launcher(4, 1, dtype, 1, 1),
+                                  *fields, args[5])
+        before = (forward_fmpc_deltas_fused.launches,
+                  forward_fmpc_deltas_fused.padded_copies)
+        out = forward_fmpc_deltas_fused(*args)
+        torch.cuda.synchronize()
+        assert (forward_fmpc_deltas_fused.launches,
+                forward_fmpc_deltas_fused.padded_copies) == (
+                    before[0] + 1, before[1] + copies), B
+        assert _equal_on(plain, out, finite)
+        for a, b in zip(ref, out):
+            assert torch.equal(_bits(a), _bits(b)), B
