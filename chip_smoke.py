@@ -24,9 +24,10 @@ Phases, one line each (a failed phase exits non-zero):
    tick shape (B=256, N=200), each with one non-PD lane and one NaN lane;
    K5 at nx = 8, fp64, B=4096 (its field slab sized to the block's shared
    memory); K6 and K7 with gains from a real backward pass, and whether K7's
-   column for an alpha equals K6's sum bit for bit; K6 where it launches
-   its TMA ring (the boxed vertical model's step) at B=1024, N=100, B=256
-   and a ragged B=1023 (its references copied once); K4 and K5 boxed on
+   column for an alpha equals K6's sum bit for bit; K6 and K7 where they
+   launch their TMA ring (the boxed vertical model's step) at B=1024,
+   N=100, B=256 and a ragged B=1023 (their references copied once); K4
+   and K5 boxed on
    first-iteration vertical-motion data (B=1024, N=100, across the switch
    to two contacts, both regularization types), with a non-PD, a NaN and
    (K4) a planted long-QP lane, and how many lanes ran the QP's iteration
@@ -38,7 +39,7 @@ Phases, one line each (a failed phase exits non-zero):
    ``break_if_llt_fails``, a non-PD and a NaN lane; the two-input non-PD
    case) and K11 against its plain recursion fed K8's gains; the device
    kernels one ``backward_fmpc_fused`` call runs (``torch.profiler``: K8
-   condenses in its kernel, K9 after the wrapper's torch ops); then the
+   and K9 condense in their kernel, one launch each); then the
    layout variants against their plain versions and, bit for bit, their
    parent kernels (a failed check): K2 and K3 against K1 at the headline
    shape and the bipedal shape (B=2048, N=300), K1, K2 and K3 at B=1023
@@ -85,7 +86,7 @@ Phases, one line each (a failed phase exits non-zero):
    ``make_closed_loop``;
 5. times on the card: each kernel and its plain version (CUDA events)
    beside its bound, the packs apart (and K3 with its pack beside K1), K8
-   and K9 also without the wrapper's condensation, the
+   and K9 also alone (their launch on inputs prepared once), the
    QP work of the boxed kernels' timed inputs (``[qp]``), solves/s and
    tick p50/p99 for each (backward, forward) pair, solves/s of the boxed
    vertical solve and of
@@ -106,23 +107,27 @@ Phases, one line each (a failed phase exits non-zero):
    tick shapes with the pack), with ptxas' report of each; then K8 and K10
    with 1, 2, 4 and 8 threads per lane at (4, 1, 4), 1, 2 and 4 at (2, 1,
    3), 1 and 2 at (2, 2, 2), each with the group's rows of P A, P B and P
-   x_bar exchanged and computed by every thread (and, with ``--baseline
-   DIR``, that checkout's K8 and K10): every one bit for bit to G = 1, K8
-   to the baseline's K8, K10 to K8, at fp32 and fp64, both
-   ``break_if_llt_fails``, the FMPC shapes, the two-input case and a
-   ragged B and N; timed in turns with the baseline's at the FMPC shapes,
-   fp32 and fp64 (kernels alone, and K8's call beside the baseline's with
-   its condensation); then (``fwd-groups``) K6 at every chunk of stages
-   of its TMA ring (1, 2, 4, 8) and at 0 (its register prefetch), and
-   K11 at every (chunk, 1, 2 or 4 threads per lane) at (4, 1), (2, 1)
-   and (2, 2) (and, with ``--baseline DIR``, that checkout's K6 and K11):
-   every one bit for bit to the one-stage build and the baseline's, K11
-   to its plain version, K7's columns to K6's sums, at fp32 and fp64 on
-   the headline, tick and boxed vertical shapes (K6), the FMPC shapes,
-   the oscillator tick shape and the two-input problem (K11) and a
-   ragged B and N; timed in turns with the baseline's, K6 on one warp
-   (B=32, N=100: its chain floor), and (with ``--baseline``) K6's and
-   K11's wrappers in turns with the baseline's wrappers;
+   x_bar exchanged and computed by every thread, and K9 at each of those
+   G and 8, 16 or 32 lanes a block (and, with ``--baseline DIR``, that
+   checkout's K8, K9 and K10): every one bit for bit to G = 1 (K9: to K8
+   at G = 1), K8 to the baseline's K8, K9, K10 and the baseline's K9 to
+   K8, at fp32 and fp64, both ``break_if_llt_fails``, the FMPC shapes,
+   the cart-pole at N=23, the two-input case and ragged B and N; timed in
+   turns with the baseline's at the FMPC shapes, fp32 and fp64 (kernels
+   alone, and K8's and K9's calls beside the baseline's with its
+   condensation); then (``fwd-groups``) K6 and K7 at every chunk of
+   stages of their TMA ring (1, 2, 4, 8) and at 0 (the register
+   prefetch), and K11 at every (chunk, 1, 2 or 4 threads per lane) at (4,
+   1), (2, 1) and (2, 2) (and, with ``--baseline DIR``, that checkout's
+   K6, K7 and K11): every one bit for bit to the one-stage build and the
+   baseline's, K11 to its plain version, K7's columns to K6's sums and to
+   its wrapper's, at fp32 and fp64 on the headline, tick and boxed
+   vertical shapes (K6, K7 at 11 alphas, and 10 at the headline), the
+   FMPC shapes, the oscillator tick shape and the two-input problem (K11)
+   and a ragged B and N; timed in turns with the baseline's, K6 and K7 (one
+   alpha) on one warp (B=32, N=100: their chain floor), and (with
+   ``--baseline``) K6's, K7's and K11's wrappers in turns with the
+   baseline's wrappers;
 7. with ``--layers`` only: where one solve's time goes at both shapes,
    for each pair, for the boxed vertical solve, the bipedal config's
    ``auto`` path at 2 iterations and the FMPC configurations (synced time
@@ -822,47 +827,67 @@ def phase_kernels(device):
                 same.append(torch.equal(out[j], sel))
             print(f"[kernel] K7 vs K6 {label}: alpha columns equal to K6's "
                   f"sum bit for bit: {sum(same)}/{len(same)}", flush=True)
-    check_k6_ring(device)
+    check_fwd_ring(device)
     check_wide_remat(device)
     phase_kernels_boxed(device)
 
 
-def check_k6_ring(device):
-    """K6 through its wrapper where it launches its TMA ring (``ref_chunk``
-    8: the boxed vertical model's step, which the boxed vertical solve and
-    its tick loop drive; the cart-pole's takes the register prefetch, held
-    above) vs ``_forward_selected_lanes``: the vertical model's first
-    iteration at its solve and tick shapes and a ragged B=1023, N=37
-    (every reference copied once to a lane stride TMA takes), fp32 and
-    fp64."""
+def check_fwd_ring(device):
+    """K6 and K7 through their wrappers where they launch their TMA ring
+    (``ref_chunk`` 8: the boxed vertical model's step, which the boxed
+    vertical solve and its tick loop drive; the cart-pole's takes the
+    register prefetch, held above; ``costs_chunk``: K7 on the vertical
+    step) vs ``_forward_selected_lanes`` and ``_forward_costs_lanes``: the
+    vertical model's first iteration at its solve and tick shapes and a
+    ragged B=1023, N=37 (every reference copied once to a lane stride TMA
+    takes), fp32 and fp64; K7's columns equal to K6's sums at the first
+    and last alpha."""
     problem = vertical_problem()
     for dtype in (torch.float32, torch.float64):
         check(fwd.ref_chunk(problem, 2, 2, dtype) == 8
               and fwd.ref_chunk(make_cartpole_problem(DT), 4, 1, dtype) == 0,
               "K6's feed rule: the vertical step takes the ring, the "
               "cart-pole's the register prefetch")
+        ring7 = fwd.costs_chunk(problem, 2, 2, dtype) > 0
         dname = str(dtype)[6:]
         for B, N in (VERTICAL, VERTICAL_TICK, (1023, 37)):
             _, t0, xs, us, ks, Ks, alpha = k6_inputs("vertical", B, N, dtype,
                                                      device)
             cfg = DDPConfig(horizon_steps=N)
             label = f"vertical B={B} N={N} {dname}"
-            before = fwd.forward_selected_remat.padded_copies
+            before = (fwd.forward_selected_remat.padded_copies,
+                      fwd.forward_costs_remat.padded_copies)
             out = fwd.forward_selected_remat(problem, cfg, t0, xs, us, ks, Ks,
                                              alpha)
-            copies = fwd.forward_selected_remat.padded_copies - before
+            alphas = torch.tensor(cfg.alpha_list, dtype=dtype, device=device)
+            sums = fwd.forward_costs_remat(problem, cfg, t0, xs, us, ks, Ks,
+                                           alphas)
+            copies = (fwd.forward_selected_remat.padded_copies - before[0],
+                      fwd.forward_costs_remat.padded_copies - before[1])
             plain = ddp_mod._forward_selected_lanes(problem, cfg, t0, xs, us,
                                                     ks, Ks, alpha, dtype)
+            plain_sums = ddp_mod._forward_costs_lanes(
+                problem, cfg, t0, xs, us, ks, Ks, alphas, dtype)
             torch.cuda.synchronize()
             err = report(f"K6 (TMA ring) {label}", {
                 n: norm_err(a, b) for n, a, b in
                 zip(("xs", "us", "costs", "sum"), plain, out)}, dtype)
             KERNELS["K6"].max_abs_err = max(KERNELS["K6"].max_abs_err, err)
+            err = report(f"K7 ({'TMA ring' if ring7 else 'register'}) "
+                         f"{label}", {"sums": norm_err(plain_sums, sums)},
+                         dtype)
+            KERNELS["K7"].max_abs_err = max(KERNELS["K7"].max_abs_err, err)
+            same = [same_bits(sums[j], fwd.forward_selected_remat(
+                problem, cfg, t0, xs, us, ks, Ks,
+                alphas[j].expand(B).contiguous())[3])
+                for j in (0, len(alphas) - 1)]
+            check(all(same), f"K7 {label}: a column differs from K6's sum")
             untaken = sum((a.shape[-1] * a.element_size()) % 16 != 0
                           or a.data_ptr() % 16 != 0
                           for a in (xs, us, ks, Ks))
-            check(copies == untaken and (B != 1023 or copies == 4),
-                  f"K6 {label}: {copies} references copied for TMA, "
+            check(copies == (untaken, untaken if ring7 else 0)
+                  and (B != 1023 or copies[0] == 4),
+                  f"K6/K7 {label}: {copies} references copied for TMA, "
                   f"{untaken} it does not take")
 
 
@@ -1857,18 +1882,23 @@ def phase_row_groups(device, card, baseline):
 
 # The FMPC group kernels (K8, K10) are built at, per (nx, nu, ng): every
 # G measured, each with the group's rows of P A, P B and P x_bar exchanged
-# by shuffles (share) and computed by every thread (redundant).
+# by shuffles (share) and computed by every thread (redundant); K9 at
+# every G and every lanes a block of K9_LANES that is a whole number of
+# its warps' lanes.
 FMPC_GROUPS = {(4, 1, 4): (1, 2, 4, 8), (2, 1, 3): (1, 2, 4),
                (2, 2, 2): (1, 2)}
-# The inputs every G, K10 and the baseline's K8 are held on (model, (B, N),
-# timed): the three FMPC shapes of §4 (timed at fp32 and fp64), the
-# two-input non-PD case and a ragged B with an odd N (K8's fields copied
-# to a padded stride).
+K9_LANES = (8, 16, 32)
+# The inputs every G, K10, K9 (N <= 32) and the baseline's K8 and K9 are
+# held on (model, (B, N), timed): the three FMPC shapes of §4 and the
+# cart-pole at N = 23 (timed at fp32 and fp64), the two-input non-PD case
+# and a ragged B with an odd N (the fields copied to a padded stride).
 FMPC_GROUP_CASES = (("cart-pole", FMPC_SERVING, True),
                     ("oscillator", FMPC_OSC, True),
                     ("oscillator", FMPC_OSC_SHORT, True),
+                    ("cart-pole", (4096, 23), True),
                     ("two-input", (128, 8), False),
-                    ("cart-pole", (1023, 37), False))
+                    ("cart-pole", (1023, 37), False),
+                    ("oscillator", (1023, 31), False))
 
 
 def fmpc_group_inputs(model, B, N, dtype, device):
@@ -1893,18 +1923,21 @@ def as_k8_outputs(out, nx, nu, N):
 
 def phase_fmpc_groups(device, card, baseline):
     """K8 and K10 built at every group size of FMPC_GROUPS, with and
-    without ``share``, and, with ``baseline`` (another checkout's root),
-    the baseline's K8 and K10 from that checkout's headers, unit text and
-    flags: all built at once with ptxas' report of each.  On every input
-    of FMPC_GROUP_CASES at fp32 and fp64 and both break_if_llt_fails:
-    every G of K8 and of K10 bit for bit equal to the same kernel at G = 1
-    (NaN lanes included), K8 at G = 1 equal to the baseline's K8 (launched
-    by the baseline module's own ``launch_stream``; without a baseline:
-    this K8) and each K10 equal to this K8 on its finite lanes with the
-    same ok and finite masks.  Then each timed in turns with the
-    baseline's at the first three shapes, fp32 and fp64: the kernels
-    alone on inputs prepared once, and the calls (K8 through
-    ``launch_stream``, its host work included)."""
+    without ``share``, K9 at every (G, lanes a block of K9_LANES), and,
+    with ``baseline`` (another checkout's root), the baseline's K8, K9 and
+    K10 from that checkout's headers, unit text and flags: all built at
+    once with ptxas' report of each.  On every input of FMPC_GROUP_CASES at
+    fp32 and fp64 and both break_if_llt_fails: every G of K8 and of K10
+    bit for bit equal to the same kernel at G = 1 (NaN lanes included),
+    every K9 (those whose horizon fits a block, and the wrapper's build)
+    bit for bit equal to K8 at G = 1, K8 at G = 1 equal to the baseline's
+    K8 (launched by the baseline module's own ``launch_stream``; without a
+    baseline: this K8) and each K10 and K9 and the baseline's K9 (fed the
+    torch condensation) equal to this K8 on its finite lanes with the same
+    ok and finite masks.  Then each timed in turns with the baseline's at
+    the timed shapes, fp32 and fp64: the kernels alone on inputs prepared
+    once, and the calls (K8 and K9 through ``launch_stream``, their host
+    work included; the baseline's K9 with its torch condensation)."""
     parent_csrc = (Path(baseline).resolve() / "nmpc_tpu_torch" / "csrc"
                    if baseline else None)
     fp32, fp64 = torch.float32, torch.float64
@@ -1923,11 +1956,17 @@ def phase_fmpc_groups(device, card, baseline):
                          k8.unit_name(*shape, dtype, variant, g, share),
                          k8.unit_source(*shape, dtype, variant, g, share),
                          k8.FMPC_FLAGS)
+            for g, lanes in ((g, L) for g in groups for L in K9_LANES
+                             if L % (32 // g) == 0):
+                unit(("resident", shape, dtype, g, lanes),
+                     k8.unit_name(*shape, dtype, "resident", g, None, lanes),
+                     k8.unit_source(*shape, dtype, "resident", g, None,
+                                    lanes), k8.FMPC_FLAGS)
     if baseline:
         pk8 = parent_module(baseline, "fmpc_backward")
         for dtype in (fp32, fp64):
             for shape in FMPC_GROUPS:
-                for variant in ("stream", "packed"):
+                for variant in ("stream", "packed", "resident"):
                     unit(("baseline", variant, shape, dtype),
                          k8.unit_name(*shape, dtype, variant) + "_parent",
                          pk8.unit_source(*shape, dtype, variant),
@@ -1958,22 +1997,37 @@ def phase_fmpc_groups(device, card, baseline):
             nu_s, tilde = k8.condensation(co, v.ss, v.nus, gms, eps)
             P_in, ld3 = k8.padded_lanes(k8.pack_fmpc_inputs(co, nu_s, tilde))
             s_T, P_T = -co.Lx_bar_term, co.Lxx_term
+            resident = k8.resident_fits(*shape, N, dtype)
+            base9 = baseline and pk8.resident_fits(*shape, N, dtype)
             keys = [key for key in index if key[0] != "baseline"
-                    and key[1] == shape and key[2] == dtype]
+                    and key[1] == shape and key[2] == dtype and (
+                        key[0] != "resident" or resident
+                        and k8.resident_block_fits(*shape, N, dtype, key[3],
+                                                   key[4]))]
+
+            def name_of(key):
+                if key[0] == "resident":
+                    return f"K9 G={key[3]} L={key[4]}"
+                return (f"{'K8' if key[0] == 'stream' else 'K10'} "
+                        f"G={key[3]}{'' if key[4] else ' redundant'}")
+
             for brk in (False, True):
                 cfg = dataclasses.replace(config, break_if_llt_fails=brk)
                 calls = {}
                 for key in keys:
-                    name = (f"{'K8' if key[0] == 'stream' else 'K10'} "
-                            f"G={key[3]}{'' if key[4] else ' redundant'}")
-                    if key[0] == "stream":
-                        calls[name] = functools.partial(
-                            k8.launch_stream, launcher(key), problem, cfg, co,
-                            v.ss, v.nus, gms, eps)
-                    else:
-                        calls[name] = functools.partial(
+                    if key[0] == "packed":
+                        calls[name_of(key)] = functools.partial(
                             k8.launch_packed, launcher(key), problem, cfg,
                             P_in, ld3, s_T, P_T, nx, nu, ng)
+                    else:
+                        calls[name_of(key)] = functools.partial(
+                            k8.launch_stream, launcher(key), problem, cfg, co,
+                            v.ss, v.nus, gms, eps)
+                if resident:   # the wrapper's K9 (its rules' G and lanes)
+                    calls["K9"] = functools.partial(
+                        k8.launch_stream, k8.launcher(*shape, dtype,
+                                                      "resident"),
+                        problem, cfg, co, v.ss, v.nus, gms, eps)
                 if baseline:
                     calls["K8 baseline"] = functools.partial(
                         pk8.launch_stream,
@@ -1983,6 +2037,16 @@ def phase_fmpc_groups(device, card, baseline):
                         pk8.launch_packed,
                         launcher(("baseline", "packed", shape, dtype)),
                         problem, cfg, P_in, ld3, s_T, P_T, nx, nu, ng)
+                if base9:
+                    # the baseline's K9 after its wrapper's torch
+                    # condensation, as a call and alone
+                    fn9 = launcher(("baseline", "resident", shape, dtype))
+                    calls["K9 baseline"] = (
+                        lambda fn9=fn9, cfg=cfg: condensed_call(
+                            fn9, problem, cfg, co, *k8.condensation(
+                                co, v.ss, v.nus, gms, eps))())
+                    k9_alone = condensed_call(fn9, problem, cfg, co, nu_s,
+                                              tilde)
                 outs = {key: as_k8_outputs(fn(), nx, nu, N)
                         for key, fn in calls.items()}
                 torch.cuda.synchronize()
@@ -1997,13 +2061,15 @@ def phase_fmpc_groups(device, card, baseline):
                             and bit_equal(a[:4], b[:4], lanes))
 
                 to_g1 = {key: all(same_bits(a, b) for a, b in zip(
-                    outs[key.split()[0] + " G=1"], out))
-                    for key, out in outs.items() if "G=" in key}
+                    outs["K8 G=1" if key.startswith("K9") else
+                         key.split()[0] + " G=1"], out))
+                    for key, out in outs.items()
+                    if "G=" in key or key == "K9"}
                 to_ref = {key: equal_on(ref, out, ref[5])
                           for key, out in outs.items()}
                 print(f"[fmpc-groups] {label}: ok {int(ref[4].sum())}/{B}, "
                       f"finite {int(ref[5].sum())}/{B}; bit-equal to the "
-                      f"kernel's G=1 {to_g1}; K8 G=1 equal to the "
+                      f"kernel's G=1 (K9: K8's) {to_g1}; K8 G=1 equal to the "
                       f"{'baseline' if baseline else 'G=1'} K8 on its finite "
                       f"lanes {to_ref['K8 G=1']}; every kernel equal to it "
                       f"{to_ref}", flush=True)
@@ -2015,33 +2081,42 @@ def phase_fmpc_groups(device, card, baseline):
                     continue
                 times = {}
                 for key in keys:
-                    name = (f"{'K8' if key[0] == 'stream' else 'K10'} "
-                            f"G={key[3]}{'' if key[4] else ' redundant'}")
-                    if key[0] == "stream":
-                        times[name + " alone"] = fmpc_kernel_alone(
-                            problem, cfg, co, v, gms, eps,
-                            fn=launcher(key))
-                        times[name + " call"] = calls[name]
-                    else:
+                    name = name_of(key)
+                    if key[0] == "packed":
                         times[name] = calls[name]
+                        continue
+                    times[name + " alone"] = fmpc_kernel_alone(
+                        problem, cfg, co, v, gms, eps, key[0],
+                        fn=launcher(key))
+                    times[name + " call"] = calls[name]
+                if resident:
+                    times["K9 alone"] = fmpc_kernel_alone(
+                        problem, cfg, co, v, gms, eps, "resident")
+                    times["K9 call"] = calls["K9"]
                 if baseline:
                     times["K8 baseline alone"] = fmpc_kernel_alone(
                         problem, cfg, co, v, gms, eps,
                         fn=launcher(("baseline", "stream", shape, dtype)))
                     times["K8 baseline call"] = calls["K8 baseline"]
                     times["K10 baseline"] = calls["K10 baseline"]
+                if base9:
+                    times["K9 baseline alone"] = k9_alone
+                    times["K9 baseline call"] = calls["K9 baseline"]
                 timed_in_turns(times, f"{model} B={B} N={N}", card,
                                tag="fmpc-groups", dtype=dname)
 
 
-# The forward recursions (K6, K11) are built at every chunk of stages of
-# FWD_CHUNKS of their TMA ring (csrc/fwd_ring.cuh), K6 also at 0 (its
-# one-stage register prefetch, the parent's design), K11 also at every
-# threads per lane of FWD_GROUPS.
+# The forward recursions (K6, K7 and K11) are built at every chunk of
+# stages of FWD_CHUNKS of their TMA ring (csrc/fwd_ring.cuh), K6 and K7
+# also at 0 (each thread's one-stage register prefetch, the parent's
+# design; K6 and K7 at one chunk share a unit), K11 also at every threads
+# per lane of FWD_GROUPS.
 FWD_CHUNKS = (1, 2, 4, 8)
 FWD_GROUPS = {(4, 1): (1, 2, 4), (2, 1): (1, 2, 4), (2, 2): (1, 2, 4)}
 # The inputs each build is held and timed on, (model, (B, N), timed): K6
-# at the headline, tick and boxed vertical shapes; K11 at the FMPC
+# and K7 (at the sweep's 11 alphas, and the head path's last 10 at the
+# headline) at the headline, tick and boxed vertical shapes; K11 at the
+# FMPC
 # cart-pole serving shape, the oscillator at B=1024 and at N=20, the
 # oscillator tick shape and the two-input problem; both at a ragged B with
 # an odd N (the ring's fields copied to a padded stride, a last chunk
@@ -2055,7 +2130,8 @@ K11_CASES = (("cart-pole", FMPC_SERVING, True),
              ("cart-pole", (1023, 37), False),
              ("oscillator", (1023, 37), False),
              ("two-input", (1023, 37), False))
-# K6's chain floor: one warp's lanes, the headline's horizon
+# K6's and K7's chain floor: one warp's lanes, the headline's horizon (K7
+# at one alpha)
 CHAIN_FLOOR = (32, 100)
 
 
@@ -2106,25 +2182,6 @@ def bare_launch(fn, *args):
     return call
 
 
-def bind_parent_k6(lib):
-    """K6's launch function of a unit without the lane-stride argument
-    (the baseline's)."""
-    fn = lib.forward_selected_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_double] * 2
-                   + [ctypes.c_void_p] * 11)
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def bind_parent_k11(lib):
-    """K11's launch function of a unit without the lane-stride argument
-    (the baseline's)."""
-    fn = lib.fmpc_forward_launch
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def tma_taken(fields):
     """``fields`` as the wrappers hand them to the TMA ring
     (``ddp_backward_fused.padded_fields``: copied once where TMA does not
@@ -2143,22 +2200,24 @@ def parent_wrapper(baseline, name):
 
 
 def phase_fwd_groups(device, card, baseline):
-    """K6 built at every chunk of FWD_CHUNKS and at 0 (its register
-    prefetch), K11 at every (chunk, threads per lane of FWD_GROUPS), and,
-    with ``baseline`` (another checkout's root), the baseline's K6 and K11
-    from that checkout's headers, unit text and flags: all built at once,
-    with ptxas' report of each.  K6 on every input of K6_CASES and K11 on
-    every one of K11_CASES, fp32 and fp64, each build on the fields as its
-    wrapper hands them (the ring's copied once where TMA does not take
-    them): every one bit for bit equal to the one-stage build (K6: C = 0;
-    K11: C = 1, G = 1) and to the baseline's kernel (NaN lanes included);
-    K11's one-stage build equal to ``forward_fmpc_deltas_plain`` on its
-    finite lanes; K7's columns of the first, sixth and last alpha equal to
-    every K6 build's sum at that alpha.  Then each build timed in turns
-    with the baseline's on the timed shapes (the unit's launch alone,
-    outputs allocated once), K6 at B=32, N=100 (one warp: its chain
-    floor), and, with ``baseline``, K6's and K11's wrappers in turns with
-    the baseline's wrappers (their host work included)."""
+    """K6 and K7 built at every chunk of FWD_CHUNKS and at 0 (each
+    thread's register prefetch), K11 at every (chunk, threads per lane of
+    FWD_GROUPS), and, with ``baseline`` (another checkout's root), the
+    baseline's K6, K7 and K11 from that checkout's headers, unit text and
+    flags: all built at once, with ptxas' report of each.  K6 and K7 on
+    every input of K6_CASES and K11 on every one of K11_CASES, fp32 and
+    fp64, each build on the fields as its wrapper hands them (the ring's
+    copied once where TMA does not take them): every one bit for bit equal
+    to the one-stage build (K6, K7: C = 0; K11: C = 1, G = 1) and to the
+    baseline's kernel (NaN lanes included); K11's one-stage build equal to
+    ``forward_fmpc_deltas_plain`` on its finite lanes; K7's one-stage
+    build equal to the wrapper's ``forward_costs_remat``, and its columns
+    of the first, sixth and last alpha to every K6 build's sum at that
+    alpha.  Then each build timed in turns with the baseline's on the
+    timed shapes (the unit's launch alone, outputs allocated once), K6 and
+    K7 (one alpha) at B=32, N=100 (one warp: their chain floor), and, with
+    ``baseline``, K6's, K7's and K11's wrappers in turns with the
+    baseline's wrappers (their host work included)."""
     parent_csrc = (Path(baseline).resolve() / "nmpc_tpu_torch" / "csrc"
                    if baseline else None)
     fp32, fp64 = torch.float32, torch.float64
@@ -2175,8 +2234,8 @@ def phase_fwd_groups(device, card, baseline):
             nx, nu = problem.state_dim, problem.input_dim
             for c in (0,) + FWD_CHUNKS:
                 unit(("K6", model, dtype, c),
-                     fwd.unit_name(dtype, c) + f"_{model}",
-                     fwd.unit_source(problem, nx, nu, dtype, c), ())
+                     fwd.unit_name(dtype, c, c) + f"_{model}",
+                     fwd.unit_source(problem, nx, nu, dtype, c, c), ())
         for (nx, nu), groups in FWD_GROUPS.items():
             for g in groups:
                 for c in FWD_CHUNKS:
@@ -2220,18 +2279,44 @@ def phase_fwd_groups(device, card, baseline):
         return ([(label(k), k) for k in keys if k[-1] != "baseline"]
                 + [("baseline", k) for k in keys if k[-1] == "baseline"])
 
+    def unit_of(key):
+        """The launch functions of the K6 / K7 build ``key`` (the
+        baseline's bound by its own module)."""
+        if key[-1] == "baseline":
+            return pf.bind(lib(key), 0)
+        return fwd.bind(lib(key), key[3], key[3])
+
     def k6_launch(key, problem, refs, ring, a, t0, out):
         """A bare launch of the K6 build ``key`` on references ``refs``
         (the untouched ones for the register prefetch and the baseline,
-        ``ring`` for the TMA ring) at alphas ``a``, into ``out``."""
+        whose ring the vertical model's aligned references feed as they
+        are; ``ring`` for the TMA ring) at alphas ``a``, into ``out``."""
         N, B = out[1].shape[0], a.shape[0]
+        take = refs if key[-1] == "baseline" or not key[3] else ring
+        return bare_launch(unit_of(key).selected, N, B, take[0].shape[-1],
+                           float(problem.dt), N * problem.dt, *take, a, t0,
+                           *out)
+
+    def k7_launch(key, problem, refs, ring, a, t0, out):
+        """A bare launch of the K7 build ``key`` (K6's unit) on ``refs``
+        (or ``ring``, as k6_launch) at the alphas ``a``, into ``out``; the
+        baseline's K7 takes contiguous references and no lane stride."""
+        N, (A, B) = refs[1].shape[0], out.shape
         args = (float(problem.dt), N * problem.dt)
         if key[-1] == "baseline":
-            return bare_launch(bind_parent_k6(lib(key)), N, B, *args, *refs,
-                               a, t0, *out)
+            return bare_launch(unit_of(key).costs, N, B, A, *args, *refs, a,
+                               t0, out)
         take = ring if key[3] else refs
-        return bare_launch(fwd.bind(lib(key), key[3]).selected, N, B,
-                           take[0].shape[-1], *args, *take, a, t0, *out)
+        return bare_launch(unit_of(key).costs, N, B, A, take[0].shape[-1],
+                           *args, *take, a, t0, out)
+
+    def k7_bound(problem, B, N, A, itemsize):
+        nx, nu = problem.state_dim, problem.input_dim
+        step = (nx + nu * (2 * nx + 2) + 1
+                + program_ops(problem, "forward", "step", nx, nu))
+        return bound(moved_bytes("K7", B, N, itemsize, nx, nu, A),
+                     A * B * (N * step + program_ops(problem, "forward",
+                                                     "term", nx, nu)))
 
     # K6: every build against the one-stage build, the baseline and K7
     for model, (B, N), timed in K6_CASES:
@@ -2278,6 +2363,26 @@ def phase_fwd_groups(device, card, baseline):
             check(all(to_one.values()) and all(k7.values()),
                   f"{label}: a build differs from the one-stage build, the "
                   f"baseline or K7")
+            # K7: every build at the sweep's alphas and the head path's
+            # last ten
+            k7_alphas = {11: alphas, 10: alphas[1:].contiguous()}
+            for A, a in k7_alphas.items():
+                outs7 = {}
+                for b_label, key in builds:
+                    outs7[b_label] = new(A, B)
+                    k7_launch(key, problem, refs, ring, a, t0,
+                              outs7[b_label])()
+                torch.cuda.synchronize()
+                to_one = {k: same_bits(outs7["C=0"], o)
+                          for k, o in outs7.items()}
+                wrapper = same_bits(cols[11 - A:], outs7["C=0"])
+                label7 = f"K7 {model} B={B} N={N} A={A} {dname}"
+                print(f"[fwd-groups] {label7}: bit-equal to C=0 (register "
+                      f"prefetch) {to_one}; C=0 equal to the wrapper's "
+                      f"columns {wrapper}", flush=True)
+                check(all(to_one.values()) and wrapper,
+                      f"{label7}: a build differs from the one-stage build, "
+                      f"the baseline or the wrapper")
             if not timed:
                 continue
             t_bound, by = bound(moved_bytes("K6", B, N, dtype.itemsize, nx,
@@ -2289,19 +2394,38 @@ def phase_fwd_groups(device, card, baseline):
                            f"K6 {model} B={B} N={N}", card,
                            note=f", bound {t_bound * 1e3:.2f} us ({by})",
                            tag="fwd-groups", dtype=dname)
+            for A, a in k7_alphas.items():
+                if A == 10 and (B, N) != HEADLINE:
+                    continue
+                t_bound, by = k7_bound(problem, B, N, A, dtype.itemsize)
+                out = new(A, B)
+                timed_in_turns({label: k7_launch(key, problem, refs, ring, a,
+                                                 t0, out)
+                                for label, key in builds},
+                               f"K7 {model} B={B} N={N} A={A}", card,
+                               note=f", bound {t_bound * 1e3:.2f} us ({by})",
+                               tag="fwd-groups", dtype=dname)
 
-    # K6's chain floor: the headline's horizon on one warp, fp32
+    # K6's and K7's chain floor: the headline's horizon on one warp (K7 at
+    # one alpha), fp32
     B, N = CHAIN_FLOOR
     problem, t0, xs, us, ks, Ks, alpha = k6_inputs("cart-pole", B, N, fp32,
                                                    device)
     out = [torch.empty(shape, device=device) for shape in
            ((N + 1, 4, B), (N, 1, B), (N + 1, B), (B,))]
     refs = (xs, us, ks, Ks)
+    builds = runs("K6", ("K6", "cart-pole", fp32))
     timed_in_turns({label: k6_launch(key, problem, refs, tma_taken(refs),
                                      alpha, t0, out)
-                    for label, key in runs("K6", ("K6", "cart-pole", fp32))},
+                    for label, key in builds},
                    f"K6 chain floor (one warp) cart-pole B={B} N={N}", card,
                    tag="fwd-groups")
+    a, out = alpha[:1].contiguous(), torch.empty((1, B), device=device)
+    timed_in_turns({label: k7_launch(key, problem, refs, tma_taken(refs), a,
+                                     t0, out)
+                    for label, key in builds},
+                   f"K7 chain floor (one warp, A=1) cart-pole B={B} N={N}",
+                   card, tag="fwd-groups")
 
     # K11: every build against the one-stage build, the baseline and the
     # plain version
@@ -2316,12 +2440,10 @@ def phase_fwd_groups(device, card, baseline):
             builds = runs("K11", ("K11", (nx, nu), dtype))
 
             def k11_launch(key, out):
-                if key[-1] == "baseline":
-                    return bare_launch(bind_parent_k11(lib(key)), N, B,
-                                       *args, *out)
-                return bare_launch(k11.bind(lib(key)), N, B,
-                                   fields[0].shape[-1], *fields, args[5],
-                                   *out)
+                fn = (p11.bind(lib(key)) if key[-1] == "baseline"
+                      else k11.bind(lib(key)))
+                return bare_launch(fn, N, B, fields[0].shape[-1], *fields,
+                                   args[5], *out)
 
             outs = {}
             for label, key in builds:
@@ -2381,6 +2503,11 @@ def phase_fwd_groups(device, card, baseline):
             mod.forward_selected_remat, problem, cfg, t0, xs, us, ks, Ks,
             alpha) for mod_label, mod in (("this", fwd), ("baseline", pf))},
             f"K6 wrapper (forward_selected_remat) {model} B={B} N={N}")
+        alphas = torch.tensor(cfg.alpha_list, device=device)
+        wrapper_turns({mod_label: functools.partial(
+            mod.forward_costs_remat, problem, cfg, t0, xs, us, ks, Ks,
+            alphas) for mod_label, mod in (("this", fwd), ("baseline", pf))},
+            f"K7 wrapper (forward_costs_remat) {model} B={B} N={N}")
         if model == "vertical":
             refs = (xs, us, ks, Ks)
             out = (torch.empty(N + 1, 2, B, device=device),
@@ -2721,8 +2848,8 @@ def phase_kernels_fmpc(device):
             KERNELS["K8"].max_abs_err = max(KERNELS["K8"].max_abs_err, err)
     print(f"[kernel] K8 checks bit-equal to the plain version on every "
           f"finite lane: {dict(bit_equal)} of 4 per dtype", flush=True)
-    # what one call of a wrapper launches on the card: K8 condenses in its
-    # kernel, K9 after the wrapper's torch ops (at its design point)
+    # what one call of a wrapper launches on the card: K8 and K9 (at its
+    # design point) condense in their kernel, one launch each
     for key, variant, model, (B, N) in (
             ("K8", "stream", "cart-pole", FMPC_SERVING),
             ("K9", "resident", "oscillator", FMPC_OSC_SHORT)):
@@ -2736,9 +2863,8 @@ def phase_kernels_fmpc(device):
               f"{len(own)} of the FMPC backward, {len(names) - len(own)} "
               f"other {sorted(set(n[:48] for n in names if n not in own))}",
               flush=True)
-        if key == "K8":
-            check(len(own) == 1 and len(names) == 1,
-                  "K8's call launched another kernel than its own")
+        check(len(own) == 1 and len(names) == 1,
+              f"{key}'s call launched another kernel than its own")
 
 
 def device_kernels(fn):
@@ -2938,12 +3064,11 @@ def phase_serving_fmpc(device, card):
           "the FMPC tick loop skipped a kernel")
 
 
-def fmpc_stage_ops(nx, nu, ng, alone=False):
+def fmpc_stage_ops(nx, nu, ng):
     """Arithmetic operations of one stage of csrc/fmpc_stage.cuh (the
-    Cholesky path) and, unless ``alone``, of the wrapper's condensation of
-    that stage."""
-    cond = 0 if alone else ((nx * nx + nx * nu + nu * nu) * (3 * ng + 1)
-                            + (nx + nu) * 2 * ng)
+    Cholesky path) with the (s, nu) condensation of that stage."""
+    cond = ((nx * nx + nx * nu + nu * nu) * (3 * ng + 1)
+            + (nx + nu) * 2 * ng)
     products = (nx * nx * (2 * nx - 1) + nx * nu * (2 * nx - 1)
                 + nx * (2 * nx - 1) + nx * nx * 2 * nx + nx * nu * 2 * nx
                 + nu * nu * 2 * nx + nu * 3 * nx)
@@ -2954,17 +3079,15 @@ def fmpc_stage_ops(nx, nu, ng, alone=False):
     return cond + products + factor + value + 5 * ng
 
 
-def fmpc_bytes(key, B, N, itemsize, nx, nu, ng, alone=False):
-    """Bytes K8 or K11 must move at (B, N): inputs read once, outputs
-    written once.  K8 reads ten coefficient fields, g_bar, s and nu per
-    stage (``alone``, a kernel fed the two condensed scalings nu_s and
-    tilde in their place: K9), the terminal
-    (s, P) and eps, and writes k, K and the N+1 rows of s and P, and two
-    flag bytes; K11 reads A, B, x_bar, k, K per stage and dx0, and writes
-    N+1 dx and N du."""
+def fmpc_bytes(key, B, N, itemsize, nx, nu, ng):
+    """Bytes K8 (and K9) or K11 must move at (B, N): inputs read once,
+    outputs written once.  K8 reads ten coefficient fields, g_bar, s and
+    nu per stage, the terminal (s, P) and eps, and writes k, K and the N+1
+    rows of s and P, and two flag bytes; K11 reads A, B, x_bar, k, K per
+    stage and dx0, and writes N+1 dx and N du."""
     if key == "K8":
         fields = (2 * nx * nx + 2 * nx * nu + ng * nx + ng * nu + nu * nu
-                  + 2 * nx + nu + (2 if alone else 3) * ng)
+                  + 2 * nx + nu + 3 * ng)
         return (itemsize * B * (N * fields + nx + nx * nx + 1
                                 + N * (nu + nu * nx)
                                 + (N + 1) * (nx + nx * nx)) + 2 * B)
@@ -2972,32 +3095,25 @@ def fmpc_bytes(key, B, N, itemsize, nx, nu, ng, alone=False):
     return itemsize * B * (N * stage + nx + (N + 1) * nx + N * nu)
 
 
-def condensed_call(fn, problem, cfg, co, nu_s, tilde, variant):
+def condensed_call(fn, problem, cfg, co, nu_s, tilde):
     """A launch of a unit that takes the condensation scalings from its
-    caller (K9's) on ``nu_s`` and ``tilde`` computed once, into outputs
-    allocated once: ``variant`` "stream" (K9: the 12 fields) or "packed"
-    (the packed buffer)."""
+    caller (the baseline's K9: the ten coefficient fields, nu_s, tilde)
+    on ``nu_s`` and ``tilde`` computed once, into outputs allocated
+    once."""
     N, nx, nu = co.A.shape[0], co.A.shape[1], co.B.shape[2]
     B, dtype, device = nu_s.shape[-1], nu_s.dtype, nu_s.device
     s_T = -co.Lx_bar_term
-    if variant == "packed":
-        _, _, _, Fout = k8.field_offsets(nx, nu, co.C.shape[1])
-        P_in = k8.pack_fmpc_inputs(co, nu_s, tilde)
-        outs = [torch.empty((N, Fout, B), dtype=dtype, device=device)]
-        ptrs, held = [P_in.data_ptr()], [P_in]
-    else:
-        outs = [torch.empty(shape, dtype=dtype, device=device) for shape in
-                ((N, nu, B), (N, nu, nx, B), (N + 1, nx, B),
-                 (N + 1, nx, nx, B))]
-        held = [getattr(co, name) for name in k8._FIELDS] + [nu_s, tilde]
-        ptrs = [(ctypes.c_void_p * len(held))(*(a.data_ptr() for a in held))]
+    outs = [torch.empty(shape, dtype=dtype, device=device) for shape in
+            ((N, nu, B), (N, nu, nx, B), (N + 1, nx, B), (N + 1, nx, nx, B))]
     outs += [torch.empty((B,), dtype=torch.bool, device=device)
              for _ in range(2)]
+    held = [getattr(co, name) for name in k8._FIELDS] + [nu_s, tilde]
+    ptrs = (ctypes.c_void_p * len(held))(*(a.data_ptr() for a in held))
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def call(_inputs=held):   # holds the inputs while the call may run
         err = fn(N, B, float(problem.dt), int(cfg.break_if_llt_fails),
-                 int(cfg.check_nan), *ptrs, s_T.data_ptr(),
+                 int(cfg.check_nan), ptrs, s_T.data_ptr(),
                  co.Lxx_term.data_ptr(), *(o.data_ptr() for o in outs),
                  stream)
         check(err == 0, f"a condensed FMPC kernel's launch failed: CUDA "
@@ -3009,17 +3125,12 @@ def condensed_call(fn, problem, cfg, co, nu_s, tilde, variant):
 def fmpc_kernel_alone(problem, cfg, co, v, gms, eps, variant="stream",
                       fn=None):
     """K8's or K9's launch as ``backward_fmpc_fused`` makes it, on inputs
-    prepared once (K8's fields as its tensor maps take them; K9's
-    condensation, which the wrapper computes with torch ops at every call),
-    into outputs allocated once; ``fn`` another build of K8's unit."""
+    prepared once (the fields as their tensor maps take them), into
+    outputs allocated once; ``fn`` another build of the ``variant``'s
+    unit."""
     nx, nu, ng = co.A.shape[1], co.B.shape[2], co.C.shape[1]
-    dtype = eps.dtype
-    if variant == "resident":
-        nu_s, tilde = k8.condensation(co, v.ss, v.nus, gms, eps)
-        return condensed_call(k8.launcher(nx, nu, ng, dtype, variant),
-                              problem, cfg, co, nu_s, tilde, "stream")
-    N, B, device = co.A.shape[0], eps.shape[0], eps.device
-    fn = fn or k8.launcher(nx, nu, ng, dtype)
+    N, B, dtype, device = co.A.shape[0], eps.shape[0], eps.dtype, eps.device
+    fn = fn or k8.launcher(nx, nu, ng, dtype, variant)
     fields, ld = k8.tma_fields(co, v.ss, v.nus)
     ptrs = (ctypes.c_void_p * len(fields))(*(a.data_ptr() for a in fields))
     outs = [torch.empty(shape, dtype=dtype, device=device) for shape in
@@ -3034,19 +3145,18 @@ def fmpc_kernel_alone(problem, cfg, co, v, gms, eps, variant="stream",
                  eps.data_ptr(),
                  co.Lx_bar_term.data_ptr(), co.Lxx_term.data_ptr(),
                  *(o.data_ptr() for o in outs), stream)
-        check(err == 0, f"the FMPC stream kernel's launch failed: CUDA "
+        check(err == 0, f"the FMPC {variant} kernel's launch failed: CUDA "
               f"error {err}")
         return outs
     return call
 
 
 def time_kernel_alone(key, call, B, N, nx, nu, ng, label, card):
-    """Print the time of K8's or K9's launch alone beside its own bound
-    (K8 reads s, nu and g_bar and condenses; K9 reads the two scalings)."""
+    """Print the time of K8's or K9's launch alone beside its bound (both
+    read s, nu and g_bar and condense)."""
     t = cuda_ms(call, inner=10)
-    alone = key == "K9"
-    t_bound, by = bound(fmpc_bytes("K8", B, N, 4, nx, nu, ng, alone=alone),
-                        B * N * fmpc_stage_ops(nx, nu, ng, alone=alone))
+    t_bound, by = bound(fmpc_bytes("K8", B, N, 4, nx, nu, ng),
+                        B * N * fmpc_stage_ops(nx, nu, ng))
     print(f"[times] {key} kernel alone (its inputs prepared once) {label} "
           f"fp32: {t:.4f} ms, bound {t_bound * 1e3:.2f} us ({by}) [{card}]",
           flush=True)

@@ -1,15 +1,13 @@
 // Asynchronous device-to-shared copies (cp.async, sm_80 and later), for
-// the kernels that stage stage fields in shared memory: the chunked DDP
-// backward (ddp_backward_chunked.cuh) and the resident FMPC backward
-// (fmpc_backward_resident.cuh).
+// the kernel that stages stage fields in shared memory by its own threads:
+// the chunked DDP backward (ddp_backward_chunked.cuh).
 //
 // Each copy moves one scalar of one lane: a warp's copies of a field
 // element cover neighbouring lanes, so they coalesce into one request per
 // run of lanes.  A copy holds no register while it is in flight, so a
 // thread can have a whole chunk of stages in flight at once.  After
-// cp_async_wait the executing thread sees its own copies; K9 reads back
-// only what the same thread copied, K2 meets its warp at __syncwarp
-// before it reads values another thread copied.
+// cp_async_wait the executing thread sees its own copies; K2 meets its
+// warp at __syncwarp before it reads values another thread copied.
 
 #pragma once
 

@@ -41,11 +41,18 @@
 //     (fwd_stages_ahead).  xs, us and costs are written batch-minor,
 //     coalesced across a warp.  forward_stage and the unit's flags are as
 //     before, so its bits are;
-//   * K7: one thread per (alpha, lane) pair, A x B threads (11x K6's), so
-//     that more loads are in flight; the lanes of one alpha are adjacent
-//     (coalesced), and the A threads of one lane read the same references,
-//     which the 50 MB L2 serves after the first; stage i+1's references
-//     loaded into registers before stage i, no shared memory.
+//   * K7: one thread per (alpha, lane) pair, A x B threads (11x K6's), fed
+//     by the rule of kernels/ddp_forward_remat.py::costs_chunk, and a unit
+//     builds only the kernel its rule names: at C = 0 each thread reads its
+//     lane's references on its own (the A threads of a lane the same
+//     words, served by the 50 MB L2 after the first: about A times the
+//     bytes its bound counts), stage i+1's loaded into registers before
+//     stage i, in 128-thread blocks, the lanes of one alpha adjacent; at C
+//     > 0 fwd_ring.cuh's ring brings a lane's references into shared
+//     memory once for its A alpha-threads: a block of L lanes
+//     (fwd_costs_lanes) x A threads, alpha-major (a warp reads neighbouring
+//     lanes of one alpha, or one broadcast word for the alphas it shares),
+//     and the producer warp.
 
 #pragma once
 
@@ -53,8 +60,24 @@
 
 namespace nmpc {
 
-// 128-thread blocks for the (alpha, lane) kernel.
+// 128-thread blocks for the (alpha, lane) kernel at C = 0.
 constexpr int kPairThreads = 128;
+
+// K7's ring: lanes per block, 32 halved while the batch fills fewer than
+// kFillBlocks blocks, down to 8 (B = 4096: 32; B = 1024 and 256: 8, 128
+// and 32 blocks); the alphas a block takes, as many as its consumer warps
+// hold within kCostsThreads threads with the producer warp (the sweep's
+// 11 at 32 lanes, 44 at 8), the rest in further blocks along y.  The
+// bound leaves a thread up to 168 registers (K6's ring stage takes 138).
+constexpr int kCostsThreads = 384;
+__host__ __device__ inline int fwd_costs_lanes(int B) {
+  int L = kMaxRowLanes;
+  while (L > 8 && (B + L - 1) / L < kFillBlocks) L /= 2;
+  return L;
+}
+__host__ __device__ constexpr int fwd_costs_alphas(int L, int A) {
+  return A < (kCostsThreads - 32) / L ? A : (kCostsThreads - 32) / L;
+}
 
 template <typename T, int NX, int NU>
 struct StageRefs {
@@ -211,6 +234,63 @@ forward_costs_kernel(const T* __restrict__ xs, const T* __restrict__ us,
   csum[g] = ctot + terminal_cost<T, NX, NU>(add_rn(t0, n_dt), x);
 }
 
+// K7 on fwd_ring.cuh's ring: the cost sum at alphas[A] of L lanes, the
+// block's AB alphas from alpha blockIdx.y AB, thread t of the consumers
+// (rounded up to whole warps) on the block's lane t % L at its alpha t / L
+// (a thread past the block's alphas runs its last and stores nothing); a
+// lane's references read from the ring by its alpha-threads, each stage's
+// into registers before the stage ahead of it runs.
+template <typename T, int NX, int NU, int C>
+__global__ void __launch_bounds__(kCostsThreads)
+forward_costs_ring_kernel(
+    const __grid_constant__ FwdInputs<T, RefFields<NX, NU>> in,
+    const T* __restrict__ alphas, const T* __restrict__ t0_in, T dt, T n_dt,
+    T* __restrict__ csum, int N, int B, int A, int L) {
+  using Fs = RefFields<NX, NU>;
+  constexpr int R = fwd_ring<T>(Fs::F, C);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int consumers = static_cast<int>(blockDim.x) - 32;
+  const int base = static_cast<int>(blockIdx.x) * L;   // the block's lane 0
+  const FwdLayout<T, Fs> l(C, L);
+  const StageRing<T, R> ring(smem_raw, fwd_buffer_bytes<T, Fs>(C, L));
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      mbar_init(&ring.full[s]);
+      mbar_init(&ring.empty[s], consumers / 32);   // every consumer warp
+    }
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) >= consumers) {   // the producer warp
+    fwd_produce<T, Fs, R>(ring, in, l, base, N, C);
+    return;
+  }
+  const int t = static_cast<int>(threadIdx.x);
+  const int AB = fwd_costs_alphas(L, A);
+  const int j0 = static_cast<int>(blockIdx.y) * AB + t / L;
+  const int j = j0 < A ? j0 : A - 1;
+  const bool live = j0 < A && t / L < AB && base + t % L < B;
+  const int b = base + t % L < B ? base + t % L : B - 1;
+  const T alpha = alphas[j];
+  const T t0 = *t0_in;
+  T x[NX];
+#pragma unroll
+  for (int a = 0; a < NX; ++a)
+    x[a] = in.ptr[0][static_cast<size_t>(a) * in.ld + b];
+  T ctot = T(0);
+  StageRingFeed<T, R> feed{ring, b - base, L};
+  fwd_stages_ahead<T, Fs, C>(
+      feed, l, N,
+      [](const FwdView<T, Fs>& v, int s) { return refs_at<T, NX, NU>(v, s); },
+      [&](const StageRefs<T, NX, NU>& r, int i) {
+        T u[NU];
+        ctot = ctot + forward_stage<T, NX, NU>(stage_time(t0, dt, i), x, r,
+                                               alpha, u);
+      });
+  const T cT = terminal_cost<T, NX, NU>(add_rn(t0, n_dt), x);
+  if (live) csum[static_cast<size_t>(j) * B + b] = ctot + cT;
+}
+
 // K6 at C = 0: the rollout at each lane's alpha, one thread per lane,
 // stage i+1's references read into registers before stage i runs (the TPU
 // kernel's double-buffered stage DMA); contiguous inputs.
@@ -305,23 +385,50 @@ int launch_forward_selected(int N, int B, int ld, double dt, double n_dt,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NX, int NU>
-int launch_forward_costs(int N, int B, int A, double dt, double n_dt,
+// K7 reads xs, us, ks and Ks with their lanes ld values apart: at C = 0
+// by the parent's pair kernel (ld = B), else by the ring in chunks of C
+// stages (ld * sizeof(T) and each address multiples of 16 bytes); C is the
+// wrapper's rule (ddp_forward_remat.py::costs_chunk) or a measurement's.
+template <typename T, int NX, int NU, int C>
+int launch_forward_costs(int N, int B, int A, int ld, double dt, double n_dt,
                          const void* xs, const void* us, const void* ks,
                          const void* Ks, const void* alphas, const void* t0,
                          void* csum, void* stream) {
+  using Fs = RefFields<NX, NU>;
   if (B <= 0 || N <= 0 || A <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t threads = static_cast<size_t>(A) * B;
-  const int blocks = static_cast<int>((threads + kPairThreads - 1) /
-                                      kPairThreads);
-  forward_costs_kernel<T, NX, NU>
-      <<<blocks, kPairThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(xs), static_cast<const T*>(us),
-          static_cast<const T*>(ks), static_cast<const T*>(Ks),
-          static_cast<const T*>(alphas), static_cast<const T*>(t0),
-          static_cast<T>(dt), static_cast<T>(n_dt), static_cast<T*>(csum),
-          N, B, A);
+  if constexpr (C == 0) {
+    if (ld != B) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t threads = static_cast<size_t>(A) * B;
+    const int blocks = static_cast<int>((threads + kPairThreads - 1) /
+                                        kPairThreads);
+    forward_costs_kernel<T, NX, NU>
+        <<<blocks, kPairThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(xs), static_cast<const T*>(us),
+            static_cast<const T*>(ks), static_cast<const T*>(Ks),
+            static_cast<const T*>(alphas), static_cast<const T*>(t0),
+            static_cast<T>(dt), static_cast<T>(n_dt), static_cast<T*>(csum),
+            N, B, A);
+  } else {
+    static_assert(fwd_smem<T, Fs>(C, kMaxRowLanes) <= kMaxBlockSmem,
+                  "a block's ring of chunks passes its shared memory");
+    const int L = fwd_costs_lanes(B);
+    const int AB = fwd_costs_alphas(L, A);
+    const void* fields[Fs::NF] = {xs, us, ks, Ks};
+    FwdInputs<T, Fs> in;
+    int err = fwd_inputs<T, Fs>(in, fields, N, B, ld, L, C);
+    if (err != 0) return err;
+    const size_t smem = fwd_smem<T, Fs>(C, L);
+    err = allow_dynamic_smem(forward_costs_ring_kernel<T, NX, NU, C>, smem);
+    if (err != 0) return err;
+    const dim3 grid((B + L - 1) / L, (A + AB - 1) / AB);
+    forward_costs_ring_kernel<T, NX, NU, C>
+        <<<grid, (L * AB + 31) / 32 * 32 + 32, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+            in, static_cast<const T*>(alphas), static_cast<const T*>(t0),
+            static_cast<T>(dt), static_cast<T>(n_dt), static_cast<T*>(csum),
+            N, B, A, L);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
-// FMPC condensed primal-dual Riccati backward for Hopper (sm_90a), and the
-// lane-group loop it shares with the packed kernel.
+// FMPC condensed primal-dual Riccati backward for Hopper (sm_90a), the
+// kernel it shares with the resident backward and the lane-group loop it
+// shares with the packed one.
 //
 // Replaces the TPU kernel nmpc_tpu/kernels/fmpc_backward_pallas.py::
 // _fmpc_backward_pallas_call (kernel _make_kernel, stage _fmpc_stage,
@@ -54,9 +55,11 @@
 //     group past the batch's end reads the last lane's column and stores
 //     nothing, a warp wholly past it returns at once;
 //   * the Gauss-Jordan fallback runs only on lanes whose LLT failed.
-// The loop (fmpc_group_backward) is K10's too (fmpc_backward_packed.cuh,
-// TMA chunks of the packed buffer, which holds the scalings): the two
-// differ in the feed and in where the scalings come from.
+// The kernel at CH = 0 is K9 (fmpc_backward_resident.cuh: one buffer of
+// the whole horizon, its 13 boxes issued at once).  The loop
+// (fmpc_group_backward) is K10's too (fmpc_backward_packed.cuh, TMA chunks
+// of the packed buffer, which holds the scalings): the two differ in the
+// feed and in where the scalings come from.
 
 #pragma once
 
@@ -186,20 +189,20 @@ __device__ __forceinline__ void fmpc_group_backward(
   }
 }
 
-// K8's stages: the fields of stage s of a chunk (stage i of the horizon),
-// with the scalings the lane's group forms from them, its mask row
-// (stage i's at gms + i * gms_ld: 0 where every stage has the same mask)
-// and the lane's eps.
+// K8's and K9's stages: the fields of stage s of a chunk of n stages
+// (stage i of the horizon), with the scalings the lane's group forms from
+// them, its mask row (stage i's at gms + i * gms_ld: 0 where every stage
+// has the same mask) and the lane's eps.
 template <typename T, int NX, int NU, int NG, int G, typename Layout, int CH>
 struct FoldedStages {
   const T* __restrict__ gms;
-  int gms_ld, stride;
+  int gms_ld, stride, n;
   T eps;
   __device__ CondensedStageFields<
       T, NG, ChunkStageFields<T, NX, NU, NG, Layout, CH>>
   operator()(const T* slab, int s, int i) const {
     CondensedStageFields<T, NG, ChunkStageFields<T, NX, NU, NG, Layout, CH>>
-        f{{slab, s, stride}, {}, {}};
+        f{{slab, s, stride, n}, {}, {}};
     fmpc_condense_group<T, NG, G>(f, gms + static_cast<size_t>(i) * gms_ld,
                                   eps, f.scale, f.shift);
     return f;
@@ -214,8 +217,9 @@ struct FmpcMaps {
 };
 
 // A block: L lanes of G threads (the consumer warps), then one producer
-// warp.
-template <typename T, int NX, int NU, int NG, int G, bool SHARE>
+// warp.  CH > 0 (K8): a ring of kFmpcRing buffers of CH stages; CH = 0
+// (K9): one buffer of the whole horizon, a single chunk of N stages.
+template <typename T, int NX, int NU, int NG, int G, bool SHARE, int CH>
 __global__ void __launch_bounds__(kMaxRowLanes * G + 32)
 fmpc_backward_kernel(const __grid_constant__ FmpcMaps maps,
                      const T* __restrict__ gms, int gms_ld,
@@ -224,13 +228,13 @@ fmpc_backward_kernel(const __grid_constant__ FmpcMaps maps,
   using Layout = FmpcStreamLayout<T, NX, NU, NG, G>;
   using Layout1 = FmpcLayout<NX, NU, NG, false, 1>;   // unpadded
   constexpr int W = 32 / G;
-  constexpr int R = kFmpcRing;
-  constexpr int CH = fmpc_stream_chunk<T>(Layout::F);
+  constexpr int R = CH > 0 ? kFmpcRing : 1;
+  const int C = CH > 0 ? CH : N;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int L = (static_cast<int>(blockDim.x) - 32) / G;
   const int base = static_cast<int>(blockIdx.x) * L;   // the block's lane 0
   const int lanes = B - base < L ? B - base : L;
-  const StageRing<T, R> ring(smem_raw, packed_buffer_bytes<T>(CH, Layout::F,
+  const StageRing<T, R> ring(smem_raw, packed_buffer_bytes<T>(C, Layout::F,
                                                               L));
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -249,44 +253,90 @@ fmpc_backward_kernel(const __grid_constant__ FmpcMaps maps,
         Layout::Luu, Layout::Lxu, Layout::xb, Layout::Lxb, Layout::Lub,
         Layout::ss, Layout::nu,  Layout::gbar};
     const int f = static_cast<int>(threadIdx.x % 32);
-    const int at_f = f < kFmpcFields ? offset[f] * CH * L : 0;
-    const int n = packed_chunks(N, CH);
+    const int at_f = f < kFmpcFields ? offset[f] * C * L : 0;
+    const int n = packed_chunks(N, C);
     for (int c = 0; c < n; ++c) {
       const int s = c % R;
       if (f == 0) {
         if (c >= R)
           mbar_wait(&ring.empty[s], static_cast<uint32_t>((c / R - 1) & 1));
         mbar_arm(&ring.full[s],
-                 static_cast<uint32_t>(CH * Layout1::F * L * sizeof(T)));
+                 static_cast<uint32_t>(C * Layout1::F * L * sizeof(T)));
       }
       __syncwarp();
       if (f < kFmpcFields)
         tma_load_3d(maps.field[f], &ring.full[s],
                     ring.buffers + s * ring.buffer + at_f, base, 0,
-                    packed_chunk(c, N, CH).start);
+                    packed_chunk(c, N, C).start);
     }
     return;
   }
   const GroupLane<G> at(B, L);
   if (at.lane0 >= B) return;                // a warp wholly past the batch
   StageRingFeed<T, R> feed{ring, at.b - base, L};
-  const FoldedStages<T, NX, NU, NG, G, Layout, CH> stage_of{gms, gms_ld, L,
-                                                            eps[at.b]};
-  fmpc_group_backward<T, NX, NU, NG, G, SHARE>(feed, stage_of, at, N, CH, B,
+  const FoldedStages<T, NX, NU, NG, G, Layout, CH> stage_of{
+      gms, gms_ld, L, C, eps[at.b]};
+  fmpc_group_backward<T, NX, NU, NG, G, SHARE>(feed, stage_of, at, N, C, B,
                                                run, out);
 }
 
-// Launch on `stream`; returns a CUDA error code: of a field's tensor map
-// (tma.cuh::encode_map_3d), of the shared-memory attribute, or
-// cudaGetLastError() after the launch.  fields: A, B, C, D, Lxx, Luu,
-// Lxu, x_bar, Lx_bar, Lu_bar, s, nu, g_bar, each batch-minor [N, size, B]
-// with its lanes ld values apart (ld * sizeof(T) and each address
-// multiples of 16 bytes); gms [N, NG], its rows gms_ld values apart (0:
-// one mask row for every stage), eps [B], LxT (Lx_bar_term: s_T = -LxT)
-// [NX, B], PT [NX, NX, B] contiguous; ks [N, NU, B], Ks [N, NU, NX,
-// B], sv [N + 1, NX, B], Ps [N + 1, NX, NX, B]; ok and finite one byte
-// per lane.  G threads per lane and SHARE as fmpc_stage_group
-// (fmpc_group.cuh's rules unless a measurement asks for others).
+// One launch of fmpc_backward_kernel with L lanes a block and chunks of C
+// stages (CH as the kernel's; C = N where CH = 0); the arguments as
+// launch_fmpc_backward's.  Returns a CUDA error code: of a field's tensor
+// map (tma.cuh::encode_map_3d), of the shared-memory attribute, or
+// cudaGetLastError() after the launch.
+template <typename T, int NX, int NU, int NG, int G, bool SHARE, int CH>
+int launch_fmpc_group(int L, int C, int N, int B, int ld, double dt,
+                      int break_if_llt_fails, int check_nan,
+                      const void* const* fields, const void* gms, int gms_ld,
+                      const void* eps, const void* LxT, const void* PT,
+                      void* ks, void* Ks, void* sv, void* Ps, void* ok,
+                      void* finite, void* stream) {
+  using Layout = FmpcStreamLayout<T, NX, NU, NG, G>;
+  const int sizes[kFmpcFields] = {NX * NX, NX * NU, NG * NX, NG * NU,
+                                  NX * NX, NU * NU, NX * NU, NX,
+                                  NX,      NU,      NG,      NG, NG};
+  FmpcMaps maps;
+  for (int f = 0; f < kFmpcFields; ++f) {
+    const int err = encode_map_3d<T>(&maps.field[f], fields[f], B, sizes[f],
+                                     N, ld, L, sizes[f], C);
+    if (err != 0) return err;
+  }
+  const size_t smem = ring_bytes<T>(CH > 0 ? kFmpcRing : 1, C, Layout::F, L);
+  if (smem > kMaxBlockSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = allow_dynamic_smem(
+      fmpc_backward_kernel<T, NX, NU, NG, G, SHARE, CH>, smem);
+  if (err != 0) return err;
+  const size_t b = static_cast<size_t>(B);
+  const FmpcRun<T> run{static_cast<const T*>(LxT),
+                       static_cast<const T*>(PT),
+                       true,
+                       static_cast<T>(dt),
+                       break_if_llt_fails != 0,
+                       check_nan != 0,
+                       static_cast<unsigned char*>(ok),
+                       static_cast<unsigned char*>(finite)};
+  const FmpcSink<T> out{static_cast<T*>(ks), static_cast<T*>(Ks),
+                        static_cast<T*>(sv), static_cast<T*>(Ps),
+                        NU * b, NU * NX * b, NX * b, NX * NX * b, true};
+  fmpc_backward_kernel<T, NX, NU, NG, G, SHARE, CH>
+      <<<(B + L - 1) / L, L * G + 32, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          maps, static_cast<const T*>(gms), gms_ld,
+          static_cast<const T*>(eps), run, out, N, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8's launch on `stream`; returns a CUDA error code (launch_fmpc_group).
+// fields: A, B, C, D, Lxx, Luu, Lxu, x_bar, Lx_bar, Lu_bar, s, nu, g_bar,
+// each batch-minor [N, size, B] with its lanes ld values apart (ld *
+// sizeof(T) and each address multiples of 16 bytes); gms [N, NG], its rows
+// gms_ld values apart (0: one mask row for every stage), eps [B], LxT
+// (Lx_bar_term: s_T = -LxT) [NX, B], PT [NX, NX, B] contiguous; ks [N, NU,
+// B], Ks [N, NU, NX, B], sv [N + 1, NX, B], Ps [N + 1, NX, NX, B]; ok and
+// finite one byte per lane.  G threads per lane and SHARE as
+// fmpc_stage_group (fmpc_group.cuh's rules unless a measurement asks for
+// others).
 template <typename T, int NX, int NU, int NG, int G = kFmpcGroup<NX, NU>,
           bool SHARE = kFmpcShare<NX>>
 int launch_fmpc_backward(int N, int B, int ld, double dt,
@@ -302,38 +352,10 @@ int launch_fmpc_backward(int N, int B, int ld, double dt,
                     kMaxBlockSmem,
                 "a block's ring of chunk buffers passes its shared memory");
   if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int L = fmpc_stream_lanes<T, G>(Layout::F, B);
-  const int sizes[kFmpcFields] = {NX * NX, NX * NU, NG * NX, NG * NU,
-                                  NX * NX, NU * NU, NX * NU, NX,
-                                  NX,      NU,      NG,      NG, NG};
-  FmpcMaps maps;
-  for (int f = 0; f < kFmpcFields; ++f) {
-    const int err = encode_map_3d<T>(&maps.field[f], fields[f], B, sizes[f],
-                                     N, ld, L, sizes[f], CH);
-    if (err != 0) return err;
-  }
-  const size_t smem = ring_bytes<T>(kFmpcRing, CH, Layout::F, L);
-  const int err =
-      allow_dynamic_smem(fmpc_backward_kernel<T, NX, NU, NG, G, SHARE>, smem);
-  if (err != 0) return err;
-  const size_t b = static_cast<size_t>(B);
-  const FmpcRun<T> run{static_cast<const T*>(LxT),
-                       static_cast<const T*>(PT),
-                       true,
-                       static_cast<T>(dt),
-                       break_if_llt_fails != 0,
-                       check_nan != 0,
-                       static_cast<unsigned char*>(ok),
-                       static_cast<unsigned char*>(finite)};
-  const FmpcSink<T> out{static_cast<T*>(ks), static_cast<T*>(Ks),
-                        static_cast<T*>(sv), static_cast<T*>(Ps),
-                        NU * b, NU * NX * b, NX * b, NX * NX * b, true};
-  fmpc_backward_kernel<T, NX, NU, NG, G, SHARE>
-      <<<(B + L - 1) / L, L * G + 32, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          maps, static_cast<const T*>(gms), gms_ld,
-          static_cast<const T*>(eps), run, out, N, B);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fmpc_group<T, NX, NU, NG, G, SHARE, CH>(
+      fmpc_stream_lanes<T, G>(Layout::F, B), CH, N, B, ld, dt,
+      break_if_llt_fails, check_nan, fields, gms, gms_ld, eps, LxT, PT, ks,
+      Ks, sv, Ps, ok, finite, stream);
 }
 
 }  // namespace nmpc

@@ -1,11 +1,13 @@
 // The lane-group geometry of the FMPC condensed Riccati backward kernels
 // that run fmpc_stage.cuh::fmpc_stage_group: the streaming one (K8,
-// fmpc_backward.cuh) and the packed one (K10, fmpc_backward_packed.cuh).
-// A block holds L lanes of G threads each (thread t is rank t % G of the
-// block's lane t / G), as row_group.cuh lays out the DDP kernels, and
-// each kernel keeps its stages in shared memory: K8 a ring of one-stage
-// buffers per block (row_group.cuh::stage_ring, filled by a producer
-// warp), K10 a ring of kPackedRing chunk buffers per warp.  Here: the
+// fmpc_backward.cuh), the resident one (K9, fmpc_backward_resident.cuh)
+// and the packed one (K10, fmpc_backward_packed.cuh).  A block holds L
+// lanes of G threads each (thread t is rank t % G of the block's lane t /
+// G), as row_group.cuh lays out the DDP kernels, and each kernel keeps its
+// stages in shared memory: K8 a ring of two chunk buffers per block
+// (filled by a producer warp), K9 one buffer of the block's whole horizon
+// (filled the same way), K10 a ring of kPackedRing chunk buffers per
+// warp.  Here: the
 // threads per lane, the fields of a stage and their offsets in each
 // kernel's buffers, and the rules that keep a launch within a block's
 // shared memory at every (NX <= 8, NU <= 4, NG <= 16).  Every rule is a
@@ -133,6 +135,27 @@ __host__ __device__ constexpr int fmpc_stream_chunk(int F) {
   return stages_within<T>(kFmpcRing, F, kMaxStreamChunk);
 }
 
+// K9: one buffer of K8's stage layout holding the block's whole horizon
+// (a chunk of N stages), for N <= kResidentMaxN (the TPU kernel's unroll
+// bound, _RESIDENT_MAX_N; a TMA box spans at most 256 stages).  Its lanes
+// per block: row_lanes, halved while the buffer passes kMaxBlockSmem, down
+// to a warp's lanes and 4; a shape fits where the fewest lanes' buffer
+// does (oscillator (2, 1, 3) and cart-pole (4, 1, 4) at every N <= 32 at
+// both dtypes; (8, 4, 16) fp64 up to N = 7).
+constexpr int kResidentMaxN = 32;
+template <typename T, int G>
+__host__ __device__ inline int fmpc_resident_lanes(int F, int N, int B) {
+  const int least = (32 / G) > 4 ? 32 / G : 4;
+  int L = row_lanes<G>(B);
+  while (L > least && ring_bytes<T>(1, N, F, L) > kMaxBlockSmem) L /= 2;
+  return L;
+}
+template <typename T, int G>
+__host__ __device__ constexpr bool fmpc_resident_fits(int F, int N) {
+  return N >= 1 && N <= kResidentMaxN &&
+         ring_bytes<T>(1, N, F, (32 / G) > 4 ? 32 / G : 4) <= kMaxBlockSmem;
+}
+
 // K8's lanes per block: row_lanes, halved while the block's ring passes
 // kMaxBlockSmem, down to a warp's lanes and 4 (a box row of 16 bytes).
 // The cart-pole and the oscillator keep row_lanes; (8, 4, 16) at fp64
@@ -155,7 +178,8 @@ __host__ __device__ inline int fmpc_stream_lanes(int F, int B) {
 //   * K8's chunk (ChunkStageFields): each field's CH stages together, as
 //     a TMA box [lanes, size, CH stages] lands them, field X's region at
 //     Layout::X CH rows of `stride` lanes, so stage s's value e of X at
-//     (Layout::X CH + s size_X + e) stride.
+//     (Layout::X CH + s size_X + e) stride; K9's whole horizon the same
+//     with CH = 0, the chunk's stages n known at run time.
 template <typename T, int NX, int NU, int NG>
 struct PackedStageFields {
   using O = FmpcPackedLayout<NX, NU, NG>;
@@ -180,9 +204,9 @@ template <typename T, int NX, int NU, int NG, typename Layout, int CH>
 struct ChunkStageFields {
   using O = Layout;
   const T* __restrict__ p;
-  int s, stride;
+  int s, stride, n;
   __device__ T at(int off, int size, int e) const {
-    return p[(off * CH + s * size + e) * stride];
+    return p[(off * (CH > 0 ? CH : n) + s * size + e) * stride];
   }
   __device__ T A(int e) const { return at(O::A, NX * NX, e); }
   __device__ T Bm(int e) const { return at(O::Bm, NX * NU, e); }

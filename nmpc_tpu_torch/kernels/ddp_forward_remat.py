@@ -11,10 +11,13 @@ Both run the stage body of ``csrc/ddp_forward_remat.cuh`` on the
 problem's dynamics and costs as generated by ``kernels/tileval.py``, in one
 unit per (problem, dtype), compiled by nvcc at first use and bound through
 ctypes.  A unit builds K6 with the one feed :func:`ref_chunk` names for
-the problem's step: one stage ahead into registers, or
-``csrc/fwd_ring.cuh``'s TMA ring of chunks of stages in shared memory
-(references whose lane stride or address TMA does not take are copied
-once, counted in ``forward_selected_remat.padded_copies``).  The JAX
+the problem's step, and K7 with the one :func:`costs_chunk` names: each
+thread reading its stage's references itself, a stage ahead into
+registers, or ``csrc/fwd_ring.cuh``'s TMA ring of chunks of stages in
+shared memory, which K7's alpha-threads of a lane share (references whose
+lane stride or address TMA does not take are copied once, counted in
+``forward_selected_remat.padded_copies`` and
+``forward_costs_remat.padded_copies``).  The JAX
 kernels need ``B % 128 == 0``; these take any B.  Plain versions:
 ``solvers/stages.py::_forward_selected_lanes`` and
 ``_forward_costs_lanes`` with the cost sums at the solve dtype, which the
@@ -60,6 +63,13 @@ _LONG_OPS = frozenset(("sin", "cos", "tan", "exp", "log", "tanh", "asin",
                        "pow", "atan2"))
 
 
+def _long_step(problem, nx: int, nu: int, dtype) -> bool:
+    """Whether the problem's generated step calls one of ``_LONG_OPS``."""
+    prog, outs = tileval.generate(problem, "forward", nx, nu,
+                                  dtype).functions["step"]
+    return any(v.op in _LONG_OPS for v in prog.live(outs))
+
+
 @functools.lru_cache(maxsize=64)
 def ref_chunk(problem, nx: int, nu: int, dtype) -> int:
     """K6's chunk of stages for ``problem``, as the H100 measured it
@@ -69,23 +79,44 @@ def ref_chunk(problem, nx: int, nu: int, dtype) -> int:
     long enough to hide the loads of one stage ahead, which a deeper feed
     only adds work to; 8, ``csrc/fwd_ring.cuh``'s TMA ring of chunks of 8
     stages, for any other step (the vertical model's)."""
-    prog, outs = tileval.generate(problem, "forward", nx, nu,
-                                  dtype).functions["step"]
-    return 0 if any(v.op in _LONG_OPS for v in prog.live(outs)) else 8
+    return 0 if _long_step(problem, nx, nu, dtype) else 8
 
 
-def unit_source(problem, nx: int, nu: int, dtype,
-                chunk: int | None = None) -> str:
+@functools.lru_cache(maxsize=64)
+def costs_chunk(problem, nx: int, nu: int, dtype) -> int:
+    """K7's chunk of stages for ``problem``, as the H100 measured it
+    (chip_smoke.py --qp-groups; PERF.md, Findings): 0, each (alpha, lane)
+    thread reading its references itself a stage ahead (the parent's
+    kernel), for a step that calls a transcendental function, whose chain
+    hides the alpha-threads' repeated reads; else ``csrc/fwd_ring.cuh``'s
+    TMA ring, each lane's references brought into shared memory once for
+    its alpha-threads, in chunks of 8 stages at fp32 and 4 at fp64."""
+    if _long_step(problem, nx, nu, dtype):
+        return 0
+    return 8 if dtype == torch.float32 else 4
+
+
+def _chunk_text(chunk, rule, nx, nu, dtype):
+    """A unit's chunk of stages: ``chunk`` as given (a measurement's), or
+    ``rule``'s within the ring's depth (``fwd_chunk``)."""
+    if chunk is not None or not rule:
+        return rule if chunk is None else chunk
+    return (f"nmpc::fwd_chunk<{DTYPES[dtype]}>("
+            f"nmpc::RefFields<{nx}, {nu}>::F, {rule})")
+
+
+def unit_source(problem, nx: int, nu: int, dtype, chunk: int | None = None,
+                costs: int | None = None) -> str:
     """The generated translation unit for ``problem`` at ``dtype``: K6 at
-    the chunk of stages of :func:`ref_chunk` (within the ring's depth,
-    ``fwd_chunk``), or at ``chunk`` where a measurement asks for another
-    (0: the register prefetch), and K7."""
+    the chunk of stages of :func:`ref_chunk` and K7 at that of
+    :func:`costs_chunk` (each within the ring's depth, ``fwd_chunk``), or
+    at ``chunk`` and ``costs`` where a measurement asks for others (0: each
+    thread reads its references itself, one stage ahead)."""
     unit = tileval.generate(problem, "forward", nx, nu, dtype)
     t = f"{DTYPES[dtype]}, {nx}, {nu}"
-    c = chunk if chunk is not None else ref_chunk(problem, nx, nu, dtype)
-    if chunk is None and c:
-        c = (f"nmpc::fwd_chunk<{DTYPES[dtype]}>("
-             f"nmpc::RefFields<{nx}, {nu}>::F, {c})")
+    c = _chunk_text(chunk, ref_chunk(problem, nx, nu, dtype), nx, nu, dtype)
+    k = _chunk_text(costs, costs_chunk(problem, nx, nu, dtype), nx, nu,
+                    dtype)
     return (f"{unit.cpp}\n#include \"ddp_forward_remat.cuh\"\n\n"
             f"extern \"C\" int forward_selected_launch(\n"
             f"    int N, int B, int ld, double dt, double n_dt,\n"
@@ -97,53 +128,59 @@ def unit_source(problem, nx: int, nu: int, dtype,
             f"      N, B, ld, dt, n_dt, xs, us, ks, Ks, alpha, t0, xs_out, "
             f"us_out,\n      costs, csum, stream);\n}}\n\n"
             f"extern \"C\" int forward_costs_launch(\n"
-            f"    int N, int B, int A, double dt, double n_dt, const void* xs,"
-            f"\n    const void* us, const void* ks, const void* Ks,\n"
-            f"    const void* alphas, const void* t0, void* csum,\n"
-            f"    void* stream) {{\n"
-            f"  return nmpc::launch_forward_costs<{t}>(\n"
-            f"      N, B, A, dt, n_dt, xs, us, ks, Ks, alphas, t0, csum, "
+            f"    int N, int B, int A, int ld, double dt, double n_dt,\n"
+            f"    const void* xs, const void* us, const void* ks,\n"
+            f"    const void* Ks, const void* alphas, const void* t0,\n"
+            f"    void* csum, void* stream) {{\n"
+            f"  return nmpc::launch_forward_costs<{t}, {k}>(\n"
+            f"      N, B, A, ld, dt, n_dt, xs, us, ks, Ks, alphas, t0, csum, "
             f"stream);\n}}\n")
 
 
-def unit_name(dtype, chunk: int | None = None) -> str:
+def unit_name(dtype, chunk: int | None = None,
+              costs: int | None = None) -> str:
     c = "" if chunk is None else f"_c{chunk}"
-    return f"ddp_forward_remat_{str(dtype)[6:]}{c}"
+    k = "" if costs is None else f"_k{costs}"
+    return f"ddp_forward_remat_{str(dtype)[6:]}{c}{k}"
 
 
 class Unit(NamedTuple):
-    """A loaded unit's launch functions and K6's chunk of stages (0: the
-    register prefetch, which reads its references at lane stride B; else
-    the TMA ring)."""
+    """A loaded unit's launch functions and K6's and K7's chunks of stages
+    (0: each thread reads its references at lane stride B itself; else the
+    TMA ring)."""
     selected: object
     costs: object
     chunk: int
+    costs_chunk: int
 
 
-def bind(lib, chunk: int) -> Unit:
-    """The :class:`Unit` of a loaded library built at ``chunk``
-    (:func:`unit_source`)."""
+def bind(lib, chunk: int, costs_chunk: int) -> Unit:
+    """The :class:`Unit` of a loaded library built at ``chunk`` and
+    ``costs_chunk`` (:func:`unit_source`)."""
     sel = lib.forward_selected_launch
     sel.argtypes = [ctypes.c_int] * 3 + [ctypes.c_double] * 2 + [
         ctypes.c_void_p] * 11
     sel.restype = ctypes.c_int
     costs = lib.forward_costs_launch
-    costs.argtypes = [ctypes.c_int] * 3 + [ctypes.c_double] * 2 + [
+    costs.argtypes = [ctypes.c_int] * 4 + [ctypes.c_double] * 2 + [
         ctypes.c_void_p] * 8
     costs.restype = ctypes.c_int
-    return Unit(sel, costs, chunk)
+    return Unit(sel, costs, chunk, costs_chunk)
 
 
 @functools.lru_cache(maxsize=64)
-def launchers(problem, nx: int, nu: int, dtype,
-              chunk: int | None = None) -> Unit:
+def launchers(problem, nx: int, nu: int, dtype, chunk: int | None = None,
+              costs: int | None = None) -> Unit:
     """The :class:`Unit` of ``problem`` at ``dtype``, K6 at
-    :func:`ref_chunk`'s chunk or at ``chunk`` where a measurement asks for
-    another."""
-    lib = load(build_generated(unit_name(dtype, chunk),
-                               unit_source(problem, nx, nu, dtype, chunk)))
+    :func:`ref_chunk`'s chunk and K7 at :func:`costs_chunk`'s, or at
+    ``chunk`` and ``costs`` where a measurement asks for others."""
+    lib = load(build_generated(unit_name(dtype, chunk, costs),
+                               unit_source(problem, nx, nu, dtype, chunk,
+                                           costs)))
     return bind(lib, ref_chunk(problem, nx, nu, dtype) if chunk is None
-                else chunk)
+                else chunk,
+                costs_chunk(problem, nx, nu, dtype) if costs is None
+                else costs)
 
 
 def _prepare(problem, t0, xs, us, ks, Ks, name):
@@ -229,19 +266,35 @@ def forward_costs_remat(problem, config: DDPConfig, t0, xs, us, ks, Ks,
     if not on_card:
         return _forward_costs_lanes(problem, config, t0, xs, us, ks, Ks,
                                     alphas, xs.dtype)
+    unit = launchers(problem, nx, nu, xs.dtype)
+    refs = (xs, us, ks, Ks)
+    if unit.costs_chunk:
+        refs, _, copies = padded_fields(refs)
+        forward_costs_remat.padded_copies += copies
+    out = launch_costs(unit, problem, t0, *refs, alphas, B)
+    forward_costs_remat.launches += 1
+    return out
+
+
+def launch_costs(unit: Unit, problem, t0, xs, us, ks, Ks, alphas, B: int):
+    """One launch of ``unit``'s K7 (:func:`launchers`) on checked CUDA
+    inputs (those of :func:`forward_costs_remat`, t0 a device scalar; for
+    the TMA ring, references whose lanes lie xs.shape[-1] values apart as
+    ``padded_fields`` gives them) for B lanes; returns the cost sums [A, B]
+    and raises on a CUDA error.  Counts no launch."""
+    N, A = us.shape[0], alphas.shape[0]
     csum = torch.empty((A, B), dtype=xs.dtype, device=xs.device)
-    launch = launchers(problem, nx, nu, xs.dtype).costs
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     with torch.cuda.device(xs.device):
-        err = launch(N, B, A, float(problem.dt), N * problem.dt,
-                     xs.data_ptr(), us.data_ptr(), ks.data_ptr(),
-                     Ks.data_ptr(), alphas.data_ptr(), t0.data_ptr(),
-                     csum.data_ptr(), stream)
+        err = unit.costs(N, B, A, xs.shape[-1], float(problem.dt),
+                         N * problem.dt, xs.data_ptr(), us.data_ptr(),
+                         ks.data_ptr(), Ks.data_ptr(), alphas.data_ptr(),
+                         t0.data_ptr(), csum.data_ptr(), stream)
     _raise_on(err, "forward_costs_remat")
-    forward_costs_remat.launches += 1
     return csum
 
 
 forward_selected_remat.launches = 0
 forward_selected_remat.padded_copies = 0   # a reference copied for TMA
 forward_costs_remat.launches = 0
+forward_costs_remat.padded_copies = 0      # a reference copied for TMA

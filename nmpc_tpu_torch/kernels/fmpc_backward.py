@@ -12,10 +12,10 @@ fallback ``csrc/linalg.cuh::gauss_jordan_inverse``):
   kernel forms the (s, nu) condensation itself from s, nu, g_bar, the
   masks and eps, so the wrapper launches nothing else (fields TMA does
   not take as they are are copied once, :func:`tma_fields`);
-* ``"resident"`` (K9, ``csrc/fmpc_backward_resident.cuh``): one thread per
-  lane on ``fmpc_stage.cuh::fmpc_stage``, the whole horizon of a block's
-  lanes copied into shared memory first, for N <= 32 where it fits
-  (:func:`resident_fits`), after the wrapper's :func:`condensation`;
+* ``"resident"`` (K9, ``csrc/fmpc_backward_resident.cuh``): K8's kernel
+  with the whole horizon of a block's lanes brought into shared memory by
+  one TMA box per field, for N <= 32 where it fits (:func:`resident_fits`);
+  its inputs and its one launch are K8's;
 * ``"packed"`` (K10, ``csrc/fmpc_backward_packed.cuh``): K8's loop with
   inputs from one ``[N, Fin, B]`` buffer (:func:`pack_fmpc_inputs`, after
   :func:`condensation`) fetched by TMA a chunk of stages at a time, and
@@ -41,8 +41,7 @@ import functools
 import torch
 
 from nmpc_tpu_torch.kernels.build import build_generated, load
-from nmpc_tpu_torch.kernels.ddp_backward_fused import (LANES, _check,
-                                                       offsets,
+from nmpc_tpu_torch.kernels.ddp_backward_fused import (_check, offsets,
                                                        pack_fields,
                                                        padded_fields,
                                                        padded_lanes,
@@ -63,7 +62,11 @@ VARIANTS = ("stream", "resident", "packed")
 # The packed stage's fields (fmpc_backward_pallas.py::_IN_FIELDS,
 # _OUT_FIELDS), and the resident kernel's limits: the TPU kernel's static
 # unroll bound on N (_RESIDENT_MAX_N) and the H100's shared memory per
-# block for the 32 lanes of a block.
+# block (csrc/fmpc_group.cuh::kResidentMaxN, row_group.cuh::kMaxBlockSmem).
+# K8's and K9's threads per lane (fmpc_group.cuh::fmpc_group) and the
+# fewest lanes of a block at that group (a warp's).
+GROUP = 4
+LEAST_LANES = 32 // GROUP
 IN_FIELDS = ("A", "B", "C", "D", "Lxx", "Luu", "Lxu", "xb", "Lxb", "Lub",
              "nu_s", "tilde")
 OUT_FIELDS = ("k", "K", "svec", "P")
@@ -95,17 +98,40 @@ def _out_shapes(nx, nu):
     return dict(zip(OUT_FIELDS, ((nu,), (nu, nx), (nx,), (nx, nx))))
 
 
+def stream_stage_values(nx: int, nu: int, ng: int, itemsize: int,
+                        group: int = GROUP) -> int:
+    """Values of K8's and K9's stage in shared memory
+    (``csrc/fmpc_group.cuh::FmpcStreamLayout`` at G = ``group``): the 13
+    fields A, B, C, D, Lxx, Luu, Lxu, x_bar, Lx_bar, Lu_bar, s, nu, g_bar,
+    each rounded up to a multiple of ``stage_align`` values (88 at the
+    cart-pole's (4, 1, 4) fp32, 56 at the oscillator's (2, 1, 3))."""
+    row = (32 // group) * itemsize
+    q = 1 if row >= 128 else 128 // row
+    sizes = (nx * nx, nx * nu, ng * nx, ng * nu, nx * nx, nu * nu, nx * nu,
+             nx, nx, nu, ng, ng, ng)
+    return sum(-(-size // q) * q for size in sizes)
+
+
 def resident_fits(nx: int, nu: int, ng: int, N: int, dtype) -> bool:
     """Whether the resident kernel (K9) takes this shape: the shape and
-    dtype K8 takes, N <= 32, and the horizon's inputs of a 32-lane block
-    within the 227 KB of shared memory a block may have (oscillator
-    (2, 1, 3): N <= 32 at fp32, 27 at fp64; cart-pole (4, 1, 4): N <= 23
-    at fp32, 11 at fp64).  The card's counterpart of ``_pick_sub_resident``."""
+    dtype K8 takes, N <= 32, and the horizon of a block of the fewest lanes
+    within the 227 KB of shared memory a block may have
+    (``fmpc_group.cuh::fmpc_resident_fits``: the oscillator (2, 1, 3) and
+    the cart-pole (4, 1, 4) at every N <= 32 at both dtypes).  The card's
+    counterpart of ``_pick_sub_resident``."""
     if not kernel_supports(nx, nu, ng, dtype) or not 1 <= N <= RESIDENT_MAX_N:
         return False
-    _, Fin, _, _ = field_offsets(nx, nu, ng)
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return N * Fin * LANES * itemsize <= MAX_SMEM_BYTES
+    return resident_block_fits(nx, nu, ng, N, dtype, GROUP, LEAST_LANES)
+
+
+def resident_block_fits(nx: int, nu: int, ng: int, N: int, dtype,
+                        group: int, lanes: int) -> bool:
+    """Whether K9's horizon of N stages of ``lanes`` lanes at ``group``
+    threads a lane fits a block's shared memory (``fmpc_group.cuh``:
+    ``ring_bytes`` of one buffer)."""
+    itemsize = dtype.itemsize
+    buffer = N * stream_stage_values(nx, nu, ng, itemsize, group) * lanes
+    return 128 + -(-buffer * itemsize // 128) * 128 <= MAX_SMEM_BYTES
 
 
 def pack_fmpc_inputs(co, nu_s, tilde):
@@ -117,26 +143,17 @@ def pack_fmpc_inputs(co, nu_s, tilde):
 
 
 def unit_source(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
-                group: int | None = None, share: bool | None = None) -> str:
-    """The unit instantiating the ``variant`` kernel at (nx, nu, ng, dtype);
-    K8 and K10 with the threads per lane of ``csrc/fmpc_group.cuh``'s
-    rules, or ``group`` where a measurement asks for another, and with the
-    group's rows of P A, P B and P x_bar exchanged or computed by every
-    thread as its rule says, or as ``share`` says
-    (``csrc/fmpc_stage.cuh::fmpc_stage_group``)."""
+                group: int | None = None, share: bool | None = None,
+                lanes: int | None = None) -> str:
+    """The unit instantiating the ``variant`` kernel at (nx, nu, ng, dtype)
+    with the threads per lane of ``csrc/fmpc_group.cuh``'s rules, or
+    ``group`` where a measurement asks for another, and with the group's
+    rows of P A, P B and P x_bar exchanged or computed by every thread as
+    its rule says, or as ``share`` says
+    (``csrc/fmpc_stage.cuh::fmpc_stage_group``); K9 with the lanes per
+    block of ``fmpc_resident_lanes``, or ``lanes``."""
     T = DTYPES[dtype]
-    if variant == "resident":
-        return (f"#include \"fmpc_backward_resident.cuh\"\n\n"
-                f"extern \"C\" int fmpc_backward_launch(\n"
-                f"    int N, int B, double dt, int break_if_llt_fails,\n"
-                f"    int check_nan, const void* const* fields, const void* sT,\n"
-                f"    const void* PT, void* ks, void* Ks, void* sv, void* Ps,\n"
-                f"    void* ok, void* finite, void* stream) {{\n"
-                f"  return nmpc::launch_fmpc_backward_resident<{T}, {nx}, {nu}, "
-                f"{ng}>(\n      N, B, dt, break_if_llt_fails, check_nan, "
-                f"fields, sT, PT, ks, Ks, sv, Ps,\n      ok, finite, "
-                f"stream);\n}}\n")
-    rule = "kFmpcGroup" if variant == "stream" else "kFmpcPackedGroup"
+    rule = "kFmpcPackedGroup" if variant == "packed" else "kFmpcGroup"
     g = f"nmpc::{rule}<{nx}, {nu}>" if group is None else str(group)
     sh = (f"nmpc::kFmpcShare<{nx}>" if share is None
           else "true" if share else "false")
@@ -151,57 +168,64 @@ def unit_source(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
                 f"  return nmpc::launch_fmpc_backward_packed<{args}>(\n"
                 f"      N, B, ld, dt, break_if_llt_fails, check_nan, Pin, sT, "
                 f"PT, out, ok,\n      finite, stream);\n}}\n")
-    return (f"#include \"fmpc_backward.cuh\"\n\n"
+    header, launch = (("fmpc_backward_resident.cuh",
+                       f"launch_fmpc_backward_resident<{args}>(\n"
+                       f"      {lanes or 0}, ")
+                      if variant == "resident" else
+                      ("fmpc_backward.cuh",
+                       f"launch_fmpc_backward<{args}>(\n      "))
+    return (f"#include \"{header}\"\n\n"
             f"extern \"C\" int fmpc_backward_launch(\n"
             f"    int N, int B, int ld, double dt, int break_if_llt_fails,\n"
             f"    int check_nan, const void* const* fields, const void* gms,\n"
             f"    int gms_ld, const void* eps, const void* LxT, const void* PT,\n"
             f"    void* ks, void* Ks, void* sv, void* Ps, void* ok,\n"
             f"    void* finite, void* stream) {{\n"
-            f"  return nmpc::launch_fmpc_backward<{args}>(\n"
-            f"      N, B, ld, dt, break_if_llt_fails, check_nan, fields, gms, "
-            f"gms_ld, eps,\n      LxT, PT, ks, Ks, sv, Ps, ok, finite, "
-            f"stream);\n}}\n")
+            f"  return nmpc::{launch}N, B, ld, dt, break_if_llt_fails, "
+            f"check_nan, fields, gms,\n      gms_ld, eps, LxT, PT, ks, Ks, "
+            f"sv, Ps, ok, finite, stream);\n}}\n")
 
 
 def unit_name(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
-              group: int | None = None, share: bool | None = None) -> str:
+              group: int | None = None, share: bool | None = None,
+              lanes: int | None = None) -> str:
     kind = "" if variant == "stream" else f"_{variant}"
     g = "" if group is None else f"_g{group}"
     sh = {None: "", True: "_share", False: "_redundant"}[share]
-    return f"fmpc_backward{kind}_{nx}x{nu}x{ng}_{str(dtype)[6:]}{g}{sh}"
+    ln = "" if lanes is None else f"_l{lanes}"
+    return f"fmpc_backward{kind}_{nx}x{nu}x{ng}_{str(dtype)[6:]}{g}{sh}{ln}"
 
 
 def bind(lib, variant: str = "stream"):
     """The launch function of a loaded ``variant`` unit
-    (:func:`unit_source`)."""
+    (:func:`unit_source`; K9's takes K8's arguments)."""
     i, d, p = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
     fn = lib.fmpc_backward_launch
-    fn.argtypes = {   # the unit's arguments, as unit_source writes them
-        "stream": [i, i, i, d, i, i, p, p, i] + [p] * 10,
-        "packed": [i, i, i, d, i, i] + [p] * 7,
-        "resident": [i, i, d, i, i] + [p] * 10}[variant]
+    fn.argtypes = ([i, i, i, d, i, i] + [p] * 7 if variant == "packed"
+                   else [i, i, i, d, i, i, p, p, i] + [p] * 10)
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=32)
 def launcher(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
-             group: int | None = None, share: bool | None = None):
+             group: int | None = None, share: bool | None = None,
+             lanes: int | None = None):
     """The launch function of the ``variant`` unit at (nx, nu, ng, dtype),
-    with ``group`` threads per lane or without ``share`` where a
-    measurement asks for them."""
+    with ``group`` threads per lane, without ``share`` or (K9) with
+    ``lanes`` lanes a block where a measurement asks for them."""
     return bind(load(build_generated(
-        unit_name(nx, nu, ng, dtype, variant, group, share),
-        unit_source(nx, nu, ng, dtype, variant, group, share), FMPC_FLAGS)),
-        variant)
+        unit_name(nx, nu, ng, dtype, variant, group, share, lanes),
+        unit_source(nx, nu, ng, dtype, variant, group, share, lanes),
+        FMPC_FLAGS)), variant)
 
 
 def condensation(co, ss, nus, gms, barrier_eps):
     """(nu_s, tilde) [N, ng, B]: the (s, nu) condensation scalings of every
-    stage, zero on masked rows (``FmpcSolver.hpp:572-579``).  The kernel
-    and its plain version (``solvers/fmpc.py::_backward_bm``) both take
-    them from here, so both start from the same bits."""
+    stage, zero on masked rows (``FmpcSolver.hpp:572-579``).  The plain
+    version (``solvers/fmpc.py::_backward_bm``) and K10's path take them
+    from here; K8 and K9 form the same bits in the kernel
+    (``csrc/fmpc_stage.cuh::fmpc_condense``)."""
     gm3 = gms[:, :, None]
     nu_s = torch.where(gm3 > 0, nus / ss, 0.0)
     tilde = torch.where(gm3 > 0, nu_s * co.g_bar - nus
@@ -247,8 +271,8 @@ def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps,
     if variant == "resident" and not resident_fits(nx, nu, ng, N, dtype):
         raise ValueError(
             f"the resident FMPC backward takes N <= {RESIDENT_MAX_N} within "
-            f"{MAX_SMEM_BYTES} bytes of shared memory per 32 lanes; got "
-            f"(nx, nu, ng) = ({nx}, {nu}, {ng}), N={N}, {dtype}")
+            f"{MAX_SMEM_BYTES} bytes of shared memory per {LEAST_LANES} "
+            f"lanes; got (nx, nu, ng) = ({nx}, {nu}, {ng}), N={N}, {dtype}")
     if variant == "packed":
         return _backward_packed_fields(problem, config, co, ss, nus, gms,
                                        barrier_eps)
@@ -256,23 +280,22 @@ def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps,
         from nmpc_tpu_torch.solvers.fmpc import _backward_bm
         return _backward_bm(problem, config, co, ss, nus, gms, barrier_eps)
     _check_shape(nx, nu, ng, dtype)
-    if variant == "resident":
-        out = _launch_resident(problem, config, co, ss, nus, gms, barrier_eps)
-        backward_fmpc_fused.resident_launches += 1
-        return out
     _check("barrier_eps", barrier_eps, (B,), dtype, device)
     if gms.dtype != dtype or gms.device != device:
         raise ValueError(f"gms must be {dtype} on {device}, got {gms.dtype} "
                          f"on {gms.device}")
-    out = launch_stream(launcher(nx, nu, ng, dtype), problem, config, co, ss,
-                        nus, gms, barrier_eps)
-    backward_fmpc_fused.launches += 1
+    out = launch_stream(launcher(nx, nu, ng, dtype, variant), problem, config,
+                        co, ss, nus, gms, barrier_eps)
+    if variant == "resident":
+        backward_fmpc_fused.resident_launches += 1
+    else:
+        backward_fmpc_fused.launches += 1
     return out
 
 
 backward_fmpc_fused.launches = 0            # K8
 backward_fmpc_fused.resident_launches = 0   # K9
-backward_fmpc_fused.padded_copies = 0       # a K8 field copied for TMA
+backward_fmpc_fused.padded_copies = 0       # a K8 / K9 field copied for TMA
 
 
 def _outputs(N, nx, nu, B, dtype, device):
@@ -303,7 +326,7 @@ def tma_fields(co, ss, nus):
 
 
 def launch_stream(fn, problem, config, co, ss, nus, gms, barrier_eps):
-    """One launch of the K8 unit function ``fn`` (:func:`launcher`) on
+    """One launch of the K8 or K9 unit function ``fn`` (:func:`launcher`) on
     checked CUDA inputs (the arguments of :func:`backward_fmpc_fused`),
     its fields as :func:`tma_fields` gives them, ``gms`` read with its row
     stride (0 where every stage has one mask row; a copy only if its rows
@@ -324,28 +347,7 @@ def launch_stream(fn, problem, config, co, ss, nus, gms, barrier_eps):
                  barrier_eps.data_ptr(), co.Lx_bar_term.data_ptr(),
                  co.Lxx_term.data_ptr(), *(o.data_ptr() for o in outs),
                  stream)
-    _raise_on(err, "stream")
-    return tuple(outs)
-
-
-def _launch_resident(problem, config, co, ss, nus, gms, barrier_eps):
-    """K9 on the wrapper's :func:`condensation`."""
-    N, nx = co.A.shape[0], co.A.shape[1]
-    nu, ng, B = co.B.shape[2], co.C.shape[1], barrier_eps.shape[0]
-    dtype, device = barrier_eps.dtype, barrier_eps.device
-    nu_s, tilde = condensation(co, ss, nus, gms, barrier_eps)
-    s_T = -co.Lx_bar_term
-    outs = _outputs(N, nx, nu, B, dtype, device)
-    ins = [getattr(co, name) for name in _FIELDS] + [nu_s, tilde]
-    fields = (ctypes.c_void_p * len(ins))(*(a.data_ptr() for a in ins))
-    launch = launcher(nx, nu, ng, dtype, "resident")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = launch(N, B, float(problem.dt), int(config.break_if_llt_fails),
-                     int(config.check_nan), fields, s_T.data_ptr(),
-                     co.Lxx_term.data_ptr(), *(o.data_ptr() for o in outs),
-                     stream)
-    _raise_on(err, "resident")
+    _raise_on(err, "stream or resident")
     return tuple(outs)
 
 

@@ -44,14 +44,12 @@ using std::sqrt;
 #define __restrict__
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 thread_local Dim3 threadIdx;
-// one barrier and exchange slots per warp of a block; a block barrier
-// where a launch runs the block's warps together
-static std::barrier<> g_warps[] = {
-    std::barrier<>(32), std::barrier<>(32), std::barrier<>(32),
-    std::barrier<>(32), std::barrier<>(32), std::barrier<>(32),
-    std::barrier<>(32), std::barrier<>(32), std::barrier<>(32)};
-static int g_votes[9][32];
-static unsigned long long g_slots[9][32];
+// one barrier and exchange slots per warp of a block (at most 32 warps);
+// a block barrier where a launch runs the block's warps together
+static std::barrier<> g_warps[] = {""" + ", ".join(
+    ["std::barrier<>(32)"] * 32) + r"""};
+static int g_votes[32][32];
+static unsigned long long g_slots[32][32];
 static std::barrier<>* g_block = nullptr;
 inline std::barrier<>& g_warp_of() { return g_warps[threadIdx.x / 32]; }
 inline void __syncthreads() {
@@ -102,6 +100,11 @@ HOST_RUNTIME = r"""
 #define __shared__
 #define __align__(x)
 typedef void* cudaStream_t;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -272,33 +275,36 @@ namespace nmpc {
 alignas(128) unsigned char smem_raw[1 << 20];
 }
 #include "tma.cuh"
-// every block in turn, its threads all together (the warps of a block
-// meet at __syncthreads and K1's ring); shared memory poisoned (NaN)
-// before a block and checked past the launch's size after
+// every block in turn (a grid of blocks along x, or x and y), its threads
+// all together (the warps of a block meet at __syncthreads and the rings);
+// shared memory poisoned (NaN) before a block and checked past the
+// launch's size after
 template <typename Kernel>
-auto host_launch(int grid, int block, size_t smem, cudaStream_t,
+auto host_launch(dim3 grid, int block, size_t smem, cudaStream_t,
                  Kernel* kernel) {
   return [=](auto... args) {
-    if (smem + 4096 > sizeof(nmpc::smem_raw) || block > 9 * 32 ||
+    if (smem + 4096 > sizeof(nmpc::smem_raw) || block > 32 * 32 ||
         block % 32 != 0)
       std::exit(12);
-    for (int bx = 0; bx < grid; ++bx) {
-      std::memset(nmpc::smem_raw, 0xff, sizeof(nmpc::smem_raw));
-      std::barrier<> all(block);
-      g_block = &all;
-      std::vector<std::thread> threads;
-      for (int t = 0; t < block; ++t)
-        threads.emplace_back([&, t] {
-          blockIdx.x = bx;
-          blockDim.x = block;
-          threadIdx.x = t;
-          kernel(args...);
-        });
-      for (auto& th : threads) th.join();
-      g_block = nullptr;
-      for (size_t i = smem; i < smem + 4096; ++i)
-        if (nmpc::smem_raw[i] != 0xff) std::exit(10);
-    }
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::memset(nmpc::smem_raw, 0xff, sizeof(nmpc::smem_raw));
+        std::barrier<> all(block);
+        g_block = &all;
+        std::vector<std::thread> threads;
+        for (int t = 0; t < block; ++t)
+          threads.emplace_back([&, t] {
+            blockIdx.x = bx;
+            blockIdx.y = by;
+            blockDim.x = block;
+            threadIdx.x = t;
+            kernel(args...);
+          });
+        for (auto& th : threads) th.join();
+        g_block = nullptr;
+        for (size_t i = smem; i < smem + 4096; ++i)
+          if (nmpc::smem_raw[i] != 0xff) std::exit(10);
+      }
   };
 }
 """

@@ -221,18 +221,20 @@ def test_fmpc_packed_buffers_hold_the_fields():
 
 
 def test_resident_fits_and_raises():
-    """``resident_fits``: N <= 32 and the horizon of 32 lanes within 227 KB
-    (cart-pole (4, 1, 4): N <= 23 at fp32, 11 at fp64); the wrapper asked
-    for the resident kernel at a shape that does not fit raises, on the CPU
-    too, and an unknown variant raises."""
+    """``resident_fits``: N <= 32 and the horizon of a block's fewest lanes
+    within 227 KB (cart-pole (4, 1, 4): every N <= 32 at fp32 and fp64;
+    (8, 4, 16) at fp64: N <= 7); the wrapper asked for the resident kernel
+    at a shape that does not fit raises, on the CPU too, and an unknown
+    variant raises."""
     fits = lambda *s: KF.resident_fits(*s)
     assert fits(2, 1, 3, 20, torch.float32) and fits(2, 1, 3, 32,
                                                      torch.float32)
     assert not fits(2, 1, 3, 33, torch.float32)
-    assert fits(4, 1, 4, 23, torch.float32)
-    assert not fits(4, 1, 4, 24, torch.float32)
-    assert fits(4, 1, 4, 11, torch.float64)
-    assert not fits(4, 1, 4, 12, torch.float64)
+    assert fits(4, 1, 4, 32, torch.float32)
+    assert not fits(4, 1, 4, 33, torch.float32)
+    assert fits(4, 1, 4, 32, torch.float64)
+    assert fits(8, 4, 16, 7, torch.float64)
+    assert not fits(8, 4, 16, 8, torch.float64)
     assert not fits(9, 1, 4, 4, torch.float32)
     pp, pc, co, var, gms, eps = _port_case("cartpole", 33, 8, seed=1)
     with pytest.raises(ValueError, match="resident"):

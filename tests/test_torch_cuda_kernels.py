@@ -902,10 +902,10 @@ def test_fmpc_ragged_lane_stride(card, dtype):
 
 
 def test_resident_raises_where_it_does_not_fit(card):
-    """The cart-pole at N=24, fp32, needs more than 227 KB per 32 lanes:
-    the wrapper asked for K9 raises (the solver's "resident" takes K8
-    there: ``test_fmpc_variant_reaches_its_kernel``)."""
-    B, N = 64, 24
+    """The cart-pole at N=33, fp32, is past K9's 32 stages: the wrapper
+    asked for K9 raises (the solver's "resident" takes K8 there:
+    ``test_fmpc_variant_reaches_its_kernel``)."""
+    B, N = 64, 33
     p, co, var, gms, eps = _fmpc_case(B, N, torch.float32, card)
     cfg = FmpcConfig(horizon_steps=N)
     with pytest.raises(ValueError, match="resident"):
@@ -1008,12 +1008,12 @@ def _fmpc_forward_args(B, N, dtype, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_forward_rings_equal_one_stage(card, dtype):
-    """K6 built at every chunk C of its TMA ring, and K11 at every (C, G),
-    on a ragged batch (B=300, N=17: a last chunk shorter than C) with a
-    NaN lane (K6: a NaN state; K11: a NaN A): every output equal bit for
-    bit to the one-stage build (K6: its register prefetch, C = 0; K11: C =
-    1, G = 1), NaN lanes included; K11's equal to the plain version on its
-    finite lanes."""
+    """K6 and K7 built at every chunk C of their TMA ring, and K11 at every
+    (C, G), on a ragged batch (B=300, N=17: a last chunk shorter than C)
+    with a NaN lane (K6, K7: a NaN state; K11: a NaN A): every output
+    equal bit for bit to the one-stage build (K6, K7: the register
+    prefetch, C = 0; K11: C = 1, G = 1), NaN lanes included; K11's equal to
+    the plain version on its finite lanes."""
     B, N = 300, 17
     p, t0, xs, us, VxT, VxxT = _trajectory(B, N, dtype, card)
     cfg = DDPConfig(horizon_steps=N)
@@ -1024,9 +1024,15 @@ def test_forward_rings_equal_one_stage(card, dtype):
     alpha = torch.as_tensor(np.random.default_rng(3).uniform(0.1, 1.0, B),
                             dtype=dtype, device=card)
     refs = fused.padded_fields((xs, us, ks, Ks))[0]
-    outs = {c: fwd.launch_selected(fwd.launchers(p, 4, 1, dtype, c), p, t0,
+    alphas = torch.tensor(cfg.alpha_list, dtype=dtype, device=card)
+    units = {c: fwd.launchers(p, 4, 1, dtype, c, c)
+             for c in (0,) + FWD_CHUNKS}
+    outs = {c: fwd.launch_selected(units[c], p, t0,
                                    *(refs if c else (xs, us, ks, Ks)), alpha)
-            for c in (0,) + FWD_CHUNKS}
+            for c in units}
+    sums = {c: fwd.launch_costs(units[c], p, t0,
+                                *(refs if c else (xs, us, ks, Ks)), alphas, B)
+            for c in units}
     torch.cuda.synchronize()
     ref = outs[0]
     assert bool(torch.isnan(ref[3][299])) and bool(
@@ -1034,6 +1040,7 @@ def test_forward_rings_equal_one_stage(card, dtype):
     for key, out in outs.items():
         for a, b in zip(ref, out):
             assert torch.equal(_bits(a), _bits(b)), key
+        assert torch.equal(_bits(sums[0]), _bits(sums[key])), key
     args, plain, finite = _fmpc_forward_args(B, N, dtype, card)
     fields = fused.padded_fields(args[:5])[0]
     outs = {(g, c): fmpc_forward.launch(

@@ -1,12 +1,15 @@
 """The group stage of the FMPC backward kernels, on the CPU.
 
-The streaming backward (K8, ``csrc/fmpc_backward.cuh``) and the packed
-one (K10, ``csrc/fmpc_backward_packed.cuh``) run each lane's stage on a
-group of G threads with ``csrc/fmpc_stage.cuh::fmpc_stage_group`` in one
-loop (``fmpc_group_backward``); K8 forms the (s, nu) condensation itself
-(``fmpc_condense_group``) and is fed by a producer warp's TMA ring, K10
-reads its packed buffer by a TMA ring of chunks per warp.  Held here, with
-both kernels built by g++ as host code through their launch functions
+The streaming backward (K8, ``csrc/fmpc_backward.cuh``), the resident one
+(K9, ``csrc/fmpc_backward_resident.cuh``: K8's kernel with the whole
+horizon in one buffer) and the packed one (K10,
+``csrc/fmpc_backward_packed.cuh``) run each lane's stage on a group of G
+threads with ``csrc/fmpc_stage.cuh::fmpc_stage_group`` in one loop
+(``fmpc_group_backward``); K8 and K9 form the (s, nu) condensation
+themselves (``fmpc_condense_group``) and are fed by a producer warp's TMA
+boxes, K10 reads its packed buffer by a TMA ring of chunks per warp.
+Held here, with the kernels built by g++ as host code through their
+launch functions
 (``tests/host_shim.py``: each warp as 32 host threads, TMA by a stand-in
 that copies at once), without contraction (the units' ``-fmad=false``):
 
@@ -25,11 +28,15 @@ that copies at once), without contraction (the units' ``-fmad=false``):
   starts from +0; the synthetic shape within the kernel tolerance: torch
   adds its 16-term sums in another order), with the same ok and finite
   masks; the folded nu/s and tilde bit-equal to ``condensation()``;
+* K9 at every G and 8, 16 or 32 lanes a block (and its lane rule) at N =
+  1, 7, 20 and 32, both dtypes and ``break_if_llt_fails``: bit-equal to K8
+  at G = 1 where its horizon fits a block, refused where it does not;
 * the producer's ring and K10's chunks as the host run issued them: every
-  stage once, from the end of the horizon;
-* the size rules of ``csrc/fmpc_group.cuh``: K8's ring and K10's chunk
-  rings within a block's 227 KB at every (nx, nu, ng) <= (8, 4, 16) at
-  both dtypes.
+  stage once, from the end of the horizon (K9: the whole horizon at once);
+* the size rules of ``csrc/fmpc_group.cuh``: K8's ring, K9's horizon and
+  K10's chunk rings within a block's 227 KB at every (nx, nu, ng) <= (8,
+  4, 16) at both dtypes; ``resident_fits`` equal to the kernel's rule and
+  a superset of the shapes it took before.
 """
 
 import functools
@@ -70,14 +77,17 @@ BLOCK_SMEM = 227 * 1024
 
 _HARNESS = SHIM + KERNELS_PRELUDE + r"""
 #include "fmpc_backward_packed.cuh"
+#include "fmpc_backward_resident.cuh"
 
 // in: K8's 13 fields at lane stride ld (each [N][size][ld]), K10's P_in
 // [N][Fin][ld3] (every array 16-byte aligned, as TMA asks), gms [N][NG],
-// eps [B], Lx_bar_term [NX][B], P_T [NX][NX][B], s_T [NX][B]; out: K8's ks, Ks, svecs, Ps, ok, finite, K10's out, ok,
-// finite, and the condensation nu_s, tilde [N][NG][B] at G = 1
+// eps [B], Lx_bar_term [NX][B], P_T [NX][NX][B], s_T [NX][B]; out: K8's
+// ks, Ks, svecs, Ps, ok, finite, K10's out, ok, finite, and the
+// condensation nu_s, tilde [N][NG][B] at G = 1; lanes >= 0: K9 at that
+// many lanes a block (0: its rule) in K8's place, and nothing else
 template <typename T, int NX, int NU, int NG, int G, bool SHARE>
-int run(int N, int B, int brk, int ld, int ld3, double dt, const T* in,
-        T* out, FILE* log) {
+int run(int N, int B, int brk, int ld, int ld3, int lanes, double dt,
+        const T* in, T* out, FILE* log) {
   using O = nmpc::FmpcPackedLayout<NX, NU, NG>;
   const int sizes[13] = {NX * NX, NX * NU, NG * NX, NG * NU, NX * NX,
                          NU * NU, NX * NU, NX, NX, NU, NG, NG, NG};
@@ -109,15 +119,21 @@ int run(int N, int B, int brk, int ld, int ld3, double dt, const T* in,
   T* flags10 = out10 + static_cast<size_t>(N) * O::Fout * B;
   T* cond = flags10 + 2 * B;
   nmpc::g_log = log;
-  if (log) std::fprintf(log, "K 8\n");
-  int err = nmpc::launch_fmpc_backward<T, NX, NU, NG, G, SHARE>(
-      N, B, ld, dt, brk, 1, f, gms, NG, eps, LxT, PT, ks, Ks, sv, Ps,
-      ok.data(), fin.data(), nullptr);
+  if (log) std::fprintf(log, "K %d\n", lanes >= 0 ? 9 : 8);
+  int err =
+      lanes >= 0
+          ? nmpc::launch_fmpc_backward_resident<T, NX, NU, NG, G, SHARE>(
+                lanes, N, B, ld, dt, brk, 1, f, gms, NG, eps, LxT, PT, ks,
+                Ks, sv, Ps, ok.data(), fin.data(), nullptr)
+          : nmpc::launch_fmpc_backward<T, NX, NU, NG, G, SHARE>(
+                N, B, ld, dt, brk, 1, f, gms, NG, eps, LxT, PT, ks, Ks, sv,
+                Ps, ok.data(), fin.data(), nullptr);
   if (err) return 20 + err;
   for (int b = 0; b < B; ++b) {
     flags8[b] = ok[b];
     flags8[B + b] = fin[b];
   }
+  if (lanes >= 0) return 0;
   if (log) std::fprintf(log, "K 10\n");
   err = nmpc::launch_fmpc_backward_packed<T, NX, NU, NG, G, SHARE>(
       N, B, ld3, dt, brk, 1, Pin, sT, PT, out10, ok.data(), fin.data(),
@@ -150,7 +166,9 @@ int run(int N, int B, int brk, int ld, int ld3, double dt, const T* in,
 // default G of each kernel: K8's G, stage F (padded), chunk C, lanes at B
 // = 4096, 1024, 37, the fewest, and the block's bytes at the first and
 // the fewest; K10's Fin, box, pieces, C at N = 100 and 13, G, lanes at B =
-// 4096 and the block's bytes there and one warp's at N = 13
+// 4096 and the block's bytes there and one warp's at N = 13; K9's largest
+// N that fits (0: none), its lanes at B = 4096 and N = 20 and at that
+// largest N, and the block's bytes there
 template <typename T, int G, int GP>
 void geometry_line(int nx, int nu, int ng) {
   const nmpc::FmpcOffsets s =
@@ -165,8 +183,13 @@ void geometry_line(int nx, int nu, int ng) {
   const int C13 = nmpc::fmpc_packed_chunk_stages<T>(k.F, 13);
   const int Lp = nmpc::fmpc_packed_lanes<T, GP>(k.F, C100, 4096);
   const int slot = nmpc::fmpc_slot_values(k.F);
+  int n9 = 0;
+  for (int n = 1; n <= 64; ++n)
+    if (nmpc::fmpc_resident_fits<T, G>(s.F, n)) n9 = n;
+  const int L20 = nmpc::fmpc_resident_lanes<T, G>(s.F, 20, 4096);
+  const int Ln = nmpc::fmpc_resident_lanes<T, G>(s.F, n9 > 0 ? n9 : 1, 4096);
   std::printf("geometry %d %d %d %d %d %d %d %d %d %d %d %zu %zu %d %d %d "
-              "%d %d %d %d %zu %zu\n",
+              "%d %d %d %d %zu %zu %d %d %d %zu\n",
               int(sizeof(T)), nx, nu, ng, G, s.F, C8, L[0], L[1], L[2], least,
               nmpc::ring_bytes<T>(nmpc::kFmpcRing, C8, s.F, L[0]),
               nmpc::ring_bytes<T>(nmpc::kFmpcRing, C8, s.F, least), k.F,
@@ -174,7 +197,8 @@ void geometry_line(int nx, int nu, int ng) {
               C13, GP, Lp,
               static_cast<size_t>(Lp / (32 / GP)) *
                   nmpc::ring_bytes<T>(nmpc::kPackedRing, C100, slot, 32 / GP),
-              nmpc::ring_bytes<T>(nmpc::kPackedRing, C13, slot, 32 / GP));
+              nmpc::ring_bytes<T>(nmpc::kPackedRing, C13, slot, 32 / GP),
+              n9, L20, Ln, nmpc::ring_bytes<T>(1, n9, s.F, Ln));
 }
 
 template <typename T, int G>
@@ -201,7 +225,7 @@ void geometry() {
 
 template <typename T>
 int main_t(int nx, int nu, int ng, int G, int share, int N, int B, int brk,
-           int ld, int ld3, double dt, const char* in_path,
+           int ld, int ld3, int lanes, double dt, const char* in_path,
            const char* out_path, FILE* log) {
   const int F = 2 * nx * nx + 2 * nx * nu + ng * (nx + nu) + nu * nu +
                 2 * nx + nu;
@@ -221,8 +245,8 @@ int main_t(int nx, int nu, int ng, int G, int share, int N, int B, int brk,
   int err = 2;
 #define RUN(NX_, NU_, NG_, G_, SH_)                                         \
   if (nx == NX_ && nu == NU_ && ng == NG_ && G == G_ && share == SH_)       \
-    err = run<T, NX_, NU_, NG_, G_, SH_>(N, B, brk, ld, ld3, dt, in.data(), \
-                                         out.data(), log);
+    err = run<T, NX_, NU_, NG_, G_, SH_>(N, B, brk, ld, ld3, lanes, dt,    \
+                                         in.data(), out.data(), log);
   RUN(2, 1, 3, 1, 1) RUN(2, 1, 3, 2, 1) RUN(2, 1, 3, 4, 1)
   RUN(2, 1, 3, 2, 0)
   RUN(4, 1, 4, 1, 1) RUN(4, 1, 4, 2, 1) RUN(4, 1, 4, 4, 1)
@@ -238,24 +262,25 @@ int main_t(int nx, int nu, int ng, int G, int share, int N, int B, int brk,
 }
 
 // fmpc_group_host geometry
-// fmpc_group_host float|double nx nu ng G share N B brk ld ld3 dt in out log
+// fmpc_group_host float|double nx nu ng G share N B brk ld ld3 lanes dt in
+//   out log
 int main(int argc, char** argv) {
   if (argc == 2 && std::strcmp(argv[1], "geometry") == 0) {
     geometry<float>();
     geometry<double>();
     return 0;
   }
-  if (argc != 16) return 1;
-  int v[10];
-  for (int j = 0; j < 10; ++j) v[j] = std::atoi(argv[2 + j]);
-  const double dt = std::atof(argv[12]);
-  FILE* log = std::fopen(argv[15], "w");
+  if (argc != 17) return 1;
+  int v[11];
+  for (int j = 0; j < 11; ++j) v[j] = std::atoi(argv[2 + j]);
+  const double dt = std::atof(argv[13]);
+  FILE* log = std::fopen(argv[16], "w");
   const int err =
       std::strcmp(argv[1], "float") == 0
           ? main_t<float>(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
-                          v[8], v[9], dt, argv[13], argv[14], log)
+                          v[8], v[9], v[10], dt, argv[14], argv[15], log)
           : main_t<double>(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
-                           v[8], v[9], dt, argv[13], argv[14], log);
+                           v[8], v[9], v[10], dt, argv[14], argv[15], log);
   std::fclose(log);
   return err;
 }
@@ -325,8 +350,8 @@ def _case(shape, dtype, B=B_HOST, N=N_HOST):
     and the two-input problem from a random iterate (s, nu in [0.2, 1.2))
     through ``_coeffs_bm``, the synthetic shape from ``_synthetic``; mask
     rows 0 off on every third stage (their s and nu stay random), lane 1
-    non-PD (Luu = -1e4 I; two-input: -400 I on stages 2 and 5, so G
-    pivots), lane 2 NaN (one NaN A at stage N / 2)."""
+    non-PD (Luu = -1e4 I; two-input: -400 I on stages 2 and 5 modulo N,
+    so G pivots), lane 2 NaN (one NaN A at stage N / 2)."""
     nx, nu, ng = shape
     rng = np.random.default_rng(sum(shape))
     as_t = lambda a: torch.as_tensor(a, dtype=dtype).contiguous()
@@ -351,7 +376,7 @@ def _case(shape, dtype, B=B_HOST, N=N_HOST):
         dt = p.dt
     gms[::3, 0] = 0.0
     if shape == (2, 2, 2):
-        for i in (2, 5):
+        for i in {2 % N, 5 % N}:
             co.Luu[i, :, :, 1] = -400.0 * torch.eye(2, dtype=dtype)
     else:
         co.Luu[:, :, :, 1] = -1e4 * torch.eye(nu, dtype=dtype)[None]
@@ -360,14 +385,17 @@ def _case(shape, dtype, B=B_HOST, N=N_HOST):
     return dt, co, ss, nus, gms, eps
 
 
-def _host_run(exe, shape, dtype, G, share, brk, workdir: Path):
+def _host_run(exe, shape, dtype, G, share, brk, workdir: Path, N=N_HOST,
+              lanes=-1):
     """The harness's K8 (ks, Ks, svecs, Ps, ok, finite), K10 (the same,
-    unpacked) and the folded (nu_s, tilde) on ``_case(shape, dtype)``,
-    fed as the wrappers feed them (K8's fields by ``tma_fields``, K10's
-    buffer padded to the lane stride TMA takes), and the log of the
-    kernels' TMA issuing threads."""
+    unpacked) and the folded (nu_s, tilde) on ``_case(shape, dtype, B_HOST,
+    N)``, fed as the wrappers feed them (K8's fields by ``tma_fields``,
+    K10's buffer padded to the lane stride TMA takes), and the log of the
+    kernels' TMA issuing threads; with ``lanes`` >= 0, K9 at that many
+    lanes a block (0: its rule) as "K9" and nothing else.  None where K9
+    does not take the shape (the launch's invalid-value error)."""
     nx, nu, ng = shape
-    dt, co, ss, nus, gms, eps = _case(shape, dtype)
+    dt, co, ss, nus, gms, eps = _case(shape, dtype, B_HOST, N)
     N, B = co.A.shape[0], eps.shape[0]
     fields, ld = K8.tma_fields(co, ss, nus)
     nu_s, tilde = K8.condensation(co, ss, nus, gms, eps)
@@ -376,15 +404,18 @@ def _host_run(exe, shape, dtype, G, share, brk, workdir: Path):
                      + [P_in.flatten(), gms.flatten(), eps,
                         co.Lx_bar_term.flatten(), co.Lxx_term.flatten(),
                         (-co.Lx_bar_term).flatten()])
-    tag = f"{G}_{int(share)}_{int(brk)}"
+    tag = f"{G}_{int(share)}_{int(brk)}_{N}_{lanes}"
     inp, outp, logp = (workdir / f"f{tag}.in", workdir / f"f{tag}.out",
                        workdir / f"f{tag}.log")
     inp.write_bytes(flat.numpy().tobytes())
     proc = subprocess.run(
         [str(exe), "float" if dtype == torch.float32 else "double", str(nx),
          str(nu), str(ng), str(G), str(int(share)), str(N), str(B),
-         str(int(brk)), str(ld), str(ld3), repr(float(dt)), str(inp),
-         str(outp), str(logp)], capture_output=True, text=True, timeout=300)
+         str(int(brk)), str(ld), str(ld3), str(lanes), repr(float(dt)),
+         str(inp), str(outp), str(logp)], capture_output=True, text=True,
+        timeout=300)
+    if lanes >= 0 and proc.returncode == 21:   # cudaErrorInvalidValue
+        return None
     assert proc.returncode == 0, (proc.returncode, proc.stderr)
     o = torch.from_numpy(np.frombuffer(
         outp.read_bytes(), dtype=np.float32 if dtype == torch.float32
@@ -397,6 +428,8 @@ def _host_run(exe, shape, dtype, G, share, brk, workdir: Path):
     k8 = (parts[0].reshape(N, nu, B), parts[1].reshape(N, nu, nx, B),
           parts[2].reshape(N + 1, nx, B), parts[3].reshape(N + 1, nx, nx, B),
           parts[4][:B] != 0, parts[4][B:] != 0)
+    if lanes >= 0:
+        return {"K9": k8, "log": logp.read_text().splitlines()}
     packed = K8.unpack_fields(parts[5].reshape(N, Fout, B),
                               K8._out_shapes(nx, nu))
     k10 = (packed["k"], packed["K"], packed["svec"], packed["P"],
@@ -408,14 +441,14 @@ def _host_run(exe, shape, dtype, G, share, brk, workdir: Path):
 
 @pytest.fixture(scope="module")
 def runs(fmpc_host, tmp_path_factory):
-    """The harness's runs, by (shape, dtype, G, share, brk)."""
+    """The harness's runs, by (shape, dtype, G, share, brk, N, lanes)."""
     cache = {}
 
-    def get(shape, dtype, G, share, brk):
-        key = (shape, dtype, G, share, brk)
+    def get(shape, dtype, G, share, brk, N=N_HOST, lanes=-1):
+        key = (shape, dtype, G, share, brk, N, lanes)
         if key not in cache:
             cache[key] = _host_run(fmpc_host, shape, dtype, G, share, brk,
-                                   tmp_path_factory.mktemp("runs"))
+                                   tmp_path_factory.mktemp("runs"), N, lanes)
         return cache[key]
     return get
 
@@ -501,6 +534,71 @@ def _events(log):
         blk, warp, *rest = map(int, v)
         kernel.setdefault((blk, warp), []).append((kind, *rest))
     return out
+
+
+# K9's horizons held here (one stage; shorter than, equal to and past
+# K8's chunks; the TPU kernel's limit) and its lanes a block measured on
+# the card
+K9_N = (1, 7, 20, 32)
+K9_LANES = (8, 16, 32)
+
+
+@pytest.mark.parametrize("N", K9_N)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", list(GROUPS)[:3])
+def test_resident_as_host_cpp(runs, shape, dtype, N):
+    """K9 on the host through its launch function at every G of GROUPS and
+    every lanes a block of K9_LANES that is a whole number of a warp's
+    lanes, and at its lane rule (the largest G), on ``_case`` at N stages
+    (a non-PD and a NaN lane, masked rows), both ``break_if_llt_fails``:
+    every build whose horizon fits a block bit-equal to K8 at G = 1 (NaN
+    lanes NaN where they are; ok and finite masks equal), every other one
+    refused by its launch; the rule's build runs, and its producer issued
+    the block's whole horizon at once: one arm and 13 boxes of N stages
+    from stage 0, at the block's first lane (a warp's lanes a block at
+    B_HOST)."""
+    G_rule = max(GROUPS[shape])
+    builds = [(g, L) for g in GROUPS[shape] for L in K9_LANES
+              if L % (32 // g) == 0] + [(G_rule, 0)]
+    for brk in (False, True):
+        ref = runs(shape, dtype, 1, True, brk, N)["K8"]
+        for g, L in builds:
+            out = runs(shape, dtype, g, True, brk, N, L)
+            fits = L == 0 or K8.resident_block_fits(*shape, N, dtype,
+                                                    g, L)
+            assert (out is not None) == fits, (g, L)
+            if out is None:
+                continue
+            for j, (a, b) in enumerate(zip(ref, out["K9"])):
+                assert (same(a, b) if a.is_floating_point()
+                        else torch.equal(a, b)), (g, L, brk, j)
+    events = _events(runs(shape, dtype, G_rule, True, False, N, 0)["log"])
+    producers = {key: ev for key, ev in events[9].items()
+                 if any(e[0] == "A" for e in ev)}
+    lanes = max(32 // G_rule, 4)   # the rule's at B_HOST: a warp's lanes
+    assert len(producers) == -(-B_HOST // lanes)
+    for (blk, _), ev in producers.items():
+        loads = [e for e in ev if e[0] == "L"]
+        assert sum(e[0] == "A" for e in ev) == 1 and len(loads) == 13
+        assert {(e[1], e[2]) for e in loads} == {(blk * lanes, 0)}
+
+
+def test_resident_fits_every_shape_it_took():
+    """``resident_fits`` accepts every (nx <= 8, nu <= 4, ng <= 16, N <= 32,
+    dtype) it accepted with one thread a lane (the packed stage of 32 lanes
+    within 227 KB: the oscillator up to N = 32 at fp32 and 27 at fp64, the
+    cart-pole up to 23 and 11), and more: the cart-pole at every N <= 32."""
+    for dtype in (torch.float32, torch.float64):
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        for nx, nu, ng in np.ndindex(8, 4, 16):
+            nx, nu, ng = nx + 1, nu + 1, ng + 1
+            _, Fin, _, _ = K8.field_offsets(nx, nu, ng)
+            for N in range(1, K8.RESIDENT_MAX_N + 1):
+                if N * Fin * 32 * itemsize <= BLOCK_SMEM:
+                    assert K8.resident_fits(nx, nu, ng, N, dtype), (
+                        nx, nu, ng, N, dtype)
+        assert K8.resident_fits(4, 1, 4, 32, dtype)
+        assert not K8.resident_fits(4, 1, 4, 33, dtype)
 
 
 @pytest.mark.parametrize("shape", [(4, 1, 4), (6, 2, 16)])
@@ -589,7 +687,8 @@ def test_rings_fit_shared_memory(geometry, itemsize):
             continue
         seen += 1
         (G, F, C8, L4096, L1024, L37, least, smem, smem_least, Fin, box,
-         pieces, C100, C13, Gp, Lp, smem_p, smem_p1) = v
+         pieces, C100, C13, Gp, Lp, smem_p, smem_p1, n9, L20, Ln,
+         smem9) = v
         W, Wp = 32 // G, 32 // Gp
         assert G == 4 and Gp == (4 if nx >= 4 else 2)
         values = 2 * nx * nx + 2 * nx * nu + ng * (nx + nu) + nu * nu
@@ -604,6 +703,16 @@ def test_rings_fit_shared_memory(geometry, itemsize):
         assert (C100, C13) == (1, 1) if Fin > 256 else 1 <= C13 <= C100
         assert smem_p <= BLOCK_SMEM and smem_p1 <= BLOCK_SMEM, (nx, nu, ng)
         assert Wp <= Lp <= 32 and Lp % Wp == 0
+        # K9: the kernel's fit rule is resident_fits', its lanes a whole
+        # number of warps and its horizon within a block
+        dtype = torch.float32 if size == 4 else torch.float64
+        assert n9 <= K8.RESIDENT_MAX_N and F == K8.stream_stage_values(
+            nx, nu, ng, size)
+        assert all(K8.resident_fits(nx, nu, ng, n, dtype) == (n <= n9)
+                   for n in range(1, K8.RESIDENT_MAX_N + 2)), (nx, nu, ng)
+        for L in (L20, Ln):
+            assert least <= L <= 32 and L % W == 0
+        assert n9 == 0 or smem9 <= BLOCK_SMEM
     assert seen == 8 * 4 * 16
     cart, osc = geometry[itemsize, 4, 1, 4], geometry[itemsize, 2, 1, 3]
     if itemsize == 4:
@@ -613,3 +722,10 @@ def test_rings_fit_shared_memory(geometry, itemsize):
     assert big[9] == 452 and big[11] == 2
     if itemsize == 8:
         assert big[1:4] == (468, 1, 16) and big[15] == 8
+        assert big[18] == 7
+    # K9 takes the oscillator and the cart-pole at every N <= 32, 32 lanes
+    # a block at the oscillator's N = 20 (fp32), 16 at the cart-pole's N =
+    # 32
+    assert osc[18] == cart[18] == 32
+    if itemsize == 4:
+        assert osc[19] == 32 and cart[20] == 16

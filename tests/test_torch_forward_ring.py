@@ -1,12 +1,13 @@
 """The forward recursions' ring, on the CPU.
 
 The FMPC Δx/Δu recursion (K11, ``csrc/fmpc_forward.cuh``) and the DDP
-line-search rollout at each lane's alpha (K6, ``csrc/ddp_forward_remat.cuh``
-on the cart-pole's generated unit) read each stage's fields from a ring of
-chunks of C stages in shared memory (``csrc/fwd_ring.cuh``), filled by a
-producer warp's TMA boxes; K11 runs a lane on a group of G threads, and K6
-at C = 0 keeps the one-stage register prefetch.  Held here, with both
-kernels (and K7, which shares K6's stage) built by g++ as host code
+line-search rollouts at each lane's alpha and at every alpha (K6, K7,
+``csrc/ddp_forward_remat.cuh`` on the cart-pole's generated unit) read
+each stage's fields from a ring of chunks of C stages in shared memory
+(``csrc/fwd_ring.cuh``), filled by a producer warp's TMA boxes; K11 runs
+a lane on a group of G threads, K7 a lane on its A alpha-threads, and K6
+and K7 at C = 0 keep the one-stage register prefetch.  Held here, with
+the kernels built by g++ as host code
 through their launch functions (``tests/host_shim.py``: each warp as 32
 host threads, TMA by a stand-in that copies at once), without contraction
 (the units' ``-fmad=false``; K6's unit keeps nvcc's default, which the
@@ -18,8 +19,9 @@ host build cannot mirror, so its bits are held on the card):
   warp; a lane stride TMA does not take: its fields copied to a padded
   one, as the wrappers do) and N=37 (a last chunk shorter than C), B=32 at
   N=1 and C-1 (fewer stages than a chunk), and the cart-pole at B=4096,
-  N=100; K6 the same at (4, 1), and K7's column of each alpha equal to
-  K6's cost sum at that alpha;
+  N=100; K6 the same at (4, 1); K7 at every C at the sweep's 11 alphas
+  and the head path's 10 (B=1023, N=37) and at 130 (blocks along y), and
+  its column of each alpha equal to K6's cost sum at that alpha;
 * each within the kernel contract of its plain version
   (``forward_fmpc_deltas_plain``, ``_forward_selected_lanes``): 2e-4
   normalized at fp32, 1e-10 at fp64 (not bits: torch's CPU sums and
@@ -29,7 +31,8 @@ host build cannot mirror, so its bits are held on the card):
   field at an offset);
 * the size rules of ``fwd_ring.cuh`` at every (nx <= 8, nu <= 4) of both
   kernels at fp32 and fp64: every ring within a block's 227 KB at the
-  lanes the launch picks and at the fewest a block takes.
+  lanes the launch picks and at the fewest a block takes; K7's blocks of
+  lanes and alphas within 384 threads.
 """
 
 import concurrent.futures
@@ -88,7 +91,11 @@ def _dispatch(dtype):
     k6 = "\n".join(
         f"  if (C == {c}) return run_k6<{T}, {c}>(N, B, ld, dt, n_dt, in, "
         f"out);" for c in K6_CHUNKS)
-    return k11, k6
+    k7 = "\n".join(
+        f"  if (C == {c}) return nmpc::launch_forward_costs<T, 4, 1, {c}>("
+        f"N, B, A, ld, dt, n_dt, xs, us, ks, Ks, t0 + 1, t0, out, nullptr);"
+        for c in K6_CHUNKS)
+    return k11, k6, k7
 
 
 def _harness(dtype):
@@ -97,7 +104,7 @@ def _harness(dtype):
     of that dtype, and the size rules."""
     T = CTYPE[dtype]
     unit = tileval.generate(make_cartpole_problem(DT), "forward", 4, 1, dtype)
-    k11, k6 = _dispatch(dtype)
+    k11, k6, k7 = _dispatch(dtype)
     return SHIM + KERNELS_PRELUDE + unit.cpp + r"""
 #include "ddp_forward_remat.cuh"
 #include "fmpc_forward.cuh"
@@ -165,15 +172,29 @@ int k6(int C, int N, int B, int ld, double dt, double n_dt, const T* in,
   return 2;
 }
 
-// K7 on contiguous K6 inputs (ld = B) at the alphas [A] after t0; out [A][B]
-int k7(int N, int B, int A, double dt, double n_dt, const T* in, T* out) {
+// K7 at chunk C (0: each thread's own one-stage prefetch) on K6's inputs
+// at lane stride ld, at the alphas [A] after t0; out [A][B]
+int k7(int C, int N, int B, int A, int ld, double dt, double n_dt,
+       const T* in, T* out) {
   const T* xs = in;
-  const T* us = xs + static_cast<size_t>(N + 1) * 4 * B;
-  const T* ks = us + static_cast<size_t>(N) * B;
-  const T* Ks = ks + static_cast<size_t>(N) * B;
-  const T* t0 = Ks + static_cast<size_t>(N) * 4 * B + B;
-  return nmpc::launch_forward_costs<T, 4, 1>(N, B, A, dt, n_dt, xs, us, ks,
-                                             Ks, t0 + 1, t0, out, nullptr);
+  const T* us = xs + static_cast<size_t>(N + 1) * 4 * ld;
+  const T* ks = us + static_cast<size_t>(N) * ld;
+  const T* Ks = ks + static_cast<size_t>(N) * ld;
+  const T* t0 = Ks + static_cast<size_t>(N) * 4 * ld + B;
+""" + k7 + r"""
+  return 2;
+}
+
+// "costs": K7's ring geometry per B and A: lanes a block, alphas a block,
+// the blocks along y, threads a block
+void costs_geometry() {
+  for (int B : {4096, 1024, 1023, 256, 32})
+    for (int A : {1, 10, 11, 31, 32, 130}) {
+      const int L = nmpc::fwd_costs_lanes(B);
+      const int AB = nmpc::fwd_costs_alphas(L, A);
+      std::printf("costs %d %d %d %d %d %d\n", B, A, L, AB,
+                  (A + AB - 1) / AB, (L * AB + 31) / 32 * 32 + 32);
+    }
 }
 
 // "geometry": per kernel (11, 6) and (nx <= 8, nu <= 4) at the default G
@@ -222,10 +243,11 @@ void geometry() {
 // forward_ring_host geometry
 // forward_ring_host k11 nx nu G C N B ld n_in n_out in out
 // forward_ring_host k6 C N B ld dt n_dt n_in n_out in out
-// forward_ring_host k7 N B A dt n_dt n_in n_out in out
+// forward_ring_host k7 C N B A ld dt n_dt n_in n_out in out
 int main(int argc, char** argv) {
   if (argc == 2 && std::strcmp(argv[1], "geometry") == 0) {
     geometry();
+    costs_geometry();
     return 0;
   }
   if (argc < 6) return 1;
@@ -243,8 +265,9 @@ int main(int argc, char** argv) {
               out.data());
   else if (std::strcmp(argv[1], "k6") == 0 && argc == 12)
     err = k6(i(2), i(3), i(4), i(5), d(6), d(7), in.data(), out.data());
-  else if (std::strcmp(argv[1], "k7") == 0 && argc == 11)
-    err = k7(i(2), i(3), i(4), d(5), d(6), in.data(), out.data());
+  else if (std::strcmp(argv[1], "k7") == 0 && argc == 13)
+    err = k7(i(2), i(3), i(4), i(5), i(6), d(7), d(8), in.data(),
+             out.data());
   if (err) return 20 + err;
   f = std::fopen(argv[argc - 1], "wb");
   if (!f || std::fwrite(out.data(), sizeof(T), n_out, f) != n_out) return 5;
@@ -443,10 +466,7 @@ def test_k6_every_config_ragged(hosts, tmp_path, dtype):
     _check_k6(hosts, tmp_path, dtype, B, N, CHUNKS)
     p, t0, xs, us, ks, Ks, _ = _k6_case(dtype, B, N)
     alphas = torch.tensor(ALPHAS, dtype=dtype)
-    k7 = _run(hosts[dtype], ["k7", N, B, len(ALPHAS), repr(p.dt),
-                             repr(N * p.dt)],
-              [xs, us, ks, Ks, torch.zeros(B, dtype=dtype), t0.reshape(1),
-               alphas], len(ALPHAS) * B, dtype, tmp_path).reshape(-1, B)
+    k7 = _k7(hosts[dtype], dtype, B, N, 0, alphas, tmp_path)
     plain = _forward_costs_lanes(p, DDPConfig(horizon_steps=N), t0, xs, us,
                                  ks, Ks, alphas, dtype)
     assert norm_err(plain, k7) <= TOL[dtype]
@@ -455,6 +475,57 @@ def test_k6_every_config_ragged(hosts, tmp_path, dtype):
             sel = _k6(hosts[dtype], dtype, B, N, c, tmp_path,
                       alpha=alphas[j].expand(B).contiguous())
             assert same(k7[j], sel[3]), (j, c)
+
+
+def _k7(exe, dtype, B, N, C, alphas, workdir):
+    """The harness's K7 cost sums [A, B] at one chunk of stages (0: each
+    thread's own one-stage prefetch) on ``_k6_case``'s references as the
+    wrapper feeds them."""
+    p, t0, xs, us, ks, Ks, _ = _k6_case(dtype, B, N)
+    refs, ld = _taken((xs, us, ks, Ks), ring=C > 0)
+    A = alphas.shape[0]
+    return _run(exe, ["k7", C, N, B, A, ld, repr(p.dt), repr(N * p.dt)],
+                list(refs) + [torch.zeros(B, dtype=dtype), t0.reshape(1),
+                              alphas], A * B, dtype, workdir).reshape(A, B)
+
+
+@pytest.mark.parametrize("A", [10, 11])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7_every_config_ragged(hosts, tmp_path, dtype, A):
+    """K7 at every chunk of its ring on B=1023 (its references copied to a
+    padded lane stride, a ragged last block) and N=37 (a last chunk shorter
+    than C), at the sweep's 11 alphas and the head path's 10 (all but the
+    first): bit-equal to the one-stage build (C = 0), that within TOL of
+    ``_forward_costs_lanes``, and the first and last alpha's columns equal
+    to K6's cost sums at those alphas, bit for bit."""
+    B, N = 1023, 37
+    exe = hosts[dtype]
+    p, t0, xs, us, ks, Ks, _ = _k6_case(dtype, B, N)
+    alphas = torch.tensor(ALPHAS[len(ALPHAS) - A:], dtype=dtype)
+    ref = _k7(exe, dtype, B, N, 0, alphas, tmp_path)
+    plain = _forward_costs_lanes(p, DDPConfig(horizon_steps=N), t0, xs, us,
+                                 ks, Ks, alphas, dtype)
+    assert norm_err(plain, ref) <= TOL[dtype]
+    with concurrent.futures.ThreadPoolExecutor(RUNS) as pool:
+        outs = pool.map(lambda c: _k7(exe, dtype, B, N, c, alphas, tmp_path),
+                        CHUNKS)
+        for c, out in zip(CHUNKS, outs):
+            assert same(ref, out), c
+    for j in (0, A - 1):
+        sel = _k6(exe, dtype, B, N, 0, tmp_path,
+                  alpha=alphas[j].expand(B).contiguous())
+        assert same(ref[j], sel[3]), j
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7_alphas_past_a_block(hosts, tmp_path, dtype):
+    """K7's ring with more alphas than a block's threads take (130 at 8
+    lanes a block: three blocks along y) and fewer stages than a chunk
+    (B=32, N=7, C = 8): bit-equal to the one-stage build at every
+    alpha."""
+    alphas = torch.linspace(1.0, 0.001, 130, dtype=dtype)
+    ref = _k7(hosts[dtype], dtype, 32, 7, 0, alphas, tmp_path)
+    assert same(ref, _k7(hosts[dtype], dtype, 32, 7, 8, alphas, tmp_path))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -501,15 +572,20 @@ def geometry(hosts):
     """What ``csrc/fwd_ring.cuh``'s rules give, per (itemsize, kernel, nx,
     nu): (G, C, R, F, then lanes and block bytes at B = 4096, 1023, 256,
     32, then the fewest lanes and their bytes)."""
-    found = {}
+    found, costs = {}, {}
     for dtype, exe in hosts.items():
         size = torch.empty((), dtype=dtype).element_size()
         out = subprocess.run([str(exe), "geometry"], check=True,
                              capture_output=True, text=True,
                              timeout=60).stdout
         for line in out.splitlines():
-            v = list(map(int, line.split()[1:]))
-            found[(size, *v[:3])] = tuple(v[3:])
+            kind, *v = line.split()
+            v = list(map(int, v))
+            if kind == "geometry":
+                found[(size, *v[:3])] = tuple(v[3:])
+            else:   # K7's: (B, A) -> (lanes, alphas a block, blocks along
+                costs[tuple(v[:2])] = tuple(v[2:])   # y, threads a block)
+    found["costs"] = costs
     return found
 
 
@@ -522,9 +598,10 @@ def test_rings_fit_shared_memory(geometry, itemsize):
     least 1 and the ring holds at most kMaxFwdDepth stages, or two
     chunks."""
     seen = 0
-    for (size, kernel, nx, nu), v in geometry.items():
-        if size != itemsize:
+    for key, v in geometry.items():
+        if key == "costs" or key[0] != itemsize:
             continue
+        size, kernel, nx, nu = key
         seen += 1
         G, C, R, F = v[:4]
         lanes = v[4:12]
@@ -541,3 +618,20 @@ def test_rings_fit_shared_memory(geometry, itemsize):
     # the cart-pole's rings: both kernels take 32 lanes a block at B=4096
     for kernel in (6, 11):
         assert geometry[itemsize, kernel, 4, 1][4] == 32
+
+
+def test_k7_ring_geometry(geometry):
+    """K7's ring blocks (``fwd_costs_lanes``, ``fwd_costs_alphas``): 32
+    lanes a block at B=4096, 8 at B <= 1024 (the tick's B=256 in 32
+    blocks); a block's alphas and the blocks along y cover every alpha,
+    within 384 threads with the producer warp, all of them in one block
+    at the sweep's 11."""
+    costs = geometry["costs"]
+    for (B, A), (L, AB, blocks_y, threads) in costs.items():
+        assert L == (32 if B >= 4096 else 8), B
+        assert 1 <= AB <= A and blocks_y == -(-A // AB)
+        assert threads <= 384 and threads % 32 == 0
+        assert threads >= L * AB + 32
+        assert (blocks_y == 1) == (A <= 352 // L)
+    assert costs[256, 11][:3] == (8, 11, 1)
+    assert costs[4096, 11][:3] == (32, 11, 1)
