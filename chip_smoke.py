@@ -3,7 +3,8 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--layers] [--qp-groups [--baseline DIR]]
+    python3 chip_smoke.py [--layers] [--centroidal-driver]
+                          [--qp-groups [--baseline DIR]]
 
 Phases, one line each (a failed phase exits non-zero):
 
@@ -16,9 +17,11 @@ Phases, one line each (a failed phase exits non-zero):
    2) and (4, 1), the
    FMPC backward in its three layouts (K8 streaming, K9 resident, K10
    packed) at (nx, nu, ng) = (2, 1, 3), (4, 1, 4), (2, 2, 2) and the FMPC
-   recursion (K11) at (2, 1), (4, 1), (2, 2), for fp32 and fp64 (K1-K5
-   and K8-K11 with -fmad=false); then compile them with nvcc, all at once;
-   print the seconds and ptxas' registers and spills;
+   recursion (K11) at (2, 1), (4, 1), (2, 2), and K1 at the centroidal
+   model's (9, 16) (K1@9x16), for fp32 and fp64 (K1-K5 and K8-K11 with
+   -fmad=false); then compile them with nvcc, all at once; print the
+   seconds (K1@9x16's nvcc seconds apart) and ptxas' registers and
+   spills;
 2. kernels: hold each kernel against its plain PyTorch version on the card,
    fp32 and fp64: K1 and K5 at the headline shape (B=4096, N=100) and the
    tick shape (B=256, N=200), each with one non-PD lane and one NaN lane;
@@ -93,7 +96,31 @@ Phases, one line each (a failed phase exits non-zero):
    both FMPC configurations for each pair, and of the oscillator at N=20
    and the cart-pole serving shape for each ``backward_variant`` (phase
    3 prints the bipedal config's for each ``backward_dma``);
-6. with ``--qp-groups`` only: K4 and K5 boxed built with 1, 4, 8 and 16
+6. the slice of C/GMRES and the centroidal model: K1@9x16 on centroidal
+   sweep data (B=256, N=100, from t0=1.3 across the flight phase, both
+   reg_types, fp32 and fp64, a non-PD and a NaN lane) bit for bit against
+   its plain version on the card host's CPU (the plain version on the
+   card, which reorders its sums, beside it), and timed beside its bound;
+   ``solve_batch`` of the centroidal model (B=256, N=100, 3 iterations)
+   through ``auto`` (K1@9x16, counted) and the plain path, fp64 (statuses,
+   iterations, u within 1e-8) and fp32 (u and cost within ``E2E_U_NORM``
+   and ``E2E_COST_REL`` or twice the plain path's own difference between
+   the card and its host's CPU, parting lanes listed),
+   masked inputs exactly 0; the boxed solve (plain BoxQP, nu = 16; N cut
+   to 12) with u[0] in its box, solves/s and host syncs; the reference's centroidal
+   driver (``run_mpc``, fp64, N=100, max_iter=500) over its first 50
+   steps, or to 3.0 s with ``--centroidal-driver``; a second-order
+   cart-pole ``solve_batch`` (B=256, N=100, fp64, 50 iterations) on the
+   card and its host's CPU, against the first-order optimum, and an
+   explicit kernel raising; C/GMRES: the analytic damper's first 30
+   control steps against the NumPy golden, the damper fleet (512
+   controllers, 100 steps, fp32) timed with CUDA events (with
+   ``--layers``: kernels a step and the device's busy share; one CUDA
+   graph replayed a step, its first steps bit for bit against eager
+   steps), the fp64 fleet's 10 chained steps, each against the same step
+   on the card host's CPU from the same inputs, and the bounded cart-pole
+   fleet inside its force bound;
+7. with ``--qp-groups`` only: K4 and K5 boxed built with 1, 4, 8 and 16
    threads per lane (and, with ``--baseline DIR``, from the headers of
    the checkout at DIR), each held to its plain version bit for bit and
    timed in turns, with ptxas' report of each; then K5 (unboxed) built
@@ -128,7 +155,7 @@ Phases, one line each (a failed phase exits non-zero):
    alpha) on one warp (B=32, N=100: their chain floor), and (with
    ``--baseline``) K6's, K7's and K11's wrappers in turns with the
    baseline's wrappers;
-7. with ``--layers`` only: where one solve's time goes at both shapes,
+8. with ``--layers`` only: where one solve's time goes at both shapes,
    for each pair, for the boxed vertical solve, the bipedal config's
    ``auto`` path at 2 iterations and the FMPC configurations (synced time
    per solver layer, the device's busy time and launches from
@@ -166,13 +193,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 from golden.cartpole_numpy import CartPoleGolden  # noqa: E402
+from golden.cgmres_numpy import DamperGolden, GoldenCgmres  # noqa: E402
 from golden.ddp_numpy import GoldenConfig, GoldenDDP  # noqa: E402
 from golden.fmpc_numpy import (  # noqa: E402
     GoldenFmpc, GoldenFmpcConfig, OscillatorGolden)
 from nmpc_tpu_torch import (  # noqa: E402
-    BoxQPConfig, DDPConfig, DDPSolver, DDPStatus, FmpcConfig, FmpcSolver,
-    FmpcStatus,
+    BoxQPConfig, CgmresConfig, CgmresSolver, CgmresState, DDPConfig,
+    DDPSolver, DDPStatus, FmpcConfig, FmpcSolver, FmpcStatus,
     FmpcVariable, fmpc_variable_reset)
+from nmpc_tpu_torch.core.integrators import INTEGRATORS  # noqa: E402
 from nmpc_tpu_torch.core.problem import Problem  # noqa: E402
 from nmpc_tpu_torch.kernels import build as kbuild  # noqa: E402
 from nmpc_tpu_torch.kernels import ddp_backward_remat as remat  # noqa: E402
@@ -185,6 +214,11 @@ from nmpc_tpu_torch.kernels import ddp_backward_fused as k1  # noqa: E402
 from nmpc_tpu_torch.kernels.ddp_backward_fused import backward_fused  # noqa: E402
 from nmpc_tpu_torch.kernels import fmpc_backward as k8  # noqa: E402
 from nmpc_tpu_torch.kernels import fmpc_forward as k11  # noqa: E402
+from nmpc_tpu_torch.models.cartpole_cgmres import (  # noqa: E402
+    F_MAX, make_cartpole_cgmres_problem)
+from nmpc_tpu_torch.models.centroidal import (  # noqa: E402
+    example_ref_pos_func, make_centroidal_problem)
+from nmpc_tpu_torch.models.damper import make_damper_problem  # noqa: E402
 from nmpc_tpu_torch.models.bipedal import (  # noqa: E402
     example_omega2_func, example_ref_zmp_func, make_bipedal_problem)
 from nmpc_tpu_torch.models.cartpole import (  # noqa: E402
@@ -200,6 +234,7 @@ from nmpc_tpu_torch.solvers import ddp as ddp_mod  # noqa: E402
 from nmpc_tpu_torch.solvers import fmpc as fmpc_mod  # noqa: E402
 from nmpc_tpu_torch.solvers.stages import _lanes as stages_lanes  # noqa: E402
 from nmpc_tpu_torch.solvers.stages import _stage_derivs_sweep  # noqa: E402
+from nmpc_tpu_torch.solvers.stages import _stage_times  # noqa: E402
 
 DT = 0.01
 HEADLINE = (4096, 100)   # (B, N): bench.py's cart-pole shape
@@ -290,6 +325,10 @@ KERNELS = {
     "K1": Kernel("ddp_backward_fused", backward_fused, "launches",
                  "nmpc_tpu_torch/csrc/ddp_backward.cuh",
                  "nmpc_tpu/kernels/ddp_backward_pallas.py:867"),
+    "K1@9x16": Kernel("ddp_backward_fused@9x16", backward_fused,
+                      "wide_launches",
+                      "nmpc_tpu_torch/csrc/ddp_backward.cuh",
+                      "nmpc_tpu/kernels/ddp_backward_pallas.py:867"),
     "K2": Kernel("ddp_backward_chunked", backward_fused, "chunked_launches",
                  "nmpc_tpu_torch/csrc/ddp_backward_chunked.cuh",
                  "nmpc_tpu/kernels/ddp_backward_pallas.py:651"),
@@ -354,6 +393,44 @@ DRIVER_END, DRIVER_WINDOW, ZMP_TOL = 0.35, 5, 1e-2
 # (nmpc_tpu/kernels/fmpc_backward_pallas.py:460-466), 5 iterations.
 FMPC_OSC_SHORT = (4096, 20)
 VARIANT_KERNEL = {"stream": "K8", "resident": "K9", "packed": "K10"}
+# The centroidal model (nx = 9, 16 ridge forces; TestDDPCentroidalMotion.
+# cpp:24-204) at bench_all.py:95-121's shape: B=256, N=100, dt 0.03, 3
+# iterations, initial_lambda 1e-6, x0 about the standing pose (0.02 N(0,
+# 1), seed 0), 5 N a ridge; from t0 = 1.3, so that the horizon crosses the
+# flight phase (1.4-1.6 s, every input masked); the boxed solve's force
+# limits.  Unboxed, the generator refuses the model (torch.linalg.cross),
+# so auto runs K1 at (9, 16) and the plain rollouts; boxed (nu = 16 > 4),
+# the plain BoxQP, as on the TPU.
+CENTROIDAL = (256, 100)
+CENTROIDAL_DT, CENTROIDAL_T0, CENTROIDAL_ITERS = 0.03, 1.3, 3
+CENTROIDAL_FORCE = (0.0, 1000.0)
+# The boxed solve's horizon, cut from 100: the plain BoxQP reads the host
+# once per QP and Armijo trip of every stage (~400 reads an iteration at
+# N=12), and at N=100 one solve had not ended after 15 minutes on the
+# card.  12 stages from t0 = 1.3 still cross the flight phase.
+CENTROIDAL_BOXED_N = 12
+WIDE_K1 = (9, 16)
+# The reference's centroidal driver (tests/test_centroidal_and_utils.py:
+# 22-39): one controller, fp64, N=100, max_iter=500, run_mpc from t=0 to
+# 3.0 s: the final CoM within 1e-2 of the reference, momenta below 1.0,
+# forces below 1e-12 through the flight; every step's planned position
+# within 1.0 of the reference (TestDDPCentroidalMotion.cpp:318).  The
+# default run takes its first CENTROIDAL_DRIVER_STEPS steps (into the
+# flight phase; every horizon crosses it), --centroidal-driver the whole.
+CENTROIDAL_DRIVER_END, CENTROIDAL_DRIVER_STEPS = 3.0, 50
+# Second-order DDP (use_state_eq_second_derivative): cart-pole, B=256,
+# N=100, fp64, max_iter=50, x0 hanging with the seed's spread; the plain
+# backward on the card (auto) and on the card host's CPU, and the
+# first-order optimum's cost (tests/test_centroidal_and_utils.py:77-95).
+SECOND_ORDER = (256, 100)
+SECOND_ORDER_COST_REL = 1e-5
+# C/GMRES: the damper fleet of bench_all.py:204-234 (512 controllers
+# about x_initial, 0.1 N(0, 1) from seed 0, 100 control steps, fp32) and
+# the bounded cart-pole fleet at that shape; the golden's 30 steps; the
+# fp64 fleet's 10 steps on the card and on its host's CPU.
+CGMRES_FLEET = (512, 100)
+CGMRES_GOLDEN_STEPS, CGMRES_FP64_STEPS, CGMRES_EAGER_STEPS = 30, 10, 3
+CGMRES_TOL = 1e-10
 
 
 class PhaseFailed(Exception):
@@ -663,18 +740,28 @@ def phase_build():
                               k8.FMPC_FLAGS))
             units.append((k11.unit_name(nx, nu, dtype),
                           k11.unit_source(nx, nu, dtype), k8.FMPC_FLAGS))
+        # K1 at the centroidal model's (9, 16) (phase_centroidal)
+        units.append((k1.unit_name(*WIDE_K1, dtype),
+                      k1.unit_source(*WIDE_K1, dtype), k1.UNIT_FLAGS))
     gen_s = time.perf_counter() - start
 
     def compile_unit(unit):
         name, text, flags = unit
-        return kbuild.build_generated(name, text, flags)
+        begin = time.perf_counter()
+        lib = kbuild.build_generated(name, text, flags)
+        return lib, time.perf_counter() - begin
 
     with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
-        libs = list(pool.map(compile_unit, units))
+        built = list(pool.map(compile_unit, units))
     secs = time.perf_counter() - start
-    print(f"[build] {len(libs)} units in {secs:.1f} s (generation "
-          f"{gen_s:.1f} s)", flush=True)
-    for (name, _, flags), lib in zip(units, libs):
+    wide_units = {k1.unit_name(*WIDE_K1, dtype)
+                  for dtype in (torch.float32, torch.float64)}
+    wide = ", ".join(f"{lib.name} {unit_s:.1f} s"
+                     for (name, _, _), (lib, unit_s) in zip(units, built)
+                     if name in wide_units)
+    print(f"[build] {len(built)} units in {secs:.1f} s (generation "
+          f"{gen_s:.1f} s; K1@9x16 nvcc: {wide})", flush=True)
+    for (name, _, flags), (lib, _) in zip(units, built):
         print(f"[build] ptxas {lib.name}{' ' + ' '.join(flags) if flags else ''}"
               f": {ptxas_report(lib)}", flush=True)
     return secs
@@ -3832,8 +3919,522 @@ def phase_times_variants(device, card):
                   f"{B / med:.1f} solves/s [{card}]", flush=True)
 
 
+# --------------------------------------------------------------------------
+# The centroidal model: K1 at (9, 16), its solves and its driver
+# --------------------------------------------------------------------------
+
+def centroidal_problem(boxed=False):
+    return make_centroidal_problem(
+        CENTROIDAL_DT, force_limits=CENTROIDAL_FORCE if boxed else None)
+
+
+def centroidal_start(problem, B, N, dtype, device):
+    """(x0s, us0, masked [N, 16]) from CENTROIDAL_T0: x0 about the
+    standing pose (bench_all.py:111-115), 5 N a ridge where the stage's
+    inputs are active and 0 where they are masked (a masked input keeps
+    its warm start)."""
+    rng = np.random.default_rng(0)
+    x0 = np.concatenate([[0.0, 0.0, 1.0], np.zeros(6)])
+    x0s = torch.as_tensor(np.tile(x0, (B, 1)) + 0.02 * rng.normal(
+        size=(B, 9)), dtype=dtype, device=device)
+    t0 = torch.tensor(CENTROIDAL_T0, dtype=dtype, device=device)
+    masked = torch.stack([~problem.input_mask(t)
+                          for t in _stage_times(problem, t0, N)])
+    us0 = torch.where(masked, 0.0, 5.0).to(dtype)[None].expand(
+        B, N, problem.input_dim).contiguous()
+    return x0s, us0, masked
+
+
+def centroidal_derivs(B, N, dtype, device):
+    """K1@9x16's input: the stage derivatives of a centroidal rollout from
+    CENTROIDAL_T0 (first-iteration data across the flight phase), lane 1
+    made non-PD and lane 2 NaN-poisoned as K1's own check does."""
+    problem = centroidal_problem()
+    cfg = DDPConfig(horizon_steps=N)
+    x0s, us0, _ = centroidal_start(problem, B, N, dtype, device)
+    t0 = torch.tensor(CENTROIDAL_T0, dtype=dtype, device=device)
+    us = us0.permute(1, 2, 0).contiguous()
+    xs, _ = ddp_mod._rollout_lanes(problem, cfg, t0, x0s.T.contiguous(), us)
+    VxT, VxxT = (a.contiguous() for a in ddp_mod._terminal_quad_lanes(
+        problem, cfg, t0, xs))
+    D = StackedDerivs(*_stage_derivs_sweep(problem, cfg, t0, xs, us)[:7])
+    D.Luu[:, :, :, 1] = -10.0
+    D.Fx[N // 2, 0, 0, 2] = float("nan")
+    return D, VxT, VxxT
+
+
+def exact_sqrt(a):
+    """A correctly rounded sqrt (numpy's), as the card's; torch's
+    vectorized CPU sqrt is not."""
+    return torch.from_numpy(np.sqrt(a.numpy()))
+
+
+def plain_on_host(cfg, D, VxT, VxxT, lam):
+    """``backward_stacked`` on the card host's CPU with a correctly rounded
+    sqrt: there it sums in the kernel's order (lane by lane, left to right;
+    a batch of 256 lanes fills its vector loops), so a kernel built with
+    -fmad=false gives its bits."""
+    cpu = lambda a: a.cpu()
+    saved, torch.sqrt = torch.sqrt, exact_sqrt
+    try:
+        return backward_stacked(cfg, StackedDerivs(*map(cpu, D)), cpu(VxT),
+                                cpu(VxxT), cpu(lam))
+    finally:
+        torch.sqrt = saved
+
+
+def quu_condition(D, VxxT, lane=0):
+    """The condition number of the last stage's Quu = Luu + Fu^T Vxx_T Fu
+    of ``lane`` at fp64: the null space of the 16 ridge forces' 6-D
+    wrench leaves only the 1e-6 input weight on 10 of its directions."""
+    Fu = D.Fu[-1, :, :, lane].double()
+    Quu = D.Luu[-1, :, :, lane].double() + Fu.T @ VxxT[:, :, lane].double() @ Fu
+    return float(torch.linalg.cond(Quu))
+
+
+def check_wide_k1(device, card):
+    """K1@9x16 on centroidal sweep data (B=256, N=100, both reg_types):
+    bit for bit equal to its plain version on the card host's CPU on every
+    lane the plain version calls ok, the ok masks equal (the non-PD and
+    NaN lanes fail, no other); the normalized difference to the plain
+    version on the card (whose reductions take another order) beside
+    Quu's condition; its time beside its bound."""
+    B, N = CENTROIDAL
+    nx, nu = WIDE_K1
+    for dtype in (torch.float32, torch.float64):
+        D, VxT, VxxT = centroidal_derivs(B, N, dtype, device)
+        for reg_type in (1, 2):
+            cfg = DDPConfig(horizon_steps=N, reg_type=reg_type)
+            lam = torch.full((B,), 1e-6 if reg_type == 1 else 0.5,
+                             dtype=dtype, device=device)
+            before = backward_fused.wide_launches
+            out = backward_fused(cfg, D, VxT, VxxT, lam)
+            torch.cuda.synchronize()
+            check(backward_fused.wide_launches == before + 1,
+                  "K1@9x16: the wrapper did not count its launch")
+            host = plain_on_host(cfg, D, VxT, VxxT, lam)
+            ok = host[3]
+            label = f"K1@9x16 centroidal B={B} N={N} {str(dtype)[6:]} " \
+                    f"reg_type={reg_type}"
+            check_ok(label, ok.to(device), out[3], B)
+            apart = [int((a[..., ok].contiguous().view(torch.uint8)
+                          != b.cpu()[..., ok].contiguous().view(
+                              torch.uint8)).sum())
+                     for a, b in zip(host[:3], out[:3])]
+            err = max(norm_err(a, b.cpu(), ok)[1]
+                      for a, b in zip(host[:3], out[:3]))
+            gpu = backward_stacked(cfg, D, VxT, VxxT, lam)
+            gpu_err = " ".join(
+                f"{name} {norm_err(a, b, ok.to(device))[0]:.3e}"
+                for name, a, b in zip(("ks", "Ks", "dV"), gpu[:3], out[:3]))
+            print(f"[kernel] {label}: bytes apart from the plain version on "
+                  f"the host CPU (ks, Ks, dV) {apart}, max abs err "
+                  f"{err:.3e}; normalized vs the plain version on the card "
+                  f"{gpu_err}; cond(Quu) of lane 0's last stage "
+                  f"{quu_condition(D, VxxT):.3e}", flush=True)
+            check(apart == [0, 0, 0], f"{label}: the kernel parts from its "
+                  "plain version")
+            KERNELS["K1@9x16"].max_abs_err = max(
+                KERNELS["K1@9x16"].max_abs_err, err)
+    D, VxT, VxxT = centroidal_derivs(B, N, torch.float32, device)
+    cfg = DDPConfig(horizon_steps=N)
+    lam = torch.full((B,), 1e-6, device=device)
+    record_time("K1@9x16", lambda: backward_fused(cfg, D, VxT, VxxT, lam),
+                lambda: backward_stacked(cfg, D, VxT, VxxT, lam),
+                moved_bytes("K1", B, N, 4, nx=nx, nu=nu),
+                B * N * riccati_ops(nx, nu, 1, False),
+                f"centroidal B={B} N={N}", True, card, plain_reps=1)
+
+
+def phase_centroidal(device, card):
+    """K1 at (9, 16) against its plain version and timed; ``solve_batch``
+    of the unboxed centroidal model through ``auto`` (K1@9x16 and the
+    plain rollouts; the launch counters reset just before and read just
+    after) and the plain path at fp64 and fp32; the boxed solve (the
+    plain BoxQP) with its solves/s and host syncs."""
+    check_wide_k1(device, card)
+    B, N = CENTROIDAL
+    problem = centroidal_problem()
+    cfg = DDPConfig(horizon_steps=N, max_iter=CENTROIDAL_ITERS,
+                    initial_lambda=1e-6)
+    check(ddp_mod._resolve_backward_impl(cfg, problem, torch.float32, device,
+                                         False, False) == "pallas",
+          "centroidal: auto does not take the sweep-fed kernel")
+    for dtype in (torch.float64, torch.float32):
+        x0s, us0, masked = centroidal_start(problem, B, N, dtype, device)
+        start = time.perf_counter()
+        auto, counts, syncs = solve_counted(problem, cfg, x0s, us0,
+                                            t0=CENTROIDAL_T0)
+        auto_s = time.perf_counter() - start
+        start = time.perf_counter()
+        plain, plain_counts, _ = solve_counted(
+            problem, dataclasses.replace(cfg, backward_impl="stacked"), x0s,
+            us0, t0=CENTROIDAL_T0)
+        plain_s = time.perf_counter() - start
+        st, it, du, dc = e2e_compare(plain, auto)
+        zero = all(bool(torch.all(r.us[:, masked] == 0))
+                   for r in (auto, plain))
+        finite = bool(torch.isfinite(auto.us).all()
+                      and torch.isfinite(auto.xs).all())
+        flips = decision_flips(plain, auto, cfg.cost_update_thre)
+        print(f"[centroidal] solve_batch B={B} N={N} max_iter={cfg.max_iter}"
+              f" t0={CENTROIDAL_T0} {str(dtype)[6:]}: auto {auto_s:.2f} s "
+              f"(launches {counts}, host syncs {syncs}), plain {plain_s:.2f}"
+              f" s; statuses equal {st}, iterations equal {it}, u "
+              f"normalized {du:.3e}, cost rel {dc:.3e}, masked u exactly 0 "
+              f"{zero}, finite {finite}; "
+              f"statuses {torch.bincount(auto.status, minlength=5).tolist()}"
+              f"; lanes apart {len(flips)}{': ' if flips else ''}"
+              f"{'; '.join(flips[:4])} [{card}]", flush=True)
+        check(counts["K1@9x16"] > 0 and not any(
+            counts[key] for key in REMAT_PATH + ("K1", "K2", "K3")),
+            "centroidal: auto did not run K1@9x16 alone")
+        check(not any(plain_counts.values()),
+              "centroidal: the plain path launched a kernel")
+        check(zero and finite, "centroidal: a masked input moved or a value "
+              "is not finite")
+        if dtype == torch.float64:
+            check(st and it and du <= E2E_U_NORM_FP64, "centroidal fp64: "
+                  "auto parts from the plain path")
+            continue
+        KERNELS["K1@9x16"].launches = counts["K1@9x16"]
+        # fp32: Quu's condition (~2e6: 16 ridge forces make a 6-D wrench,
+        # the other 10 directions weighted 1e-6) lets any change in the
+        # order of a sum move u and the cost past the cart-pole's limits.
+        # The plain path is held to itself across such a change (on the
+        # card and on its host's CPU), and auto to the plain path within
+        # the limits or twice that floor.
+        start = time.perf_counter()
+        host = DDPSolver(problem, dataclasses.replace(
+            cfg, backward_impl="stacked")).solve_batch(
+                CENTROIDAL_T0, x0s.cpu(), us0.cpu())
+        host_s = time.perf_counter() - start
+        host_res = dataclasses.replace(host, **{
+            f.name: getattr(host, f.name).to(device)
+            for f in dataclasses.fields(host) if f.name != "trace"})
+        _, _, fu, fc = e2e_compare(plain, host_res)
+        floors = (max(E2E_U_NORM, 2 * fu), max(E2E_COST_REL, 2 * fc))
+        print(f"[centroidal] fp32 floor: the plain path on the card vs on "
+              f"its host's CPU ({host_s:.2f} s): u normalized {fu:.3e}, "
+              f"cost rel {fc:.3e}; auto held to u {floors[0]:.3e}, cost "
+              f"{floors[1]:.3e}", flush=True)
+        check(du <= floors[0] and dc <= floors[1],
+              "centroidal fp32: auto parts from the plain path past the "
+              "plain path's own rounding floor")
+    # the boxed solve: nu = 16 takes the plain BoxQP, as on the TPU
+    N = CENTROIDAL_BOXED_N
+    problem = centroidal_problem(boxed=True)
+    cfg = DDPConfig(horizon_steps=N, max_iter=CENTROIDAL_ITERS,
+                    initial_lambda=1e-6, with_input_constraint=True)
+    x0s, us0, masked = centroidal_start(problem, B, N, torch.float32, device)
+    start = time.perf_counter()
+    res, counts, syncs = solve_counted(problem, cfg, x0s, us0,
+                                       t0=CENTROIDAL_T0)
+    secs = time.perf_counter() - start
+    lo, hi = CENTROIDAL_FORCE
+    inside = bool(torch.all((res.us[:, 0] >= lo) & (res.us[:, 0] <= hi)))
+    zero = bool(torch.all(res.us[:, masked] == 0))
+    print(f"[centroidal] boxed solve_batch B={B} N={N} max_iter="
+          f"{cfg.max_iter} fp32 auto (plain BoxQP): {B / secs:.1f} solves/s "
+          f"({secs:.2f} s), host syncs {syncs}, launches {counts}; u[0] "
+          f"inside [{lo:g}, {hi:g}] {inside}, masked u exactly 0 {zero}, "
+          f"statuses {torch.bincount(res.status, minlength=5).tolist()} "
+          f"[{card}]", flush=True)
+    check(inside and zero, "centroidal boxed: u[0] left the box or a "
+          "masked input moved")
+    check(not any(counts[key] for key in ("K4", "K5b", "K1@9x16")),
+          "centroidal boxed: a backward kernel ran a nu = 16 boxed solve")
+
+
+def phase_centroidal_driver(device, card, full):
+    """The reference's centroidal driver through ``run_mpc`` (``auto``:
+    K1@9x16), to CENTROIDAL_DRIVER_END with ``full``, else its first
+    CENTROIDAL_DRIVER_STEPS steps: every step's planned position within
+    1.0 of the reference, the forces below 1e-12 through the flight and,
+    with ``full``, the final CoM within 1e-2 of the reference and the
+    momenta below 1.0."""
+    problem, N, dt = centroidal_problem(), 100, CENTROIDAL_DT
+    cfg = DDPConfig(horizon_steps=N, max_iter=500)
+    ref_pos = example_ref_pos_func()
+    end_t = (CENTROIDAL_DRIVER_END if full
+             else (CENTROIDAL_DRIVER_STEPS - 0.5) * dt)
+    errs = []
+
+    def record(t, x, u, res):
+        ref = ref_pos(torch.tensor(t, dtype=torch.float64))
+        errs.append(float(torch.linalg.norm(res.xs[0, :3].cpu() - ref)))
+
+    x0 = torch.zeros(9, dtype=torch.float64, device=device)
+    x0[2] = 1.0
+    reset_counts()
+    start = time.perf_counter()
+    log = run_mpc(DDPSolver(problem, cfg), x0, t0=0.0, end_t=end_t,
+                  callback=record)
+    secs = time.perf_counter() - start
+    counts = read_counts()
+    flight = (log.ts > 1.41) & (log.ts < 1.59)
+    f_max = float(np.abs(log.us[flight]).max()) if flight.any() else 0.0
+    ref = ref_pos(torch.tensor(log.ts[-1] + dt, dtype=torch.float64)).numpy()
+    com_err = float(np.linalg.norm(log.xs[-1][:3] - ref))
+    momenta = float(np.linalg.norm(log.xs[-1][3:]))
+    wall = log.solve_wall_ms
+    print(f"[centroidal-driver] run_mpc centroidal N={N} fp64 auto, t=0.."
+          f"{log.ts[-1]:.2f} ({len(log.ts)} solves, {secs:.1f} s): max "
+          f"planned |pos - ref| {max(errs):.3e} (tol 1), flight steps "
+          f"{int(flight.sum())} with max |u| {f_max:.3e} (tol 1e-12), final "
+          f"|CoM - ref| {com_err:.3e}, |momenta| {momenta:.3e}, iterations "
+          f"{int(log.solve_iters.min())}..{int(log.solve_iters.max())}, "
+          f"statuses {sorted(set(log.solve_status.tolist()))}, solve wall "
+          f"p50 {np.percentile(wall, 50):.2f} ms p99 "
+          f"{np.percentile(wall, 99):.2f} ms; launches {counts} [{card}]",
+          flush=True)
+    check(counts["K1@9x16"] > 0, "centroidal driver: K1@9x16 did not run")
+    check(max(errs) < 1.0 and f_max < 1e-12, "centroidal driver: a planned "
+          "position left the reference or a flight force is not 0")
+    if full:
+        check(com_err < 1e-2 and momenta < 1.0, "centroidal driver: the "
+              "final CoM or momenta miss the reference's assertions")
+
+
+# --------------------------------------------------------------------------
+# Second-order (full) DDP: the plain backward with the D2 term
+# --------------------------------------------------------------------------
+
+def phase_second_order(device, card):
+    """Cart-pole ``solve_batch`` with ``use_state_eq_second_derivative``
+    through ``auto`` (the plain backward; the fused rollouts on the card)
+    on the card and on its host's CPU: statuses and iterations equal, u
+    within 1e-8; the cost within SECOND_ORDER_COST_REL of the first-order
+    solve's per lane where both succeed; an explicit kernel raises."""
+    B, N = SECOND_ORDER
+    problem = make_cartpole_problem(DT)
+    cfg = DDPConfig(horizon_steps=N, max_iter=50,
+                    use_state_eq_second_derivative=True)
+    check(ddp_mod._resolve_backward_impl(cfg, problem, torch.float64, device,
+                                         False, True) == "stacked",
+          "second-order: auto does not take the plain backward")
+    x0s, us0 = hanging_inputs(B, N, torch.float64, device)
+    start = time.perf_counter()
+    res, counts, syncs = solve_counted(problem, cfg, x0s, us0)
+    card_s = time.perf_counter() - start
+    start = time.perf_counter()
+    host = DDPSolver(problem, cfg).solve_batch(0.0, x0s.cpu(), us0.cpu())
+    host_s = time.perf_counter() - start
+    first, _, _ = solve_counted(problem, dataclasses.replace(
+        cfg, use_state_eq_second_derivative=False), x0s, us0)
+    st = torch.equal(res.status.cpu(), host.status)
+    it = torch.equal(res.iters.cpu(), host.iters)
+    du = (res.us.cpu() - host.us).abs().max().item()
+    both = (res.status == int(DDPStatus.SUCCEEDED)) & (
+        first.status == int(DDPStatus.SUCCEEDED))
+    c2, c1 = res.costs.sum(1), first.costs.sum(1)
+    rel = ((c2 - c1).abs() / c1.abs())[both]
+    worst = rel.max().item() if rel.numel() else 0.0
+    raised = False
+    try:
+        DDPSolver(problem, dataclasses.replace(
+            cfg, backward_impl="pallas")).solve_batch(0.0, x0s, us0)
+    except NotImplementedError:
+        raised = True
+    print(f"[second-order] cart-pole solve_batch B={B} N={N} max_iter="
+          f"{cfg.max_iter} fp64 auto: card {card_s:.2f} s (launches {counts},"
+          f" host syncs {syncs}), host CPU {host_s:.2f} s; statuses equal "
+          f"{st}, iterations equal {it}, max |du| {du:.3e} (tol 1e-8); "
+          f"statuses {torch.bincount(res.status, minlength=5).tolist()}, "
+          f"iterations {int(res.iters.min())}..{int(res.iters.max())}; cost "
+          f"vs first order on {int(both.sum())} lanes both solved: max rel "
+          f"{worst:.3e} (tol {SECOND_ORDER_COST_REL:g}), lanes past it "
+          f"{int((rel > SECOND_ORDER_COST_REL).sum())}; backward_impl="
+          f"'pallas' raises {raised} [{card}]", flush=True)
+    check(not any(counts[key] for key in ("K1", "K1@9x16", "K2", "K3", "K5")),
+          "second-order: a first-order backward kernel ran")
+    check(st and it and du <= 1e-8, "second-order: the card parts from its "
+          "host's CPU")
+    check(worst <= SECOND_ORDER_COST_REL, "second-order: the cost parts from "
+          "the first-order optimum")
+    check(raised, "second-order: backward_impl='pallas' did not raise")
+
+
+# --------------------------------------------------------------------------
+# C/GMRES: the damper's golden steps, the fleets
+# --------------------------------------------------------------------------
+
+def damper_fleet(B, dtype, device, seed=0):
+    """(x0s, states) of B damper controllers about x_initial (bench_all.py:
+    217-223: 0.1 N(0, 1) from a seed), every one from the same setup."""
+    solver = CgmresSolver(make_damper_problem(), device=device)
+    state = solver.setup()
+    rng = np.random.default_rng(seed)
+    x0s = torch.as_tensor(np.tile([2.0, 0.0], (B, 1)) + 0.1 * rng.normal(
+        size=(B, 2)), dtype=dtype, device=device)
+    return x0s, CgmresState(*(a.to(dtype)[None].expand(B, *a.shape)
+                              .contiguous() for a in state))
+
+
+def cgmres_golden(device):
+    """The analytic damper's first CGMRES_GOLDEN_STEPS control steps (RK4
+    plant, fp64) on the card against tests/golden/cgmres_numpy.py: setup
+    within 1e-8, u within 1e-7 at every step."""
+    config = CgmresConfig(sim_ode_solver="rk4")
+    solver = CgmresSolver(make_damper_problem(analytic=True), config,
+                          device=device)
+    gp = DamperGolden()
+    golden = GoldenCgmres(gp)
+    state = solver.setup()
+    d_setup = float(np.abs(state.u.cpu().numpy() - golden.setup(
+        0.0, gp.x_initial.copy(), gp.u_initial.copy())).max())
+    xg, t, d_step = gp.x_initial.copy(), 0.0, 0.0
+    f = lambda tt, xx, u: gp.state_eq(tt, xx, u[:2])
+    start = time.perf_counter()
+    for _ in range(CGMRES_GOLDEN_STEPS):
+        next_xg = INTEGRATORS["rk4"](f, t, xg, state.u.cpu().numpy(),
+                                     config.dt)
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                         device=device)
+        state = solver.control_step(t, as_t(xg), as_t(next_xg), state)
+        ug, _ = golden.control_step(t, xg, next_xg)
+        d_step = max(d_step, float(np.abs(state.u.cpu().numpy() - ug).max()))
+        xg, t = next_xg, t + config.dt
+    return d_setup, d_step, (time.perf_counter() - start) / CGMRES_GOLDEN_STEPS
+
+
+def chained_steps(solver, x0s, states, n):
+    """``n`` fleet control steps, one ``control_step_batch`` call each,
+    with ``simulate_batch``'s RK4 plant between them; returns each step's
+    (t, x, next_x, states in, states out, GMRES iterations per lane)."""
+    problem, cfg = solver.problem, solver.config
+    f = stages_lanes(lambda t, x, u: problem.state_eq(t, x, u[:problem.dim_u]),
+                     2)
+    out, x, t = [], x0s, 0.0
+    for _ in range(n):
+        next_x = INTEGRATORS[cfg.sim_ode_solver](
+            f, torch.tensor(t, dtype=x.dtype, device=x.device), x.T,
+            states.u.T, cfg.dt).T
+        new = solver.control_step_batch(t, x, next_x, states)
+        out.append((t, x, next_x, states, new, solver.gmres_iters))
+        x, t, states = next_x, t + cfg.dt, new
+    return out
+
+
+def phase_cgmres(device, card, layers):
+    """C/GMRES on the card: the golden's steps; the damper fleet (fp32,
+    ``simulate_batch``) timed with CUDA events, with launches per step and
+    the device's busy share under ``layers``; the fp64 fleet on the card
+    and on its host's CPU; the bounded cart-pole fleet inside its force
+    bound."""
+    d_setup, d_step, step_s = cgmres_golden(device)
+    print(f"[cgmres] damper (analytic, RK4 plant) fp64 vs the NumPy golden: "
+          f"setup max |du| {d_setup:.3e} (tol 1e-8), {CGMRES_GOLDEN_STEPS} "
+          f"steps max |du| {d_step:.3e} (tol 1e-7); {step_s * 1e3:.1f} ms a "
+          f"control_step (eager) [{card}]", flush=True)
+    check(d_setup <= 1e-8 and d_step <= 1e-7, "cgmres: the damper parts "
+          "from the golden")
+
+    B, n_steps = CGMRES_FLEET
+    solver = CgmresSolver(make_damper_problem(), device=device)
+    x0s, states = damper_fleet(B, torch.float32, device)
+    sim = lambda n=n_steps: solver.simulate_batch(0.0, x0s, states, n)
+    torch.cuda.synchronize()
+    begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    begin.record()
+    ts, xs, us, errs = sim()
+    end.record()
+    end.synchronize()
+    secs = begin.elapsed_time(end) / 1e3
+    # the graph's steps against the same steps run eagerly, one
+    # control_step_batch call each
+    eager = chained_steps(solver, x0s, states, CGMRES_EAGER_STEPS)
+    same = all(torch.equal(us[:, i], step[4].u)
+               and torch.equal(errs[:, i], step[4].err)
+               for i, step in enumerate(eager))
+    lost = ~(torch.isfinite(xs).all(-1) & torch.isfinite(us).all(-1))
+    first = int(lost.any(0).nonzero()[0]) if bool(lost.any()) else None
+    extra = ""
+    if layers:
+        from torch.profiler import ProfilerActivity, profile
+        n_prof = 2
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sim(n_prof)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in kernels) / 1e3
+        per_step = secs / n_steps * 1e3
+        extra = (f"; profiled {n_prof} steps (capture included): "
+                 f"{len(kernels) / n_prof:.0f} device kernels a step, busy "
+                 f"{busy / n_prof:.2f} ms a step of {per_step:.2f} ms "
+                 f"({100 * busy / n_prof / per_step:.1f} %)")
+    print(f"[cgmres] damper fleet simulate_batch B={B} {n_steps} steps fp32 "
+          f"(one CUDA graph replayed a step): {secs:.2f} s, "
+          f"{B * n_steps / secs:.1f} ctrl-steps/s, host syncs "
+          f"{solver.host_syncs / n_steps:g} a step; the first "
+          f"{CGMRES_EAGER_STEPS} steps equal the eager steps bit for bit "
+          f"{same}; lanes leaving the finite range {int(lost.any(1).sum())}"
+          f" of {B} (from step {first}; JAX's fp32 fleet on the CPU: 23, "
+          f"from step 16){extra} [{card}]", flush=True)
+    check(same, "cgmres: the graph's steps part from the eager steps")
+    check(solver.host_syncs == 0, "cgmres: a fleet step read the host")
+
+    # fp64: each of the card's chained steps again on its host's CPU from
+    # the card's inputs (the chains themselves drift apart: each step's
+    # finite-difference quotients scale rounding by 1 / dlt = 500)
+    x0s, states = damper_fleet(B, torch.float64, device)
+    host_solver = CgmresSolver(make_damper_problem(), device="cpu")
+    cpu = lambda st: CgmresState(*(a.cpu() for a in st))
+    worst = {name: 0.0 for name in ("u_list", "delta_u_vec", "err")}
+    iters_equal = True
+    steps = chained_steps(solver, x0s, states, CGMRES_FP64_STEPS)
+    for t, x, next_x, st_in, st_out, iters in steps:
+        host = host_solver.control_step_batch(t, x.cpu(), next_x.cpu(),
+                                              cpu(st_in))
+        for name in worst:
+            worst[name] = max(worst[name], norm_err(
+                getattr(host, name), getattr(st_out, name).cpu())[0])
+        iters_equal &= torch.equal(iters.cpu(), host_solver.gmres_iters)
+    print(f"[cgmres] damper fleet B={B} {CGMRES_FP64_STEPS} chained steps "
+          f"fp64, each step on the card vs on its host's CPU from the same "
+          f"inputs: normalized "
+          f"{' '.join(f'{k} {v:.3e}' for k, v in worst.items())} (tol "
+          f"{CGMRES_TOL:g}), GMRES iterations per lane equal {iters_equal} "
+          f"({int(steps[-1][5].min())}..{int(steps[-1][5].max())})",
+          flush=True)
+    check(max(worst.values()) <= CGMRES_TOL and iters_equal,
+          "cgmres: the fp64 fleet on the card parts from its host's CPU")
+
+    problem = make_cartpole_cgmres_problem(with_input_bound=True)
+    solver = CgmresSolver(problem, device=device)
+    state = solver.setup()
+    rng = np.random.default_rng(1)
+    x0s = torch.as_tensor(np.tile([0.0, np.pi, 0.0, 0.0], (B, 1))
+                          + 0.05 * rng.normal(size=(B, 4)),
+                          dtype=torch.float32, device=device)
+    states = CgmresState(*(a.float()[None].expand(B, *a.shape).contiguous()
+                           for a in state))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ts, xs, us, errs = solver.simulate_batch(0.0, x0s, states, n_steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    finite = bool(torch.isfinite(xs).all() and torch.isfinite(errs).all()
+                  and torch.isfinite(us).all())
+    f_abs = float(us[..., 0].abs().max())
+    print(f"[cgmres] bounded cart-pole fleet simulate_batch B={B} {n_steps} "
+          f"steps fp32: {secs:.2f} s, {B * n_steps / secs:.1f} ctrl-steps/s,"
+          f" finite {finite}, max |f| {f_abs:.4f} (f_max {F_MAX:g} + 1e-3) "
+          f"[{card}]", flush=True)
+    check(finite and f_abs <= F_MAX + 1e-3, "cgmres: the bounded cart-pole "
+          "fleet left the finite range or its force bound")
+
+
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="phases: build, kernels, kernels-variants, e2e, e2e-variants, "
+               "serving, driver, times, times-variants, centroidal (K1@9x16 "
+               "and the centroidal solves), centroidal-driver, second-order, "
+               "cgmres; with --qp-groups: qp-groups, row-groups, "
+               "fmpc-groups, fwd-groups; with --layers: layers")
     parser.add_argument("--layers", action="store_true",
                         help="also print where one solve's time goes, per "
                              "layer, with the profiler's device busy time")
@@ -3845,6 +4446,10 @@ def main() -> int:
                              "of FMPC_GROUPS and the forward recursions "
                              "(K6, K11) at each chunk of FWD_CHUNKS and "
                              "(K11) group of FWD_GROUPS")
+    parser.add_argument("--centroidal-driver", action="store_true",
+                        help="run the centroidal driver to 3.0 s with the "
+                             "reference's final assertions (default: its "
+                             f"first {CENTROIDAL_DRIVER_STEPS} steps)")
     parser.add_argument("--baseline", metavar="DIR",
                         help="with --qp-groups, also build K1-K6, K8, K10 and "
                              "K11 from the checkout at DIR, hold this one's "
@@ -3871,7 +4476,12 @@ def main() -> int:
               ("serving", lambda: phase_serving(device, card)),
               ("driver", lambda: phase_driver(device, card)),
               ("times", lambda: phase_times(device, card)),
-              ("times-variants", lambda: phase_times_variants(device, card))]
+              ("times-variants", lambda: phase_times_variants(device, card)),
+              ("centroidal", lambda: phase_centroidal(device, card)),
+              ("centroidal-driver", lambda: phase_centroidal_driver(
+                  device, card, args.centroidal_driver)),
+              ("second-order", lambda: phase_second_order(device, card)),
+              ("cgmres", lambda: phase_cgmres(device, card, args.layers))]
     if args.qp_groups:
         phases.append(("qp-groups", lambda: phase_qp_groups(
             device, card, args.baseline)))

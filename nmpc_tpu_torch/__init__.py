@@ -4,9 +4,14 @@ Ported so far: the batched DDP solve, unboxed and boxed (projected-Newton
 BoxQP per stage, time-varying input masks), on the cart-pole, the
 vertical-motion and the bipedal CoM-ZMP models, the single BoxQP solve,
 the receding-horizon driver (``run_mpc``), the single and the batched
-closed-loop tick loops, and the batched FMPC solve (multiple shooting,
+closed-loop tick loops, the batched FMPC solve (multiple shooting,
 primal-dual interior point, condensed Riccati) on the oscillator and the
-constrained cart-pole, with hand-written CUDA kernels for Hopper beside
+constrained cart-pole, the centroidal model (9 states, 16 ridge forces),
+second-order (full) DDP solves, and the C/GMRES continuation solver
+(``ContinuousProblem``, matrix-free GMRES, the batch-minor fleet path) on
+the semiactive damper and the cart-pole, with the derivative checker and
+the reference's dump formats (``utils/``); with hand-written CUDA kernels
+for Hopper beside
 their plain torch-op versions: the sweep-fed Riccati backward in three
 layouts (``csrc/ddp_backward.cuh``, ``_chunked.cuh``, ``_packed.cuh``)
 and its boxed variant (``csrc/ddp_backward_boxed.cuh``), the remat
@@ -19,7 +24,7 @@ package imports ``torch`` and never ``jax``; ``nmpc_tpu`` stays the
 reference it is tested against.
 """
 
-from nmpc_tpu_torch.core.problem import Problem
+from nmpc_tpu_torch.core.problem import ContinuousProblem, Problem
 from nmpc_tpu_torch.core.types import (
     BoxQPConfig,
     BoxQPStatus,
@@ -42,13 +47,22 @@ from nmpc_tpu_torch.models.bipedal import (
 from nmpc_tpu_torch.mpc.closed_loop import make_closed_loop
 from nmpc_tpu_torch.mpc.driver import MpcLog, run_mpc, shift_warm_start
 from nmpc_tpu_torch.solvers.boxqp import boxqp_solve
+from nmpc_tpu_torch.solvers.cgmres import (CgmresConfig, CgmresSolver,
+                                           CgmresState)
 from nmpc_tpu_torch.solvers.ddp import DDPSolver
 from nmpc_tpu_torch.solvers.fmpc import FmpcSolver
+from nmpc_tpu_torch.solvers.gmres import gmres, gmres_dense
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Problem",
+    "ContinuousProblem",
+    "CgmresConfig",
+    "CgmresSolver",
+    "CgmresState",
+    "gmres",
+    "gmres_dense",
     "DDPConfig",
     "DDPResult",
     "DDPStatus",

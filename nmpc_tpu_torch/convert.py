@@ -21,9 +21,15 @@ from nmpc_tpu_torch.models.bipedal import (BipedalCostWeight,
 from nmpc_tpu_torch.models.cartpole import (CartPoleCostWeight, CartPoleParam,
                                             make_cartpole_fmpc_problem,
                                             make_cartpole_problem)
+from nmpc_tpu_torch.models.cartpole_cgmres import (
+    make_cartpole_cgmres_problem)
+from nmpc_tpu_torch.models.centroidal import (CentroidalCostWeight,
+                                              make_centroidal_problem)
+from nmpc_tpu_torch.models.damper import make_damper_problem
 from nmpc_tpu_torch.models.oscillator import make_oscillator_problem
 from nmpc_tpu_torch.models.vertical import (VerticalCostWeight,
                                             make_vertical_problem)
+from nmpc_tpu_torch.solvers.cgmres import CgmresConfig, CgmresState
 
 
 def ddp_config_from_reference(cfg) -> DDPConfig:
@@ -126,3 +132,50 @@ def fmpc_result_to_numpy(res: FmpcResult) -> dict:
         out[name] = {f.name: getattr(sub, f.name).cpu().numpy()
                      for f in dataclasses.fields(sub)}
     return out
+
+
+def centroidal_problem_from_reference(dt: float, cost_weight,
+                                      force_limits=None):
+    """The centroidal problem of the reference's example stance and CoM
+    reference, with the weights of the reference's
+    ``CentroidalCostWeight`` dataclass and the same force limits."""
+    return make_centroidal_problem(
+        dt, cost_weight=CentroidalCostWeight(**dataclasses.asdict(
+            cost_weight)),
+        force_limits=None if force_limits is None else tuple(force_limits))
+
+
+def cgmres_config_from_reference(cfg) -> CgmresConfig:
+    """A ``CgmresConfig`` equal field for field to ``cfg``, any dataclass
+    with ``CgmresConfig``'s fields."""
+    return CgmresConfig(**dataclasses.asdict(cfg))
+
+
+def damper_problem_from_reference(analytic: bool = False):
+    """The semiactive damper (it has no parameters), with the analytic
+    costate and dH/du or autodiff ones as the reference's was built."""
+    return make_damper_problem(analytic=analytic)
+
+
+def cartpole_cgmres_problem_from_reference(with_input_bound: bool = False):
+    """The C/GMRES cart-pole, with or without the dummy-input force
+    bound (its parameters are the reference's constants)."""
+    return make_cartpole_cgmres_problem(with_input_bound=with_input_bound)
+
+
+def cgmres_state_from_numpy(device, dtype, u_list, delta_u_vec, u,
+                            err) -> CgmresState:
+    """A C/GMRES state (e.g. a JAX ``CgmresState``'s fields as numpy,
+    batched or not) as tensors on ``device``; ``delta_u_vec`` keeps its
+    row-major (N, dim_uc) layout."""
+    conv = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                     device=device).contiguous()
+    return CgmresState(u_list=conv(u_list), delta_u_vec=conv(delta_u_vec),
+                       u=conv(u), err=conv(err))
+
+
+def cgmres_state_to_numpy(state: CgmresState) -> dict:
+    """A C/GMRES state as a dict of numpy arrays, field names as in
+    ``CgmresState``."""
+    return {name: getattr(state, name).cpu().numpy()
+            for name in CgmresState._fields}

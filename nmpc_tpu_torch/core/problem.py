@@ -5,7 +5,9 @@ A problem is a frozen bundle of per-instance callables on tensors
 The solver batches them with ``torch.func.vmap``.  Derivatives default to
 ``torch.func`` autodiff; analytic overrides replace them field by field.
 Time-varying input and inequality dimensions use a static maximum plus an
-``input_mask(t)`` / ``ineq_mask(t)``.
+``input_mask(t)`` / ``ineq_mask(t)``.  :class:`Problem` is the discrete
+problem of the DDP and FMPC solvers, :class:`ContinuousProblem` the
+continuous one of C/GMRES.
 """
 
 from __future__ import annotations
@@ -111,3 +113,66 @@ class Problem:
 
 def _device_of(t):
     return t.device if isinstance(t, torch.Tensor) else None
+
+
+@dataclasses.dataclass(frozen=True)
+class ContinuousProblem:
+    """Continuous-time optimal control problem via Pontryagin, for the
+    C/GMRES solver (reference ``CgmresProblem.h:27-48``).  ``uc`` is the
+    input augmented with dummy inputs and equality-constraint multipliers
+    (``dim_uc = dim_u + dim_c``, ``CgmresProblem.h:57-60``).
+
+    Required: ``state_eq(t, x, u[:dim_u]) -> dx/dt``.  Either supply the
+    analytic ``costate_eq`` / ``dphi_dx`` / ``dh_du`` (the reference's
+    virtuals) or ``running_cost`` / ``terminal_cost`` (and ``eq_const``
+    for the multiplier block), from which ``torch.func.grad`` of the
+    Hamiltonian H = L + lambda . f (+ mu . C) derives them.  Analytic
+    overrides win.
+    """
+
+    dim_x: int
+    dim_u: int
+    dim_c: int
+    state_eq: Callable                        # (t, x, u) -> xdot
+    costate_eq: Optional[Callable] = None     # (t, lmd, x, uc) -> dlmd/dt
+    dphi_dx: Optional[Callable] = None        # (t, x) -> [dim_x]
+    dh_du: Optional[Callable] = None          # (t, x, uc, lmd) -> [dim_uc]
+    running_cost: Optional[Callable] = None   # (t, x, uc) -> scalar
+    terminal_cost: Optional[Callable] = None  # (t, x) -> scalar
+    eq_const: Optional[Callable] = None       # (t, x, uc) -> [dim_c] (== 0)
+    x_initial: Optional[tuple] = None         # [dim_x], any array-like
+    u_initial: Optional[tuple] = None         # [dim_uc], any array-like
+
+    @property
+    def dim_uc(self) -> int:
+        return self.dim_u + self.dim_c
+
+    def hamiltonian(self, t, x, uc, lmd):
+        """H = L(t, x, uc) + lambda . f(t, x, u) [+ mu . C(t, x, uc)]: the
+        multiplier block of ``uc`` enters through ``eq_const``, as in the
+        reference's dummy-input encoding
+        (``SemiactiveDamperProblem.h:86-103``)."""
+        u = uc[: self.dim_u]
+        h = self.running_cost(t, x, uc) + lmd @ self.state_eq(t, x, u)
+        if self.dim_c > 0 and self.eq_const is not None:
+            h = h + uc[self.dim_u:] @ self.eq_const(t, x, uc)
+        return h
+
+    def costate_eq_at(self, t, lmd, x, uc):
+        """dlambda/dt = -dH/dx (``CgmresProblem.h:33``)."""
+        if self.costate_eq is not None:
+            return self.costate_eq(t, lmd, x, uc)
+        return -func.grad(self.hamiltonian, argnums=1)(t, x, uc, lmd)
+
+    def dphi_dx_at(self, t, x):
+        """The terminal cost's gradient."""
+        if self.dphi_dx is not None:
+            return self.dphi_dx(t, x)
+        return func.grad(self.terminal_cost, argnums=1)(t, x)
+
+    def dh_du_at(self, t, x, uc, lmd):
+        """dH/du over the augmented input (``CgmresProblem.h:44``); on the
+        multiplier block it is the equality constraint's residual."""
+        if self.dh_du is not None:
+            return self.dh_du(t, x, uc, lmd)
+        return func.grad(self.hamiltonian, argnums=2)(t, x, uc, lmd)

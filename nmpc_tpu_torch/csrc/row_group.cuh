@@ -94,9 +94,12 @@ __host__ __device__ constexpr size_t ring_bytes(int R, int C, int F,
 // offset is rounded up to a multiple of stage_align = 128 / (W sizeof(T))
 // values (StageRingLayout: (4, 1) fp32 at G = 4, F = 46 -> 52; (2, 1)
 // fp32 at G = 2, 16 -> 18; G = 1 at fp32, and fp64 at G <= 2,
-// unpadded).  The ring holds as many buffers as fit kStageBudget, at least
-// 2, at most kMaxStageRing: 8 at (4, 1) and (2, 1); 2 at (8, 4) fp64 (F =
-// 220), 110 KB a block.
+// unpadded).  The ring holds as many buffers as fit kStageBudget, at most
+// kMaxStageRing, and at least 2 where two fit a block's shared memory: 8
+// at (4, 1) and (2, 1); 2 at (8, 4) fp64 (F = 220), 110 KB a block, and
+// at (9, 16) fp32 (F = 740), 185 KB; one at (9, 16) fp64 (F = 734), 184
+// KB, where the producer refills the buffer only once the consumers left
+// it (no stage in flight while one is computed).
 constexpr int kMaxStageRing = 8;
 
 template <typename T, int G>
@@ -111,7 +114,8 @@ using StageRingLayout = StageLayout<NX, NU, stage_align<T, G>()>;
 template <typename T>
 __host__ __device__ constexpr int stage_ring(int F) {
   const int R = stages_within<T>(1, F, kMaxStageRing);
-  return R < 2 ? 2 : R;
+  if (R >= 2) return R;
+  return ring_bytes<T>(2, 1, F, kMaxRowLanes) <= kMaxBlockSmem ? 2 : 1;
 }
 
 // K2: each warp's two slots of C stages (cp.async, double-buffered by

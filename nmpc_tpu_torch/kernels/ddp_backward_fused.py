@@ -49,9 +49,13 @@ from nmpc_tpu_torch.core.types import DDPConfig
 from nmpc_tpu_torch.kernels.build import build_generated, load
 from nmpc_tpu_torch.kernels.ddp_backward import StackedDerivs, backward_stacked
 
-# The largest (nx, nu) a unit is instantiated for: every stage field is
-# unrolled into registers (two stages of them with the prefetch).
-MAX_NX, MAX_NU = 8, 4
+# The largest (nx, nu) a unit is instantiated for: every stage quantity
+# of the lane is unrolled into registers.  K1 ("stage") takes the
+# centroidal model's (9, 16) (F = 731 values a stage, one TMA box of a
+# field holding at most 256 of them); K2 and K3 stay at the sizes they
+# were measured at and raise beyond them.
+MAX_NX, MAX_NU = 9, 16
+MAX_NX_CHUNKED, MAX_NU_CHUNKED = 8, 4
 # the kernels' scalar types (the generated units' T)
 DTYPES = {torch.float32: "float", torch.float64: "double"}
 DMA_MODES = ("stage", "chunked", "packed")
@@ -73,11 +77,18 @@ _UNITS = {"stage": ("ddp_backward.cuh", "launch_ddp_backward", "ld, "),
                      "ld, ")}
 
 
-def kernel_supports(nx: int, nu: int, dtype) -> bool:
-    """Whether the kernels take this state/input size and dtype:
-    1 <= nx <= 8, 1 <= nu <= 4, float32 or float64 (any B and N; the unit
-    is built on demand)."""
-    return 1 <= nx <= MAX_NX and 1 <= nu <= MAX_NU and dtype in DTYPES
+def _limits(dma: str):
+    return ((MAX_NX, MAX_NU) if dma == "stage"
+            else (MAX_NX_CHUNKED, MAX_NU_CHUNKED))
+
+
+def kernel_supports(nx: int, nu: int, dtype, dma: str = "stage") -> bool:
+    """Whether the ``dma`` kernel takes this state/input size and dtype:
+    float32 or float64 and 1 <= nx <= 9, 1 <= nu <= 16 for K1
+    (``"stage"``), 1 <= nx <= 8, 1 <= nu <= 4 for K2 and K3 (any B and N;
+    the unit is built on demand)."""
+    max_nx, max_nu = _limits(dma)
+    return 1 <= nx <= max_nx and 1 <= nu <= max_nu and dtype in DTYPES
 
 
 def _shapes(nx, nu):
@@ -213,6 +224,16 @@ def _check_carry(nx, B, Vx_T, Vxx_T, lam):
                          f"{device}")
 
 
+def _require(dma, nx, nu, dtype):
+    """Raise, naming the shape, where the ``dma`` kernel does not take it."""
+    if not kernel_supports(nx, nu, dtype, dma):
+        max_nx, max_nu = _limits(dma)
+        raise ValueError(
+            f"the CUDA backward kernel ({dma}) is built for 1 <= nx <= "
+            f"{max_nx}, 1 <= nu <= {max_nu} and float32/float64; got "
+            f"({nx}, {nu}) {dtype}")
+
+
 def launch(fn, dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld=0):
     """One launch of the unit function ``fn`` (:func:`launcher`) of the
     ``dma`` kernel on ``fields`` (checked CUDA tensors; K1's and K3's with
@@ -221,11 +242,7 @@ def launch(fn, dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld=0):
     on a CUDA error.  Counts nothing: the wrappers count their own
     launches."""
     B, dtype, device = lam.shape[0], lam.dtype, lam.device
-    if not kernel_supports(nx, nu, dtype):
-        raise ValueError(
-            f"the CUDA backward kernels are built for 1 <= nx <= {MAX_NX}, "
-            f"1 <= nu <= {MAX_NU} and float32/float64; got ({nx}, {nu}) "
-            f"{dtype}")
+    _require(dma, nx, nu, dtype)
     ks = torch.empty((N, nu, B), dtype=dtype, device=device)
     Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
     dV = torch.empty((2, B), dtype=dtype, device=device)
@@ -243,7 +260,9 @@ def launch(fn, dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld=0):
 
 
 def _launch(dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld=0):
-    """Launch the ``dma`` kernel the wrapper uses on ``fields``."""
+    """Launch the ``dma`` kernel the wrapper uses on ``fields`` (checked
+    before its unit is built)."""
+    _require(dma, nx, nu, lam.dtype)
     return launch(launcher(nx, nu, lam.dtype, dma), dma, config, N, nx, nu,
                   fields, Vx_T, Vxx_T, lam, ld)
 
@@ -282,11 +301,15 @@ def backward_fused(config: DDPConfig, D: StackedDerivs, Vx_T, Vxx_T, lam,
         return out
     fields, ld = tma_fields(D)
     out = _launch(dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld)
-    backward_fused.launches += 1
+    if kernel_supports(nx, nu, dtype, "chunked"):
+        backward_fused.launches += 1
+    else:
+        backward_fused.wide_launches += 1
     return out
 
 
 backward_fused.launches = 0           # K1
+backward_fused.wide_launches = 0      # K1 past K2's shapes: (9, 16)
 backward_fused.chunked_launches = 0   # K2
 backward_fused.padded_copies = 0      # a field copied to a TMA lane stride
 

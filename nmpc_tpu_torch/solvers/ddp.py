@@ -153,10 +153,12 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
         and mask too, the aux group);
       * else ``"pallas"``, the sweep-fed CUDA kernel, its unit built on
         demand: unboxed (K1, or K2/K3 by ``DDPSolver``'s ``backward_dma``)
-        within its limits (``kernel_supports``: nx <= 8, nu <= 4,
+        within K1's limits (``kernel_supports``: nx <= 9, nu <= 16,
         float32/float64), so every first-order problem the generator
-        rejects (the bipedal model) runs a kernel; boxed (K4) at any nx
-        and float32/float64;
+        rejects (the bipedal model; the centroidal model, whose
+        ``torch.linalg.cross`` it does not take) runs a kernel; K2 and K3
+        take nx <= 8, nu <= 4 and raise, naming the shape, beyond them;
+        boxed (K4) at any nx and float32/float64;
     and to ``"stacked"`` (the torch-op recursion) otherwise, on CPU
     tensors always.  A boxed solve with nu > 4 (``MAX_NU``) takes
     ``"stacked"`` too, as in the JAX rule (``nmpc_tpu/solvers/ddp.py:

@@ -118,16 +118,76 @@ def test_kernel_matches_twin(card, dtype, reg_type):
 
 
 def test_unbuilt_shape_raises(card):
-    """(nx, nu) = (9, 1) is past the kernels' limits (nx <= 8): the wrapper
-    raises."""
-    N, nx, nu, B = 4, 9, 1, 32
+    """(nx, nu) = (10, 1) is past K1's limits (nx <= 9) and (9, 16) past
+    K2's and K3's (nx <= 8, nu <= 4): the wrapper raises, naming the
+    shape."""
     r = lambda *shape: torch.rand(shape, device=card)
-    D = StackedDerivs(r(N, nx, nx, B), r(N, nx, nu, B), r(N, nx, B),
-                      r(N, nu, B), r(N, nx, nx, B), r(N, nu, nu, B),
-                      r(N, nx, nu, B))
-    with pytest.raises(ValueError, match="built for"):
-        backward_fused(DDPConfig(horizon_steps=N), D, r(nx, B),
-                       r(nx, nx, B), r(B))
+
+    def derivs(N, nx, nu, B):
+        return StackedDerivs(r(N, nx, nx, B), r(N, nx, nu, B), r(N, nx, B),
+                             r(N, nu, B), r(N, nx, nx, B), r(N, nu, nu, B),
+                             r(N, nx, nu, B))
+
+    N, B = 4, 32
+    for (nx, nu), dmas in (((10, 1), fused.DMA_MODES),
+                           ((9, 16), ("chunked", "packed"))):
+        for dma in dmas:
+            with pytest.raises(ValueError, match=rf"built for.*\({nx}, "
+                               rf"{nu}\)"):
+                backward_fused(DDPConfig(horizon_steps=N),
+                               derivs(N, nx, nu, B), r(nx, B), r(nx, nx, B),
+                               r(B), dma=dma)
+
+
+def _exact_sqrt(a):
+    return torch.from_numpy(np.sqrt(a.numpy()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("reg_type", [1, 2])
+def test_k1_wide_matches_plain(card, monkeypatch, dtype, reg_type):
+    """K1 at the centroidal model's (9, 16) on the stage fields of a
+    centroidal rollout across the flight phase (B=256, N=30), one non-PD
+    and one NaN lane: its launch counted as ``wide_launches``, the ok
+    masks equal and every ok lane bit for bit equal to
+    ``backward_stacked`` on the CPU with a correctly rounded sqrt (there
+    it sums in the kernel's order; the plain version on the card reorders
+    its sums, which Quu's conditioning at fp32 makes visible)."""
+    from nmpc_tpu_torch.models.centroidal import make_centroidal_problem
+    B, N = 256, 30
+    p = make_centroidal_problem(0.03)
+    cfg = DDPConfig(horizon_steps=N, reg_type=reg_type)
+    rng = np.random.default_rng(3)
+    x0 = np.concatenate([[0.0, 0.0, 1.0], np.zeros(6)])
+    x0s = torch.as_tensor((np.tile(x0, (B, 1))
+                           + 0.02 * rng.normal(size=(B, 9))).T,
+                          dtype=dtype, device=card).contiguous()
+    us = torch.as_tensor(60.0 + 5.0 * rng.normal(size=(N, 16, B)),
+                         dtype=dtype, device=card)
+    t0 = torch.tensor(1.3, dtype=dtype, device=card)
+    xs, _ = ddp._rollout_lanes(p, cfg, t0, x0s, us)
+    D, VxT, VxxT = ddp._derivative_sweep_lanes(p, cfg, t0, xs, us)
+    D = StackedDerivs(*(a.contiguous() for a in D[:7]))
+    D.Luu[:, :, :, 5] = -10.0
+    D.Fx[N // 2, 0, 0, 200] = float("nan")
+    lam = torch.full((B,), 1e-6 if reg_type == 1 else 0.5, dtype=dtype,
+                     device=card)
+    before = (backward_fused.launches, backward_fused.wide_launches)
+    out = backward_fused(cfg, D, VxT, VxxT, lam)
+    torch.cuda.synchronize()
+    assert (backward_fused.launches,
+            backward_fused.wide_launches) == (before[0], before[1] + 1)
+    cpu = lambda a: a.cpu()
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sqrt", _exact_sqrt)
+        ref = backward_stacked(cfg, StackedDerivs(*map(cpu, D)), cpu(VxT),
+                               cpu(VxxT), cpu(lam))
+    ok = ref[3]
+    assert torch.equal(out[3].cpu(), ok)
+    assert not ok[5] and not ok[200] and int(ok.sum()) == B - 2
+    for a, b in zip(ref[:3], out[:3]):
+        assert torch.equal(a[..., ok].contiguous().view(torch.uint8),
+                           b.cpu()[..., ok].contiguous().view(torch.uint8))
 
 
 def test_solve_batch_goes_through_kernel(card):
