@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--layers] [--centroidal-driver]
-                          [--qp-groups [--baseline DIR]]
+                          [--qp-groups [--baseline DIR]] [--phases NAME,...]
 
 Phases, one line each (a failed phase exits non-zero):
 
@@ -83,7 +83,7 @@ Phases, one line each (a failed phase exits non-zero):
    a warm-started loop of 256 FMPC oscillator controllers at fp64, N=100,
    3 iterations, 100 ticks, every applied input inside the constraints;
    then the driver: ``run_mpc`` with one bipedal controller (fp64, N=300)
-   from t=0 for 35 steps (each horizon crosses the footsteps at 1.5, 2
+   from t=0 for 15 steps (each horizon crosses the footsteps at 1.5, 2
    and 3 s), its planned ZMP within 1e-2 of the reference at every step,
    and its last steps again on the plain path and with
    ``make_closed_loop``;
@@ -108,7 +108,7 @@ Phases, one line each (a failed phase exits non-zero):
    the card and its host's CPU, parting lanes listed),
    masked inputs exactly 0; the boxed solve (plain BoxQP, nu = 16; N cut
    to 12) with u[0] in its box, solves/s and host syncs; the reference's centroidal
-   driver (``run_mpc``, fp64, N=100, max_iter=500) over its first 50
+   driver (``run_mpc``, fp64, N=100, max_iter=500) over its first 10
    steps, or to 3.0 s with ``--centroidal-driver``; a second-order
    cart-pole ``solve_batch`` (B=256, N=100, fp64, 50 iterations) on the
    card and its host's CPU, against the first-order optimum, and an
@@ -120,7 +120,22 @@ Phases, one line each (a failed phase exits non-zero):
    steps), the fp64 fleet's 10 chained steps, each against the same step
    on the card host's CPU from the same inputs, and the bounded cart-pole
    fleet inside its force bound;
-7. with ``--qp-groups`` only: K4 and K5 boxed built with 1, 4, 8 and 16
+7. the last modules: ``solve_lqr_parallel`` against
+   ``solve_lqr_sequential`` (bench_all.py:277-301's LQR, N=2048, nx=8,
+   nu=2, fp32 and fp64) on the card and its host's CPU, timed, and the
+   horizon-sharded algorithm on four blocks in one process (``horizon``);
+   a one-rank NCCL group (``mesh``): ``make_sharded_solve`` at the
+   headline shape bit for bit against ``solve_batch``,
+   ``convergence_stats`` through NCCL's all_reduce, the horizon-sharded
+   LQR at sp=1; ``ls_mode="serial"`` at the headline shape, fp32 and
+   fp64, against ``sweep`` (``serial``); the profiled DDP and FMPC
+   solves against the untimed ones, with their CUDA-event phase times
+   (``profiled``); the native executor's 6 s virtual-time swing-up (1500
+   solves on the card, tests/test_runtime.py's assertions) and 1 s of
+   real-time mode, in a process of its own, beside the examples
+   (swingup, constrained and fleet at their defaults, centroidal_jump's
+   first 10 steps with --profile) in this one (``runtime+examples``);
+8. with ``--qp-groups`` only: K4 and K5 boxed built with 1, 4, 8 and 16
    threads per lane (and, with ``--baseline DIR``, from the headers of
    the checkout at DIR), each held to its plain version bit for bit and
    timed in turns, with ptxas' report of each; then K5 (unboxed) built
@@ -155,7 +170,7 @@ Phases, one line each (a failed phase exits non-zero):
    alpha) on one warp (B=32, N=100: their chain floor), and (with
    ``--baseline``) K6's, K7's and K11's wrappers in turns with the
    baseline's wrappers;
-8. with ``--layers`` only: where one solve's time goes at both shapes,
+9. with ``--layers`` only: where one solve's time goes at both shapes,
    for each pair, for the boxed vertical solve, the bipedal config's
    ``auto`` path at 2 iterations and the FMPC configurations (synced time
    per solver layer, the device's busy time and launches from
@@ -197,6 +212,10 @@ from golden.cgmres_numpy import DamperGolden, GoldenCgmres  # noqa: E402
 from golden.ddp_numpy import GoldenConfig, GoldenDDP  # noqa: E402
 from golden.fmpc_numpy import (  # noqa: E402
     GoldenFmpc, GoldenFmpcConfig, OscillatorGolden)
+from nmpc_tpu_torch.examples import centroidal_jump as ex_centroidal  # noqa: E402
+from nmpc_tpu_torch.examples import constrained as ex_constrained  # noqa: E402
+from nmpc_tpu_torch.examples import fleet as ex_fleet  # noqa: E402
+from nmpc_tpu_torch.examples import swingup as ex_swingup  # noqa: E402
 from nmpc_tpu_torch import (  # noqa: E402
     BoxQPConfig, CgmresConfig, CgmresSolver, CgmresState, DDPConfig,
     DDPSolver, DDPStatus, FmpcConfig, FmpcSolver, FmpcStatus,
@@ -230,6 +249,17 @@ from nmpc_tpu_torch.models.vertical import (  # noqa: E402
 from nmpc_tpu_torch.mpc.closed_loop import (  # noqa: E402
     make_closed_loop, make_closed_loop_batch)
 from nmpc_tpu_torch.mpc.driver import run_mpc, shift_warm_start  # noqa: E402
+from nmpc_tpu_torch.parallel.horizon import (  # noqa: E402
+    solve_lqr_horizon_blocks, solve_lqr_horizon_sharded)
+from nmpc_tpu_torch.parallel.mesh import (  # noqa: E402
+    convergence_stats, initialize_multihost, make_mesh, make_sharded_solve,
+    shard_batch)
+from nmpc_tpu_torch.runtime.executor import (  # noqa: E402
+    MpcExecutor, WarmStartedSolve)
+from nmpc_tpu_torch.solvers.parallel_riccati import (  # noqa: E402
+    LQRStage, solve_lqr_parallel, solve_lqr_sequential)
+from nmpc_tpu_torch.utils.profiled import (  # noqa: E402
+    estimate_backward_split, profiled_solve_ddp, profiled_solve_fmpc)
 from nmpc_tpu_torch.solvers import ddp as ddp_mod  # noqa: E402
 from nmpc_tpu_torch.solvers import fmpc as fmpc_mod  # noqa: E402
 from nmpc_tpu_torch.solvers.stages import _lanes as stages_lanes  # noqa: E402
@@ -384,11 +414,12 @@ SWEEP_SHAPES = {torch.float32: ((4, 1), (2, 1)),
 # max_iter=500 (tests/test_ddp_models.py:22-40), from x=0 at t=0 to
 # DRIVER_END (each solve's 3 s horizon crosses the footsteps at 1.5, 2
 # and 3 s; a window across the first applied footstep, 155 solves of
-# ~1.6 s, would take half the run's time limit); the plain path and
+# ~1.6 s, would take half the run's time limit; 15 steps, cut from 35 to
+# make room for the runtime and examples phases); the plain path and
 # make_closed_loop repeat the last DRIVER_WINDOW solves from the kernel
 # path's state; the planned ZMP u[0] within ZMP_TOL of the reference at
 # every step (TestDDPBipedal.cpp:252-273).
-DRIVER_END, DRIVER_WINDOW, ZMP_TOL = 0.35, 5, 1e-2
+DRIVER_END, DRIVER_WINDOW, ZMP_TOL = 0.15, 5, 1e-2
 # K9's design point: the oscillator at N=20, B=4096
 # (nmpc_tpu/kernels/fmpc_backward_pallas.py:460-466), 5 iterations.
 FMPC_OSC_SHORT = (4096, 20)
@@ -415,9 +446,11 @@ WIDE_K1 = (9, 16)
 # 3.0 s: the final CoM within 1e-2 of the reference, momenta below 1.0,
 # forces below 1e-12 through the flight; every step's planned position
 # within 1.0 of the reference (TestDDPCentroidalMotion.cpp:318).  The
-# default run takes its first CENTROIDAL_DRIVER_STEPS steps (into the
-# flight phase; every horizon crosses it), --centroidal-driver the whole.
-CENTROIDAL_DRIVER_END, CENTROIDAL_DRIVER_STEPS = 3.0, 50
+# default run takes its first CENTROIDAL_DRIVER_STEPS steps (every
+# horizon crosses the flight phase; cut from 50, which reached into it,
+# to make room for the runtime and examples phases), --centroidal-driver
+# the whole.
+CENTROIDAL_DRIVER_END, CENTROIDAL_DRIVER_STEPS = 3.0, 10
 # Second-order DDP (use_state_eq_second_derivative): cart-pole, B=256,
 # N=100, fp64, max_iter=50, x0 hanging with the seed's spread; the plain
 # backward on the card (auto) and on the card host's CPU, and the
@@ -431,6 +464,17 @@ SECOND_ORDER_COST_REL = 1e-5
 CGMRES_FLEET = (512, 100)
 CGMRES_GOLDEN_STEPS, CGMRES_FP64_STEPS, CGMRES_EAGER_STEPS = 30, 10, 3
 CGMRES_TOL = 1e-10
+# The parallel-in-time LQR of bench_all.py:277-301: (N, nx, nu).
+LQR = (2048, 8, 2)
+# The native executor's virtual-time swing-up (tests/test_runtime.py:
+# 39-54): 6 s, 1500 solves.
+RUNTIME_END = 6.0
+# The centroidal jump example's steps in the examples phase (its first
+# solve uncapped, then max_iter 3), with --profile.
+CENTROIDAL_JUMP_STEPS = 10
+# Ticks of each timed tick loop in the times phase (cut from 20 to make
+# room for the runtime and examples phases; the serving phase keeps 20).
+TIMED_TICKS = 10
 
 
 class PhaseFailed(Exception):
@@ -1576,7 +1620,7 @@ def phase_times(device, card):
               f"{solver.host_syncs} [{card}]", flush=True)
     for pair in PAIRS:
         tick_loop(device, problem, pair, n_ticks=2)   # warm-up
-        ms, _ = tick_loop(device, problem, pair)
+        ms, _ = tick_loop(device, problem, pair, n_ticks=TIMED_TICKS)
         print(f"[times] tick loop {TICK[0]} controllers N={TICK[1]} "
               f"max_iter=3 backward={pair[0]} forward={pair[1]}: p50 "
               f"{np.percentile(ms, 50):.2f} ms, p99 "
@@ -4427,13 +4471,376 @@ def phase_cgmres(device, card, layers):
           "fleet left the finite range or its force bound")
 
 
+# --------------------------------------------------------------------------
+# The last modules: parallel-in-time and horizon-sharded Riccati, the
+# mesh, the native runtime, ls_mode="serial", the profiled solves and the
+# examples
+# --------------------------------------------------------------------------
+
+def lqr_stage(dtype, device, N=LQR[0], nx=LQR[1], nu=LQR[2]):
+    """bench_all.py:277-301's long-horizon LQR (N=2048, nx=8, nu=2, seed
+    0): (stage, S_T)."""
+    rng = np.random.default_rng(0)
+    A = 0.3 * rng.normal(size=(N, nx, nx)) + np.eye(nx)
+    B = 0.3 * rng.normal(size=(N, nx, nu))
+    W = 0.3 * rng.normal(size=(N, nx, nx))
+    Qxx = W @ W.transpose(0, 2, 1) + 0.5 * np.eye(nx)
+    Quu = np.tile(np.eye(nu), (N, 1, 1))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    return (LQRStage(t(A), t(B), z(N, nx), t(Qxx), t(Quu), z(N, nu, nx),
+                     z(N, nx), z(N, nu)),
+            torch.eye(nx, dtype=dtype, device=device))
+
+
+def gain_err(got, ref):
+    """Largest normalized difference of (Ks, ks) against (Ks, ks)."""
+    return max(norm_err(r, g)[0] for g, r in zip(got[:2], ref[:2]))
+
+
+def phase_horizon(device, card):
+    """``solve_lqr_parallel`` against ``solve_lqr_sequential`` at N=2048
+    (nx=8, nu=2), fp32 and fp64, on the card and on its host's CPU, both
+    timed (CUDA events on the card, the host clock on the CPU), and the
+    four-block path of the horizon-sharded solve in one process
+    (``solve_lqr_horizon_blocks``) against the sequential recursion."""
+    for dtype in (torch.float32, torch.float64):
+        tol = KERNEL_TOL[dtype]
+        stage, S_T = lqr_stage(dtype, device)
+        par = solve_lqr_parallel(stage, S_T)
+        seq = solve_lqr_sequential(stage, S_T)
+        blk = solve_lqr_horizon_blocks(stage, S_T, blocks=4)
+        e_par, e_blk = gain_err(par, seq), gain_err(blk, seq)
+        par_ms = cuda_ms(lambda: solve_lqr_parallel(stage, S_T), reps=5)
+        seq_ms = cuda_ms(lambda: solve_lqr_sequential(stage, S_T), reps=3,
+                         warmup=1)
+        blk_ms = cuda_ms(lambda: solve_lqr_horizon_blocks(stage, S_T,
+                                                          blocks=4), reps=5)
+        hstage, hS_T = lqr_stage(dtype, "cpu")
+        start = time.perf_counter()
+        hpar = solve_lqr_parallel(hstage, hS_T)
+        hpar_s = time.perf_counter() - start
+        start = time.perf_counter()
+        hseq = solve_lqr_sequential(hstage, hS_T)
+        hseq_s = time.perf_counter() - start
+        e_host = gain_err(hpar, hseq)
+        e_card_host = gain_err(tuple(a.cpu() for a in par), hpar)
+        finite = all(bool(torch.isfinite(a).all()) for a in par + blk)
+        print(f"[horizon] LQR N={LQR[0]} nx={LQR[1]} nu={LQR[2]} "
+              f"{str(dtype)[6:]}: card parallel vs sequential {e_par:.3e}, "
+              f"four blocks vs sequential {e_blk:.3e}, host CPU parallel vs "
+              f"sequential {e_host:.3e}, card vs host CPU parallel "
+              f"{e_card_host:.3e} (tol {tol:g}, normalized); card parallel "
+              f"{par_ms:.2f} ms, sequential {seq_ms:.2f} ms, four blocks "
+              f"{blk_ms:.2f} ms (CUDA events); host CPU parallel "
+              f"{hpar_s * 1e3:.2f} ms, sequential {hseq_s * 1e3:.2f} ms "
+              f"[{card}]", flush=True)
+        check(finite, "horizon: non-finite gains")
+        check(max(e_par, e_blk, e_host) <= tol,
+              f"horizon {dtype}: a parallel solve parts from the recursion")
+
+
+def phase_mesh(device, card):
+    """A one-rank NCCL group on the card (one process a card, and this
+    machine has one card, so the world size is 1): ``make_sharded_solve``
+    at the headline shape (fp32, 10 iterations: K5, K6, K7) bit for bit
+    against ``solve_batch``; ``convergence_stats`` through NCCL's
+    all_reduce against the batch's own counts; ``solve_lqr_horizon_
+    sharded`` at sp=1 against ``solve_lqr_parallel``."""
+    import torch.distributed as dist
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(device)
+    initialize_multihost(f"localhost:{port}", 1, 0, device_type="cuda")
+    try:
+        mesh = make_mesh(dp=1, sp=1, device_type="cuda")
+        check(dist.get_backend() == "nccl", "mesh: the group is not NCCL")
+        B, N = HEADLINE
+        problem = make_cartpole_problem(DT)
+        solver = DDPSolver(problem, DDPConfig(horizon_steps=N, max_iter=10))
+        x0s, us0 = hanging_inputs(B, N, torch.float32, device)
+        local = solver.solve_batch(0.0, x0s, us0)
+        shard = shard_batch(mesh, (x0s, us0))
+        reset_counts()
+        start = time.perf_counter()
+        res = make_sharded_solve(solver, mesh)(0.0, *shard)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        counts = read_counts()
+        same = (torch.equal(res.us, local.us)
+                and torch.equal(res.status, local.status)
+                and torch.equal(res.iters, local.iters))
+        stats = convergence_stats(mesh, res)
+        want = (B, float((local.status == 1).double().mean()),
+                float(local.iters.double().mean()))
+        got = tuple(float(stats[k]) for k in ("n", "success_rate",
+                                              "mean_iters"))
+        stage, S_T = lqr_stage(torch.float64, device)
+        hs = solve_lqr_horizon_sharded(stage, S_T, mesh=mesh)
+        e_hs = gain_err(hs, solve_lqr_parallel(stage, S_T))
+        print(f"[mesh] NCCL world size 1 (one process a card, one card), "
+              f"mesh (dp, sp) = (1, 1): sharded solve_batch B={B} N={N} "
+              f"max_iter=10 fp32 {secs:.3f} s, launches {counts}, bit for "
+              f"bit vs solve_batch {same}; convergence_stats (n, success, "
+              f"mean iters) {got} vs local {want}; horizon-sharded LQR "
+              f"N={LQR[0]} fp64 at sp=1 vs solve_lqr_parallel {e_hs:.3e} "
+              f"(tol {KERNEL_TOL[torch.float64]:g}) [{card}]", flush=True)
+        check(same, "mesh: the sharded solve parts from solve_batch")
+        check(all(counts[k] > 0 for k in REMAT_PATH),
+              "mesh: the sharded solve skipped a kernel of the fused path")
+        check(got[0] == want[0] and abs(got[1] - want[1]) < 1e-12
+              and abs(got[2] - want[2]) < 1e-12,
+              "mesh: convergence_stats parts from the batch's counts")
+        check(e_hs <= KERNEL_TOL[torch.float64],
+              "mesh: the horizon-sharded LQR parts from the parallel one")
+    finally:
+        dist.destroy_process_group()
+
+
+def swingup_executor(realtime, duration, mpc_dt, device):
+    """test_runtime.py's executor run: the cart-pole plant at 2 ms, a
+    DDP solve (N=100, max_iter=3, fp64) on the card every ``mpc_dt``."""
+    solver = DDPSolver(make_cartpole_problem(DT, param=CartPoleParam()),
+                       DDPConfig(horizon_steps=100, max_iter=3))
+    fn = WarmStartedSolve(solver, device=device)
+    if realtime:
+        fn(0.0, np.array([0.0, np.pi, 0.0, 0.0]))   # build outside the loop
+        fn.reset()
+    ex = MpcExecutor(nx=4, nu=1, sim_dt=0.002, mpc_dt=mpc_dt)
+    ex.set_cartpole_plant(x0=[0.0, np.pi, 0.0, 0.0], m1=1.0, m2=0.5, l=2.0)
+    if not realtime:
+        ex.set_input_limits(-100.0, 100.0)
+    reset_counts()
+    start = time.perf_counter()
+    log, stats = ex.run(fn, duration=duration, realtime=realtime)
+    return ex, log, stats, time.perf_counter() - start, read_counts()
+
+
+def phase_runtime(device, card):
+    """The native executor with the solver on the card:
+    test_runtime.py:39-54's 6 s virtual-time swing-up (1500 solves; the
+    pole upright, p99 > 0), then 1 s of real-time mode (solves every 50
+    ms on the executor's thread): solve p50 / p99 and deadline misses."""
+    ex, log, stats, secs, counts = swingup_executor(False, RUNTIME_END, 0.004,
+                                                    device)
+    x = ex.state()
+    theta_err = abs(((x[1] + np.pi) % (2 * np.pi)) - np.pi)
+    print(f"[runtime] virtual time {RUNTIME_END:g} s, cart-pole N=100 "
+          f"max_iter=3 fp64 on the card: {stats.n_solves} solves in "
+          f"{secs:.1f} s, final theta error {theta_err:.3e} (tol 0.2), "
+          f"omega {x[3]:+.3e} (tol 0.5), log rows {log.ts.shape[0]}; solve "
+          f"p50 {stats.p50_ms:.2f} ms, p99 {stats.p99_ms:.2f} ms, max "
+          f"{stats.max_ms:.2f} ms, deadline misses {stats.deadline_misses}; "
+          f"launches {counts} [{card}]", flush=True)
+    check(abs(stats.n_solves - 1500) <= 15 and theta_err < 0.2
+          and abs(x[3]) < 0.5 and log.ts.shape[0] == 3000
+          and np.all(np.isfinite(log.xs)) and stats.p99_ms > 0,
+          "runtime: the virtual-time swing-up misses test_runtime.py's "
+          "assertions")
+    check(all(counts[k] > 0 for k in ("K5", "K6")),
+          "runtime: the solves did not run K5 and K6")
+    ex, log, stats, secs, counts = swingup_executor(True, 1.0, 0.05, device)
+    print(f"[runtime] real time 1 s, mpc_dt 50 ms: {stats.n_solves} solves, "
+          f"solve p50 {stats.p50_ms:.2f} ms, p99 {stats.p99_ms:.2f} ms, max "
+          f"{stats.max_ms:.2f} ms, deadline misses {stats.deadline_misses}, "
+          f"log rows {log.ts.shape[0]}; launches {counts} [{card}]",
+          flush=True)
+    check(stats.n_solves >= 3 and log.ts.shape[0] > 100
+          and np.all(np.isfinite(log.xs)), "runtime: the real-time run "
+          "misses test_runtime.py's assertions")
+
+
+def phase_serial(device, card):
+    """``ls_mode="serial"`` at the headline shape (fp32, fp64) against
+    ``sweep``: statuses, iterations and u, whether bit for bit; the
+    alpha trips and host syncs of a solve, K6's launches, each mode's
+    time after an untimed warm-up solve.  Serial decides on K6's cost
+    sums, sweep on K7's."""
+    B, N = HEADLINE
+    problem = make_cartpole_problem(DT)
+    for dtype in (torch.float32, torch.float64):
+        x0s, us0 = hanging_inputs(B, N, dtype, device)
+        out = {}
+        for mode in ("sweep", "serial"):
+            cfg = DDPConfig(horizon_steps=N, max_iter=10, ls_mode=mode)
+            solver = DDPSolver(problem, cfg)
+            solver.solve_batch(0.0, x0s, us0)     # warm-up, untimed
+            torch.cuda.synchronize()
+            reset_counts()
+            start = time.perf_counter()
+            res = solver.solve_batch(0.0, x0s, us0)
+            torch.cuda.synchronize()
+            out[mode] = (res, time.perf_counter() - start, read_counts(),
+                         solver.host_syncs, solver.ls_trips)
+        (sw, sw_s, sw_c, sw_h, _), (se, se_s, se_c, se_h, trips) = (
+            out["sweep"], out["serial"])
+        st, it, du, dc = e2e_compare(se, sw)
+        bits = torch.equal(se.us, sw.us) and st and it
+        flips = decision_flips(se, sw, cfg.cost_update_thre)
+        print(f"[serial] solve_batch B={B} N={N} max_iter=10 "
+              f"{str(dtype)[6:]}: serial vs sweep status equal {st}, iters "
+              f"equal {it}, u bit for bit {bits}, u norm diff {du:.3e}, cost "
+              f"rel diff {dc:.3e}; lanes that differ: "
+              f"{'; '.join(flips) or 'none'}; serial {se_s:.3f} s, alpha "
+              f"trips a iteration {trips} ({sum(trips)} a solve), host syncs "
+              f"{se_h} (sweep {sw_h}), launches {se_c}; sweep {sw_s:.3f} s, "
+              f"launches {sw_c} [{card}]", flush=True)
+        check(se_c["K6"] == sum(trips) and se_c["K7"] == 0,
+              "serial: K6 did not launch once a trip, or K7 ran")
+        check(se_h - sw_h == sum(t + 1 for t in trips),
+              "serial: host syncs are not one a trip and one to end a loop")
+        check(du <= E2E_U_NORM and dc <= E2E_COST_REL,
+              "serial: u or cost out of the contract vs sweep")
+        if dtype == torch.float64:
+            check(st and it, "serial fp64: status or iterations part")
+
+
+def phase_profiled(device, card):
+    """``profiled_solve_ddp`` (cart-pole N=100, fp64, 20 iterations at
+    most) and ``profiled_solve_fmpc`` (oscillator N=50, 5 iterations,
+    fp64): results bit for bit equal to the untimed solves, the per-phase
+    CUDA-event ms, and ``estimate_backward_split``."""
+    N = 100
+    solver = DDPSolver(make_cartpole_problem(DT),
+                       DDPConfig(horizon_steps=N, max_iter=20))
+    x0 = torch.tensor([0.0, math.pi, 0.0, 0.0], dtype=torch.float64,
+                      device=device)
+    us0 = torch.zeros((N, 1), dtype=torch.float64, device=device)
+    plain = solver.solve(0.0, x0, us0)
+    prof, dur, cd = profiled_solve_ddp(solver, 0.0, x0, us0)
+    split = estimate_backward_split(solver, 0.0, x0, us0)
+    same = all(torch.equal(getattr(plain, f), getattr(prof, f))
+               for f in ("status", "iters", "xs", "us", "Ks", "lam"))
+    n = int(prof.iters)
+    rows = {k: [round(float(v), 3) for v in dur[k][1:n + 1]] for k in dur}
+    print(f"[profiled] DDP cart-pole N={N} fp64: {n} iterations, equal to "
+          f"the untimed solve {same}; phase ms a iteration (CUDA events) "
+          f"{rows}; solve {cd.solve:.2f} ms, setup {cd.setup:.2f} ms, opt "
+          f"{cd.opt:.2f} ms; backward split Q / reg / gain "
+          f"{split['Q']:.4f} / {split['reg']:.4f} / {split['gain']:.4f} ms "
+          f"[{card}]", flush=True)
+    check(same, "profiled DDP parts from the untimed solve")
+    check(all(min(dur[k][1:n]) > 0 for k in dur) and cd.opt <= cd.solve,
+          "profiled DDP: a phase column is not above 0")
+    fsolver = FmpcSolver(make_oscillator_problem(DT),
+                         FmpcConfig(horizon_steps=50, max_iter=5))
+    var = fmpc_variable_reset(50, 2, 1, 3, dtype=torch.float64,
+                              device=device)
+    x0 = torch.tensor([0.0, 1.0], dtype=torch.float64, device=device)
+    reset_counts()
+    fplain = fsolver.solve(0.0, x0, var)
+    counts = read_counts()
+    fprof, fdur = profiled_solve_fmpc(fsolver, 0.0, x0, var)
+    fsame = (torch.equal(fplain.status, fprof.status)
+             and torch.equal(fplain.iters, fprof.iters)
+             and all(torch.equal(getattr(fplain.variable, f),
+                                 getattr(fprof.variable, f))
+                     for f in VARIABLE))
+    n = int(fprof.iters)
+    rows = {k: [round(float(v), 3) for v in fdur[k][1:n + 1]] for k in fdur}
+    print(f"[profiled] FMPC oscillator N=50 fp64: {n} iterations, equal to "
+          f"the untimed solve {fsame}; phase ms a iteration (CUDA events) "
+          f"{rows}; launches of the untimed solve {counts} [{card}]",
+          flush=True)
+    check(fsame, "profiled FMPC parts from the untimed solve")
+    check(all(counts[k] > 0 for k in FMPC_PATH),
+          "profiled FMPC: the solve did not run K8 and K11")
+    check(fdur["coeff"][1] > 0 and min(fdur["backward"][1:n]) > 0,
+          "profiled FMPC: a phase column is not above 0")
+
+
+def phase_examples(device, card, out_dir):
+    """The four examples through their entry points on the card: swingup,
+    constrained and fleet at their defaults (what each prints: the single
+    solve and the closed loop's final pole angle, the constraint's worst
+    value, the fleet's upright share), centroidal_jump's first
+    CENTROIDAL_JUMP_STEPS steps with --profile (each step's planned
+    position within 1.0 of the reference, TestDDPCentroidalMotion.cpp:
+    318)."""
+    os.makedirs(out_dir, exist_ok=True)
+    start = time.perf_counter()
+    res, log = ex_swingup.main(device=device, trace_path=os.path.join(
+        out_dir, "swingup_trace.txt"))
+    secs = time.perf_counter() - start
+    theta = abs(((log.xs[-1][1] + np.pi) % (2 * np.pi)) - np.pi)
+    over = np.abs(log.us[:, 0]) > 15.0
+    # A solve that accepts no full step returns an input whose first stage
+    # is its warm start's, which the forward pass's unclipped feedback may
+    # have left outside the box (the JAX example's loop does so too).
+    print(f"[examples] swingup: {secs:.1f} s; single solve "
+          f"{DDPStatus(int(res.status)).name}, closed loop's final |theta| "
+          f"{theta:.3e} (tol 0.2); applied |u| above the 15 N limit at "
+          f"{int(over.sum())} of {len(over)} steps, at most "
+          f"{float(np.abs(log.us).max())!r} N, iterations there "
+          f"{log.solve_iters[over].tolist()}, statuses "
+          f"{log.solve_status[over].tolist()} [{card}]", flush=True)
+    check(bool(torch.isfinite(res.us).all()) and np.all(np.isfinite(log.xs))
+          and theta < 0.2,
+          "examples: the swing-up went non-finite or did not end upright")
+    start = time.perf_counter()
+    xf, worst_g = ex_constrained.main(device=device)
+    secs = time.perf_counter() - start
+    print(f"[examples] constrained: {secs:.1f} s; final x {xf.tolist()}, "
+          f"worst g {worst_g!r} (tol 0) [{card}]", flush=True)
+    check(worst_g <= 0 and np.all(np.isfinite(xf)),
+          "examples: the constrained loop left the feasible set")
+    start = time.perf_counter()
+    flog, wall = ex_fleet.main(device=device)
+    secs = time.perf_counter() - start
+    print(f"[examples] fleet: {secs:.1f} s ({wall:.2f} s timed) [{card}]",
+          flush=True)
+    check(bool(torch.isfinite(flog.xs).all()), "examples: the fleet went "
+          "non-finite")
+    start = time.perf_counter()
+    rows, errs, _ = ex_centroidal.run(
+        device=device, profile=True, max_steps=CENTROIDAL_JUMP_STEPS,
+        out_path=os.path.join(out_dir, "centroidal_result.txt"),
+        trace_path=os.path.join(out_dir, "centroidal_trace.txt"))
+    secs = time.perf_counter() - start
+    print(f"[examples] centroidal_jump --profile, first {len(rows)} steps: "
+          f"max planned |pos - ref| {max(errs):.3e} (tol 1), iterations "
+          f"{[r[16] for r in rows]}, {secs:.1f} s [{card}]", flush=True)
+    check(len(rows) == CENTROIDAL_JUMP_STEPS and max(errs) < 1.0,
+          "examples: the centroidal jump's planned position left the "
+          "reference")
+
+
+def phase_runtime_and_examples(device, card, out_dir):
+    """The runtime phase in a process of its own (``--phases runtime``),
+    beside the examples phase in this one: both are host-bound loops of
+    small solves (B = 1, the controllers of the examples), and each
+    takes minutes.  The child's lines are printed when it ends; its
+    failure fails this phase."""
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phases", "runtime"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        phase_examples(device, card, out_dir)
+        out, _ = child.communicate(timeout=900)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    print("\n".join(ln for ln in out.splitlines()
+                    if ln.startswith(("[runtime]", "[phase]", "chip_smoke"))),
+          flush=True)
+    check(child.returncode == 0, "the runtime phase failed (its own "
+          "process)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
         epilog="phases: build, kernels, kernels-variants, e2e, e2e-variants, "
                "serving, driver, times, times-variants, centroidal (K1@9x16 "
                "and the centroidal solves), centroidal-driver, second-order, "
-               "cgmres; with --qp-groups: qp-groups, row-groups, "
+               "cgmres, horizon, mesh, serial, profiled, runtime+examples "
+               "(runtime in a process of its own beside examples); "
+               "with --qp-groups: qp-groups, row-groups, "
                "fmpc-groups, fwd-groups; with --layers: layers")
     parser.add_argument("--layers", action="store_true",
                         help="also print where one solve's time goes, per "
@@ -4456,6 +4863,9 @@ def main() -> int:
                              "K1-K3 to its K1, K8, K10 to its K8 and K6, K11 "
                              "to its K6, K11, and time them in turns with "
                              "this one's")
+    parser.add_argument("--phases", metavar="NAME,...",
+                        help="run only these phases (a development run: no "
+                             "kernel record and no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4465,6 +4875,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    examples_dir = os.path.join(kbuild.BUILD_DIR, "examples")
     print(f"[device] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -4481,7 +4892,13 @@ def main() -> int:
               ("centroidal-driver", lambda: phase_centroidal_driver(
                   device, card, args.centroidal_driver)),
               ("second-order", lambda: phase_second_order(device, card)),
-              ("cgmres", lambda: phase_cgmres(device, card, args.layers))]
+              ("cgmres", lambda: phase_cgmres(device, card, args.layers)),
+              ("horizon", lambda: phase_horizon(device, card)),
+              ("mesh", lambda: phase_mesh(device, card)),
+              ("serial", lambda: phase_serial(device, card)),
+              ("profiled", lambda: phase_profiled(device, card)),
+              ("runtime+examples", lambda: phase_runtime_and_examples(
+                  device, card, examples_dir))]
     if args.qp_groups:
         phases.append(("qp-groups", lambda: phase_qp_groups(
             device, card, args.baseline)))
@@ -4493,6 +4910,13 @@ def main() -> int:
             device, card, args.baseline)))
     if args.layers:
         phases.append(("layers", lambda: phase_layers(device, card)))
+    if args.phases:
+        chosen = args.phases.split(",")
+        phases = [(name, fn) for name, fn in phases + [
+            ("runtime", lambda: phase_runtime(device, card)),
+            ("examples", lambda: phase_examples(device, card,
+                                                examples_dir))]
+                  if name in chosen]
     try:
         for name, phase in phases:
             start = time.perf_counter()
@@ -4502,6 +4926,10 @@ def main() -> int:
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    if args.phases:
+        print(f"chip_smoke: ran {[name for name, _ in phases]} only",
+              flush=True)
+        return 0
     record = {"kernels": [{
         "name": k.name, "route": "cuda", "source": k.source,
         "replaces": k.replaces, "launches": k.launches,

@@ -9,8 +9,13 @@ primal-dual interior point, condensed Riccati) on the oscillator and the
 constrained cart-pole, the centroidal model (9 states, 16 ridge forces),
 second-order (full) DDP solves, and the C/GMRES continuation solver
 (``ContinuousProblem``, matrix-free GMRES, the batch-minor fleet path) on
-the semiactive damper and the cart-pole, with the derivative checker and
-the reference's dump formats (``utils/``); with hand-written CUDA kernels
+the semiactive damper and the cart-pole, with the derivative checker,
+the reference's dump formats, the ``print_level`` gate, timing, profiled
+solves and trace plots (``utils/``), the parallel-in-time Riccati
+(``solvers/parallel_riccati.py``), the batch and the horizon split over
+``torch.distributed`` ranks (``parallel/``), the native multi-rate
+executor (``runtime/``) and the examples (``examples/``); with
+hand-written CUDA kernels
 for Hopper beside
 their plain torch-op versions: the sweep-fed Riccati backward in three
 layouts (``csrc/ddp_backward.cuh``, ``_chunked.cuh``, ``_packed.cuh``)

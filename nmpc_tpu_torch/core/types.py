@@ -48,9 +48,11 @@ class DDPConfig:
       problem the generator rejects raises ``TileEvalError``;
     - ``"auto"``: the rule in ``solvers/ddp.py::_resolve_backward_impl``.
 
-    ``ls_mode`` ``"auto"|"head"|"sweep"`` picks which alphas are evaluated
-    (identical accept decisions in every mode); ``"serial"`` is not ported
-    yet.  ``forward_impl`` ``"scan"`` runs the plain rollouts, ``"fused"``
+    ``ls_mode`` ``"auto"|"head"|"sweep"|"serial"`` picks which alphas are
+    evaluated (identical accept decisions in every mode): ``"serial"`` is
+    the reference's early-exit loop, one alpha a trip for the lanes still
+    searching.  ``print_level`` gates ``DDPSolver.solve``'s diagnostics
+    (``utils/logging.py``).  ``forward_impl`` ``"scan"`` runs the plain rollouts, ``"fused"``
     the CUDA rollout kernels on generated dynamics and costs
     (``kernels/ddp_forward_remat.py``; plain versions on CPU tensors),
     ``"auto"`` the rule in ``solvers/ddp.py::_resolve_forward_impl``.
@@ -203,8 +205,8 @@ class FmpcStatus(enum.IntEnum):
 class FmpcConfig:
     """FMPC solver configuration (reference ``FmpcSolver.h:58-89``).
 
-    ``print_level`` is carried for config parity and not acted on yet
-    (ROADMAP A12).  ``max_line_search_iter`` bounds the l1-merit Armijo
+    ``print_level`` gates ``FmpcSolver.solve``'s diagnostics
+    (``utils/logging.py``).  ``max_line_search_iter`` bounds the l1-merit Armijo
     backtracking (the reference stops at alpha_s < 1e-10).
 
     ``backward_impl`` selects the condensed Riccati backward of the

@@ -18,9 +18,13 @@ Host control flow: the JAX ``lax.while_loop`` / ``lax.cond`` constructs
 become Python control flow that reads a device value (one host sync) at
 each decision: the iteration loop's any-lane-running test, each pass of
 the backward retry loop, the head path's tail test, in ``ls_mode``
-"auto" the hysteresis predictor's accept-all-alpha[0] flag and, on the
-plain boxed backward, each trip of the QP's iteration and Armijo loops.
-``DDPSolver.host_syncs`` holds the count for the last solve.
+"auto" the hysteresis predictor's accept-all-alpha[0] flag, in
+``ls_mode`` "serial" each trip of the alpha loop and, on the plain boxed
+backward, each trip of the QP's iteration and Armijo loops.
+``DDPSolver.host_syncs`` holds the count for the last solve.  The
+``print_level`` diagnostics of the JAX single solve
+(``nmpc_tpu/solvers/ddp.py:491-505``) come from ``DDPSolver.solve``
+only; a message read counts as a host sync, and level 0 reads nothing.
 """
 
 from __future__ import annotations
@@ -50,15 +54,31 @@ from nmpc_tpu_torch.solvers.stages import (
     _deriv_dtype_of, _derivative_sweep_lanes, _forward_costs_lanes,
     _forward_selected_lanes, _lanes, _stage_times, _step_lanes,
     _terminal_quad_lanes)
+from nmpc_tpu_torch.utils.logging import log, log_when
+from nmpc_tpu_torch.utils.timing import phase
 
 _RUNNING = int(DDPStatus.RUNNING)
 
 
-def _check_ported(config: DDPConfig):
-    """Raise for the configurations this port does not run yet."""
-    if config.ls_mode == "serial":
-        raise NotImplementedError(
-            "ls_mode='serial' is not ported yet: ROADMAP A4 (after A9)")
+class HostReads:
+    """The solve's counted host reads of device values: ``host(flag)``
+    reads a bool, ``host.item(value)`` a scalar; ``n`` counts both.
+    ``ls_trips`` holds the serial line search's alpha trips of each
+    iteration."""
+
+    def __init__(self):
+        self.n = 0
+        self.ls_trips = []
+
+    def __call__(self, flag) -> bool:
+        self.n += 1
+        return bool(flag)
+
+    def item(self, value):
+        if not isinstance(value, torch.Tensor):
+            return value
+        self.n += 1
+        return value.item()
 
 
 class DDPSolver:
@@ -69,12 +89,11 @@ class DDPSolver:
     ``"chunked"`` (K2) or ``"packed"`` (K3, after a pack of the stage
     fields); the JAX package's ``packed=`` argument and ``NMPC_PALLAS_DMA``
     switch (``nmpc_tpu/kernels/ddp_backward_pallas.py:1204-1234``).  The
-    three compute the same numbers.  ``config.print_level`` is carried for
-    config parity and not acted on yet (ROADMAP A12)."""
+    three compute the same numbers.  ``ls_trips`` holds, for the last
+    solve with ``ls_mode="serial"``, the alpha trips of each iteration."""
 
     def __init__(self, problem: Problem, config: DDPConfig = DDPConfig(),
                  backward_dma: str = "stage"):
-        _check_ported(config)
         if backward_dma not in DMA_MODES:
             raise ValueError(f"backward_dma must be one of {DMA_MODES}, got "
                              f"{backward_dma!r}")
@@ -86,23 +105,31 @@ class DDPSolver:
         self.config = config
         self.backward_dma = backward_dma
         self.host_syncs = 0   # host reads of device values, last solve
+        self.ls_trips = []
+
+    def _run(self, t0, x0s, us_inits, timer=None, single=False):
+        host = HostReads()
+        res = _solve_stacked(self.problem, self.config, t0, x0s, us_inits,
+                             self.backward_dma, host=host, timer=timer,
+                             single=single)
+        self.host_syncs, self.ls_trips = host.n, host.ls_trips
+        return res
 
     def solve_batch(self, t0, x0s, us_inits) -> DDPResult:
         """Batched solve: x0s [B, nx], us_inits [B, N, nu]; the result
         carries a leading batch axis."""
-        res, self.host_syncs = _solve_stacked(self.problem, self.config, t0,
-                                              x0s, us_inits,
-                                              self.backward_dma)
-        return res
+        return self._run(t0, x0s, us_inits)
 
-    def solve(self, t0, x0, us_init) -> DDPResult:
+    def solve(self, t0, x0, us_init, timer=None) -> DDPResult:
         """One solve (reference ``DDPSolver::solve``): ``solve_batch`` at
-        B=1, squeezed."""
+        B=1, squeezed, with the ``print_level`` diagnostics; ``timer``
+        (``utils/timing.py::PhaseTimer``) records its phases."""
         N, nu = self.config.horizon_steps, self.problem.input_dim
         if tuple(us_init.shape) != (N, nu):
             raise ValueError(f"initial_u_list must have shape {(N, nu)}, "
                              f"got {tuple(us_init.shape)}")
-        res = self.solve_batch(t0, x0[None], us_init[None])
+        res = self._run(t0, x0[None], us_init[None], timer=timer,
+                        single=True)
         first = lambda a: a[0]
         return DDPResult(
             **{f.name: first(getattr(res, f.name))
@@ -309,12 +336,19 @@ def _ratio(actual, expected):
 
 
 def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init,
-                   backward_dma="stage"):
-    """Batched DDP solve.  Returns (DDPResult, host syncs).
+                   backward_dma="stage", host=None, timer=None,
+                   single=False):
+    """Batched DDP solve; returns the DDPResult.  ``host`` (a
+    :class:`HostReads`) counts the host reads.
 
     Per-lane control flow reproduces the JAX ``_solve_stacked`` exactly:
     finished lanes are frozen, and status transitions fire only from
-    RUNNING."""
+    RUNNING.  ``timer`` (``utils/timing.py::PhaseTimer``) records the
+    initial rollout (``"setup"``, row 0) and each iteration's derivative
+    sweep, backward pass and line search (``"derivative"``,
+    ``"backward"``, ``"forward"``, row ``it``); without it the solve adds
+    no event and no synchronization.  ``single`` (B = 1, from
+    ``DDPSolver.solve``) emits the ``print_level`` messages."""
     dtype, device = x0s.dtype, x0s.device
     B = x0s.shape[0]
     N = config.horizon_steps
@@ -322,12 +356,8 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init,
     if tuple(us_init.shape) != (B, N, nu):
         raise ValueError(f"initial_u_list must have shape {(B, N, nu)}, "
                          f"got {tuple(us_init.shape)}")
-    n_syncs = 0
-
-    def host(flag):
-        nonlocal n_syncs
-        n_syncs += 1
-        return bool(flag)
+    host = HostReads() if host is None else host
+    level = config.print_level if single else 0
 
     t0 = torch.as_tensor(t0, dtype=dtype, device=device)
     n_trace = config.max_iter + 1
@@ -342,7 +372,9 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init,
     hyst = max(1, config.ls_auto_hysteresis)
 
     us = us_init.permute(1, 2, 0).contiguous()            # [N, nu, B]
-    xs, costs = _rollout_lanes(problem, config, t0, x0s.T.contiguous(), us)
+    with phase(timer, "setup", 0):
+        xs, costs = _rollout_lanes(problem, config, t0, x0s.T.contiguous(),
+                                   us)
     cdtype = _ls_cost_dtype(problem, config, t0, xs, us)
     fused = _resolve_forward_impl(config, problem, dtype, device,
                                   cdtype) == "fused"
@@ -395,25 +427,27 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init,
         # Steps 1+2: derivative sweep, backward pass with lambda retry.
         # The remat kernel takes the trajectory: only the terminal
         # expansion is computed here, the stage derivatives in the kernel.
-        if impl == "remat":
-            VxT, VxxT = (a.contiguous() for a in _terminal_quad_lanes(
-                problem, config, t0, xs))
-            xs_b, us_b = xs, us
+        with phase(timer, "derivative", it):
+            if impl == "remat":
+                VxT, VxxT = (a.contiguous() for a in _terminal_quad_lanes(
+                    problem, config, t0, xs))
+                xs_b, us_b = xs, us
 
-            def backward_fn(lam_):
-                return backward_remat(problem, config, t0, xs_b, us_b, VxT,
-                                      VxxT, lam_, boxed=boxed, host=host)
-        else:
-            D, VxT, VxxT = _derivative_sweep_lanes(problem, config, t0, xs,
-                                                   us)
-            D2 = StackedSecond(*D[7:10]) if second else None
-            bounds = StackedBounds(*D[-3:]) if boxed else None
-            backward_fn = _make_backward_fn(config, impl,
-                                            StackedDerivs(*D[:7]), VxT, VxxT,
-                                            bounds=bounds, D2=D2, host=host,
-                                            dma=backward_dma)
-        lam_b, dlam_b, ks_b, Ks_b, dV, bw_failed = _backward_retry(
-            config, backward_fn, lam, dlam, ks, Ks, running, host)
+                def backward_fn(lam_):
+                    return backward_remat(problem, config, t0, xs_b, us_b,
+                                          VxT, VxxT, lam_, boxed=boxed,
+                                          host=host)
+            else:
+                D, VxT, VxxT = _derivative_sweep_lanes(problem, config, t0,
+                                                       xs, us)
+                D2 = StackedSecond(*D[7:10]) if second else None
+                bounds = StackedBounds(*D[-3:]) if boxed else None
+                backward_fn = _make_backward_fn(
+                    config, impl, StackedDerivs(*D[:7]), VxT, VxxT,
+                    bounds=bounds, D2=D2, host=host, dma=backward_dma)
+        with phase(timer, "backward", it):
+            lam_b, dlam_b, ks_b, Ks_b, dV, bw_failed = _backward_retry(
+                config, backward_fn, lam, dlam, ks, Ks, running, host)
         new_status = torch.where(bw_failed & running,
                                  int(DDPStatus.FAIL_BACKWARD_LAMBDA), status)
 
@@ -466,16 +500,53 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init,
             return (f_sel(ks_b, Ks_b, alphas[out[0]])[:3] + out[:-1]
                     + (False,))
 
-        if A <= 1 or config.ls_mode == "head":
-            ls_out = head_path()
-        elif config.ls_mode == "sweep":
-            ls_out = sweep_path()
-        else:   # "auto": accept-history hysteresis carried across iterations
-            ls_out = head_path() if ls_consec >= hyst else sweep_path()
-            all_a0 = ls_out[-1]
-            if isinstance(all_a0, torch.Tensor):
-                all_a0 = host(all_a0)
-            ls_consec = min(ls_consec + 1, hyst) if all_a0 else 0
+        def serial_path():
+            """The reference's serial early-exit alpha loop
+            (DDPSolver.hpp:242-265), batched as the JAX ``serial_path``
+            (nmpc_tpu/solvers/ddp.py:1133-1192): each trip rolls out one
+            alpha for every lane, trajectory included, and the lanes
+            still searching take it on their first accept.  One host read
+            a trip (the loop's test), and one that ends the loop."""
+            ex_w = expected.to(wdtype)
+            idx = torch.full((B,), A - 1, dtype=torch.long, device=device)
+            accepted = torch.zeros((B,), dtype=torch.bool, device=device)
+            sxs, sus, scosts = xs, us, costs
+            act = torch.zeros((B,), dtype=wdtype, device=device)
+            rat = torch.zeros_like(act)
+            exp_ = torch.zeros((B,), dtype=dtype, device=device)
+            k = 0
+            while host(torch.any(do_forward & ~accepted)) and k < A:
+                c_xs, c_us, c_costs, c_sum = f_sel(ks_b, Ks_b,
+                                                   alphas[k].expand(B))
+                actual_k = (cost_old - c_sum).to(wdtype)
+                ratio_k = _ratio(actual_k, ex_w[k])
+                rec = do_forward & ~accepted     # the lanes still searching
+                sxs = torch.where(rec, c_xs, sxs)
+                sus = torch.where(rec, c_us, sus)
+                scosts = torch.where(rec, c_costs, scosts)
+                act = torch.where(rec, actual_k, act)
+                exp_ = torch.where(rec, expected[k], exp_)
+                rat = torch.where(rec, ratio_k, rat)
+                idx = torch.where(rec, k, idx)
+                accepted = accepted | (rec & (ratio_k > thre))
+                k += 1
+            host.ls_trips.append(k)
+            all_a0 = ~torch.any(do_forward & ~(accepted & (idx == 0)))
+            return (sxs, sus, scosts, idx, accepted, act, exp_, rat, all_a0)
+
+        with phase(timer, "forward", it):
+            if A <= 1 or config.ls_mode == "head":
+                ls_out = head_path()
+            elif config.ls_mode == "sweep":
+                ls_out = sweep_path()
+            elif config.ls_mode == "serial":
+                ls_out = serial_path()
+            else:   # "auto": accept-history hysteresis across iterations
+                ls_out = head_path() if ls_consec >= hyst else sweep_path()
+                all_a0 = ls_out[-1]
+                if isinstance(all_a0, torch.Tensor):
+                    all_a0 = host(all_a0)
+                ls_consec = min(ls_consec + 1, hyst) if all_a0 else 0
         (sel_xs, sel_us, sel_costs, idx, fw_success, actual_sel,
          expected_sel, ratio_sel, _) = ls_out
 
@@ -520,6 +591,19 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init,
         trow(trace.cost_update_expected, expected_sel, do_forward)
         trow(trace.cost_update_ratio, ratio_sel, do_forward)
 
+        if level:   # diagnostics (reference DDPSolver.hpp:106-109,198-207)
+            log(level, 3, "[DDP] iter {it}: cost {cost:.6e} lambda "
+                "{lam:.3e} alpha {alpha:.3e} k_rel_norm {krn:.3e}",
+                read=host.item, it=it, cost=costs.sum(0)[0], lam=lam[0],
+                alpha=alphas[idx][0], krn=k_rel_norm[0])
+            log_when(level, 1, bw_failed[0], "[DDP/Warning] Failure in "
+                     "backward pass: lambda exceeded lambda_max (iter {it})",
+                     read=host.item, it=it)
+            log_when(level, 1,
+                     new_status[0] == int(DDPStatus.FAIL_FORWARD_LAMBDA),
+                     "[DDP/Warning] Failure in forward pass: lambda exceeded "
+                     "lambda_max (iter {it})", read=host.item, it=it)
+
         if it >= config.max_iter:
             new_status = torch.where(new_status == _RUNNING,
                                      int(DDPStatus.MAX_ITER_REACHED),
@@ -544,4 +628,4 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init,
         dlam=dlam,
         trace=trace,
     )
-    return result, n_syncs
+    return result

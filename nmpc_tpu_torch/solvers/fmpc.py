@@ -21,6 +21,9 @@ Host control flow: the JAX ``lax.while_loop``s become Python loops that
 read one device flag (one host sync) per trip: the iteration loop's
 any-lane-running test and, with ``enable_line_search``, each Armijo
 halving.  ``FmpcSolver.host_syncs`` holds the count for the last solve.
+The ``print_level`` diagnostics of the JAX single solve
+(``nmpc_tpu/solvers/fmpc.py:623-635``) come from ``FmpcSolver.solve``
+only; a message read counts as a host sync, and level 0 reads nothing.
 The reference's negativity clamp after a step is a no-op (it clamps at
 ``lowest()``, ``FmpcSolver.hpp:813-829``), so slightly negative s or nu
 are kept, as in the JAX package.
@@ -48,7 +51,10 @@ from nmpc_tpu_torch.kernels.fmpc_forward import (forward_fmpc_deltas_fused,
                                                  forward_fmpc_deltas_plain,
                                                  forward_kernel_supports)
 from nmpc_tpu_torch.kernels.linalg import _inv_bl
+from nmpc_tpu_torch.solvers.ddp import HostReads
 from nmpc_tpu_torch.solvers.stages import _lanes, _stage_times
+from nmpc_tpu_torch.utils.logging import log, log_when
+from nmpc_tpu_torch.utils.timing import phase
 
 _BARRIER_EPS_INIT = 1e-4   # FmpcSolver.h:414
 _BARRIER_EPS_MIN = 1e-8    # FmpcSolver.hpp:396
@@ -68,8 +74,7 @@ class FmpcSolver:
     ``nmpc_tpu/kernels/fmpc_backward_pallas.py:747-751``) or ``"packed"``
     (K10, between a pack and an unpack); the JAX package's
     ``NMPC_FMPC_PALLAS`` and ``NMPC_PALLAS_PACKED`` switches.  The three
-    compute the same numbers.  ``config.print_level`` is carried for
-    config parity and not acted on yet (ROADMAP A12)."""
+    compute the same numbers."""
 
     def __init__(self, problem: Problem, config: FmpcConfig = FmpcConfig(),
                  backward_variant: str = "stream"):
@@ -89,21 +94,29 @@ class FmpcSolver:
         """Batched solve: x0s [B, nx], ``variables`` the warm starts with a
         leading batch axis, barrier_epss [B]; the result carries a leading
         batch axis."""
-        res, self.host_syncs = _solve_batched(self.problem, self.config, t0,
-                                              x0s, variables, barrier_epss,
-                                              self.backward_variant)
+        return self._run(t0, x0s, variables, barrier_epss)
+
+    def _run(self, t0, x0s, variables, barrier_epss, timer=None,
+             single=False):
+        host = HostReads()
+        res = _solve_batched(self.problem, self.config, t0, x0s, variables,
+                             barrier_epss, self.backward_variant, host=host,
+                             timer=timer, single=single)
+        self.host_syncs = host.n
         return res
 
     def solve(self, t0, x0, variable: FmpcVariable,
-              barrier_eps=_BARRIER_EPS_INIT) -> FmpcResult:
+              barrier_eps=_BARRIER_EPS_INIT, timer=None) -> FmpcResult:
         """One solve (reference ``FmpcSolver::solve``,
-        ``FmpcSolver.hpp:158-257``): ``solve_batch`` at B=1, squeezed.
-        The JAX ``_solve`` takes an LU solve where the batched path takes
-        the Gauss-Jordan inverse on a non-PD stage; both solve G x = r."""
+        ``FmpcSolver.hpp:158-257``): ``solve_batch`` at B=1, squeezed,
+        with the ``print_level`` diagnostics; ``timer``
+        (``utils/timing.py::PhaseTimer``) records its phases.  The JAX
+        ``_solve`` takes an LU solve where the batched path takes the
+        Gauss-Jordan inverse on a non-PD stage; both solve G x = r."""
         eps = torch.as_tensor(barrier_eps, dtype=x0.dtype,
                               device=x0.device).reshape(1)
-        res = self.solve_batch(t0, x0[None], _map(lambda a: a[None],
-                                                  variable), eps)
+        res = self._run(t0, x0[None], _map(lambda a: a[None], variable),
+                        eps, timer=timer, single=True)
         first = lambda a: a[0]
         return FmpcResult(
             status=first(res.status), iters=first(res.iters),
@@ -482,8 +495,10 @@ def _resolve_impls(config: FmpcConfig, problem: Problem, dtype,
 
 def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
                    variables: FmpcVariable, barrier_eps0s,
-                   backward_variant="stream"):
-    """Batched FMPC solve.  Returns (FmpcResult, host syncs).
+                   backward_variant="stream", host=None, timer=None,
+                   single=False):
+    """Batched FMPC solve; returns the FmpcResult.  ``host`` (a
+    ``HostReads``) counts the host reads.
 
     Check-first loop (``nmpc_tpu/solvers/fmpc.py:1059-1137``): the
     (barrier, coefficients, KKT) check runs before the loop and again at
@@ -492,7 +507,13 @@ def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
     (``FmpcSolver.hpp:443-448``).  Per-lane control flow follows JAX's
     ``_solve_batched`` exactly: a lane that is not running is frozen, a
     checking lane writes trace column ``steps + 1`` and takes eps2, the
-    others keep their eps."""
+    others keep their eps.  ``timer`` (``utils/timing.py::PhaseTimer``)
+    records the checks (``"coeff"``: the barrier update, coefficients and
+    KKT error, row 1 and then row ``steps + 1``) and each step's
+    ``"backward"``, ``"forward"`` and ``"update"`` (row ``steps``);
+    without it the solve adds no event and no synchronization.
+    ``single`` (B = 1, from ``FmpcSolver.solve``) emits the
+    ``print_level`` messages."""
     dtype, device = x0s.dtype, x0s.device
     B = x0s.shape[0]
     N = config.horizon_steps
@@ -504,12 +525,8 @@ def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
         if got != shape:
             raise ValueError(f"variables.{name} must have shape {shape}, "
                              f"got {got}")
-    n_syncs = 0
-
-    def host(flag):
-        nonlocal n_syncs
-        n_syncs += 1
-        return bool(flag)
+    host = HostReads() if host is None else host
+    level = config.print_level if single else 0
 
     t0 = torch.as_tensor(t0, dtype=dtype, device=device)
     ts = _stage_times(problem, t0, N)
@@ -567,7 +584,8 @@ def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
         kkt = _kkt_error_bm(x0_b, var, co, torch.zeros_like(eps), gms)
         return co, kkt, eps
 
-    co, kkt1, eps1 = check(var, eps)
+    with phase(timer, "coeff", 1):
+        co, kkt1, eps1 = check(var, eps)
     status = torch.where(kkt1 <= config.kkt_error_thre,
                          int(FmpcStatus.SUCCEEDED), _CONTINUED)
     status = torch.where(ws_valid, status,
@@ -585,14 +603,17 @@ def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
     while steps < config.max_iter and host(torch.any(status == _CONTINUED)):
         steps += 1
         running = status == _CONTINUED
-        ks_b, Ks_b, ss_vec, Ps, bw_ok, bw_finite = backward_fn(
-            co, var.ss, var.nus, eps)
+        with phase(timer, "backward", steps):
+            ks_b, Ks_b, ss_vec, Ps, bw_ok, bw_finite = backward_fn(
+                co, var.ss, var.nus, eps)
         bw_good = bw_ok & bw_finite
-        delta, fw_finite = _forward_bm(problem, config, co, var, x0_b, ks_b,
-                                       Ks_b, ss_vec, Ps, eps, gms,
-                                       fused=fw_impl == "fused")
-        new_var, up_ok = _update_bm(problem, config, t0, x0_b, co, var,
-                                    delta, eps, gms, host=host)
+        with phase(timer, "forward", steps):
+            delta, fw_finite = _forward_bm(problem, config, co, var, x0_b,
+                                           ks_b, Ks_b, ss_vec, Ps, eps, gms,
+                                           fused=fw_impl == "fused")
+        with phase(timer, "update", steps):
+            new_var, up_ok = _update_bm(problem, config, t0, x0_b, co, var,
+                                        delta, eps, gms, host=host)
 
         # precedence: backward over forward over update (fmpc.py:1112-1115)
         step_status = torch.full((B,), _CONTINUED, dtype=torch.int32,
@@ -613,7 +634,8 @@ def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
         Ks = torch.where(take_gains, Ks_b, Ks)
 
         # the next check, per lane, gated by the iteration cap
-        co2, kkt2, eps2 = check(var, eps)
+        with phase(timer, "coeff", steps + 1):
+            co2, kkt2, eps2 = check(var, eps)
         do_check = advance & (iters < config.max_iter)
         iters = torch.where(do_check, iters + 1, iters)
         status = torch.where(do_check & (kkt2 <= config.kkt_error_thre),
@@ -626,6 +648,16 @@ def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
         if steps + 1 <= config.max_iter:
             trace[:, steps + 1] = torch.where(do_check, kkt2,
                                               trace[:, steps + 1])
+
+        if level:   # diagnostics (reference FmpcSolver.h:60-61 gate)
+            log(level, 3, "[FMPC] iter {it}: kkt_error {kkt:.6e} "
+                "barrier_eps {eps:.3e}", read=host.item, it=iters[0],
+                kkt=kkt[0], eps=eps[0])
+            for bad, what in ((~bw_good, "backward pass"),
+                              (~fw_finite, "forward pass"),
+                              (~up_ok, "update")):
+                log_when(level, 1, bad[0], f"[FMPC/Warning] Error in {what} "
+                         "(iter {it})", read=host.item, it=iters[0])
 
     status = torch.where(status == _CONTINUED,
                          int(FmpcStatus.MAX_ITERATION_REACHED), status)
@@ -643,4 +675,4 @@ def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
                               device=device).repeat(B, 1),
             kkt_error=trace),
     )
-    return result, n_syncs
+    return result

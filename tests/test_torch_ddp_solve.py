@@ -179,10 +179,12 @@ def test_wrong_shape_us_init_names_expected_shape():
     ({"forward_impl": "fused"}, "B2"),
 ])
 def test_unported_options_raise(change, item):
-    """Options still to port raise naming their ROADMAP item.  The remat
-    backward (B3) and the fused rollouts (B2) are ported: they construct
-    and, on CPU tensors, solve through their plain versions exactly like
-    the default path.  Boxed DDP (A6) is ported: with limits that never
+    """Options once left to port, each named by its ROADMAP item; every
+    one is ported now and none raises.  The remat backward (B3), the fused
+    rollouts (B2) and the serial line search (A4) construct and, on CPU
+    tensors, solve exactly like the default path (the serial loop takes
+    the same accept decisions from the same cost sums).  Boxed DDP (A6)
+    is ported: with limits that never
     bind it takes the unboxed solve's decisions (statuses, iterations,
     alphas equal; costs within 1e-12 relative).  Its QP keeps the warm
     start (the later stage's k) where the gradient there is below
@@ -203,10 +205,6 @@ def test_unported_options_raise(change, item):
                                    ref.trace.cost.numpy(), rtol=1e-12)
         np.testing.assert_allclose(got.us.numpy(), ref.us.numpy(), rtol=0,
                                    atol=1e-4)
-        return
-    if item not in ("B2", "B3"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            DDPSolver(make_cartpole_problem(DT), DDPConfig(**change))
         return
     got = DDPSolver(make_cartpole_problem(DT), dataclasses.replace(
         cfg, **change)).solve_batch(0.0, torch.as_tensor(x0s),
