@@ -98,9 +98,11 @@ Phases, one line each (a failed phase exits non-zero):
    3 prints the bipedal config's for each ``backward_dma``);
 6. the slice of C/GMRES and the centroidal model: K1@9x16 on centroidal
    sweep data (B=256, N=100, from t0=1.3 across the flight phase, both
-   reg_types, fp32 and fp64, a non-PD and a NaN lane) bit for bit against
-   its plain version on the card host's CPU (the plain version on the
-   card, which reorders its sums, beside it), and timed beside its bound;
+   reg_types, fp32 and fp64, a non-PD and a NaN lane; and its first 37
+   lanes, and lane 0 alone) bit for bit against its plain version on the
+   card host's CPU (the plain version on the card, which reorders its
+   sums, beside it), and timed beside its bound at B=256 and B=1, fp32
+   and fp64 (the build phase holds its unit's ptxas spills to 0);
    ``solve_batch`` of the centroidal model (B=256, N=100, 3 iterations)
    through ``auto`` (K1@9x16, counted) and the plain path, fp64 (statuses,
    iterations, u within 1e-8) and fp32 (u and cost within ``E2E_U_NORM``
@@ -146,7 +148,11 @@ Phases, one line each (a failed phase exits non-zero):
    and fp64, both reg_types, the headline, bipedal and tick shapes, a
    ragged B and N and (8, 4); timed in turns with the baseline's (K5 at
    the headline and tick shapes, K1, K2, K3 at the headline, bipedal and
-   tick shapes with the pack), with ptxas' report of each; then K8 and K10
+   tick shapes with the pack), with ptxas' report of each; then
+   (``wide-groups``) K1@9x16 at 8, 16 and 32 threads per lane and the
+   baseline's, each with its nvcc seconds and ptxas' report, held bit for
+   bit to the plain version on the card host's CPU at B=256, 37 and 1,
+   fp32 and fp64, and timed in turns at B=256 and 1; then K8 and K10
    with 1, 2, 4 and 8 threads per lane at (4, 1, 4), 1, 2 and 4 at (2, 1,
    3), 1 and 2 at (2, 2, 2), each with the group's rows of P A, P B and P
    x_bar exchanged and computed by every thread, and K9 at each of those
@@ -308,8 +314,8 @@ GOLDEN_TOL = 1e-8
 # the last on the card.
 PAIRS = (("pallas", "scan"), ("pallas", "fused"), ("remat", "fused"))
 # The card's published peaks (H100 SXM data sheet, at 700 W): device
-# memory and float32 outside the tensor cores.
-PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
+# memory, float32 and float64 outside the tensor cores.
+PEAK_BYTES_S, PEAK_FP32_S, PEAK_FP64_S = 3.35e12, 67e12, 34e12
 # A 2x2 QP that takes 7 projected-Newton iterations from x0 = 0 under the
 # default BoxQPConfig (more than its unroll_iter = 4), planted in one lane
 # of K4's input: (H, g, lower, upper) with u = 0.
@@ -357,7 +363,7 @@ KERNELS = {
                  "nmpc_tpu/kernels/ddp_backward_pallas.py:867"),
     "K1@9x16": Kernel("ddp_backward_fused@9x16", backward_fused,
                       "wide_launches",
-                      "nmpc_tpu_torch/csrc/ddp_backward.cuh",
+                      "nmpc_tpu_torch/csrc/ddp_backward_wide.cuh",
                       "nmpc_tpu/kernels/ddp_backward_pallas.py:867"),
     "K2": Kernel("ddp_backward_chunked", backward_fused, "chunked_launches",
                  "nmpc_tpu_torch/csrc/ddp_backward_chunked.cuh",
@@ -441,6 +447,13 @@ CENTROIDAL_FORCE = (0.0, 1000.0)
 # card.  12 stages from t0 = 1.3 still cross the flight phase.
 CENTROIDAL_BOXED_N = 12
 WIDE_K1 = (9, 16)
+# K1@9x16's batches: the centroidal shape, a ragged 37 and run_mpc's
+# one controller; the lanes the plain version on the card host's CPU is
+# padded to (plain_on_host), and the threads per lane --qp-groups times
+# (phase_wide_groups).
+WIDE_K1_BATCHES = (CENTROIDAL[0], 37, 1)
+PLAIN_LANES = 256
+WIDE_GROUPS = (8, 16, 32)
 # The reference's centroidal driver (tests/test_centroidal_and_utils.py:
 # 22-39): one controller, fp64, N=100, max_iter=500, run_mpc from t=0 to
 # 3.0 s: the final CoM within 1e-2 of the reference, momenta below 1.0,
@@ -740,6 +753,17 @@ def ptxas_report(lib):
                       if "registers" in ln or "spill" in ln)
 
 
+def spill_bytes(lib):
+    """(spill stores, spill loads) in bytes over the kernels of a built
+    library, from ptxas' report beside it; None for a cached build."""
+    log = lib.with_suffix(".log")
+    if not log.exists():
+        return None
+    pairs = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       log.read_text())
+    return (sum(int(s) for s, _ in pairs), sum(int(ld) for _, ld in pairs))
+
+
 def phase_build():
     """Generate every unit (tracing runs one at a time), then start one
     nvcc per unit, all together."""
@@ -808,6 +832,12 @@ def phase_build():
     for (name, _, flags), (lib, _) in zip(units, built):
         print(f"[build] ptxas {lib.name}{' ' + ' '.join(flags) if flags else ''}"
               f": {ptxas_report(lib)}", flush=True)
+    for (name, _, _), (lib, _) in zip(units, built):
+        if name in wide_units:
+            spills = spill_bytes(lib)
+            print(f"[build] K1@9x16 {lib.name}: {ptxas_report(lib)}; spill "
+                  f"stores / loads {spills} bytes", flush=True)
+            check(spills in (None, (0, 0)), f"K1@9x16 ({lib.name}) spills")
     return secs
 
 
@@ -1515,10 +1545,12 @@ def program_ops(problem, kind, name, nx, nu):
     return sum(v.op not in ("arg", "cast") for v in prog.live(outs))
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, dtype=torch.float32):
     """(least time in ms, which term bounds it): bytes over the card's
-    memory rate, float32 operations over its float32 peak."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+    memory rate, operations over its peak for ``dtype`` (float32 or
+    float64, outside the tensor cores)."""
+    peak = PEAK_FP64_S if dtype == torch.float64 else PEAK_FP32_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2009,6 +2041,94 @@ def phase_row_groups(device, card, baseline):
           f"{per_stage[HEADLINE[0]][0]:.3f} us at B={HEADLINE[0]}; G={G4} "
           f"{per_stage[B1][1]:.3f} / {per_stage[HEADLINE[0]][1]:.3f} us "
           f"[{card}]", flush=True)
+
+
+def phase_wide_groups(device, card, baseline):
+    """K1@9x16 built at every group size of WIDE_GROUPS and, with
+    ``baseline`` (another checkout's root), from that checkout's headers
+    and unit text (its K1 at (9, 16)): all at once, with each unit's nvcc
+    seconds and ptxas' report.  Every one held bit for bit to the plain
+    version on the card host's CPU on its ok lanes with the same ok mask
+    (hold_wide_k1), and the builds to each other NaN lanes included, at
+    B=256, 37 and 1, fp32 and fp64, both reg_types; then timed in turns at
+    B=256 and B=1 (one lane: the chain floor, and run_mpc's batch),
+    fp32 and fp64, reg_type 1, on the data without its non-PD and NaN
+    lanes."""
+    nx, nu = WIDE_K1
+    N = CENTROIDAL[1]
+    fp32, fp64 = torch.float32, torch.float64
+    units, keys = [], []
+    for dtype in (fp32, fp64):
+        for g in WIDE_GROUPS:
+            keys.append((dtype, f"G={g}"))
+            units.append((k1.unit_name(nx, nu, dtype, "stage", g),
+                          k1.unit_source(nx, nu, dtype, "stage", g),
+                          k1.UNIT_FLAGS, kbuild.CSRC))
+    if baseline:
+        pk = parent_module(baseline, "ddp_backward_fused")
+        for dtype in (fp32, fp64):
+            keys.append((dtype, "baseline"))
+            units.append((k1.unit_name(nx, nu, dtype) + "_parent",
+                          pk.unit_source(nx, nu, dtype), pk.UNIT_FLAGS,
+                          Path(baseline).resolve() / "nmpc_tpu_torch"
+                          / "csrc"))
+
+    def compile_unit(unit):
+        begin = time.perf_counter()
+        lib = kbuild.build_generated(*unit)
+        return lib, time.perf_counter() - begin
+
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        built = list(pool.map(compile_unit, units))
+    print(f"[wide-groups] {len(built)} units in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    fns = {}
+    for (dtype, label), (_, _, _, csrc), (lib, secs) in zip(keys, units,
+                                                           built):
+        print(f"[wide-groups] K1@9x16 {str(dtype)[6:]} {label} {lib.name} "
+              f"(headers {os.path.relpath(csrc, ROOT)}): nvcc {secs:.1f} s; "
+              f"{ptxas_report(lib)}; spill stores / loads "
+              f"{spill_bytes(lib)} bytes", flush=True)
+        mod = pk if label == "baseline" else k1
+        fns[dtype, label] = (mod, mod.bind(kbuild.load(lib)))
+    for dtype in (fp32, fp64):
+        for B in WIDE_K1_BATCHES:
+            for reg_type in (1, 2):
+                cfg, D, VxT, VxxT, lam = wide_k1_case(B, dtype, device,
+                                                      reg_type)
+                fields, ld = k1.tma_fields(D)
+                calls = {label: functools.partial(
+                    mod.launch, fn, "stage", cfg, N, nx, nu, fields, VxT,
+                    VxxT, lam, ld)
+                    for (dt, label), (mod, fn) in fns.items() if dt == dtype}
+                outs = {label: fn() for label, fn in calls.items()}
+                torch.cuda.synchronize()
+                host = plain_on_host(cfg, D, VxT, VxxT, lam)
+                label = (f"K1@9x16 centroidal B={B} N={N} {str(dtype)[6:]} "
+                         f"reg_type={reg_type}")
+                held = {key: hold_wide_k1(f"{label} {key}", host, out, B,
+                                          device)[0]
+                        for key, out in outs.items()}
+                first = next(iter(outs.values()))
+                same = {key: all(same_bits(a, b) for a, b in zip(first, out))
+                        for key, out in outs.items()}
+                print(f"[wide-groups] {label}: ok lanes {held}, each bit for "
+                      f"bit to the plain version on the host CPU on its ok "
+                      f"lanes; bit for bit to each other {same}", flush=True)
+                check(all(same.values()), f"{label}: the builds part")
+                if reg_type != 1 or B not in (CENTROIDAL[0], 1):
+                    continue
+                cfg, D, VxT, VxxT, lam = wide_k1_case(B, dtype, device, 1,
+                                                      poison=False)
+                fields, ld = k1.tma_fields(D)
+                calls = {label: functools.partial(
+                    mod.launch, fn, "stage", cfg, N, nx, nu, fields, VxT,
+                    VxxT, lam, ld)
+                    for (dt, label), (mod, fn) in fns.items() if dt == dtype}
+                timed_in_turns(calls, f"K1@9x16 centroidal B={B} N={N} "
+                               "(no non-PD or NaN lane)", card,
+                               tag="wide-groups", dtype=str(dtype)[6:])
 
 
 # The FMPC group kernels (K8, K10) are built at, per (nx, nu, ng): every
@@ -3989,10 +4109,11 @@ def centroidal_start(problem, B, N, dtype, device):
     return x0s, us0, masked
 
 
-def centroidal_derivs(B, N, dtype, device):
+def centroidal_derivs(B, N, dtype, device, poison=True):
     """K1@9x16's input: the stage derivatives of a centroidal rollout from
-    CENTROIDAL_T0 (first-iteration data across the flight phase), lane 1
-    made non-PD and lane 2 NaN-poisoned as K1's own check does."""
+    CENTROIDAL_T0 (first-iteration data across the flight phase); with
+    ``poison``, lane 1 made non-PD and lane 2 NaN-poisoned as K1's own
+    check does."""
     problem = centroidal_problem()
     cfg = DDPConfig(horizon_steps=N)
     x0s, us0, _ = centroidal_start(problem, B, N, dtype, device)
@@ -4002,8 +4123,9 @@ def centroidal_derivs(B, N, dtype, device):
     VxT, VxxT = (a.contiguous() for a in ddp_mod._terminal_quad_lanes(
         problem, cfg, t0, xs))
     D = StackedDerivs(*_stage_derivs_sweep(problem, cfg, t0, xs, us)[:7])
-    D.Luu[:, :, :, 1] = -10.0
-    D.Fx[N // 2, 0, 0, 2] = float("nan")
+    if poison:
+        D.Luu[:, :, :, 1] = -10.0
+        D.Fx[N // 2, 0, 0, 2] = float("nan")
     return D, VxT, VxxT
 
 
@@ -4015,16 +4137,22 @@ def exact_sqrt(a):
 
 def plain_on_host(cfg, D, VxT, VxxT, lam):
     """``backward_stacked`` on the card host's CPU with a correctly rounded
-    sqrt: there it sums in the kernel's order (lane by lane, left to right;
-    a batch of 256 lanes fills its vector loops), so a kernel built with
-    -fmad=false gives its bits."""
-    cpu = lambda a: a.cpu()
+    sqrt: there it sums in the kernel's order (lane by lane, left to right)
+    where the batch fills its vector loops, as 256 lanes do, so a kernel
+    built with -fmad=false gives its bits.  Any other batch is padded to a
+    multiple of PLAIN_LANES lanes by repeating its last lane (on fewer
+    lanes, or a ragged tail, torch's CPU reductions take another order)
+    and cut back."""
+    B = lam.shape[0]
+    take = torch.arange(-(-B // PLAIN_LANES) * PLAIN_LANES).clamp(max=B - 1)
+    pad = lambda a: a.cpu()[..., take].contiguous()
     saved, torch.sqrt = torch.sqrt, exact_sqrt
     try:
-        return backward_stacked(cfg, StackedDerivs(*map(cpu, D)), cpu(VxT),
-                                cpu(VxxT), cpu(lam))
+        out = backward_stacked(cfg, StackedDerivs(*map(pad, D)), pad(VxT),
+                               pad(VxxT), pad(lam))
     finally:
         torch.sqrt = saved
+    return tuple(a[..., :B].contiguous() for a in out)
 
 
 def quu_condition(D, VxxT, lane=0):
@@ -4036,58 +4164,117 @@ def quu_condition(D, VxxT, lane=0):
     return float(torch.linalg.cond(Quu))
 
 
+@functools.lru_cache(maxsize=4)
+def wide_k1_derivs(dtype, device, poison):
+    """centroidal_derivs at the CENTROIDAL shape, made once (no caller
+    writes to them)."""
+    return centroidal_derivs(*CENTROIDAL, dtype, device, poison)
+
+
+def wide_k1_case(B, dtype, device, reg_type, poison=True):
+    """(cfg, D, VxT, VxxT, lam) of K1@9x16's check at B lanes: the first B
+    lanes of centroidal_derivs' CENTROIDAL batch (with ``poison``, B = 37:
+    lane 1 non-PD, lane 2 NaN; B = 1: lane 0 alone, clean either way)."""
+    cut = lambda a: a[..., :B].contiguous()
+    D, VxT, VxxT = wide_k1_derivs(dtype, device, poison)
+    cfg = DDPConfig(horizon_steps=CENTROIDAL[1], reg_type=reg_type)
+    lam = torch.full((B,), 1e-6 if reg_type == 1 else 0.5, dtype=dtype,
+                     device=device)
+    return cfg, StackedDerivs(*map(cut, D)), cut(VxT), cut(VxxT), lam
+
+
+def hold_wide_k1(label, host, out, B, device):
+    """K1@9x16's ``out`` against the plain version on the card host's CPU
+    (``host``): ok masks equal (B > 2: the non-PD and NaN lanes fail, no
+    other; else every lane ok) and every ok lane's bytes equal; returns
+    (ok lanes, bytes apart per output, max abs error)."""
+    ok = host[3]
+    check(torch.equal(ok.to(device), out[3]),
+          f"{label}: kernel and plain ok masks differ")
+    if B > 2:
+        check(not bool(ok[1]) and not bool(ok[2])
+              and int(ok.sum()) == B - 2,
+              f"{label}: the non-PD and NaN lanes must fail, no other")
+    else:
+        check(bool(ok.all()), f"{label}: a clean lane failed")
+    apart = [int((a[..., ok].contiguous().view(torch.uint8)
+                  != b.cpu()[..., ok].contiguous().view(torch.uint8)).sum())
+             for a, b in zip(host[:3], out[:3])]
+    err = max(norm_err(a, b.cpu(), ok)[1] for a, b in zip(host[:3], out[:3]))
+    check(apart == [0, 0, 0], f"{label}: the kernel parts from its plain "
+          f"version ({apart} bytes apart)")
+    return int(ok.sum()), apart, err
+
+
 def check_wide_k1(device, card):
-    """K1@9x16 on centroidal sweep data (B=256, N=100, both reg_types):
-    bit for bit equal to its plain version on the card host's CPU on every
-    lane the plain version calls ok, the ok masks equal (the non-PD and
-    NaN lanes fail, no other); the normalized difference to the plain
-    version on the card (whose reductions take another order) beside
-    Quu's condition; its time beside its bound."""
-    B, N = CENTROIDAL
+    """K1@9x16 on centroidal sweep data (N=100, both reg_types, fp32 and
+    fp64) at B=256 (a non-PD and a NaN lane), at its first 37 lanes (a
+    ragged block, its fields copied to a lane stride TMA takes) and at
+    lane 0 alone (B=1, run_mpc's batch): bit for bit equal to its plain
+    version on the card host's CPU on every lane the plain version calls
+    ok, the ok masks equal; at B=256 the normalized difference to the
+    plain version on the card (whose reductions take another order)
+    beside Quu's condition.  Then its time beside its bound on the same
+    data without the non-PD and NaN lanes (a NaN sends a division down its
+    slow path) at B=256, fp32 (the record) and fp64, and at B=1 (one lane
+    on the card: the chain floor)."""
+    N = CENTROIDAL[1]
     nx, nu = WIDE_K1
     for dtype in (torch.float32, torch.float64):
-        D, VxT, VxxT = centroidal_derivs(B, N, dtype, device)
-        for reg_type in (1, 2):
-            cfg = DDPConfig(horizon_steps=N, reg_type=reg_type)
-            lam = torch.full((B,), 1e-6 if reg_type == 1 else 0.5,
-                             dtype=dtype, device=device)
-            before = backward_fused.wide_launches
-            out = backward_fused(cfg, D, VxT, VxxT, lam)
-            torch.cuda.synchronize()
-            check(backward_fused.wide_launches == before + 1,
-                  "K1@9x16: the wrapper did not count its launch")
-            host = plain_on_host(cfg, D, VxT, VxxT, lam)
-            ok = host[3]
-            label = f"K1@9x16 centroidal B={B} N={N} {str(dtype)[6:]} " \
-                    f"reg_type={reg_type}"
-            check_ok(label, ok.to(device), out[3], B)
-            apart = [int((a[..., ok].contiguous().view(torch.uint8)
-                          != b.cpu()[..., ok].contiguous().view(
-                              torch.uint8)).sum())
-                     for a, b in zip(host[:3], out[:3])]
-            err = max(norm_err(a, b.cpu(), ok)[1]
-                      for a, b in zip(host[:3], out[:3]))
-            gpu = backward_stacked(cfg, D, VxT, VxxT, lam)
-            gpu_err = " ".join(
-                f"{name} {norm_err(a, b, ok.to(device))[0]:.3e}"
-                for name, a, b in zip(("ks", "Ks", "dV"), gpu[:3], out[:3]))
-            print(f"[kernel] {label}: bytes apart from the plain version on "
-                  f"the host CPU (ks, Ks, dV) {apart}, max abs err "
-                  f"{err:.3e}; normalized vs the plain version on the card "
-                  f"{gpu_err}; cond(Quu) of lane 0's last stage "
-                  f"{quu_condition(D, VxxT):.3e}", flush=True)
-            check(apart == [0, 0, 0], f"{label}: the kernel parts from its "
-                  "plain version")
-            KERNELS["K1@9x16"].max_abs_err = max(
-                KERNELS["K1@9x16"].max_abs_err, err)
-    D, VxT, VxxT = centroidal_derivs(B, N, torch.float32, device)
-    cfg = DDPConfig(horizon_steps=N)
-    lam = torch.full((B,), 1e-6, device=device)
-    record_time("K1@9x16", lambda: backward_fused(cfg, D, VxT, VxxT, lam),
-                lambda: backward_stacked(cfg, D, VxT, VxxT, lam),
-                moved_bytes("K1", B, N, 4, nx=nx, nu=nu),
-                B * N * riccati_ops(nx, nu, 1, False),
-                f"centroidal B={B} N={N}", True, card, plain_reps=1)
+        for B in WIDE_K1_BATCHES:
+            for reg_type in (1, 2):
+                cfg, D, VxT, VxxT, lam = wide_k1_case(B, dtype, device,
+                                                      reg_type)
+                before = backward_fused.wide_launches
+                out = backward_fused(cfg, D, VxT, VxxT, lam)
+                torch.cuda.synchronize()
+                check(backward_fused.wide_launches == before + 1,
+                      "K1@9x16: the wrapper did not count its launch")
+                host = plain_on_host(cfg, D, VxT, VxxT, lam)
+                label = (f"K1@9x16 centroidal B={B} N={N} "
+                         f"{str(dtype)[6:]} reg_type={reg_type}")
+                n_ok, apart, err = hold_wide_k1(label, host, out, B,
+                                                device)
+                extra = ""
+                if B == CENTROIDAL[0]:
+                    ok = host[3].to(device)
+                    gpu = backward_stacked(cfg, D, VxT, VxxT, lam)
+                    errs = " ".join(
+                        f"{name} {norm_err(a, b, ok)[0]:.3e}"
+                        for name, a, b in zip(("ks", "Ks", "dV"), gpu[:3],
+                                              out[:3]))
+                    extra = (f"; normalized vs the plain version on the "
+                             f"card {errs}; cond(Quu) of lane 0's last stage"
+                             f" {quu_condition(D, VxxT):.3e}")
+                print(f"[kernel] {label}: ok lanes {n_ok}/{B}, masks equal; "
+                      f"bytes apart from the plain version on the host CPU "
+                      f"(ks, Ks, dV) {apart}, max abs err {err:.3e}{extra}",
+                      flush=True)
+                KERNELS["K1@9x16"].max_abs_err = max(
+                    KERNELS["K1@9x16"].max_abs_err, err)
+    for dtype in (torch.float32, torch.float64):
+        size = torch.empty((), dtype=dtype).element_size()
+        for B in (CENTROIDAL[0], 1):
+            cfg, D, VxT, VxxT, lam = wide_k1_case(B, dtype, device, 1,
+                                                  poison=False)
+            kernel = lambda: backward_fused(cfg, D, VxT, VxxT, lam)
+            plain = lambda: backward_stacked(cfg, D, VxT, VxxT, lam)
+            nbytes = moved_bytes("K1", B, N, size, nx=nx, nu=nu)
+            ops = B * N * riccati_ops(nx, nu, 1, False)
+            if dtype == torch.float32 and B == CENTROIDAL[0]:
+                record_time("K1@9x16", kernel, plain, nbytes, ops,
+                            f"centroidal B={B} N={N}", True, card,
+                            plain_reps=1)
+                continue
+            t_kern = cuda_ms(kernel, inner=10)
+            t_plain = cuda_ms(plain, reps=1, warmup=1)
+            t_bound, by = bound(nbytes, ops, dtype)
+            floor = " (one lane: the chain floor)" if B == 1 else ""
+            print(f"[times] K1@9x16 {KERNELS['K1@9x16'].name} centroidal "
+                  f"B={B} N={N} {str(dtype)[6:]}{floor}: kernel "
+                  f"{t_kern:.4f} ms ({t_kern * 1e3 / N:.3f} us a stage), "
+                  f"plain {t_plain:.3f} ms, bound {t_bound * 1e3:.2f} us "
+                  f"({by}) [{card}]", flush=True)
 
 
 def phase_centroidal(device, card):
@@ -4840,8 +5027,9 @@ def main() -> int:
                "and the centroidal solves), centroidal-driver, second-order, "
                "cgmres, horizon, mesh, serial, profiled, runtime+examples "
                "(runtime in a process of its own beside examples); "
-               "with --qp-groups: qp-groups, row-groups, "
-               "fmpc-groups, fwd-groups; with --layers: layers")
+               "with --qp-groups: qp-groups, row-groups, wide-groups "
+               "(K1@9x16 at each G of WIDE_GROUPS), fmpc-groups, "
+               "fwd-groups; with --layers: layers")
     parser.add_argument("--layers", action="store_true",
                         help="also print where one solve's time goes, per "
                              "layer, with the profiler's device busy time")
@@ -4903,6 +5091,8 @@ def main() -> int:
         phases.append(("qp-groups", lambda: phase_qp_groups(
             device, card, args.baseline)))
         phases.append(("row-groups", lambda: phase_row_groups(
+            device, card, args.baseline)))
+        phases.append(("wide-groups", lambda: phase_wide_groups(
             device, card, args.baseline)))
         phases.append(("fmpc-groups", lambda: phase_fmpc_groups(
             device, card, args.baseline)))

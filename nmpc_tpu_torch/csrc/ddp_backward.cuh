@@ -45,11 +45,13 @@
 //     (row_group.cuh::stage_ring: 8 at (4, 1) and (2, 1), 2 at the
 //     centroidal model's (9, 16) fp32, 1 at its fp64) and fits 227 KB
 //     at every (NX <= 9, NU <= 16), checked when the unit compiles;
-//   * at (9, 16) (F = 731 values a stage) the NU-sized work every thread
-//     of a group runs alike (Quu, Quu_F and their Cholesky, 16 x 16 each;
-//     FuT Vxx, 16 x 9) passes the register file and spills to local
-//     memory (the ptxas report beside the library, PERF.md): the simple
-//     design, kept right first (ROADMAP B.6, R13);
+//   * past K2's and K3's sizes (row_group.cuh::kWideStage: the centroidal
+//     model's (9, 16), F = 731 values a stage) the NU-sized work every
+//     thread of a group runs alike here (Quu, Quu_F and their Cholesky,
+//     16 x 16 each; FuT Vxx, 16 x 9) passes the register file and spills
+//     to local memory, so the wrapper builds ddp_backward_wide.cuh there:
+//     this block and ring, with a stage that splits that work over the
+//     lane's group through shared memory (riccati_stage_wide.cuh);
 //   * TMA takes a field at a 16-byte aligned address with its lanes a
 //     multiple of 16 bytes apart: the wrapper copies any other field (B =
 //     1023 at fp32, a view at an offset) once into a padded buffer

@@ -28,11 +28,18 @@ namespace nmpc {
 // at 8, where each thread generates the fields of one stage in eight,
 // level with 4 at B=4096 and faster at B=256.  Other (NX, NU) follow the
 // nearest measured shape: nx >= 4 as (4, 1), nx = 2, 3 as (2, 1), nx = 1
-// one thread.
+// one thread.  Past K2's and K3's sizes (kWideStage: nx > 8 or nu > 4,
+// the centroidal model's (9, 16)) K1 runs riccati_stage_wide.cuh's stage
+// on kWideGroup threads a lane, chosen by measurement among 8, 16 and 32
+// at (9, 16) (PERF.md, Findings).
 template <int NX, int NU>
-constexpr int kRowGroup = NX >= 4 ? 4 : (NX >= 2 ? 2 : 1);
+constexpr bool kWideStage = NX > 8 || NU > 4;
+constexpr int kWideGroup = 32;
 template <int NX, int NU>
-constexpr int kRematGroup = NX >= 4 ? 8 : kRowGroup<NX, NU>;
+constexpr int kRowGroup =
+    kWideStage<NX, NU> ? kWideGroup : (NX >= 4 ? 4 : (NX >= 2 ? 2 : 1));
+template <int NX, int NU>
+constexpr int kRematGroup = NX >= 4 ? 8 : (NX >= 2 ? 2 : 1);
 
 // The most lanes of a block, and the block count a launch aims for: about
 // one block per SM of the H100's 132.

@@ -12,7 +12,11 @@ on the card and what its design does about that:
 * ``"stage"`` (K1, ``csrc/ddp_backward.cuh``): a ring of one-stage
   buffers per block, each filled by a producer warp with seven TMA boxes,
   one per field (a tensor map per field; fields whose lanes or address
-  TMA does not take are copied once by :func:`tma_fields`);
+  TMA does not take are copied once by :func:`tma_fields`); at a
+  :func:`wide_shape` (past K2's and K3's sizes: the centroidal model's
+  (9, 16)) the same block and ring from ``csrc/ddp_backward_wide.cuh``,
+  whose stage (``csrc/riccati_stage_wide.cuh``) splits the input-sized
+  work by rows over 32 threads a lane through shared memory;
 * ``"chunked"`` (K2, ``csrc/ddp_backward_chunked.cuh``): two slots of C
   stages per warp filled with ``cp.async``, double-buffered by chunk
   (``_backward_pallas_call_chunked``), the threads of a lane splitting its
@@ -49,11 +53,11 @@ from nmpc_tpu_torch.core.types import DDPConfig
 from nmpc_tpu_torch.kernels.build import build_generated, load
 from nmpc_tpu_torch.kernels.ddp_backward import StackedDerivs, backward_stacked
 
-# The largest (nx, nu) a unit is instantiated for: every stage quantity
-# of the lane is unrolled into registers.  K1 ("stage") takes the
+# The largest (nx, nu) a unit is instantiated for.  K1 ("stage") takes the
 # centroidal model's (9, 16) (F = 731 values a stage, one TMA box of a
-# field holding at most 256 of them); K2 and K3 stay at the sizes they
-# were measured at and raise beyond them.
+# field holding at most 256 of them) in its wide stage; K2 and K3, whose
+# threads hold every stage quantity of the lane in registers, stay at the
+# sizes they were measured at and raise beyond them.
 MAX_NX, MAX_NU = 9, 16
 MAX_NX_CHUNKED, MAX_NU_CHUNKED = 8, 4
 # the kernels' scalar types (the generated units' T)
@@ -69,8 +73,11 @@ CHUNK_SMEM_BYTES = 96 * 1024
 MAX_CHUNK = 32
 # nvcc flags of every unit here beyond build.NVCC_FLAGS
 UNIT_FLAGS = ("-fmad=false",)
-# per mode: the header and the launch template with its leading arguments
+# per mode: the header and the launch template with its leading arguments;
+# K1 past K2's shapes (wide_shape) from its own header
 _UNITS = {"stage": ("ddp_backward.cuh", "launch_ddp_backward", "ld, "),
+          "wide": ("ddp_backward_wide.cuh", "launch_ddp_backward_wide",
+                   "ld, "),
           "chunked": ("ddp_backward_chunked.cuh",
                       "launch_ddp_backward_chunked", ""),
           "packed": ("ddp_backward_packed.cuh", "launch_ddp_backward_packed",
@@ -89,6 +96,13 @@ def kernel_supports(nx: int, nu: int, dtype, dma: str = "stage") -> bool:
     the unit is built on demand)."""
     max_nx, max_nu = _limits(dma)
     return 1 <= nx <= max_nx and 1 <= nu <= max_nu and dtype in DTYPES
+
+
+def wide_shape(nx: int, nu: int) -> bool:
+    """Whether K1 runs its wide stage at (nx, nu) (``csrc/row_group.cuh::
+    kWideStage``): past K2's and K3's sizes, nx > 8 or nu > 4, the
+    centroidal model's (9, 16)."""
+    return nx > MAX_NX_CHUNKED or nu > MAX_NU_CHUNKED
 
 
 def _shapes(nx, nu):
@@ -162,8 +176,10 @@ def unit_source(nx: int, nu: int, dtype, dma: str = "stage",
                 group: int | None = None) -> str:
     """The unit instantiating the ``dma`` kernel at (nx, nu, dtype) with
     the header's ``kRowGroup`` threads per lane, or ``group`` where a
-    measurement asks for another."""
-    header, launch, lead = _UNITS[dma]
+    measurement asks for another; K1 at a :func:`wide_shape` from
+    ``csrc/ddp_backward_wide.cuh``."""
+    wide = dma == "stage" and wide_shape(nx, nu)
+    header, launch, lead = _UNITS["wide" if wide else dma]
     g = "" if group is None else f", {group}"
     unused = "" if lead else "  (void)ld;\n"
     return (f"#include \"{header}\"\n\n"
@@ -301,15 +317,15 @@ def backward_fused(config: DDPConfig, D: StackedDerivs, Vx_T, Vxx_T, lam,
         return out
     fields, ld = tma_fields(D)
     out = _launch(dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld)
-    if kernel_supports(nx, nu, dtype, "chunked"):
-        backward_fused.launches += 1
-    else:
+    if wide_shape(nx, nu):
         backward_fused.wide_launches += 1
+    else:
+        backward_fused.launches += 1
     return out
 
 
 backward_fused.launches = 0           # K1
-backward_fused.wide_launches = 0      # K1 past K2's shapes: (9, 16)
+backward_fused.wide_launches = 0      # K1 at a wide_shape: (9, 16)
 backward_fused.chunked_launches = 0   # K2
 backward_fused.padded_copies = 0      # a field copied to a TMA lane stride
 

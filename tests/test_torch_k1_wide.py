@@ -1,19 +1,24 @@
-"""The sweep-fed DDP backward K1 (``csrc/ddp_backward.cuh``) at the
-centroidal model's (nx, nu) = (9, 16), on the CPU.
+"""The sweep-fed DDP backward K1 at the centroidal model's (nx, nu) =
+(9, 16), on the CPU: its wide stage (``csrc/ddp_backward_wide.cuh``,
+``csrc/riccati_stage_wide.cuh``) against K1's one-thread-a-lane stage
+(``csrc/ddp_backward.cuh``, ``riccati_stage_group`` at G = 1) and the
+plain ``backward_stacked``.
 
-Where ``g++`` is on PATH the kernel is built as host C++ through its
-launch function (``tests/host_shim.py``: each warp as 32 host threads,
-``tma.cuh`` replaced by a stand-in that copies a box at once and checks
-every barrier, no contraction, as the units' ``-fmad=false``) at fp32 and
-fp64, and run on the stage fields of a centroidal rollout whose horizon
-crosses the flight phase (every input masked there), with a non-PD and a
-NaN lane: every G (threads per lane) equals G = 1 bit for bit (NaN lanes
-NaN where they are), and G = 1 equals ``backward_stacked`` with a
-correctly rounded sqrt on every lane it calls ok, with the same ok mask.
-Also held: the ring and field offsets ``csrc/row_group.cuh`` gives at
-(9, 16) (two buffers at fp32, one at fp64, within a block's 227 KB),
-the wrapper's limits, and the solver's ``auto`` rule on the centroidal
-model (the code generator refuses it, so K1 serves it on the card).
+Where ``g++`` is on PATH both launch functions are built as host C++
+(``tests/host_shim.py``: each warp as 32 host threads, ``tma.cuh``
+replaced by a stand-in that copies a box at once and checks every
+barrier, shared memory poisoned and the bytes past a launch's checked,
+no contraction, as the units' ``-fmad=false``) at fp32 and fp64, and run
+on the stage fields of a centroidal rollout whose horizon crosses the
+flight phase (every input masked there), with a non-PD and a NaN lane,
+at B = 64, on its first 37 lanes and on lane 0 alone: the wide stage at
+every G (threads per lane) equals G = 1 bit for bit (NaN lanes NaN where
+they are), and G = 1 equals ``backward_stacked`` with a correctly
+rounded sqrt on every lane it calls ok, with the same ok mask.  Also
+held: the wide block's ring, field offsets and per-lane scratch
+(within a block's 227 KB), the wrapper's units and limits, and the
+solver's ``auto`` rule on the centroidal model (the code generator
+refuses it, so K1 serves it on the card).
 """
 
 import subprocess
@@ -38,20 +43,30 @@ torch.set_num_threads(1)
 NX, NU = 9, 16
 DT = 0.03
 BLOCK_SMEM = 227 * 1024
-# kRowGroup<9, 16> and the other group sizes held against G = 1
-GROUPS = (1, 2, 4)
-# the lanes of the ragged run: a lane stride TMA does not take at fp32, a
-# ragged last warp (G = 4: 8 lanes a warp) and block (G = 1: 32 a block)
-RAGGED = 37
+# the most threads of a wide block (csrc/ddp_backward_wide.cuh::
+# kWideMaxThreads)
+WIDE_THREADS = 256
+# G = 1: K1's riccati_stage_group at one thread a lane, the reference;
+# then the wide stage's threads per lane: the candidates measured on the
+# card (8, 16, 32; kRowGroup<9, 16> = 32 among them) and 4
+GROUPS = (1, 4, 8, 16, 32)
+WIDE_GROUP = 32
+# the batches: a case's lanes, its first 37 (a lane stride TMA does not
+# take at fp32, a ragged last warp at G = 1 and block at G >= 8) and lane
+# 0 alone (run_mpc's batch); the plain version's lanes (plain_lanes)
+BATCHES = (64, 37, 1)
+PLAIN_LANES = 64
 
 _HARNESS = SHIM + KERNELS_PRELUDE + r"""
-#include "ddp_backward.cuh"
+#include "ddp_backward_wide.cuh"
 
 // in: the seven fields at lane stride ld (each [N][size][ld]), VxT, VxxT,
-// lam; out: ks [N][NU][B], Ks [N][NU][NX][B], dV [2][B], ok [B]; then the
-// ring's geometry: Layout offsets, F, R, bytes of a 32-lane ring
-template <typename T, int G>
-int run(int N, int B, int reg_type, int ld, const T* in, T* out) {
+// lam; out: ks [N][NU][B], Ks [N][NU][NX][B], dV [2][B], ok [B]; K1 by
+// launch (ddp_backward.cuh's at one thread a lane, or
+// ddp_backward_wide.cuh's)
+template <typename T, typename Launch>
+int run(Launch launch, int N, int B, int reg_type, int ld, const T* in,
+        T* out) {
   constexpr int NX = 9, NU = 16;
   const int sizes[7] = {NX * NX, NX * NU, NX, NU, NX * NX, NU * NU, NX * NU};
   const void* fields[7];
@@ -65,17 +80,32 @@ int run(int N, int B, int reg_type, int ld, const T* in, T* out) {
   const T* lam = VxxT + static_cast<size_t>(NX) * NX * B;
   std::vector<unsigned char> ok(B);
   T* dV = out + static_cast<size_t>(N) * NU * (NX + 1) * B;
-  const int err = nmpc::launch_ddp_backward<T, NX, NU, G>(
-      N, B, ld, reg_type, fields, VxT, VxxT, lam, out,
-      out + static_cast<size_t>(N) * NU * B, dV, ok.data(), nullptr);
+  const int err = launch(N, B, ld, reg_type, fields, VxT, VxxT, lam, out,
+                         out + static_cast<size_t>(N) * NU * B, dV,
+                         ok.data(), nullptr);
   if (err) return 20 + err;
   for (int b = 0; b < B; ++b) dV[2 * B + b] = ok[b];
-  using L = nmpc::StageRingLayout<T, NX, NU, G>;
-  constexpr int R = nmpc::stage_ring<T>(L::F);
-  std::printf("%d %d %d %d %d %d %d %d %d %zu\n", L::Fx, L::Fu, L::Lx, L::Lu,
-              L::Lxx, L::Luu, L::Lxu, L::F, R,
-              nmpc::ring_bytes<T>(R, 1, L::F, nmpc::kMaxRowLanes));
   return 0;
+}
+
+// the wide block's geometry at G and B: Layout offsets, F, R, the most
+// and fewest lanes of a block, the lane stride and size of the scratch,
+// the launch's lanes, a block's bytes at the most lanes and at the
+// launch's
+template <typename T, int G>
+void geometry(int B) {
+  constexpr int NX = 9, NU = 16;
+  using L = nmpc::WideRingLayout<T, NX, NU, G>;
+  constexpr int R = nmpc::wide_ring<T, NX, NU, G>();
+  constexpr int most = nmpc::wide_max_lanes<T, NX, NU, G>();
+  const int lanes = nmpc::wide_lanes<T, NX, NU, G>(B);
+  std::printf("%d %d %d %d %d %d %d %d %d %d %d %d %d %d %zu %zu\n", L::Fx,
+              L::Fu, L::Lx, L::Lu, L::Lxx, L::Luu, L::Lxu, L::F, R, most,
+              nmpc::wide_min_lanes<G>(),
+              nmpc::wide_lane_stride<T, NX, NU, G>(),
+              nmpc::WideScratch<NX, NU>::size, lanes,
+              nmpc::wide_block_bytes<T, NX, NU, G>(R, most),
+              nmpc::wide_block_bytes<T, NX, NU, G>(R, lanes));
 }
 
 template <typename T>
@@ -91,9 +121,7 @@ int main_t(int G, int N, int B, int reg_type, int ld, const char* in_path,
   if (!f || std::fread(in.data(), sizeof(T), n_in, f) != n_in) return 4;
   std::fclose(f);
   int err = 2;
-  if (G == 1) err = run<T, 1>(N, B, reg_type, ld, in.data(), out.data());
-  if (G == 2) err = run<T, 2>(N, B, reg_type, ld, in.data(), out.data());
-  if (G == 4) err = run<T, 4>(N, B, reg_type, ld, in.data(), out.data());
+@DISPATCH@
   if (err) return err;
   f = std::fopen(out_path, "wb");
   if (!f || std::fwrite(out.data(), sizeof(T), n_out, f) != n_out) return 5;
@@ -109,7 +137,12 @@ int main(int argc, char** argv) {
             ld = std::atoi(argv[5]);
   return main_t<@T@>(G, N, B, reg_type, ld, argv[6], argv[7]);
 }
-"""
+""".replace("@DISPATCH@", "\n".join(
+    ["  if (G == 1) err = run<T>(nmpc::launch_ddp_backward<T, NX, NU, 1>, N, "
+     "B, reg_type, ld, in.data(), out.data());"]
+    + [f"  if (G == {g}) {{\n    err = run<T>(nmpc::launch_ddp_backward_wide"
+       f"<T, NX, NU, {g}>, N, B, reg_type, ld, in.data(), out.data());\n"
+       f"    geometry<T, {g}>(B);\n  }}" for g in GROUPS[1:]]))
 
 DTYPES = {torch.float32: "float", torch.float64: "double"}
 
@@ -170,87 +203,153 @@ def _run(exe, D, VxT, VxxT, lam, reg_type, G, workdir):
         map(int, proc.stdout.split()))
 
 
+def plain_lanes(cfg, D, VxT, VxxT, lam):
+    """``backward_stacked`` with a correctly rounded sqrt on the lanes
+    padded to a multiple of PLAIN_LANES by repeating the last one, cut
+    back: on fewer lanes, or on a ragged tail, torch's CPU reductions over
+    the 16-wide axes sum in another order than one lane's left to right."""
+    B = lam.shape[0]
+    take = torch.arange(-(-B // PLAIN_LANES) * PLAIN_LANES).clamp(max=B - 1)
+    pad = lambda a: a[..., take].contiguous()
+    saved, torch.sqrt = torch.sqrt, exact_sqrt
+    try:
+        out = backward_stacked(cfg, StackedDerivs(*map(pad, D)), pad(VxT),
+                               pad(VxxT), pad(lam))
+    finally:
+        torch.sqrt = saved
+    return tuple(a[..., :B].contiguous() for a in out)
+
+
 @pytest.fixture(scope="module")
 def k1_wide_runs(k1_wide_host, tmp_path_factory):
-    """The harness's runs by (dtype, reg_type): (D, VxT, VxxT, lam, {G:
-    (outputs, geometry)}, {G: outputs}), the last of the first RAGGED lanes
-    alone (their fields copied to a lane stride TMA takes, a ragged last
-    warp and block)."""
+    """The harness's runs by (dtype, reg_type): {B: (cfg, D, VxT, VxxT,
+    lam, {G: (outputs, geometry)})} for B in BATCHES, each the first B
+    lanes of one centroidal case (B = 37: its fields copied to a lane
+    stride TMA takes, a ragged last warp and block; B = 1: lane 0
+    alone)."""
     cache = {}
 
     def get(dtype, reg_type):
         if (dtype, reg_type) not in cache:
-            D, VxT, VxxT = _centroidal_case(dtype)
-            lam = torch.full((VxT.shape[1],), 1e-6 if reg_type == 1 else 0.5,
+            D, VxT, VxxT = _centroidal_case(dtype, B=BATCHES[0])
+            lam = torch.full((BATCHES[0],), 1e-6 if reg_type == 1 else 0.5,
                              dtype=dtype)
-            d = tmp_path_factory.mktemp("k1_wide_runs")
-            (d / "ragged").mkdir()
-            cut = lambda a: a[..., :RAGGED].contiguous()
-            Dr = StackedDerivs(*map(cut, D))
-            cache[dtype, reg_type] = (D, VxT, VxxT, lam, {
-                G: _run(k1_wide_host[dtype], D, VxT, VxxT, lam, reg_type, G,
-                        d) for G in GROUPS}, {
-                G: _run(k1_wide_host[dtype], Dr, cut(VxT), cut(VxxT),
-                        cut(lam), reg_type, G, d / "ragged")[0]
-                for G in GROUPS})
+            cfg = DDPConfig(horizon_steps=D.Fx.shape[0], reg_type=reg_type)
+            runs = {}
+            for B in BATCHES:
+                cut = lambda a: a[..., :B].contiguous()
+                args = (StackedDerivs(*map(cut, D)), cut(VxT), cut(VxxT),
+                        cut(lam))
+                d = tmp_path_factory.mktemp(f"k1_wide_runs_{B}")
+                runs[B] = (cfg, *args, {
+                    G: _run(k1_wide_host[dtype], *args, reg_type, G, d)
+                    for G in GROUPS})
+            cache[dtype, reg_type] = runs
         return cache[dtype, reg_type]
     return get
 
 
 @pytest.mark.parametrize("reg_type", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k1_wide_as_host_cpp(k1_wide_runs, monkeypatch, dtype, reg_type):
-    """K1 at (9, 16) through its launch function: every G equal to G = 1
-    bit for bit (NaN lanes NaN where they are), at B = 64 and on its first
-    37 lanes alone; G = 1 equal to ``backward_stacked`` with a correctly
-    rounded sqrt bit for bit on every lane it calls ok, the ok masks equal
-    (the non-PD and NaN lanes fail, no other), and the flight stages'
-    gains exactly 0.  (B = 64: torch's CPU float32 sums over the 16-wide
-    axes take another order on lanes past a multiple of its vector
-    width, as the B = 37 plain run would.)"""
-    D, VxT, VxxT, lam, runs, ragged = k1_wide_runs(dtype, reg_type)
-    ref1 = runs[1][0]
-    for G, (out, _) in runs.items():
-        for name, a, b in zip(("ks", "Ks", "dV"), ref1[:3], out[:3]):
-            assert same(a, b), (G, name)
-        assert torch.equal(ref1[3], out[3]), G
-    for G, out in ragged.items():
-        for name, a, b in zip(("ks", "Ks", "dV"), ref1[:3], out[:3]):
-            assert same(a[..., :RAGGED].contiguous(), b), (G, name)
-        assert torch.equal(ref1[3][:RAGGED], out[3]), G
-    with monkeypatch.context() as m:
-        m.setattr(torch, "sqrt", exact_sqrt)
-        ref = backward_stacked(DDPConfig(horizon_steps=D.Fx.shape[0],
-                                         reg_type=reg_type), D, VxT, VxxT,
-                               lam)
-    ok = ref[3]
-    assert torch.equal(ref1[3], ok)
-    assert not ok[1] and not ok[2] and int(ok.sum()) == lam.shape[0] - 2
-    for name, a, b in zip(("ks", "Ks", "dV"), ref[:3], ref1[:3]):
-        assert torch.equal(a[..., ok].contiguous().view(torch.uint8),
-                           b[..., ok].contiguous().view(torch.uint8)), name
-    assert torch.all(ref1[0][-3:][..., ok] == 0)
-    assert torch.all(ref1[1][-3:][..., ok] == 0)
+def test_k1_wide_as_host_cpp(k1_wide_runs, dtype, reg_type):
+    """K1 at (9, 16) at one thread a lane (G = 1, ``riccati_stage_group``)
+    through its launch function, at B = 64, on its first 37 lanes and on
+    lane 0 alone: equal to ``backward_stacked`` with a correctly rounded
+    sqrt (``plain_lanes``) bit for bit on every lane it calls ok, the ok
+    masks equal (the non-PD and NaN lanes fail, no other), and the flight
+    stages' gains exactly 0."""
+    for B, (cfg, D, VxT, VxxT, lam, runs) in k1_wide_runs(dtype,
+                                                          reg_type).items():
+        out = runs[1][0]
+        ref = plain_lanes(cfg, D, VxT, VxxT, lam)
+        ok = ref[3]
+        assert torch.equal(out[3], ok), B
+        bad = {1, 2} & set(range(B))
+        assert not any(ok[list(bad)]) and int(ok.sum()) == B - len(bad), B
+        for name, a, b in zip(("ks", "Ks", "dV"), ref[:3], out[:3]):
+            assert torch.equal(a[..., ok].contiguous().view(torch.uint8),
+                               b[..., ok].contiguous().view(torch.uint8)), (
+                B, name)
+        assert torch.all(out[0][-3:][..., ok] == 0), B
+        assert torch.all(out[1][-3:][..., ok] == 0), B
+
+
+@pytest.mark.parametrize("G", GROUPS[1:])
+@pytest.mark.parametrize("reg_type", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_wide_groups(k1_wide_runs, dtype, reg_type, G):
+    """The wide stage (``csrc/riccati_stage_wide.cuh``) at G threads a lane
+    through ``launch_ddp_backward_wide`` equal to K1 at G = 1 bit for bit
+    (NaN lanes NaN where they are) with the same ok mask, at B = 64, 37
+    and 1, fp32 and fp64, both reg_types."""
+    for B, (*_, runs) in k1_wide_runs(dtype, reg_type).items():
+        ref, out = runs[1][0], runs[G][0]
+        for name, a, b in zip(("ks", "Ks", "dV"), ref[:3], out[:3]):
+            assert same(a, b), (B, name)
+        assert torch.equal(ref[3], out[3]), B
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k1_wide_ring_fits(k1_wide_runs, dtype):
-    """The ring ``row_group.cuh::stage_ring`` gives K1 at (9, 16): every
-    field on a 128-byte boundary of a warp's lanes with the packed order's
-    sizes, two one-stage buffers at fp32 (F = 740) and one at fp64 (F =
-    734), where two would pass a block's 227 KB, and a 32-lane block's
-    ring within it."""
+    """The wide block ``csrc/ddp_backward_wide.cuh`` lays out at (9, 16) at
+    every G: each field of a ring buffer on a 128-byte boundary at any lane
+    count the block takes (a multiple of its fewest lanes, 4 at G >= 8),
+    with the packed order's sizes; the lanes' scratch (WideScratch) after
+    the ring, one lane stride apart, within the launch's dynamic shared
+    memory (the host shim checks the bytes past it); at the most lanes a
+    block, at most 256 threads and the ring and scratch within 227 KB,
+    where one more buffer would pass them, and twice the lanes one of the
+    two; at kRowGroup (G = 32) 4 lanes and 8 buffers at fp32 (F = 752)
+    and fp64 (F = 740), at G = 16 8 lanes and 7 buffers at fp32, 3 at
+    fp64; a launch's lanes as row_lanes gives them (the fewest at B <=
+    64)."""
     size = 4 if dtype == torch.float32 else 8
     sizes = (NX * NX, NX * NU, NX, NU, NX * NX, NU * NU, NX * NU)
-    for G, (_, geo) in k1_wide_runs(dtype, 1)[4].items():
-        *off, F, R, ring = geo
-        W = 32 // G
-        for o, o_next, n in zip(off, off[1:] + [F], sizes):
-            assert (o * W * size) % 128 == 0 and o_next - o >= n, G
-        assert ring <= BLOCK_SMEM, G
-        assert 128 + (R + 1) * F * 32 * size > BLOCK_SMEM or R == 8, G
-        if G == 4:
-            assert (F, R) == ((740, 2) if size == 4 else (734, 1))
+    buffer = lambda F, L: -(-F * L * size // 128) * 128
+    for B, (*_, runs) in k1_wide_runs(dtype, 1).items():
+        for G in GROUPS[1:]:
+            *off, F, R, most, least, stride, scratch, L, full, launched = (
+                runs[G][1])
+            assert least == max(32 // G, 4) and L % least == 0, G
+            for o, o_next, n in zip(off, off[1:] + [F], sizes):
+                assert (o * least * size) % 128 == 0 and o_next - o >= n, G
+            assert stride >= scratch and (stride * size) % 8 == 0, G
+            block = lambda R_, L_: 128 + R_ * buffer(F, L_) + L_ * stride * size
+            assert launched == block(R, L) and full == block(R, most), G
+            assert full <= BLOCK_SMEM, G
+            assert R == 8 or block(R + 1, most) > BLOCK_SMEM, G
+            assert most * G + 32 <= WIDE_THREADS, G
+            assert most == least or most == 32 or (
+                2 * most * G + 32 > WIDE_THREADS
+                or block(2, 2 * most) > BLOCK_SMEM), G
+            assert L == least, (G, B, L)   # B <= 64: the fewest lanes
+            if G == WIDE_GROUP:
+                assert (F, R, most) == ((752, 8, 4) if size == 4
+                                        else (740, 8, 4))
+            if G == 16:
+                assert (F, R, most) == ((752, 7, 8) if size == 4
+                                        else (740, 3, 8))
+
+
+def test_k1_wide_unit_source():
+    """The wrapper's unit: K1 at a wide shape (nx > 8 or nu > 4) from
+    ``ddp_backward_wide.cuh``'s launch, at the header's G or another a
+    measurement names, under its own library name; K1 at K2's shapes,
+    K2 and K3 from their own headers."""
+    assert K.wide_shape(9, 16) and K.wide_shape(2, 5)
+    assert K.wide_shape(9, 1) and not K.wide_shape(8, 4)
+    for dtype, name in DTYPES.items():
+        text = K.unit_source(9, 16, dtype)
+        assert '#include "ddp_backward_wide.cuh"' in text
+        assert f"launch_ddp_backward_wide<{name}, 9, 16>(" in text
+        text = K.unit_source(9, 16, dtype, group=8)
+        assert f"launch_ddp_backward_wide<{name}, 9, 16, 8>(" in text
+        assert K.unit_name(9, 16, dtype, group=8).endswith("_g8")
+        text = K.unit_source(4, 1, dtype)
+        assert '#include "ddp_backward.cuh"' in text
+        assert f"launch_ddp_backward<{name}, 4, 1>(" in text
+        for dma in ("chunked", "packed"):
+            assert "_wide" not in K.unit_source(8, 4, dtype, dma)
 
 
 def test_k1_wide_limits_and_auto_rule():
