@@ -17,11 +17,14 @@ Phases, one line each (a failed phase exits non-zero):
    2) and (4, 1), the
    FMPC backward in its three layouts (K8 streaming, K9 resident, K10
    packed) at (nx, nu, ng) = (2, 1, 3), (4, 1, 4), (2, 2, 2) and the FMPC
-   recursion (K11) at (2, 1), (4, 1), (2, 2), and K1 at the centroidal
-   model's (9, 16) (K1@9x16), for fp32 and fp64 (K1-K5 and K8-K11 with
-   -fmad=false); then compile them with nvcc, all at once; print the
-   seconds (K1@9x16's nvcc seconds apart) and ptxas' registers and
-   spills;
+   recursion (K11) at (2, 1), (4, 1), (2, 2), and K1 and K4 at the
+   centroidal model's (9, 16) (K1@9x16, K4@9x16), for fp32 and fp64
+   (K1-K5 and K8-K11 with -fmad=false); then compile them with nvcc, all
+   at once; print the seconds (the (9, 16) units' nvcc seconds apart) and
+   ptxas' registers and spills (K1@9x16's and K4@9x16's at fp32 held to
+   0); then start K4@9x16's plain version on the card host's CPU at B=256,
+   N=100 in four processes of their own (``k4-references``: fp32 and
+   fp64, both reg_types), which the centroidal phase reads;
 2. kernels: hold each kernel against its plain PyTorch version on the card,
    fp32 and fp64: K1 and K5 at the headline shape (B=4096, N=100) and the
    tick shape (B=256, N=200), each with one non-PD lane and one NaN lane;
@@ -108,8 +111,18 @@ Phases, one line each (a failed phase exits non-zero):
    iterations, u within 1e-8) and fp32 (u and cost within ``E2E_U_NORM``
    and ``E2E_COST_REL`` or twice the plain path's own difference between
    the card and its host's CPU, parting lanes listed),
-   masked inputs exactly 0; the boxed solve (plain BoxQP, nu = 16; N cut
-   to 12) with u[0] in its box, solves/s and host syncs; the reference's centroidal
+   masked inputs exactly 0; K4@9x16 on boxed centroidal sweep data (N=100,
+   both reg_types, fp32 and fp64, a non-PD and a NaN lane; B=256, its
+   first 37 lanes and lane 0 alone) bit for bit against its plain version
+   on the card host's CPU (``k4-references``), with the same QP
+   iterations, free sets and Armijo candidates, timed beside its bound at
+   B=256 and B=1 (and at B=256 beside that plain version's seconds); the
+   boxed solve (nu = 16, force limits (0, 1000)) at N=12
+   through ``auto`` and ``backward_impl="pallas"`` (K4@9x16, counted)
+   against the plain path (fp64 statuses, iterations, u within 1e-8;
+   fp32 within the floor rule above) and at B=256, N=100 through
+   ``auto``, fp32 and fp64, u[0] in its box, masked u exactly 0, every
+   value finite, solves/s and host syncs; the reference's centroidal
    driver (``run_mpc``, fp64, N=100, max_iter=500) over its first 10
    steps, or to 3.0 s with ``--centroidal-driver``; a second-order
    cart-pole ``solve_batch`` (B=256, N=100, fp64, 50 iterations) on the
@@ -374,6 +387,10 @@ KERNELS = {
     "K4": Kernel("ddp_backward_boxed", boxed.backward_fused_boxed,
                  "launches", "nmpc_tpu_torch/csrc/ddp_backward_boxed.cuh",
                  "nmpc_tpu/kernels/ddp_backward_pallas.py:1018"),
+    "K4@9x16": Kernel("ddp_backward_boxed@9x16", boxed.backward_fused_boxed,
+                      "wide_launches",
+                      "nmpc_tpu_torch/csrc/ddp_backward_boxed_wide.cuh",
+                      "nmpc_tpu/kernels/ddp_backward_pallas.py:1018"),
     "K5": Kernel("backward_remat", remat.backward_remat, "launches",
                  "nmpc_tpu_torch/csrc/ddp_backward_remat.cuh",
                  "nmpc_tpu/kernels/ddp_backward_remat.py:369"),
@@ -435,17 +452,29 @@ VARIANT_KERNEL = {"stream": "K8", "resident": "K9", "packed": "K10"}
 # iterations, initial_lambda 1e-6, x0 about the standing pose (0.02 N(0,
 # 1), seed 0), 5 N a ridge; from t0 = 1.3, so that the horizon crosses the
 # flight phase (1.4-1.6 s, every input masked); the boxed solve's force
-# limits.  Unboxed, the generator refuses the model (torch.linalg.cross),
-# so auto runs K1 at (9, 16) and the plain rollouts; boxed (nu = 16 > 4),
-# the plain BoxQP, as on the TPU.
+# limits.  The generator refuses the model (torch.linalg.cross), so auto
+# runs K1 at (9, 16) unboxed and K4 at (9, 16) boxed, and the plain
+# rollouts.
 CENTROIDAL = (256, 100)
 CENTROIDAL_DT, CENTROIDAL_T0, CENTROIDAL_ITERS = 0.03, 1.3, 3
 CENTROIDAL_FORCE = (0.0, 1000.0)
-# The boxed solve's horizon, cut from 100: the plain BoxQP reads the host
-# once per QP and Armijo trip of every stage (~400 reads an iteration at
-# N=12), and at N=100 one solve had not ended after 15 minutes on the
-# card.  12 stages from t0 = 1.3 still cross the flight phase.
+# The horizon of the boxed solve held against the plain path, cut from
+# 100: the plain BoxQP reads the host once per QP and Armijo trip of every
+# stage (~400 reads an iteration at N=12), and at N=100 one plain solve
+# had not ended after 15 minutes on the card.  12 stages from t0 = 1.3
+# still cross the flight phase.  The boxed solve through K4@9x16 runs at
+# the full N as well, and check_wide_k4 holds the kernel there.
 CENTROIDAL_BOXED_N = 12
+# K4@9x16's cases (dtype, reg_type), each held at the full N against its
+# plain version on the card host's CPU, which BoxedReferences runs in
+# processes of their own beside the phases before the centroidal one
+# (inputs and results in REF_DIR; each must end within REF_DEADLINE_S of
+# their start).
+WIDE_K4_CASES = tuple((dtype, reg_type)
+                      for dtype in (torch.float32, torch.float64)
+                      for reg_type in (1, 2))
+REF_DIR = kbuild.BUILD_DIR / "k4_reference"
+REF_DEADLINE_S = 780.0
 WIDE_K1 = (9, 16)
 # K1@9x16's batches: the centroidal shape, a ragged 37 and run_mpc's
 # one controller; the lanes the plain version on the card host's CPU is
@@ -808,9 +837,11 @@ def phase_build():
                               k8.FMPC_FLAGS))
             units.append((k11.unit_name(nx, nu, dtype),
                           k11.unit_source(nx, nu, dtype), k8.FMPC_FLAGS))
-        # K1 at the centroidal model's (9, 16) (phase_centroidal)
+        # K1 and K4 at the centroidal model's (9, 16) (phase_centroidal)
         units.append((k1.unit_name(*WIDE_K1, dtype),
                       k1.unit_source(*WIDE_K1, dtype), k1.UNIT_FLAGS))
+        units.append((boxed.unit_name(*WIDE_K1, dtype),
+                      boxed.unit_source(*WIDE_K1, dtype), boxed.BOXED_FLAGS))
     gen_s = time.perf_counter() - start
 
     def compile_unit(unit):
@@ -822,22 +853,29 @@ def phase_build():
     with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
         built = list(pool.map(compile_unit, units))
     secs = time.perf_counter() - start
-    wide_units = {k1.unit_name(*WIDE_K1, dtype)
+    wide_units = {k1.unit_name(*WIDE_K1, dtype): "K1@9x16"
                   for dtype in (torch.float32, torch.float64)}
-    wide = ", ".join(f"{lib.name} {unit_s:.1f} s"
+    wide_units.update({boxed.unit_name(*WIDE_K1, dtype): "K4@9x16"
+                       for dtype in (torch.float32, torch.float64)})
+    wide = ", ".join(f"{wide_units[name]} {lib.name} {unit_s:.1f} s"
                      for (name, _, _), (lib, unit_s) in zip(units, built)
                      if name in wide_units)
     print(f"[build] {len(built)} units in {secs:.1f} s (generation "
-          f"{gen_s:.1f} s; K1@9x16 nvcc: {wide})", flush=True)
+          f"{gen_s:.1f} s; nvcc of the (9, 16) units: {wide})", flush=True)
     for (name, _, flags), (lib, _) in zip(units, built):
         print(f"[build] ptxas {lib.name}{' ' + ' '.join(flags) if flags else ''}"
               f": {ptxas_report(lib)}", flush=True)
     for (name, _, _), (lib, _) in zip(units, built):
         if name in wide_units:
+            key = wide_units[name]
             spills = spill_bytes(lib)
-            print(f"[build] K1@9x16 {lib.name}: {ptxas_report(lib)}; spill "
+            print(f"[build] {key} {lib.name}: {ptxas_report(lib)}; spill "
                   f"stores / loads {spills} bytes", flush=True)
-            check(spills in (None, (0, 0)), f"K1@9x16 ({lib.name}) spills")
+            # K1@9x16 at both dtypes and K4@9x16 at fp32 spill nothing;
+            # K4@9x16 at fp64 does (ROADMAP R14)
+            if key == "K1@9x16" or "float32" in name:
+                check(spills in (None, (0, 0)), f"{key} ({lib.name}) "
+                      f"spills")
     return secs
 
 
@@ -4183,17 +4221,18 @@ def wide_k1_case(B, dtype, device, reg_type, poison=True):
     return cfg, StackedDerivs(*map(cut, D)), cut(VxT), cut(VxxT), lam
 
 
-def hold_wide_k1(label, host, out, B, device):
-    """K1@9x16's ``out`` against the plain version on the card host's CPU
-    (``host``): ok masks equal (B > 2: the non-PD and NaN lanes fail, no
-    other; else every lane ok) and every ok lane's bytes equal; returns
-    (ok lanes, bytes apart per output, max abs error)."""
+def hold_wide_k1(label, host, out, B, device, others_ok=True):
+    """A (9, 16) kernel's ``out`` against the plain version on the card
+    host's CPU (``host``): ok masks equal (B > 2: the non-PD and NaN lanes
+    fail, and with ``others_ok`` no other; else every lane ok) and every ok
+    lane's bytes equal; returns (ok lanes, bytes apart per output, max abs
+    error)."""
     ok = host[3]
     check(torch.equal(ok.to(device), out[3]),
           f"{label}: kernel and plain ok masks differ")
     if B > 2:
         check(not bool(ok[1]) and not bool(ok[2])
-              and int(ok.sum()) == B - 2,
+              and (int(ok.sum()) == B - 2 or not others_ok),
               f"{label}: the non-PD and NaN lanes must fail, no other")
     else:
         check(bool(ok.all()), f"{label}: a clean lane failed")
@@ -4277,12 +4316,386 @@ def check_wide_k1(device, card):
                   f"({by}) [{card}]", flush=True)
 
 
+def centroidal_boxed_derivs(B, N, dtype, device):
+    """K4@9x16's input: the boxed stage derivatives and bounds of a
+    centroidal rollout with force limits CENTROIDAL_FORCE from
+    CENTROIDAL_T0 (first-iteration data across the flight phase): (D,
+    bounds, VxT, VxxT), lane 1 made non-PD and lane 2 NaN-poisoned as K4's
+    own check does."""
+    problem = centroidal_problem(boxed=True)
+    cfg = DDPConfig(horizon_steps=N, with_input_constraint=True)
+    x0s, us0, _ = centroidal_start(problem, B, N, dtype, device)
+    t0 = torch.tensor(CENTROIDAL_T0, dtype=dtype, device=device)
+    us = us0.permute(1, 2, 0).contiguous()
+    xs, _ = ddp_mod._rollout_lanes(problem, cfg, t0, x0s.T.contiguous(), us)
+    VxT, VxxT = (a.contiguous() for a in ddp_mod._terminal_quad_lanes(
+        problem, cfg, t0, xs))
+    fields = _stage_derivs_sweep(problem, cfg, t0, xs, us)
+    D = StackedDerivs(*(a.contiguous() for a in fields[:7]))
+    bnd = StackedBounds(*(a.contiguous() for a in fields[7:]))
+    D.Luu[:, :, :, 1] = -10.0
+    D.Fx[N // 2, 0, 0, 2] = float("nan")
+    return D, bnd, VxT, VxxT
+
+
+@functools.lru_cache(maxsize=2)
+def wide_k4_derivs(dtype, device):
+    """centroidal_boxed_derivs at the CENTROIDAL shape, made once (no
+    caller writes to them)."""
+    return centroidal_boxed_derivs(*CENTROIDAL, dtype, device)
+
+
+def k4_case(fields, B, reg_type):
+    """(cfg, D, bounds, VxT, VxxT, lam) of K4@9x16's check at B lanes: the
+    first B lanes of ``fields`` (D, bounds, VxT, VxxT at CENTROIDAL[0]
+    lanes; lane 1 non-PD and lane 2 NaN where B > 2)."""
+    cut = lambda a: a[..., :B].contiguous()
+    D, bnd, VxT, VxxT = fields
+    cfg = DDPConfig(horizon_steps=D[0].shape[0], reg_type=reg_type,
+                    with_input_constraint=True)
+    lam = torch.full((B,), 1e-6 if reg_type == 1 else 0.5, dtype=VxT.dtype,
+                     device=VxT.device)
+    return (cfg, StackedDerivs(*map(cut, D)), StackedBounds(*map(cut, bnd)),
+            cut(VxT), cut(VxxT), lam)
+
+
+def wide_k4_case(B, dtype, device, reg_type):
+    """k4_case on wide_k4_derivs' batch."""
+    return k4_case(wide_k4_derivs(dtype, device), B, reg_type)
+
+
+def boxed_plain_on_host(cfg, D, bnd, VxT, VxxT, lam):
+    """``backward_stacked_boxed`` on the card host's CPU with a correctly
+    rounded sqrt, on a batch of PLAIN_LANES lanes (plain_on_host: there it
+    sums in the kernel's order): its (ks, Ks, dV, ok) and the QP's stats,
+    each lane's as a narrower batch's first lanes would give them."""
+    check(lam.shape[0] == PLAIN_LANES, "boxed_plain_on_host takes "
+          f"{PLAIN_LANES} lanes")
+    cpu = lambda a: a.cpu().contiguous()
+    stats = {}
+    saved, torch.sqrt = torch.sqrt, exact_sqrt
+    try:
+        out = backward_stacked_boxed(
+            cfg, StackedDerivs(*map(cpu, D)), StackedBounds(*map(cpu, bnd)),
+            cpu(VxT), cpu(VxxT), cpu(lam), stats=stats)
+    finally:
+        torch.sqrt = saved
+    return out, stats
+
+
+def free_bits(free):
+    """The plain version's free sets [N, nu, B] as the kernel's bits [N,
+    B] (bit a: input a free)."""
+    weights = 2 ** torch.arange(free.shape[1], dtype=torch.int64)
+    return (free.to(torch.int64) * weights[None, :, None]).sum(1).int()
+
+
+class BoxedReferences:
+    """K4@9x16's plain version on the card host's CPU (boxed_plain_on_host)
+    at the CENTROIDAL shape, for each case of WIDE_K4_CASES, each in a
+    process of its own (``--k4-reference DTYPE,REG_TYPE``, one torch
+    thread): the plain BoxQP reads the host at every QP and Armijo trip,
+    so at N=100 a call takes minutes, and the four run beside the phases
+    before the centroidal one.  The ``k4-references`` phase starts them
+    (check_wide_k4 does where that phase did not run) on wide_k4_derivs'
+    batch, made on the card and written to REF_DIR with the results."""
+
+    def __init__(self):
+        self.procs = {}
+        self.started = None
+
+    @staticmethod
+    def tag(dtype, reg_type):
+        return f"{str(dtype)[6:]}_{reg_type}"
+
+    def start(self, device):
+        if self.procs:
+            return
+        REF_DIR.mkdir(parents=True, exist_ok=True)
+        for dtype in sorted({d for d, _ in WIDE_K4_CASES}, key=str):
+            D, bnd, VxT, VxxT = wide_k4_derivs(dtype, device)
+            torch.save([[a.cpu() for a in D], [a.cpu() for a in bnd],
+                        VxT.cpu(), VxxT.cpu()],
+                       REF_DIR / f"in_{str(dtype)[6:]}.pt")
+        self.started = time.perf_counter()
+        for dtype, reg_type in WIDE_K4_CASES:
+            tag = self.tag(dtype, reg_type)
+            with open(REF_DIR / f"{tag}.log", "w") as log:
+                self.procs[tag] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--k4-reference", f"{str(dtype)[6:]},{reg_type}"],
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        print(f"[k4-references] {len(self.procs)} processes on the card "
+              f"host's CPU: K4@9x16's plain version at B={CENTROIDAL[0]} "
+              f"N={CENTROIDAL[1]}, {', '.join(self.procs)}", flush=True)
+
+    def result(self, dtype, reg_type):
+        """One case's results once its process has ended: ``out`` (ks, Ks,
+        dV, ok), the QP's ``stats``, the call's ``seconds`` and, at
+        reg_type 1, ``seconds_b1``: the plain version on lane 0 alone."""
+        tag = self.tag(dtype, reg_type)
+        proc = self.procs[tag]
+        left = REF_DEADLINE_S - (time.perf_counter() - self.started)
+        try:
+            proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            self.stop()
+        log = (REF_DIR / f"{tag}.log").read_text()[-2000:]
+        check(proc.returncode == 0, f"K4@9x16's plain reference {tag} "
+              f"failed or did not end within {REF_DEADLINE_S:g} s: {log}")
+        return torch.load(REF_DIR / f"out_{tag}.pt")
+
+    def stop(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+BOXED_REFS = BoxedReferences()
+
+
+def k4_reference(spec):
+    """The body of a ``--k4-reference DTYPE,REG_TYPE`` process
+    (BoxedReferences): boxed_plain_on_host on REF_DIR's input with one
+    torch thread, its (ks, Ks, dV, ok), stats and seconds written back; at
+    reg_type 1 also the seconds of the plain version on lane 0 alone
+    (check_wide_k4's B=1 time)."""
+    dname, reg_type = spec.split(",")
+    torch.set_num_threads(1)
+    fields = torch.load(REF_DIR / f"in_{dname}.pt")
+    fields = (StackedDerivs(*fields[0]), StackedBounds(*fields[1]),
+              *fields[2:])
+    start = time.perf_counter()
+    out, stats = boxed_plain_on_host(*k4_case(fields, CENTROIDAL[0],
+                                              int(reg_type)))
+    res = {"out": list(out), "stats": stats,
+           "seconds": time.perf_counter() - start, "seconds_b1": None}
+    if reg_type == "1":
+        start = time.perf_counter()
+        backward_stacked_boxed(*k4_case(fields, 1, 1))
+        res["seconds_b1"] = time.perf_counter() - start
+    torch.save(res, REF_DIR / f"out_{dname}_{reg_type}.pt")
+    print(f"[k4-reference] {dname} reg_type={reg_type}: {res['seconds']:.2f}"
+          f" s (B=1: {res['seconds_b1']})", flush=True)
+    return 0
+
+
+def check_wide_k4(device, card):
+    """K4@9x16 on boxed centroidal sweep data at the solve's shape (B=256,
+    N=100; both reg_types, fp32 and fp64, a non-PD and a NaN lane), held
+    bit for bit to its plain version on the card host's CPU
+    (BoxedReferences; check_boxed's rules at tolerance 0: ok masks equal,
+    the non-PD and NaN lanes failing, every ok lane's bytes equal) at
+    B=256, at its first 37 lanes (a ragged block, its fields copied to a
+    lane stride TMA takes) and at lane 0 alone (B=1), and the kernel's QP
+    iterations, free sets and Armijo candidates equal to that version's
+    (the launch with stats, not counted).  Then, on the same data at
+    reg_type 1, its time beside its bound (from the plain version's QP
+    counts) and its plain version's on the card host's CPU (BoxedReferences'
+    seconds) at B=256 (fp32: the record) and B=1 (one lane: the chain
+    floor), fp32 and fp64."""
+    BOXED_REFS.start(device)
+    B, N = CENTROIDAL
+    nx, nu = WIDE_K1
+    key = "K4@9x16"
+    refs = {}
+    for dtype, reg_type in WIDE_K4_CASES:
+        dname = str(dtype)[6:]
+        fn = boxed.launcher(nx, nu, dtype)
+        case = wide_k4_case(B, dtype, device, reg_type)
+        label = (f"{key} centroidal boxed B={B} N={N} {dname} "
+                 f"reg_type={reg_type}")
+        before = boxed.backward_fused_boxed.wide_launches
+        out = boxed.backward_fused_boxed(*case)
+        torch.cuda.synchronize()
+        check(boxed.backward_fused_boxed.wide_launches == before + 1,
+              f"{key}: the wrapper did not count its launch")
+        refs[(dtype, reg_type)] = res = BOXED_REFS.result(dtype, reg_type)
+        host, stats, host_s = res["out"], res["stats"], res["seconds"]
+        kstats = {}
+        boxed.launch(fn, *case, stats=kstats)
+        ok = host[3]
+        plain_bits = free_bits(stats["free"])
+        same_qp = all(torch.equal(kstats[k].cpu()[:, ok], v[:, ok])
+                      for k, v in (("qp_iters", stats["qp_iters"]),
+                                   ("free", plain_bits),
+                                   ("ls_evals", stats["ls_evals"])))
+        check(same_qp, f"{label}: the kernel's QP iterations, free sets "
+              f"or Armijo candidates part from the plain version's")
+        for Bc in WIDE_K1_BATCHES:
+            o = out if Bc == B else boxed.backward_fused_boxed(
+                *wide_k4_case(Bc, dtype, device, reg_type))
+            torch.cuda.synchronize()
+            ref = tuple(a[..., :Bc].contiguous() for a in host)
+            n_ok, apart, err = hold_wide_k1(
+                f"{key} centroidal boxed B={Bc} N={N} {dname} "
+                f"reg_type={reg_type}", ref, o, Bc, device, others_ok=False)
+            KERNELS[key].max_abs_err = max(KERNELS[key].max_abs_err, err)
+            print(f"[kernel] {key} centroidal boxed B={Bc} N={N} {dname} "
+                  f"reg_type={reg_type}: ok lanes {n_ok}/{Bc}, masks equal; "
+                  f"bytes apart from the plain version on the host CPU (ks, "
+                  f"Ks, dV) {apart}, max abs err {err:.3e}", flush=True)
+        print(f"[kernel] {label}: QP iterations, free sets and Armijo "
+              f"candidates equal to the plain version's on its ok lanes (a "
+              f"lane and stage: QP iterations mean "
+              f"{stats['qp_iters'].double().mean().item():.3f}, max "
+              f"{int(stats['qp_iters'].max())}; Armijo candidates mean "
+              f"{stats['ls_evals'].double().mean().item():.3f}, max "
+              f"{int(stats['ls_evals'].max())}); the plain version "
+              f"{host_s:.2f} s on the card host's CPU (one torch thread, "
+              f"in a process of its own beside the earlier phases)",
+              flush=True)
+    for dtype in (torch.float32, torch.float64):
+        size = torch.empty((), dtype=dtype).element_size()
+        dname = str(dtype)[6:]
+        res = refs[(dtype, 1)]
+        stats = res["stats"]
+        for Bt in (B, 1):
+            floor = " (one lane: the chain floor)" if Bt == 1 else ""
+            case = wide_k4_case(Bt, dtype, device, 1)
+            t_kern = cuda_ms(lambda: boxed.backward_fused_boxed(*case),
+                             reps=10, inner=2)
+            lane_stats = {k: v[:, :Bt] for k, v in stats.items()}
+            nbytes = moved_bytes("K4", Bt, N, size, nx=nx, nu=nu)
+            ops = Bt * N * riccati_ops(nx, nu, 1, True) + qp_ops(nu,
+                                                                 lane_stats)
+            t_bound, by = bound(nbytes, ops, dtype)
+            t_plain = 1e3 * res["seconds" if Bt == B else "seconds_b1"]
+            label = f"centroidal boxed B={Bt} N={N}"
+            print(f"[times] {key} {KERNELS[key].name} {label} {dname}{floor}"
+                  f": kernel {t_kern:.4f} ms ({t_kern * 1e3 / N:.3f} us a "
+                  f"stage; {nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M ops), "
+                  f"plain {t_plain:.3f} ms (the card host's CPU), bound "
+                  f"{t_bound * 1e3:.2f} us ({by}) [{card}]", flush=True)
+            if dtype == torch.float32 and Bt == B:
+                k = KERNELS[key]
+                k.ms, k.plain_ms, k.bound_ms, k.bound_by = (
+                    t_kern, t_plain, t_bound, by)
+                print(qp_line(key, label, lane_stats), flush=True)
+
+
+def boxed_centroidal_solves(device, card):
+    """The boxed centroidal solve (force limits CENTROIDAL_FORCE): at
+    N=CENTROIDAL_BOXED_N through ``auto`` (K4@9x16 and the plain
+    rollouts) and an explicit ``backward_impl="pallas"``, each against the
+    plain path (fp64: statuses and iterations equal, u within
+    E2E_U_NORM_FP64; fp32: u and cost within the DDP limits or twice the
+    plain path's own difference between the card and its host's CPU);
+    then at the full width (B=256, N=100, 3 iterations,
+    bench_all.py:95-121) through ``auto`` alone, fp32 and fp64, with its
+    solves/s, host syncs, launches and statuses.  Every solve: masked u
+    exactly 0, u[0] inside the box, every value finite, K4@9x16 launched
+    and no other backward kernel."""
+    problem = centroidal_problem(boxed=True)
+    lo, hi = CENTROIDAL_FORCE
+    key = "K4@9x16"
+    others = REMAT_PATH + ("K1", "K2", "K3", "K4", "K5b", "K1@9x16")
+
+    def hold(res, counts, masked, label):
+        inside = bool(torch.all((res.us[:, 0] >= lo) & (res.us[:, 0] <= hi)))
+        zero = bool(torch.all(res.us[:, masked] == 0))
+        finite = bool(torch.isfinite(res.us).all()
+                      and torch.isfinite(res.xs).all()
+                      and torch.isfinite(res.costs).all())
+        check(inside and zero and finite, f"centroidal boxed {label}: u[0] "
+              f"left the box, a masked input moved or a value is not "
+              f"finite")
+        check(counts[key] > 0 and not any(counts[k] for k in others),
+              f"centroidal boxed {label}: {key} did not run alone")
+        return inside, zero, finite
+
+    B, N = CENTROIDAL[0], CENTROIDAL_BOXED_N
+    cfg = DDPConfig(horizon_steps=N, max_iter=CENTROIDAL_ITERS,
+                    initial_lambda=1e-6, with_input_constraint=True)
+    check(ddp_mod._resolve_backward_impl(cfg, problem, torch.float32, device,
+                                         True, False) == "pallas",
+          "centroidal boxed: auto does not take the sweep-fed kernel")
+    for dtype in (torch.float64, torch.float32):
+        x0s, us0, masked = centroidal_start(problem, B, N, dtype, device)
+        start = time.perf_counter()
+        auto, counts, syncs = solve_counted(problem, cfg, x0s, us0,
+                                            t0=CENTROIDAL_T0)
+        auto_s = time.perf_counter() - start
+        explicit, ecounts, _ = solve_counted(
+            problem, dataclasses.replace(cfg, backward_impl="pallas"), x0s,
+            us0, t0=CENTROIDAL_T0)
+        start = time.perf_counter()
+        plain, plain_counts, plain_syncs = solve_counted(
+            problem, dataclasses.replace(cfg, backward_impl="stacked"), x0s,
+            us0, t0=CENTROIDAL_T0)
+        plain_s = time.perf_counter() - start
+        label = f"B={B} N={N} {str(dtype)[6:]}"
+        hold(auto, counts, masked, f"auto {label}")
+        hold(explicit, ecounts, masked, f"pallas {label}")
+        check(not any(plain_counts.values()),
+              "centroidal boxed: the plain path launched a kernel")
+        check(all(torch.equal(getattr(auto, f), getattr(explicit, f))
+                  for f in ("status", "iters", "us", "costs")),
+              f"centroidal boxed {label}: auto and an explicit pallas part")
+        st, it, du, dc = e2e_compare(plain, auto)
+        flips = decision_flips(plain, auto, cfg.cost_update_thre)
+        print(f"[centroidal] boxed solve_batch {label} max_iter="
+              f"{cfg.max_iter} t0={CENTROIDAL_T0}: auto ({key}) "
+              f"{auto_s:.2f} s (launches {counts}, host syncs {syncs}), "
+              f"explicit pallas launches {ecounts[key]}, plain BoxQP "
+              f"{plain_s:.2f} s ({plain_syncs} host syncs); statuses equal "
+              f"{st}, iterations equal {it}, u normalized {du:.3e}, cost rel "
+              f"{dc:.3e}; statuses "
+              f"{torch.bincount(auto.status, minlength=5).tolist()}; lanes "
+              f"apart {len(flips)}{': ' if flips else ''}"
+              f"{'; '.join(flips[:4])} [{card}]", flush=True)
+        if dtype == torch.float64:
+            check(st and it and du <= E2E_U_NORM_FP64, "centroidal boxed "
+                  "fp64: auto parts from the plain path")
+            continue
+        start = time.perf_counter()
+        host = DDPSolver(problem, dataclasses.replace(
+            cfg, backward_impl="stacked")).solve_batch(
+                CENTROIDAL_T0, x0s.cpu(), us0.cpu())
+        host_s = time.perf_counter() - start
+        host_res = dataclasses.replace(host, **{
+            f.name: getattr(host, f.name).to(device)
+            for f in dataclasses.fields(host) if f.name != "trace"})
+        _, _, fu, fc = e2e_compare(plain, host_res)
+        floors = (max(E2E_U_NORM, 2 * fu), max(E2E_COST_REL, 2 * fc))
+        print(f"[centroidal] boxed fp32 floor: the plain path on the card vs "
+              f"on its host's CPU ({host_s:.2f} s): u normalized {fu:.3e}, "
+              f"cost rel {fc:.3e}; auto held to u {floors[0]:.3e}, cost "
+              f"{floors[1]:.3e}", flush=True)
+        check(du <= floors[0] and dc <= floors[1],
+              "centroidal boxed fp32: auto parts from the plain path past the "
+              "plain path's own rounding floor")
+    B, N = CENTROIDAL
+    cfg = dataclasses.replace(cfg, horizon_steps=N)
+    for dtype in (torch.float32, torch.float64):
+        x0s, us0, masked = centroidal_start(problem, B, N, dtype, device)
+        start = time.perf_counter()
+        res, counts, syncs = solve_counted(problem, cfg, x0s, us0,
+                                           t0=CENTROIDAL_T0)
+        secs = time.perf_counter() - start
+        label = f"B={B} N={N} {str(dtype)[6:]}"
+        inside, zero, finite = hold(res, counts, masked, f"auto {label}")
+        print(f"[centroidal] boxed solve_batch {label} max_iter="
+              f"{cfg.max_iter} t0={CENTROIDAL_T0} auto ({key}, plain "
+              f"rollouts): {B / secs:.1f} solves/s ({secs:.2f} s), host "
+              f"syncs {syncs}, launches {counts}; u[0] inside [{lo:g}, "
+              f"{hi:g}] {inside}, masked u exactly 0 {zero}, finite "
+              f"{finite}, statuses "
+              f"{torch.bincount(res.status, minlength=5).tolist()}, "
+              f"iterations {torch.bincount(res.iters).tolist()} [{card}]",
+              flush=True)
+        if dtype == torch.float32:
+            KERNELS[key].launches = counts[key]
+
+
 def phase_centroidal(device, card):
     """K1 at (9, 16) against its plain version and timed; ``solve_batch``
     of the unboxed centroidal model through ``auto`` (K1@9x16 and the
     plain rollouts; the launch counters reset just before and read just
-    after) and the plain path at fp64 and fp32; the boxed solve (the
-    plain BoxQP) with its solves/s and host syncs."""
+    after) and the plain path at fp64 and fp32; then K4 at (9, 16) the
+    same way (check_wide_k4) and the boxed solves
+    (boxed_centroidal_solves)."""
     check_wide_k1(device, card)
     B, N = CENTROIDAL
     problem = centroidal_problem()
@@ -4318,7 +4731,8 @@ def phase_centroidal(device, card):
               f"; lanes apart {len(flips)}{': ' if flips else ''}"
               f"{'; '.join(flips[:4])} [{card}]", flush=True)
         check(counts["K1@9x16"] > 0 and not any(
-            counts[key] for key in REMAT_PATH + ("K1", "K2", "K3")),
+            counts[key] for key in REMAT_PATH + ("K1", "K2", "K3", "K4",
+                                                 "K4@9x16")),
             "centroidal: auto did not run K1@9x16 alone")
         check(not any(plain_counts.values()),
               "centroidal: the plain path launched a kernel")
@@ -4352,29 +4766,8 @@ def phase_centroidal(device, card):
         check(du <= floors[0] and dc <= floors[1],
               "centroidal fp32: auto parts from the plain path past the "
               "plain path's own rounding floor")
-    # the boxed solve: nu = 16 takes the plain BoxQP, as on the TPU
-    N = CENTROIDAL_BOXED_N
-    problem = centroidal_problem(boxed=True)
-    cfg = DDPConfig(horizon_steps=N, max_iter=CENTROIDAL_ITERS,
-                    initial_lambda=1e-6, with_input_constraint=True)
-    x0s, us0, masked = centroidal_start(problem, B, N, torch.float32, device)
-    start = time.perf_counter()
-    res, counts, syncs = solve_counted(problem, cfg, x0s, us0,
-                                       t0=CENTROIDAL_T0)
-    secs = time.perf_counter() - start
-    lo, hi = CENTROIDAL_FORCE
-    inside = bool(torch.all((res.us[:, 0] >= lo) & (res.us[:, 0] <= hi)))
-    zero = bool(torch.all(res.us[:, masked] == 0))
-    print(f"[centroidal] boxed solve_batch B={B} N={N} max_iter="
-          f"{cfg.max_iter} fp32 auto (plain BoxQP): {B / secs:.1f} solves/s "
-          f"({secs:.2f} s), host syncs {syncs}, launches {counts}; u[0] "
-          f"inside [{lo:g}, {hi:g}] {inside}, masked u exactly 0 {zero}, "
-          f"statuses {torch.bincount(res.status, minlength=5).tolist()} "
-          f"[{card}]", flush=True)
-    check(inside and zero, "centroidal boxed: u[0] left the box or a "
-          "masked input moved")
-    check(not any(counts[key] for key in ("K4", "K5b", "K1@9x16")),
-          "centroidal boxed: a backward kernel ran a nu = 16 boxed solve")
+    check_wide_k4(device, card)
+    boxed_centroidal_solves(device, card)
 
 
 def phase_centroidal_driver(device, card, full):
@@ -5022,9 +5415,12 @@ def phase_runtime_and_examples(device, card, out_dir):
 def main() -> int:
     parser = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
-        epilog="phases: build, kernels, kernels-variants, e2e, e2e-variants, "
-               "serving, driver, times, times-variants, centroidal (K1@9x16 "
-               "and the centroidal solves), centroidal-driver, second-order, "
+        epilog="phases: build, k4-references (K4@9x16's plain version on "
+               "the host CPU, in processes of their own until the centroidal "
+               "phase reads them), kernels, kernels-variants, e2e, "
+               "e2e-variants, serving, driver, times, times-variants, "
+               "centroidal (K1@9x16, K4@9x16 and the centroidal solves), "
+               "centroidal-driver, second-order, "
                "cgmres, horizon, mesh, serial, profiled, runtime+examples "
                "(runtime in a process of its own beside examples); "
                "with --qp-groups: qp-groups, row-groups, wide-groups "
@@ -5054,11 +5450,15 @@ def main() -> int:
     parser.add_argument("--phases", metavar="NAME,...",
                         help="run only these phases (a development run: no "
                              "kernel record and no result line)")
+    parser.add_argument("--k4-reference", metavar="DTYPE,REG_TYPE",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs a CUDA card", file=sys.stderr)
         return 1
+    if args.k4_reference:
+        return k4_reference(args.k4_reference)
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5068,6 +5468,7 @@ def main() -> int:
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
     phases = [("build", phase_build),
+              ("k4-references", lambda: BOXED_REFS.start(device)),
               ("kernels", lambda: phase_kernels(device)),
               ("kernels-variants", lambda: phase_kernels_variants(device)),
               ("e2e", lambda: phase_e2e(device)),
@@ -5116,6 +5517,8 @@ def main() -> int:
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        BOXED_REFS.stop()
     if args.phases:
         print(f"chip_smoke: ran {[name for name, _ in phases]} only",
               flush=True)

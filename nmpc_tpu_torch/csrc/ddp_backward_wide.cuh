@@ -28,12 +28,12 @@
 // and nothing spills;
 // what the group exchanges lives in each lane's scratch in the block's
 // dynamic shared memory, beside the ring (WideScratch, the carry
-// included).  A block holds wide_lanes(B) lanes: row_lanes<G>(B) (at
+// included).  A block holds WideK1Block::lanes(B) lanes: row_lanes<G>(B) (at
 // least a warp's and 4, a TMA box row of 16 bytes at fp32) up to the
 // most that keep it within 8 warps (255 registers a thread) and its ring
-// of two buffers and scratch within 227 KB (wide_max_lanes: 4 at (9, 16),
+// of two buffers and scratch within 227 KB (max_lanes: 4 at (9, 16),
 // G = 32; 8 at G = 16); the ring holds as many buffers as then fit
-// (wide_ring: 8 at G = 32), checked when the unit compiles; one kernel
+// (ring: 8 at G = 32), checked when the unit compiles; one kernel
 // for each lane count, so that every field's address in the ring is an
 // immediate offset.  Every field lands at a 128-byte boundary of the block's lanes
 // (WideRingLayout pads by the fewest lanes a block holds).  As in K1, a
@@ -67,61 +67,62 @@ __host__ __device__ constexpr int wide_stage_align() {
 template <typename T, int NX, int NU, int G>
 using WideRingLayout = StageLayout<NX, NU, wide_stage_align<T, G>()>;
 
-// Values between two lanes' scratch: WideScratch rounded up to 128
-// bytes, plus G values (modulo 128 bytes), so that the lanes of a warp
-// reading the same value hit distinct banks.
-template <typename T, int NX, int NU, int G>
-__host__ __device__ constexpr int wide_lane_stride() {
-  constexpr int per = 128 / static_cast<int>(sizeof(T));
-  return (WideScratch<NX, NU>::size + per - 1) / per * per + G % per;
-}
-
-// Bytes of a block of L lanes with a ring of R buffers: the ring, then
-// the lanes' scratch.
-template <typename T, int NX, int NU, int G>
-__host__ __device__ constexpr size_t wide_block_bytes(int R, int L) {
-  return ring_bytes<T>(R, 1, WideRingLayout<T, NX, NU, G>::F, L) +
-         static_cast<size_t>(L) * wide_lane_stride<T, NX, NU, G>() *
-             sizeof(T);
-}
-
 // The most threads of a wide block, the producer warp's included: 8
 // warps, so that ptxas keeps 255 registers a thread (it sizes a block's
 // registers by 4 warps at a time: 9 warps would leave 168).
 constexpr int kWideMaxThreads = 256;
 
-// The most lanes of a block: kMaxRowLanes, halved while the block passes
-// kWideMaxThreads or a ring of two buffers and the lanes' scratch pass a
-// block's shared memory (not below wide_min_lanes; wide_ring then holds
-// one buffer).
-template <typename T, int NX, int NU, int G>
-__host__ __device__ constexpr int wide_max_lanes() {
-  int L = kMaxRowLanes;
-  while (L > wide_min_lanes<G>() &&
-         (L * G + 32 > kWideMaxThreads ||
-          wide_block_bytes<T, NX, NU, G>(2, L) > kMaxBlockSmem))
-    L /= 2;
-  return L;
-}
+// The size rules of a wide block of G threads a lane, whose ring
+// buffers hold F values a lane and whose lanes' scratch S values each,
+// with X bytes more after the scratch: a host-and-device rule, so that
+// the launch and the kernel compute it alike.
+template <typename T, int G, int F, int S, size_t X = 0>
+struct WideBlock {
+  // values between two lanes' scratch: S rounded up to 128 bytes, plus G
+  // values (modulo 128 bytes), so that the lanes of a warp reading the
+  // same value hit distinct banks
+  static constexpr int per = 128 / static_cast<int>(sizeof(T));
+  static constexpr int stride = (S + per - 1) / per * per + G % per;
 
-// Buffers of the ring: as many as fit beside wide_max_lanes lanes'
-// scratch, at most kMaxStageRing.
-template <typename T, int NX, int NU, int G>
-__host__ __device__ constexpr int wide_ring() {
-  int R = kMaxStageRing;
-  while (R > 1 && wide_block_bytes<T, NX, NU, G>(
-                      R, wide_max_lanes<T, NX, NU, G>()) > kMaxBlockSmem)
-    --R;
-  return R;
-}
+  // bytes of a block of L lanes with a ring of R buffers: the ring, then
+  // the lanes' scratch, then the X bytes
+  __host__ __device__ static constexpr size_t bytes(int R, int L) {
+    return ring_bytes<T>(R, 1, F, L) +
+           static_cast<size_t>(L) * stride * sizeof(T) + X;
+  }
 
-// Lanes of a block for a batch of B lanes.
+  // the most lanes of a block: kMaxRowLanes, halved while the block
+  // passes kWideMaxThreads or a ring of two buffers and the rest pass a
+  // block's shared memory (not below wide_min_lanes; ring() then holds
+  // one buffer)
+  __host__ __device__ static constexpr int max_lanes() {
+    int L = kMaxRowLanes;
+    while (L > wide_min_lanes<G>() &&
+           (L * G + 32 > kWideMaxThreads || bytes(2, L) > kMaxBlockSmem))
+      L /= 2;
+    return L;
+  }
+
+  // buffers of the ring: as many as fit beside max_lanes() lanes, at most
+  // kMaxStageRing
+  __host__ __device__ static constexpr int ring() {
+    int R = kMaxStageRing;
+    while (R > 1 && bytes(R, max_lanes()) > kMaxBlockSmem) --R;
+    return R;
+  }
+
+  // lanes of a block for a batch of B lanes
+  __host__ __device__ static int lanes(int B) {
+    const int L = row_lanes<G>(B);
+    return L < max_lanes() ? L : max_lanes();
+  }
+};
+
+// K1-wide's block: the ring's buffers in WideRingLayout, WideScratch a
+// lane (at (9, 16), G = 32: at most 4 lanes, a ring of 8 buffers).
 template <typename T, int NX, int NU, int G>
-__host__ __device__ inline int wide_lanes(int B) {
-  const int L = row_lanes<G>(B);
-  return L < wide_max_lanes<T, NX, NU, G>() ? L
-                                            : wide_max_lanes<T, NX, NU, G>();
-}
+using WideK1Block = WideBlock<T, G, WideRingLayout<T, NX, NU, G>::F,
+                              WideScratch<NX, NU>::size>;
 
 // The recursion of one lane's group: the terminal carry into the lane's
 // scratch `s`, then every stage from the end of the horizon (`feed` as
@@ -174,7 +175,7 @@ __device__ __forceinline__ void wide_backward(
 // A block: L lanes of G threads (the consumer warps), then one producer
 // warp filling K1's ring (ddp_backward.cuh) from the end of the horizon;
 // the lanes' scratch after the ring.  One kernel for each L a launch
-// takes (wide_lanes), so that the slab's lane stride is a constant.
+// takes (WideK1Block::lanes), so that the slab's lane stride is a constant.
 template <typename T, int NX, int NU, int G, int L>
 __global__ void __launch_bounds__(L * G + 32)
 ddp_backward_wide_kernel(const __grid_constant__ FieldMaps maps,
@@ -184,7 +185,7 @@ ddp_backward_wide_kernel(const __grid_constant__ FieldMaps maps,
                          int N, int B, int reg_type) {
   using Layout = WideRingLayout<T, NX, NU, G>;
   constexpr int W = 32 / G;
-  constexpr int R = wide_ring<T, NX, NU, G>();
+  constexpr int R = WideK1Block<T, NX, NU, G>::ring();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int base = static_cast<int>(blockIdx.x) * L;   // the block's lane 0
   const int lanes = B - base < L ? B - base : L;
@@ -222,23 +223,24 @@ ddp_backward_wide_kernel(const __grid_constant__ FieldMaps maps,
   wide_backward<T, NX, NU, G, L, Layout>(
       feed, at, N, B, reg_type, VxT, VxxT, lam_in, out,
       scratch + static_cast<size_t>(threadIdx.x / G) *
-                    wide_lane_stride<T, NX, NU, G>());
+                    WideK1Block<T, NX, NU, G>::stride);
 }
 
-// The launch at lanes == L, else at the next L up to wide_max_lanes.
+// The launch at lanes == L, else at the next L up to the block's most.
 template <typename T, int NX, int NU, int G, int L>
 int launch_wide_lanes(int lanes, int N, int B, int reg_type,
                       const FieldMaps& maps, const T* VxT, const T* VxxT,
                       const T* lam, const BackwardOut<T>& out,
                       cudaStream_t stream) {
-  if constexpr (L > wide_max_lanes<T, NX, NU, G>()) {
+  using Block = WideK1Block<T, NX, NU, G>;
+  if constexpr (L > Block::max_lanes()) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (lanes != L)
       return launch_wide_lanes<T, NX, NU, G, 2 * L>(
           lanes, N, B, reg_type, maps, VxT, VxxT, lam, out, stream);
     const size_t smem =
-        wide_block_bytes<T, NX, NU, G>(wide_ring<T, NX, NU, G>(), L);
+        Block::bytes(Block::ring(), L);
     const int err =
         allow_dynamic_smem(ddp_backward_wide_kernel<T, NX, NU, G, L>, smem);
     if (err != 0) return err;
@@ -256,13 +258,14 @@ int launch_ddp_backward_wide(int N, int B, int ld, int reg_type,
                              const void* const* fields, const void* VxT,
                              const void* VxxT, const void* lam, void* ks,
                              void* Ks, void* dV, void* ok, void* stream) {
-  constexpr int R = wide_ring<T, NX, NU, G>();
-  constexpr int most = wide_max_lanes<T, NX, NU, G>();
-  static_assert(wide_block_bytes<T, NX, NU, G>(R, most) <= kMaxBlockSmem,
+  using Block = WideK1Block<T, NX, NU, G>;
+  constexpr int R = Block::ring();
+  constexpr int most = Block::max_lanes();
+  static_assert(Block::bytes(R, most) <= kMaxBlockSmem,
                 "a wide block's ring and scratch pass its shared memory");
   static_assert(most * G + 32 <= 1024, "a wide block passes 1024 threads");
   if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int L = wide_lanes<T, NX, NU, G>(B);
+  const int L = Block::lanes(B);
   const int sizes[7] = {NX * NX, NX * NU, NX, NU, NX * NX, NU * NU, NX * NU};
   FieldMaps maps;
   for (int f = 0; f < 7; ++f) {

@@ -86,24 +86,18 @@ struct WideScratch {
   static constexpr int size = Vn + NX * NX;
 };
 
-// One backward Riccati stage of one lane on its G threads (every thread
-// of the warp calls it at the same point).  `s` is the lane's WideScratch,
-// holding the carry (Vx, Vxx) on entry and the next one on return; dV0,
-// dV1 and ok are each thread's copy of the rest of the carry (equal
-// across the group).  On return the stage's k and K sit in s[X] (k in
-// column 0, K[m][a] at s[X + m XS + 1 + a]) until the next stage's first
-// barrier.
+// The Q expansion of a wide stage (q_expansion's sums) on the lane's G
+// threads: Qu, Qx, Qxx, Qux and Quu to the lane's scratch `s`, Qu also to
+// s[X]'s column 0 and Qux_reg to its columns 1 + a (the right-hand sides
+// of the unboxed stage's solves), and each thread's rows of Quu_F to AF
+// (row q = j G + r in AF[j]).  Reads the carry (Vx, Vxx) from `s` and the
+// stage's fields where they landed (`p`, value e at p[e L]).
 template <typename T, int NX, int NU, int G, int L, typename Layout>
-__device__ __forceinline__ void riccati_stage_wide(const T* __restrict__ p,
-                                                   T lam, int reg_type, T* s,
-                                                   T& dV0, T& dV1,
-                                                   bool& ok) {
+__device__ __forceinline__ void wide_q_expansion(
+    const T* __restrict__ p, T lam, int reg_type, T* s,
+    T (&AF)[(NU + NX + G - 1) / G][NU]) {
   using P = Layout;
   using S = WideScratch<NX, NU>;
-  constexpr int JU = (NU + G - 1) / G;        // input rows a thread owns
-  constexpr int JX = (NX + G - 1) / G;        // state rows a thread owns
-  constexpr int M = NX + 1;                   // right-hand sides
-  constexpr int JC = (M + G - 1) / G;         // right-hand sides a thread
   const int r = LaneGroup<G>::rank();
   const T* Vx = s + S::Vx;
   const T* Vxx = s + S::Vxx;
@@ -119,7 +113,6 @@ __device__ __forceinline__ void riccati_stage_wide(const T* __restrict__ p,
   // state rows) runs one instruction stream, a state row's Fu products
   // discarded.  Quu_F's row stays in registers (AF) for the Cholesky.
   constexpr int JT = (NU + NX + G - 1) / G;   // row tasks a thread
-  T AF[JT][NU];
 #pragma unroll
   for (int j = 0; j < JT; ++j) {
     const int q = j * G + r;
@@ -208,7 +201,28 @@ __device__ __forceinline__ void riccati_stage_wide(const T* __restrict__ p,
       }
     }
   }
+}
 
+// The Cholesky of an NU x NU matrix by rows on the lane's G threads, with
+// the forward substitution of M right-hand sides (rhs[i RS + c]) folded
+// in.  This thread holds rows i = j G + r < NU of the matrix in AF[j] (J
+// >= ceil(NU / G) slots, the ones past that untouched); they become its
+// rows of L below the diagonal, each entry also written by columns to Lt
+// (Lt[k NU + i] = L[i][k]).  Fd receives the matrix's diagonal.  Every
+// thread forms every pivot and holds L's diagonal in Ld; rank r solves
+// right-hand sides r, r + G, ... (ranks past M repeat the last), y
+// holding their forward solutions.  Returns whether every pivot was > 0
+// and finite (linalg.cuh::cholesky's LLT rule).  On return every entry
+// of Lt is visible to every thread of the group.
+template <typename T, int NU, int G, int M, int RS, int J>
+__device__ __forceinline__ bool wide_cholesky(T (&AF)[J][NU], T* Fd, T* Lt,
+                                              const T* rhs,
+                                              T (&y)[(M + G - 1) / G][NU],
+                                              T (&Ld)[NU]) {
+  constexpr int JU = (NU + G - 1) / G;        // input rows a thread owns
+  constexpr int JC = (M + G - 1) / G;         // right-hand sides a thread
+  static_assert(J >= JU, "AF holds the thread's rows");
+  const int r = LaneGroup<G>::rank();
   // The Cholesky of Quu_F (linalg.cuh::cholesky's sums) by rows, with
   // the forward substitution of every right-hand side (k's and K's
   // columns: neg_chol_solve's y) folded in.  AF's row becomes the
@@ -222,7 +236,6 @@ __device__ __forceinline__ void riccati_stage_wide(const T* __restrict__ p,
   // the Q expansion, after the first); after it each adds the last term
   // and finishes the pivot, L[i][j] and y[j].  Every sum keeps its
   // one-thread order.
-  T* Lt = s + S::Lt;
 #pragma unroll
   for (int jr = 0; jr < JU; ++jr) {
     const int i = jr * G + r;
@@ -230,17 +243,15 @@ __device__ __forceinline__ void riccati_stage_wide(const T* __restrict__ p,
       T d = AF[jr][0];
 #pragma unroll
       for (int c = 1; c < NU; ++c) d = (i == c) ? AF[jr][c] : d;
-      s[S::Fd + i] = d;
+      Fd[i] = d;
     }
   }
   bool good = true;
-  T Ld[NU];      // L's diagonal
-  T y[JC][NU];   // each own right-hand side's y, then its x
 #pragma unroll
   for (int j = 0; j < NU; ++j) {
     T d = T(0), t[JU], u[JC];
     if (j > 0) {
-      d = s[S::Fd + j];
+      d = Fd[j];
 #pragma unroll
       for (int k = 0; k + 1 < j; ++k) d = d - Lt[k * NU + j] * Lt[k * NU + j];
     }
@@ -258,7 +269,7 @@ __device__ __forceinline__ void riccati_stage_wide(const T* __restrict__ p,
     for (int jc = 0; jc < JC; ++jc) {
       const int c = min(jc * G + r, M - 1);
       if (j > 0) {
-        u[jc] = s[S::X + j * S::XS + c];
+        u[jc] = rhs[j * RS + c];
 #pragma unroll
         for (int k = 0; k + 1 < j; ++k)
           u[jc] = u[jc] - Lt[k * NU + j] * y[jc][k];
@@ -266,7 +277,7 @@ __device__ __forceinline__ void riccati_stage_wide(const T* __restrict__ p,
     }
     __syncwarp();
     const T last = j > 0 ? Lt[(j - 1) * NU + j] : T(0);   // L[j][j - 1]
-    d = j > 0 ? d - last * last : s[S::Fd];
+    d = j > 0 ? d - last * last : Fd[0];
     good = good && (d > T(0)) && finite(d);
     Ld[j] = sqrt(d > T(0) ? d : T(1));
     const T inv = T(1) / Ld[j];
@@ -282,31 +293,24 @@ __device__ __forceinline__ void riccati_stage_wide(const T* __restrict__ p,
 #pragma unroll
     for (int jc = 0; jc < JC; ++jc) {
       const int c = min(jc * G + r, M - 1);
-      u[jc] = j > 0 ? u[jc] - last * y[jc][j - 1] : s[S::X + c];
+      u[jc] = j > 0 ? u[jc] - last * y[jc][j - 1] : rhs[c];
       y[jc][j] = u[jc] / Ld[j];
     }
   }
-  ok = good && ok;
+  return good;
+}
 
-  // The backward substitution of each own right-hand side (neg_chol_solve's
-  // x, over y), -x over the right-hand side in s[X].
-#pragma unroll
-  for (int jc = 0; jc < JC; ++jc) {
-    const int c = jc * G + r;
-#pragma unroll
-    for (int i = NU - 1; i >= 0; --i) {
-      T t = y[jc][i];
-#pragma unroll
-      for (int k = i + 1; k < NU; ++k) t = t - Lt[i * NU + k] * y[jc][k];
-      y[jc][i] = t / Ld[i];
-    }
-    if (JC * G == M || c < M) {
-#pragma unroll
-      for (int i = 0; i < NU; ++i) s[S::X + i * S::XS + c] = -y[jc][i];
-    }
-  }
-  __syncwarp();
-
+// The value update of a wide stage (value_update's sums) from the lane's
+// scratch `s` (Qu, Qx, Qxx, Qux, Quu and the gains in s[X]: k in column
+// 0, K[m][a] at s[X + m XS + 1 + a]): the next carry's Vx and Vxx to `s`,
+// and dV0, dV1 updated in every thread.  Every thread of the warp calls
+// it after a barrier that follows the last write to s[X].
+template <typename T, int NX, int NU, int G>
+__device__ __forceinline__ void wide_value_update(T* s, T& dV0, T& dV1) {
+  using S = WideScratch<NX, NU>;
+  constexpr int JU = (NU + G - 1) / G;        // input rows a thread owns
+  constexpr int JX = (NX + G - 1) / G;        // state rows a thread owns
+  const int r = LaneGroup<G>::rank();
   // The value update (value_update's sums): Quu k by input row, Quu K by
   // entry; then dV in every thread, Vx by state row and Vn by entry; then
   // the symmetrized Vxx by entry.
@@ -400,6 +404,52 @@ __device__ __forceinline__ void riccati_stage_wide(const T* __restrict__ p,
     }
   }
   __syncwarp();
+}
+
+// One backward Riccati stage of one lane on its G threads (every thread
+// of the warp calls it at the same point).  `s` is the lane's WideScratch,
+// holding the carry (Vx, Vxx) on entry and the next one on return; dV0,
+// dV1 and ok are each thread's copy of the rest of the carry (equal
+// across the group).  On return the stage's k and K sit in s[X] (k in
+// column 0, K[m][a] at s[X + m XS + 1 + a]) until the next stage's first
+// barrier.
+template <typename T, int NX, int NU, int G, int L, typename Layout>
+__device__ __forceinline__ void riccati_stage_wide(const T* __restrict__ p,
+                                                   T lam, int reg_type, T* s,
+                                                   T& dV0, T& dV1,
+                                                   bool& ok) {
+  using S = WideScratch<NX, NU>;
+  constexpr int M = NX + 1;                   // right-hand sides
+  constexpr int JC = (M + G - 1) / G;         // right-hand sides a thread
+  const int r = LaneGroup<G>::rank();
+  T AF[(NU + NX + G - 1) / G][NU];
+  wide_q_expansion<T, NX, NU, G, L, Layout>(p, lam, reg_type, s, AF);
+  T Ld[NU];      // L's diagonal
+  T y[JC][NU];   // each own right-hand side's y, then its x
+  T* Lt = s + S::Lt;
+  ok = wide_cholesky<T, NU, G, M, S::XS>(AF, s + S::Fd, Lt, s + S::X, y,
+                                        Ld) &&
+       ok;
+
+  // The backward substitution of each own right-hand side (neg_chol_solve's
+  // x, over y), -x over the right-hand side in s[X].
+#pragma unroll
+  for (int jc = 0; jc < JC; ++jc) {
+    const int c = jc * G + r;
+#pragma unroll
+    for (int i = NU - 1; i >= 0; --i) {
+      T t = y[jc][i];
+#pragma unroll
+      for (int k = i + 1; k < NU; ++k) t = t - Lt[i * NU + k] * y[jc][k];
+      y[jc][i] = t / Ld[i];
+    }
+    if (JC * G == M || c < M) {
+#pragma unroll
+      for (int i = 0; i < NU; ++i) s[S::X + i * S::XS + c] = -y[jc][i];
+    }
+  }
+  __syncwarp();
+  wide_value_update<T, NX, NU, G>(s, dV0, dV1);
 }
 
 }  // namespace nmpc

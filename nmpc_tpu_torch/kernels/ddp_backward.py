@@ -7,8 +7,9 @@ stored ``[..., small_dims..., B]`` and the small-matrix contractions are
 written out as broadcast-multiply-reduce over the batch.  They are the
 plain versions of the CUDA kernels (``kernels/ddp_backward_fused.py``,
 ``kernels/ddp_backward_boxed.py``, ``kernels/ddp_backward_remat.py``):
-the CPU path, the path of a boxed solve with nu > 4, and the reference
-each kernel is held against on the card.  Math follows the reference
+the CPU path, the path of a solve that names ``backward_impl="stacked"``
+or that no kernel takes, and the reference each kernel is held against
+on the card.  Math follows the reference
 ``DDPSolver.hpp:343-534`` and ``BoxQP.h:141-347``.
 """
 
@@ -238,8 +239,8 @@ def boxqp_stacked(H, g, lower, upper, x0, config: BoxQPConfig, host=bool,
 
     ``stats``, a dict if given, receives per lane the QP iterations
     (``"qp_iters"``), the most Armijo candidates one iteration visited
-    (``"ls_candidates"``) and the candidates visited in all
-    (``"ls_evals"``).
+    (``"ls_candidates"``), the candidates visited in all (``"ls_evals"``)
+    and the free set returned (``"free"``, [n, B]).
     Returns (x, ok [B], free [n, B] 0/1, cholL [n, n, B], iterations)."""
     n, B = g.shape
     dtype, device = g.dtype, g.device
@@ -359,7 +360,7 @@ def boxqp_stacked(H, g, lower, upper, x0, config: BoxQPConfig, host=bool,
         ls_evals = ls_evals + torch.where(take, visited, 0)
     if stats is not None:
         stats.update(qp_iters=qp_iters, ls_candidates=ls_visits,
-                     ls_evals=ls_evals)
+                     ls_evals=ls_evals, free=free)
     return x, status >= 0, free, chol, it
 
 
@@ -377,7 +378,7 @@ def backward_stacked_boxed(config: DDPConfig, D: StackedDerivs,
 
     ``host`` reads the QP loops' device flags.  ``stats``, a dict if
     given, receives ``"qp_iters"``, ``"ls_candidates"`` and ``"ls_evals"``
-    [N, B] (see :func:`boxqp_stacked`).
+    [N, B] and ``"free"`` [N, nu, B] (see :func:`boxqp_stacked`).
     Returns (ks [N, nu, B], Ks [N, nu, nx, B], dV [2, B], ok [B] bool)."""
     N, nx = D.Fx.shape[0], D.Fx.shape[1]
     nu = D.Fu.shape[2]
@@ -390,7 +391,8 @@ def backward_stacked_boxed(config: DDPConfig, D: StackedDerivs,
     k_next = torch.zeros((nu, B), dtype=dtype, device=device)
     ks = torch.empty((N, nu, B), dtype=dtype, device=device)
     Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
-    per_stage = {"qp_iters": [], "ls_candidates": [], "ls_evals": []}
+    per_stage = {"qp_iters": [], "ls_candidates": [], "ls_evals": [],
+                 "free": []}
     for i in reversed(range(N)):
         Qu, Qx, Qux, Quu, Qxx, Qux_reg, Quu_F = _q_expansion(
             config, [a[i] for a in D], Vx, Vxx, lam,

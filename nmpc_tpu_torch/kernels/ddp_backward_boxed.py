@@ -1,14 +1,22 @@
 """Boxed DDP Riccati backward fed by the derivative sweep: the CUDA
-kernel's wrapper (TPU K4).
+kernels' wrapper (TPU K4).
 
-Replaces ``nmpc_tpu/kernels/ddp_backward_pallas.py::backward_pallas_boxed``.
-Source: ``csrc/ddp_backward_boxed.cuh`` (a group of ``kQpGroup`` threads
-per lane that evaluates the Armijo schedule that many candidates at a
-time; the stage ``riccati_stage_boxed`` and the projected-Newton QP
-``csrc/boxqp.cuh``), instantiated per (nx, nu, dtype) in a small
-generated unit that nvcc builds at first use.  As on the TPU the kernel
-takes nu <= ``MAX_NU``: the QP unrolls about nu^3 work per stage into
-registers.
+Replaces ``nmpc_tpu/kernels/ddp_backward_pallas.py::backward_pallas_boxed``,
+which takes any (nx, nu), with two sources, each instantiated per (nx, nu,
+dtype) in a small generated unit that nvcc builds at first use:
+
+* ``csrc/ddp_backward_boxed.cuh`` for nu <= ``MAX_NU_GROUP`` at any nx:
+  a group of ``kQpGroup`` threads per lane that each run the lane's
+  stage ``riccati_stage_boxed`` and projected-Newton QP
+  ``csrc/boxqp.cuh`` in registers and evaluate the Armijo schedule that
+  many candidates at a time;
+* ``csrc/ddp_backward_boxed_wide.cuh`` at a :func:`boxed_wide` shape,
+  where the one-group unit cannot serve (MAX_NU_GROUP < nu, up to K1's
+  (9, 16): the centroidal model's 16 boxed forces): K1-wide's block and
+  TMA ring with the bounds added to each stage, and the stage and QP of
+  ``csrc/boxqp_wide.cuh``, whose 32 threads a lane split the 16-input
+  work by rows through shared memory (the one-group QP unrolls about
+  nu^3 work per stage into each thread's registers).
 
 :func:`backward_fused_boxed` is a drop-in for
 ``kernels/ddp_backward.py::backward_stacked_boxed``.  On CPU tensors it
@@ -28,9 +36,17 @@ from nmpc_tpu_torch.kernels.build import CSRC, build_generated, load
 from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds,
                                                  StackedDerivs,
                                                  backward_stacked_boxed)
-from nmpc_tpu_torch.kernels.ddp_backward_fused import _check
+from nmpc_tpu_torch.kernels.ddp_backward_fused import (MAX_NU, MAX_NX,
+                                                       _check,
+                                                       padded_fields)
 
-MAX_NU = 4
+# The largest input the one-group unit (ddp_backward_boxed.cuh) takes, at
+# any nx; the wide unit takes the inputs past it up to K1's (MAX_NX,
+# MAX_NU).
+MAX_NU_GROUP = 4
+# The most Armijo steps (max_ls_iter + 1) the wide unit's step table holds
+# (csrc/ddp_backward_boxed_wide.cuh::kWideStepTable).
+WIDE_STEP_TABLE = 512
 # the kernels' scalar types (the generated units' T)
 DTYPES = {torch.float32: "float", torch.float64: "double"}
 
@@ -64,31 +80,54 @@ def qp_args(cfg: BoxQPConfig) -> tuple:
             cfg.armijo_param)
 
 
-def boxed_kernel_supports(nu: int, dtype) -> bool:
-    """Whether the kernel takes this input size and dtype: nu <= MAX_NU,
-    float32 or float64 (any nx; the unit is built on demand)."""
-    return nu <= MAX_NU and dtype in DTYPES
+def boxed_wide(nx: int, nu: int) -> bool:
+    """Whether the wide unit serves (nx, nu): only where the one-group
+    unit cannot, MAX_NU_GROUP < nu <= MAX_NU and nx <= MAX_NX."""
+    return MAX_NU_GROUP < nu <= MAX_NU and 1 <= nx <= MAX_NX
+
+
+def boxed_kernel_supports(nx: int, nu: int, dtype) -> bool:
+    """Whether a boxed kernel takes this state/input size and dtype:
+    float32 or float64, and (nx, nu) with nu <= MAX_NU_GROUP at any nx
+    (the one-group unit) or a :func:`boxed_wide` shape (up to (9, 16));
+    any B and N (the unit is built on demand)."""
+    return (dtype in DTYPES and nx >= 1 and nu >= 1
+            and (boxed_wide(nx, nu) or nu <= MAX_NU_GROUP))
 
 
 def unit_source(nx: int, nu: int, dtype, group: int | None = None) -> str:
-    """The unit instantiating the kernel at (nx, nu, dtype), with the
-    header's ``kQpGroup`` threads per lane, or ``group`` where a
-    measurement asks for another."""
+    """The unit instantiating the kernel at (nx, nu, dtype) (the wide one
+    at a :func:`boxed_wide` shape), with its header's threads per lane,
+    or ``group`` where a measurement asks for another.  Both take a lane
+    stride ``ld`` and a ``qp_stats`` buffer, which the one-group kernel
+    does not read."""
+    wide = boxed_wide(nx, nu)
     g = "" if group is None else f", {group}"
-    return (f"#include \"ddp_backward_boxed.cuh\"\n\n"
+    if wide:
+        header, fn, lead, tail = ("ddp_backward_boxed_wide.cuh",
+                                  "launch_backward_boxed_wide", "ld, ",
+                                  "qp_stats, ")
+        unused = ""
+    else:
+        header, fn, lead, tail = ("ddp_backward_boxed.cuh",
+                                  "launch_backward_boxed", "", "")
+        unused = "  (void)ld;\n  (void)qp_stats;\n"
+    return (f"#include \"{header}\"\n\n"
             f"extern \"C\" int boxed_backward_launch(\n"
-            f"    int N, int B, int reg_type, const void* const* fields,\n"
-            f"    const void* VxT, const void* VxxT, const void* lam,\n"
-            f"    void* ks, void* Ks, void* dV, void* ok, void* stream,\n"
-            f"    {QP_PARAMS_C}) {{\n{QP_STRUCT_C}"
-            f"  return nmpc::launch_backward_boxed<{DTYPES[dtype]}, {nx}, "
-            f"{nu}{g}>(\n      N, B, reg_type, qp, fields, VxT, VxxT, lam, "
-            f"ks, Ks, dV, ok, stream);\n}}\n")
+            f"    int N, int B, int reg_type, int ld,\n"
+            f"    const void* const* fields, const void* VxT,\n"
+            f"    const void* VxxT, const void* lam, void* ks, void* Ks,\n"
+            f"    void* dV, void* ok, void* qp_stats, void* stream,\n"
+            f"    {QP_PARAMS_C}) {{\n{QP_STRUCT_C}{unused}"
+            f"  return nmpc::{fn}<{DTYPES[dtype]}, {nx}, {nu}{g}>(\n"
+            f"      N, B, {lead}reg_type, qp, fields, VxT, VxxT, lam, ks, Ks, "
+            f"dV, ok,\n      {tail}stream);\n}}\n")
 
 
 def unit_name(nx: int, nu: int, dtype, group: int | None = None) -> str:
+    kind = "_wide" if boxed_wide(nx, nu) else ""
     g = "" if group is None else f"_g{group}"
-    return f"ddp_backward_boxed_{nx}x{nu}_{str(dtype)[6:]}{g}"
+    return f"ddp_backward_boxed{kind}_{nx}x{nu}_{str(dtype)[6:]}{g}"
 
 
 @functools.lru_cache(maxsize=16)
@@ -101,33 +140,55 @@ def launcher(nx: int, nu: int, dtype, group: int | None = None,
                                unit_source(nx, nu, dtype, group),
                                BOXED_FLAGS, csrc))
     fn = lib.boxed_backward_launch
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + QP_ARGTYPES
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 10 + QP_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
 def launch(fn, config: DDPConfig, D: StackedDerivs, bounds: StackedBounds,
-           Vx_T, Vxx_T, lam):
+           Vx_T, Vxx_T, lam, stats=None):
     """One launch of the unit function ``fn`` (:func:`launcher`) on
-    checked CUDA tensors; raises on a CUDA error.  Counts nothing: the
-    wrapper counts its own launches."""
+    checked CUDA tensors; raises on a CUDA error.  The wide unit reads
+    its ten fields through TMA tensor maps: fields TMA does not take are
+    copied once (``padded_fields``; counted in
+    ``backward_fused_boxed.padded_copies``).  ``stats``, a dict if given
+    (the wide unit only), receives the kernel's QP iterations
+    (``"qp_iters"``), free sets (``"free"``, bit a for input a) and
+    Armijo candidates visited (``"ls_evals"``), [N, B] int32 each.
+    Counts no launch: the wrapper counts its own."""
     N, nx, nu = D.Fu.shape[0], D.Fu.shape[1], D.Fu.shape[2]
     B = Vx_T.shape[-1]
     dtype, device = Vx_T.dtype, Vx_T.device
+    wide = boxed_wide(nx, nu)
+    if stats is not None and not wide:
+        raise ValueError("only the wide boxed unit records QP stats")
+    if wide and config.boxqp.max_ls_iter + 1 > WIDE_STEP_TABLE:
+        raise ValueError(f"the wide boxed kernel takes max_ls_iter < "
+                         f"{WIDE_STEP_TABLE}, got "
+                         f"{config.boxqp.max_ls_iter}")
+    fields, ld = (*D, *bounds), B
+    if wide:
+        fields, ld, copies = padded_fields(fields)
+        backward_fused_boxed.padded_copies += copies
     ks = torch.empty((N, nu, B), dtype=dtype, device=device)
     Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
     dV = torch.empty((2, B), dtype=dtype, device=device)
     ok = torch.empty((B,), dtype=torch.bool, device=device)
-    fields = (ctypes.c_void_p * 10)(*(a.data_ptr() for a in (*D, *bounds)))
+    qp = (torch.empty((3, N, B), dtype=torch.int32, device=device)
+          if stats is not None else None)
+    ptrs = (ctypes.c_void_p * 10)(*(a.data_ptr() for a in fields))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = fn(N, B, config.reg_type, fields, Vx_T.data_ptr(),
+        err = fn(N, B, config.reg_type, ld, ptrs, Vx_T.data_ptr(),
                  Vxx_T.data_ptr(), lam.data_ptr(), ks.data_ptr(),
-                 Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream,
+                 Ks.data_ptr(), dV.data_ptr(), ok.data_ptr(),
+                 None if qp is None else qp.data_ptr(), stream,
                  *qp_args(config.boxqp))
     if err != 0:
         raise RuntimeError(f"boxed backward kernel launch failed: CUDA "
                            f"error {err}")
+    if stats is not None:
+        stats.update(qp_iters=qp[0], free=qp[1], ls_evals=qp[2])
     return ks, Ks, dV, ok
 
 
@@ -160,13 +221,20 @@ def backward_fused_boxed(config: DDPConfig, D: StackedDerivs,
     if device.type != "cuda":
         raise ValueError(f"backward_fused_boxed takes CPU or CUDA tensors, "
                          f"got {device}")
-    if not boxed_kernel_supports(nu, dtype):
-        raise ValueError(f"the boxed CUDA backward takes nu <= {MAX_NU} and "
-                         f"float32/float64; got nu={nu} {dtype}")
+    if not boxed_kernel_supports(nx, nu, dtype):
+        raise ValueError(
+            f"the boxed CUDA backward takes nu <= {MAX_NU_GROUP} at any "
+            f"nx, or {MAX_NU_GROUP} < nu <= {MAX_NU} at nx <= {MAX_NX}, and "
+            f"float32/float64; got ({nx}, {nu}) {dtype}")
     out = launch(launcher(nx, nu, dtype), config, D, bounds, Vx_T, Vxx_T,
                  lam)
-    backward_fused_boxed.launches += 1
+    if boxed_wide(nx, nu):
+        backward_fused_boxed.wide_launches += 1
+    else:
+        backward_fused_boxed.launches += 1
     return out
 
 
-backward_fused_boxed.launches = 0
+backward_fused_boxed.launches = 0         # the one-group unit
+backward_fused_boxed.wide_launches = 0    # the wide unit: (9, 16)
+backward_fused_boxed.padded_copies = 0    # a field copied to a TMA stride

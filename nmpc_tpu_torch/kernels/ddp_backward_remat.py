@@ -43,11 +43,16 @@ from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds,
                                                  backward_stacked,
                                                  backward_stacked_boxed)
 from nmpc_tpu_torch.kernels.ddp_backward_boxed import (BOXED_FLAGS, DTYPES,
-                                                       MAX_NU, QP_ARGTYPES,
+                                                       QP_ARGTYPES,
                                                        QP_PARAMS_C,
                                                        QP_STRUCT_C, qp_args)
 from nmpc_tpu_torch.kernels.ddp_backward_fused import _check
 from nmpc_tpu_torch.solvers.stages import _stage_derivs_sweep
+
+# The largest input the boxed remat kernel takes: its lane group repeats
+# the QP's NU x NU work in each thread's registers (csrc/boxqp.cuh).
+MAX_NU_BOXED = 4
+
 
 def _kind(boxed: bool) -> str:
     return "remat_boxed" if boxed else "remat"
@@ -57,8 +62,8 @@ def remat_supported(problem, nx: int, nu: int, dtype,
                     boxed: bool = False) -> bool:
     """Whether the kernel takes this problem at this dtype: float32 or
     float64, stage callables (boxed: and limits and mask) the generator
-    accepts, and boxed nu <= MAX_NU."""
-    return (dtype in DTYPES and (not boxed or nu <= MAX_NU)
+    accepts, and boxed nu <= MAX_NU_BOXED."""
+    return (dtype in DTYPES and (not boxed or nu <= MAX_NU_BOXED)
             and tileval.tile_supported(problem, _kind(boxed), nx, nu, dtype))
 
 
@@ -182,9 +187,10 @@ def backward_remat(problem, config: DDPConfig, t0, xs, us, Vx_T, Vxx_T,
     if dtype not in DTYPES:
         raise ValueError(f"the remat backward takes float32/float64, got "
                          f"{dtype}")
-    if boxed and nu > MAX_NU:
+    if boxed and nu > MAX_NU_BOXED:
         raise NotImplementedError(
-            f"the boxed remat backward takes nu <= {MAX_NU}: ROADMAP B7")
+            f"the boxed remat backward takes nu <= {MAX_NU_BOXED}: ROADMAP "
+            f"B7")
     tileval.generate(problem, _kind(boxed), nx, nu, dtype)   # the gate
     t0 = torch.as_tensor(t0, dtype=dtype, device=device)
     if device.type == "cpu":

@@ -40,13 +40,13 @@ from nmpc_tpu_torch.kernels.ddp_backward import (StackedBounds,
                                                  StackedDerivs, StackedSecond,
                                                  backward_stacked,
                                                  backward_stacked_boxed)
-from nmpc_tpu_torch.kernels.ddp_backward_boxed import (MAX_NU,
-                                                       backward_fused_boxed,
+from nmpc_tpu_torch.kernels.ddp_backward_boxed import (backward_fused_boxed,
                                                        boxed_kernel_supports)
 from nmpc_tpu_torch.kernels.ddp_backward_fused import (DMA_MODES,
                                                        backward_fused,
                                                        kernel_supports)
-from nmpc_tpu_torch.kernels.ddp_backward_remat import (backward_remat,
+from nmpc_tpu_torch.kernels.ddp_backward_remat import (MAX_NU_BOXED,
+                                                       backward_remat,
                                                        remat_supported)
 from nmpc_tpu_torch.kernels.ddp_forward_remat import (
     forward_costs_remat, forward_remat_supported, forward_selected_remat)
@@ -185,12 +185,19 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
         rejects (the bipedal model; the centroidal model, whose
         ``torch.linalg.cross`` it does not take) runs a kernel; K2 and K3
         take nx <= 8, nu <= 4 and raise, naming the shape, beyond them;
-        boxed (K4) at any nx and float32/float64;
+        boxed (K4) within its limits (``boxed_kernel_supports``: its wide
+        unit up to (9, 16), its one-group unit at nu <= 4, float32/
+        float64);
     and to ``"stacked"`` (the torch-op recursion) otherwise, on CPU
-    tensors always.  A boxed solve with nu > 4 (``MAX_NU``) takes
-    ``"stacked"`` too, as in the JAX rule (``nmpc_tpu/solvers/ddp.py:
-    747-752``): the in-kernel QP unrolls about nu^3 work per stage, which
-    costs registers on the card as it cost VMEM on the TPU (ROADMAP B7).
+    tensors always.  The JAX rule sends a boxed solve with nu > 4 to the
+    stacked path (``nmpc_tpu/solvers/ddp.py:747-752``); on the H100 the
+    stacked BoxQP reads the host once per QP and Armijo trip of every
+    stage, and the boxed centroidal solve (nu = 16) takes K4's wide unit
+    instead (``chip_smoke.py`` on an NVIDIA H100 80GB HBM3, 700.00 W,
+    PERF.md): at B=256, N=12, 3 iterations 0.19 s (fp32) and 0.21 s
+    (fp64) with 10 host syncs, against the plain path's 4.03 and 3.66 s
+    with 1,707 and 892; at N=100 1.49 and 1.04 s, where a plain solve had
+    not ended after 15 minutes (its backward alone: 207.0 s, fp32).
     The JAX rule's ``B % 128 == 0`` and ``B >= 1024`` conditions were fit
     to the TPU's (8, 128) blocks and do not carry over: on the H100 the
     remat pair is the fastest at both shapes the port serves
@@ -201,10 +208,12 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
     ms.
 
     An explicit ``"pallas"`` or ``"remat"`` is taken as asked: a
-    second-order solve, or a boxed one with nu > 4, which the kernels do
-    not compute, raises, and so does ``"remat"`` on a problem the
-    generator rejects (``TileEvalError``) or with ``deriv_dtype`` other
-    than ``"same"``; nothing runs the plain version in a kernel's place.
+    second-order solve, which the kernels do not compute, raises, and so
+    does ``"remat"`` on a boxed solve with nu > 4 (``MAX_NU_BOXED``), on a
+    problem the generator rejects (``TileEvalError``) or with
+    ``deriv_dtype`` other than ``"same"``; ``"pallas"`` at a shape its
+    kernel does not take raises at its launch on the card; nothing runs
+    the plain version in a kernel's place.
     """
     impl = config.backward_impl
     nx, nu = problem.state_dim, problem.input_dim
@@ -213,10 +222,11 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
             f"backward_impl={impl!r} (a fused backward kernel) is "
             "first-order; the second-order D2 term runs on "
             "backward_impl='stacked': ROADMAP B1")
-    if impl in ("pallas", "remat") and boxed and nu > MAX_NU:
+    if impl == "remat" and boxed and nu > MAX_NU_BOXED:
         raise NotImplementedError(
-            f"backward_impl={impl!r}: the boxed kernels take nu <= "
-            f"{MAX_NU}; nu={nu} runs on backward_impl='stacked': ROADMAP B7")
+            f"backward_impl='remat': the boxed remat kernel takes nu <= "
+            f"{MAX_NU_BOXED}; nu={nu} runs on backward_impl='pallas' (K4) "
+            f"or 'stacked': ROADMAP B7")
     if impl == "remat":
         if config.deriv_dtype != "same":
             raise ValueError("backward_impl='remat' evaluates the "
@@ -227,12 +237,11 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
         return impl
     if impl != "auto":
         return impl
-    if (device.type == "cuda" and not second
-            and not (boxed and nu > MAX_NU)):
+    if device.type == "cuda" and not second:
         if (config.deriv_dtype == "same"
                 and remat_supported(problem, nx, nu, dtype, boxed)):
             return "remat"
-        if (boxed_kernel_supports(nu, dtype) if boxed
+        if (boxed_kernel_supports(nx, nu, dtype) if boxed
                 else kernel_supports(nx, nu, dtype)):
             return "pallas"
     return "stacked"

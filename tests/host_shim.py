@@ -27,7 +27,7 @@ SHIM = r"""
 // whole warp) at its warp's barrier; a thread that named another mask
 // stops the run.
 #include <algorithm>
-#include <barrier>
+#include <atomic>
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
@@ -44,14 +44,42 @@ using std::sqrt;
 #define __restrict__
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 thread_local Dim3 threadIdx;
-// one barrier and exchange slots per warp of a block (at most 32 warps);
-// a block barrier where a launch runs the block's warps together
-static std::barrier<> g_warps[] = {""" + ", ".join(
-    ["std::barrier<>(32)"] * 32) + r"""};
-static int g_votes[32][32];
-static unsigned long long g_slots[32][32];
-static std::barrier<>* g_block = nullptr;
-inline std::barrier<>& g_warp_of() { return g_warps[threadIdx.x / 32]; }
+// A barrier of `count` threads: the last to arrive opens the next
+// generation; the others spin briefly, then sleep on the generation word
+// (a futex), so that a loaded machine does not run the waiters in place
+// of the threads they wait for.
+struct Barrier {
+  explicit Barrier(unsigned n = 32) : count(n) {}
+  std::atomic<unsigned> arrived{0}, gen{0};
+  unsigned count;
+  void arrive_and_wait() {
+    const unsigned g = gen.load(std::memory_order_acquire);
+    if (arrived.fetch_add(1, std::memory_order_acq_rel) + 1 == count) {
+      arrived.store(0, std::memory_order_relaxed);
+      gen.store(g + 1, std::memory_order_release);
+      gen.notify_all();
+      return;
+    }
+    for (int i = 0; i < 64; ++i) {
+      if (gen.load(std::memory_order_acquire) != g) return;
+      __builtin_ia32_pause();
+    }
+    while (gen.load(std::memory_order_acquire) == g)
+      gen.wait(g, std::memory_order_acquire);
+  }
+};
+// one barrier and two sets of exchange slots per warp of a block (at most
+// 32 warps), a warp's exchanges taking the sets in turn (each thread
+// counts its own: every thread of a warp makes the same exchanges), so
+// that an exchange needs one barrier: a set is written again only after
+// the next exchange's barrier, which every reader of it has passed; a
+// block barrier where a launch runs the block's warps together
+static Barrier g_warps[32];
+static int g_votes[32][2][32];
+static unsigned long long g_slots[32][2][32];
+thread_local unsigned t_exchanges = 0;
+static Barrier* g_block = nullptr;
+inline Barrier& g_warp_of() { return g_warps[threadIdx.x / 32]; }
 inline void __syncthreads() {
   if (g_block) g_block->arrive_and_wait();
 }
@@ -64,13 +92,12 @@ static void whole_warp(unsigned mask) {
 }
 inline unsigned __ballot_sync(unsigned mask, int pred) {
   whole_warp(mask);
-  int* votes = g_votes[threadIdx.x / 32];
+  int* votes = g_votes[threadIdx.x / 32][t_exchanges++ & 1];
   votes[threadIdx.x & 31] = pred != 0;
   g_warp_of().arrive_and_wait();
   unsigned bits = 0;
   for (int t = 0; t < 32; ++t)
     if (votes[t]) bits |= 1u << t;
-  g_warp_of().arrive_and_wait();
   return bits;
 }
 inline bool __any_sync(unsigned mask, int pred) {
@@ -79,14 +106,13 @@ inline bool __any_sync(unsigned mask, int pred) {
 template <typename T>
 T __shfl_sync(unsigned mask, T v, int src, int width) {
   whole_warp(mask);
-  unsigned long long* slots = g_slots[threadIdx.x / 32];
+  unsigned long long* slots = g_slots[threadIdx.x / 32][t_exchanges++ & 1];
   std::memcpy(&slots[threadIdx.x & 31], &v, sizeof(T));
   g_warp_of().arrive_and_wait();
   T out;
   const int from = (static_cast<int>(threadIdx.x & 31) & ~(width - 1)) +
                    src % width;
   std::memcpy(&out, &slots[from], sizeof(T));
-  g_warp_of().arrive_and_wait();
   return out;
 }
 """
@@ -138,10 +164,13 @@ HOST_TMA = r"""
 // the phase it waits on completes, and that the barrier did not complete
 // a later phase first (a buffer refilled before this thread read it);
 // every arm, box and first-thread wait goes to the log with its block and
-// warp.
+// warp.  A waiting thread sleeps until a phase completes: a block's
+// hundreds of threads spinning on sched_yield starve the one thread they
+// wait for when other processes load the machine.
 #pragma once
 #include <atomic>
 #include <chrono>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -172,6 +201,7 @@ struct Pending {
   int64_t bytes = 0;
 };
 inline std::mutex g_lock;
+inline std::condition_variable g_phase;   // a phase completed
 inline std::map<const uint64_t*, Pending> g_pending;
 inline FILE* g_log = nullptr;
 thread_local std::map<const uint64_t*, uint64_t> t_waits;
@@ -194,6 +224,7 @@ inline void settle(uint64_t* bar, Pending& p) {
   if (p.left == 0 && p.bytes == 0) {
     p.left = p.count;
     std::atomic_ref<uint64_t>(*bar).fetch_add(1);
+    g_phase.notify_all();
   }
 }
 inline void mbar_init(uint64_t* bar, uint32_t count = 1) {
@@ -246,17 +277,13 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   if ((use & 1) != parity) fail(11, "a wait names the wrong parity");
   const auto until = std::chrono::steady_clock::now() +
                      std::chrono::seconds(20);
-  uint64_t done;
-  while ((done = std::atomic_ref<uint64_t>(*bar).load()) <= use) {
-    if (std::chrono::steady_clock::now() > until)
-      fail(6, "a wait on a phase that never completes");
-    std::this_thread::yield();
-  }
-  if (done != use + 1) fail(7, "a buffer refilled before this thread read it");
-  if (threadIdx.x % 32 == 0) {
-    std::lock_guard<std::mutex> hold(g_lock);
-    log_event("W", offset(bar));
-  }
+  std::unique_lock<std::mutex> hold(g_lock);
+  const auto done = [bar] { return std::atomic_ref<uint64_t>(*bar).load(); };
+  if (!g_phase.wait_until(hold, until, [&] { return done() > use; }))
+    fail(6, "a wait on a phase that never completes");
+  if (done() != use + 1)
+    fail(7, "a buffer refilled before this thread read it");
+  if (threadIdx.x % 32 == 0) log_event("W", offset(bar));
 }
 }  // namespace nmpc
 """
@@ -289,7 +316,7 @@ auto host_launch(dim3 grid, int block, size_t smem, cudaStream_t,
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         std::memset(nmpc::smem_raw, 0xff, sizeof(nmpc::smem_raw));
-        std::barrier<> all(block);
+        Barrier all(block);
         g_block = &all;
         std::vector<std::thread> threads;
         for (int t = 0; t < block; ++t)
@@ -323,6 +350,15 @@ def same(a, b):
     nan = torch.isnan(a)
     return (torch.equal(nan, torch.isnan(b))
             and torch.equal(bits(a[~nan]), bits(b[~nan])))
+
+
+def first_apart(a, b):
+    """The first flat index where ``a`` and ``b`` are not :func:`same`
+    (a NaN against a NaN counts as equal), or None."""
+    a, b = a.flatten(), b.flatten()
+    nan = torch.isnan(a) & torch.isnan(b)
+    apart = (bits(a) != bits(b)) & ~nan
+    return int(apart.nonzero()[0]) if bool(apart.any()) else None
 
 
 def exact_sqrt(a):

@@ -383,10 +383,10 @@ def test_boxed_kernel_paths_run_their_plain_versions_on_cpu(impls):
 @pytest.mark.parametrize("device,nu,impl,rejected,want", [
     ("cuda", 2, "auto", False, "remat"),
     ("cuda", 2, "auto", True, "pallas"),
-    ("cuda", 5, "auto", False, "stacked"),
+    ("cuda", 5, "auto", False, "pallas"),
     ("cpu", 2, "auto", False, "stacked"),
     ("cuda", 2, "pallas", False, "pallas"),
-    ("cuda", 5, "pallas", False, NotImplementedError),
+    ("cuda", 5, "pallas", False, "pallas"),
     ("cuda", 5, "remat", False, NotImplementedError),
     ("cuda", 2, "remat", True, TileEvalError),
     ("cuda", 5, "stacked", False, "stacked"),
@@ -394,9 +394,10 @@ def test_boxed_kernel_paths_run_their_plain_versions_on_cpu(impls):
 def test_boxed_backward_rule(device, nu, impl, rejected, want):
     """``auto`` on a boxed solve takes the boxed remat kernel (K5) where the
     generator takes the problem with its limits and mask, else the
-    sweep-fed boxed kernel (K4); nu > 4 keeps the plain path, as JAX's
-    rule does, and an explicit kernel there raises (ROADMAP B7); an
-    explicit ``"remat"`` on a problem the generator rejects raises."""
+    sweep-fed boxed kernel (K4); at nu > 4, past K5 boxed's limit, ``auto``
+    and an explicit ``"pallas"`` take K4 (its wide unit) where JAX's rule
+    keeps the plain path, and an explicit ``"remat"`` raises (ROADMAP B7);
+    an explicit ``"remat"`` on a problem the generator rejects raises."""
     p = make_vertical_problem(DT)
     if nu != 2:
         p = dataclasses.replace(p, input_dim=nu, input_mask=None,

@@ -1,6 +1,7 @@
 """The port's boxed centroidal solve (``force_limits = (0, 1000)``: 16
-ridge forces, the plain BoxQP per stage, as on the TPU) against the JAX
-package's ``solve_batch``, fp64 on the CPU, from t0 = 0 and from t0 = 1.3
+ridge forces; on CPU tensors the plain BoxQP per stage, on the card K4's
+wide unit, ``tests/test_torch_k4_wide.py``) against the JAX package's
+``solve_batch``, fp64 on the CPU, from t0 = 0 and from t0 = 1.3
 (the horizon crosses the flight phase): B = 3, N = 20, 10 iterations
 (JAX's compile of its nu = 16 stacked BoxQP takes over a minute of this
 file's time, so the horizon and iterations are cut from the unboxed

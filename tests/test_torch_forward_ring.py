@@ -53,7 +53,8 @@ from nmpc_tpu_torch.solvers import ddp
 from nmpc_tpu_torch.solvers.stages import (_forward_costs_lanes,
                                            _forward_selected_lanes)
 
-from host_shim import KERNELS_PRELUDE, SHIM, build_kernels_host, same
+from host_shim import (KERNELS_PRELUDE, SHIM, build_kernels_host,
+                       first_apart, same)
 
 torch.set_num_threads(1)
 
@@ -298,13 +299,26 @@ def _run(exe, args, inputs, n_out, dtype, workdir: Path):
     tag = "_".join(map(str, args)).replace(".", "")
     inp, outp = workdir / f"{tag}.in", workdir / f"{tag}.out"
     inp.write_bytes(flat.numpy().tobytes())
-    proc = subprocess.run([str(exe), *map(str, args), str(flat.numel()),
-                           str(n_out), str(inp), str(outp)],
-                          capture_output=True, text=True, timeout=300)
+    try:
+        proc = subprocess.run([str(exe), *map(str, args), str(flat.numel()),
+                               str(n_out), str(inp), str(outp)],
+                              capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"the harness at {args} ran past 300 s")
     assert proc.returncode == 0, (args, proc.returncode, proc.stderr)
     return torch.from_numpy(np.frombuffer(
         outp.read_bytes(), dtype=np.float32 if dtype == torch.float32
         else np.float64).copy())
+
+
+def _assert_same(what, names, refs, outs):
+    """Each output of ``outs`` :func:`same` as its ``refs``; else fail
+    naming the configuration, the output and the first index apart."""
+    for name, a, b in zip(names, refs, outs):
+        at = first_apart(a, b)
+        assert at is None, (f"{what}: {name} parts first at flat index "
+                            f"{at}: {a.flatten()[at].item()!r} vs "
+                            f"{b.flatten()[at].item()!r}")
 
 
 def norm_err(ref, out):
@@ -362,7 +376,8 @@ def _check_k11(hosts, tmp_path, shape, dtype, B, N, configs):
         outs = pool.map(lambda v: _k11(exe, shape, dtype, B, N, *v,
                                        tmp_path), configs)
         for v, out in zip(configs, outs):
-            assert all(same(a, b) for a, b in zip(ref, out)), v
+            _assert_same(f"K11 (G, C) = {v} vs (1, 1)", ("dxs", "dus"), ref,
+                         out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -451,7 +466,8 @@ def _check_k6(hosts, tmp_path, dtype, B, N, chunks):
     with concurrent.futures.ThreadPoolExecutor(RUNS) as pool:
         outs = pool.map(lambda c: _k6(exe, dtype, B, N, c, tmp_path), chunks)
         for c, out in zip(chunks, outs):
-            assert all(same(a, b) for a, b in zip(ref, out)), c
+            _assert_same(f"K6 C = {c} vs C = 0", ("xs", "us", "costs", "sum"),
+                         ref, out)
     return ref
 
 

@@ -96,16 +96,16 @@ template <typename T, int G>
 void geometry(int B) {
   constexpr int NX = 9, NU = 16;
   using L = nmpc::WideRingLayout<T, NX, NU, G>;
-  constexpr int R = nmpc::wide_ring<T, NX, NU, G>();
-  constexpr int most = nmpc::wide_max_lanes<T, NX, NU, G>();
-  const int lanes = nmpc::wide_lanes<T, NX, NU, G>(B);
+  using Block = nmpc::WideK1Block<T, NX, NU, G>;
+  constexpr int R = Block::ring();
+  constexpr int most = Block::max_lanes();
+  const int lanes = Block::lanes(B);
   std::printf("%d %d %d %d %d %d %d %d %d %d %d %d %d %d %zu %zu\n", L::Fx,
               L::Fu, L::Lx, L::Lu, L::Lxx, L::Luu, L::Lxu, L::F, R, most,
               nmpc::wide_min_lanes<G>(),
-              nmpc::wide_lane_stride<T, NX, NU, G>(),
+              Block::stride,
               nmpc::WideScratch<NX, NU>::size, lanes,
-              nmpc::wide_block_bytes<T, NX, NU, G>(R, most),
-              nmpc::wide_block_bytes<T, NX, NU, G>(R, lanes));
+              Block::bytes(R, most), Block::bytes(R, lanes));
 }
 
 template <typename T>
@@ -357,8 +357,9 @@ def test_k1_wide_limits_and_auto_rule():
     their launch raises, naming the shape, before any unit is built.  The
     code generator refuses the centroidal model (its torch.linalg.cross),
     so neither remat kernel takes it and ``auto`` picks the sweep-fed K1
-    for an unboxed first-order solve on a CUDA device; a boxed one (nu =
-    16 > 4) and a second-order one take the plain backward."""
+    for an unboxed first-order solve on a CUDA device and the sweep-fed
+    K4 (its wide unit) for a boxed one; a second-order one takes the
+    plain backward."""
     assert K.kernel_supports(9, 16, torch.float32)
     assert K.kernel_supports(9, 16, torch.float64, "stage")
     assert not K.kernel_supports(10, 16, torch.float32)
@@ -378,7 +379,7 @@ def test_k1_wide_limits_and_auto_rule():
         assert ddp._resolve_backward_impl(DDPConfig(), p, dtype, cuda,
                                           False, False) == "pallas"
         assert ddp._resolve_backward_impl(DDPConfig(), boxed, dtype, cuda,
-                                          True, False) == "stacked"
+                                          True, False) == "pallas"
         assert ddp._resolve_backward_impl(DDPConfig(), p, dtype, cuda,
                                           False, True) == "stacked"
         assert ddp._resolve_backward_impl(DDPConfig(), p, dtype,
