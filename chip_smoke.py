@@ -116,14 +116,17 @@ Phases, one line each (a failed phase exits non-zero):
    first 37 lanes and lane 0 alone) bit for bit against its plain version
    on the card host's CPU (``k4-references``), with the same QP
    iterations, free sets and Armijo candidates, timed beside its bound at
-   B=256 and B=1 (and at B=256 beside that plain version's seconds); the
+   B=256 and B=1 (and at B=256 beside that plain version's seconds), and
+   its fp32 division and square root (``csrc/rn_ops.cuh``) against the
+   card's IEEE ones (check_rn_ops: every positive float's root); the
    boxed solve (nu = 16, force limits (0, 1000)) at N=12
    through ``auto`` and ``backward_impl="pallas"`` (K4@9x16, counted)
    against the plain path (fp64 statuses, iterations, u within 1e-8;
    fp32 within the floor rule above) and at B=256, N=100 through
    ``auto``, fp32 and fp64, u[0] in its box, masked u exactly 0, every
-   value finite, solves/s and host syncs; the reference's centroidal
-   driver (``run_mpc``, fp64, N=100, max_iter=500) over its first 10
+   value finite, solves/s, host syncs and K4@9x16's share of the solve
+   (CUDA events around each call); the reference's centroidal
+   driver (``run_mpc``, fp64, N=100, max_iter=500) over its first 8
    steps, or to 3.0 s with ``--centroidal-driver``; a second-order
    cart-pole ``solve_batch`` (B=256, N=100, fp64, 50 iterations) on the
    card and its host's CPU, against the first-order optimum, and an
@@ -165,7 +168,12 @@ Phases, one line each (a failed phase exits non-zero):
    (``wide-groups``) K1@9x16 at 8, 16 and 32 threads per lane and the
    baseline's, each with its nvcc seconds and ptxas' report, held bit for
    bit to the plain version on the card host's CPU at B=256, 37 and 1,
-   fp32 and fp64, and timed in turns at B=256 and 1; then K8 and K10
+   fp32 and fp64, and timed in turns at B=256 and 1; then (``k4-wide``)
+   K4@9x16, its profile build and the baseline's: check_rn_ops, each
+   build's ptxas report and SASS counts, all bit for bit to each other
+   with equal QP stats at B=256, 37 and 1, fp32 and fp64, both reg_types,
+   timed in turns, and the profile's cycles a phase at B=256 and 1; then
+   K8 and K10
    with 1, 2, 4 and 8 threads per lane at (4, 1, 4), 1, 2 and 4 at (2, 1,
    3), 1 and 2 at (2, 2, 2), each with the group's rows of P A, P B and P
    x_bar exchanged and computed by every thread, and K9 at each of those
@@ -214,6 +222,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -490,9 +499,10 @@ WIDE_GROUPS = (8, 16, 32)
 # within 1.0 of the reference (TestDDPCentroidalMotion.cpp:318).  The
 # default run takes its first CENTROIDAL_DRIVER_STEPS steps (every
 # horizon crosses the flight phase; cut from 50, which reached into it,
-# to make room for the runtime and examples phases), --centroidal-driver
-# the whole.
-CENTROIDAL_DRIVER_END, CENTROIDAL_DRIVER_STEPS = 3.0, 10
+# to make room for the runtime and examples phases, and from 10 for the
+# check of K4@9x16's division and square root, check_rn_ops),
+# --centroidal-driver the whole.
+CENTROIDAL_DRIVER_END, CENTROIDAL_DRIVER_STEPS = 3.0, 8
 # Second-order DDP (use_state_eq_second_derivative): cart-pole, B=256,
 # N=100, fp64, max_iter=50, x0 hanging with the seed's spread; the plain
 # backward on the card (auto) and on the card host's CPU, and the
@@ -842,6 +852,8 @@ def phase_build():
                       k1.unit_source(*WIDE_K1, dtype), k1.UNIT_FLAGS))
         units.append((boxed.unit_name(*WIDE_K1, dtype),
                       boxed.unit_source(*WIDE_K1, dtype), boxed.BOXED_FLAGS))
+    # K4@9x16's fp32 division and square root alone (check_rn_ops)
+    units.append(("rn_ops_check", RN_CHECK_UNIT, boxed.BOXED_FLAGS))
     gen_s = time.perf_counter() - start
 
     def compile_unit(unit):
@@ -872,7 +884,8 @@ def phase_build():
             print(f"[build] {key} {lib.name}: {ptxas_report(lib)}; spill "
                   f"stores / loads {spills} bytes", flush=True)
             # K1@9x16 at both dtypes and K4@9x16 at fp32 spill nothing;
-            # K4@9x16 at fp64 does (ROADMAP R14)
+            # K4@9x16 at fp64 spills a few bytes (ROADMAP R14: 774 before
+            # its redesign)
             if key == "K1@9x16" or "float32" in name:
                 check(spills in (None, (0, 0)), f"{key} ({lib.name}) "
                       f"spills")
@@ -2167,6 +2180,333 @@ def phase_wide_groups(device, card, baseline):
                 timed_in_turns(calls, f"K1@9x16 centroidal B={B} N={N} "
                                "(no non-PD or NaN lane)", card,
                                tag="wide-groups", dtype=str(dtype)[6:])
+
+
+def sass_counts(lib):
+    """What a built library's SASS (``cuobjdump -sass``) holds: local
+    loads and stores (LDL, STL), the calls (the IEEE division's and square
+    root's slow paths) by callee, MUFU.RCP / MUFU.RSQ (the fast paths'
+    seeds), shuffles, warp syncs and all instructions; None where the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     text)
+    count = collections.Counter(op.split(".")[0] for op in ops)
+    mufu = collections.Counter(op for op in ops if op.startswith("MUFU"))
+    calls = collections.Counter(re.findall(r"CALL\.\w+(?:\.\w+)*\s+`?\(?"
+                                           r"([\w$]+)", text))
+    return {"instructions": len(ops), "LDL": count["LDL"],
+            "STL": count["STL"], "CALL": dict(calls), "MUFU": dict(mufu),
+            "SHFL": count["SHFL"], "WARPSYNC": count["WARPSYNC"],
+            "BAR": count["BAR"], "BRA": count["BRA"], "BSSY": count["BSSY"],
+            "LDS": count["LDS"], "STS": count["STS"]}
+
+
+# csrc/rn_ops.cuh's division and square root on the card: one thread a
+# value, RnOps<T> on (a, b) and x, at fp32 and fp64.
+RN_CHECK_UNIT = r"""
+#include "rn_ops.cuh"
+
+template <typename T>
+__global__ void rn_check_kernel(const T* a, const T* b, const T* x, int n,
+                                T* q, unsigned char* tiny, T* s) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool t = false;
+  q[i] = nmpc::RnOps<T>::div(a[i], nmpc::RnOps<T>::rcp(b[i]), t);
+  bool u = false;
+  s[i] = nmpc::RnOps<T>::sqrt_pos(x[i], u);
+  tiny[i] = (t ? 1 : 0) | (u ? 2 : 0);
+}
+
+template <typename T>
+int rn_check(const void* a, const void* b, const void* x, int n, void* q,
+             void* tiny, void* s, void* stream) {
+  rn_check_kernel<T><<<(n + 255) / 256, 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const T*>(x), n, static_cast<T*>(q),
+      static_cast<unsigned char*>(tiny), static_cast<T*>(s));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rn_check_f32(const void* a, const void* b, const void* x,
+                            int n, void* q, void* tiny, void* s,
+                            void* stream) {
+  return rn_check<float>(a, b, x, n, q, tiny, s, stream);
+}
+extern "C" int rn_check_f64(const void* a, const void* b, const void* x,
+                            int n, void* q, void* tiny, void* s,
+                            void* stream) {
+  return rn_check<double>(a, b, x, n, q, tiny, s, stream);
+}
+"""
+# random quotients a / b (b > 0) the check draws a dtype, and the positive
+# floats a chunk of the exhaustive fp32 square root check holds
+RN_CHECK_PAIRS, RN_CHECK_CHUNK = 1 << 25, 1 << 27
+
+
+def rn_cases(dtype, device, rng):
+    """(a, b) of check_rn_ops at ``dtype``: RN_CHECK_PAIRS finite bit
+    patterns over every exponent (a of either sign, b > 0); a = b m for
+    midpoints m of the subnormal grid and of normal binades where exact
+    (fp32), and their neighbours; zeros, infinities, NaN, b = +inf."""
+    n = RN_CHECK_PAIRS
+    if dtype == torch.float32:
+        top, ity, fty = 0x7f800000, np.int32, np.float32
+    else:
+        top, ity, fty = 0x7ff0000000000000, np.int64, np.float64
+    pos = lambda k: torch.from_numpy(rng.integers(
+        0, top, k, dtype=np.int64).astype(ity).view(fty))
+    a = pos(n) * torch.from_numpy(np.where(rng.random(n) < 0.5, -1.0,
+                                           1.0).astype(fty))
+    b = pos(n)
+    extra_a, extra_b = [a], [b]
+    if dtype == torch.float32:
+        k = 1 << 22
+        bd = ((2 * rng.integers(1, 1 << 6, k) + 1).astype(np.float64)
+              * 2.0 ** rng.integers(-20, 20, k))
+        for m in ((2 * rng.integers(0, 1 << 10, k) + 1) * 2.0 ** -150,
+                  (2 * rng.integers(1 << 23, 1 << 24, k) + 1) * 2.0 ** -25
+                  * 2.0 ** rng.integers(-100, 100, k)):
+            prod = bd * m
+            exact = prod.astype(np.float32).astype(np.float64) == prod
+            near = prod[exact].astype(np.float32)
+            for v in (near, np.nextafter(near, np.float32(np.inf)),
+                      np.nextafter(near, np.float32(0))):
+                extra_a.append(torch.from_numpy(v))
+                extra_b.append(torch.from_numpy(bd[exact].astype(
+                    np.float32)))
+    sa = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1.0, -1.0,
+                       1e-45, -1e-45, 3.4e38], dtype=dtype)
+    sb = torch.tensor([1.0, 3.0, 7.0, 0.1, math.inf, 1e-45, 2.0 ** -126,
+                       3.4e38, 1e-30], dtype=dtype)
+    extra_a.append(sa.repeat_interleave(len(sb)))
+    extra_b.append(sb.repeat(len(sa)))
+    return torch.cat(extra_a).to(device), torch.cat(extra_b).to(device)
+
+
+def check_rn_ops(device):
+    """RnOps<T> (csrc/rn_ops.cuh: the wide boxed QP's division and square
+    root, straight-line at fp32, native at fp64) against the card's IEEE
+    division and square root (torch's), fp32 and fp64, on rn_cases: every
+    result not marked equal bit for bit (NaN where NaN); every marked fp32
+    quotient under 2^-125 (a nonzero numerator) or NaN, or b = +inf (the
+    QP computes marked work again natively), no fp64 one marked; then the
+    square roots of every positive finite float (fp32, marked only at
+    +inf) and of the positive b drawn (fp64, never marked), bit for bit
+    where not marked."""
+    lib = kbuild.load(kbuild.build_generated("rn_ops_check", RN_CHECK_UNIT,
+                                             boxed.BOXED_FLAGS))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rng = np.random.default_rng(16)
+    view = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+    def same(u, v):
+        return (u.view(view[u.dtype]) == v.view(view[u.dtype])) | (
+            torch.isnan(u) & torch.isnan(v))
+
+    for dtype, fn in ((torch.float32, lib.rn_check_f32),
+                      (torch.float64, lib.rn_check_f64)):
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+
+        def run(a, b, x):
+            q, s = torch.empty_like(a), torch.empty_like(x)
+            mark = torch.empty(a.shape, dtype=torch.uint8, device=device)
+            err = fn(a.data_ptr(), b.data_ptr(), x.data_ptr(), a.numel(),
+                     q.data_ptr(), mark.data_ptr(), s.data_ptr(), stream)
+            check(err == 0, f"rn_check launch failed: CUDA error {err}")
+            return q, (mark & 1).bool(), s, (mark & 2).bool()
+
+        name = str(dtype)[6:]
+        a, b = rn_cases(dtype, device, rng)
+        q, tiny, s, stiny = run(a, b, b)
+        ok = same(q, a / b)
+        check(bool(ok[~tiny].all()), f"RnOps<{name}>::div parts from IEEE "
+              f"on {int((~ok & ~tiny).sum())} of {a.numel()} quotients")
+        want = a / b
+        why = (((a != 0) & (want.abs() < 2.0 ** -125)) | torch.isnan(want)
+               | torch.isinf(b) | torch.isnan(a))
+        if dtype == torch.float64:   # the native operations mark nothing
+            why = torch.zeros_like(tiny)
+        check(bool(why[tiny].all()), f"RnOps<{name}>::div marks a quotient "
+              f"it should vouch for")
+        pos = torch.isfinite(b) & (b > 0)
+        sok = same(s, torch.sqrt(b))
+        check(bool(sok[pos & ~stiny].all()), f"RnOps<{name}>::sqrt_pos parts "
+              f"from IEEE on {int((~sok & pos & ~stiny).sum())} values")
+        if dtype == torch.float64:
+            check(not bool(stiny.any()), "RnOps<double>::sqrt_pos marks a "
+                  "root")
+        roots, sq_marked = int(pos.sum()), int((stiny & pos).sum())
+        if dtype == torch.float32:
+            for lo in range(1, 0x7f800000, RN_CHECK_CHUNK):
+                x = torch.arange(lo, min(lo + RN_CHECK_CHUNK, 0x7f800000),
+                                 dtype=torch.int32,
+                                 device=device).view(torch.float32)
+                _, _, s, stiny = run(x, x, x)
+                check(bool(same(s, torch.sqrt(x)).all()
+                           and torch.equal(stiny, torch.isinf(x))),
+                      f"RnOps<float>::sqrt_pos parts from IEEE in "
+                      f"[{lo:#x}, ...)")
+                roots += x.numel()
+        torch.cuda.synchronize()
+        print(f"[kernel] rn_ops {name} (the wide boxed QP's division and "
+              f"square root): {a.numel()} quotients equal to the card's "
+              f"IEEE division where not marked ({int(tiny.sum())} marked, "
+              f"computed natively by the QP); {roots} square roots "
+              f"{'(every positive finite float) ' if dtype == torch.float32 else ''}"
+              f"equal to its IEEE square root where not marked "
+              f"({sq_marked} marked)", flush=True)
+
+
+def k4_wide_profile(key, stats, ms, ms_plain_build, card):
+    """One profile launch's summary (``stats`` from ``boxed.launch(...,
+    profile=True)``): for the slowest lane (the most cycles over its
+    stages: the launch waits for it) and the mean lane, each phase's
+    cycles and share, the QP's phases a QP iteration, the clock the
+    slowest lane's cycles imply over the profile kernel's ``ms``."""
+    ph = stats["phases"].double().cpu()                 # [P, N, B]
+    iters = stats["qp_iters"].double().cpu()            # [N, B]
+    evals = stats["ls_evals"].double().cpu()
+    lane_total = ph.sum((0, 1))                          # [B]
+    slow = int(lane_total.argmax())
+    qp_phases = {"gradient", "system", "cholesky", "solve", "armijo"}
+    ghz = lane_total[slow].item() / (ms * 1e6)
+    for who, cyc, its, evs in (
+            (f"slowest lane {slow}", ph[:, :, slow].sum(1),
+             iters[:, slow].sum().item(), evals[:, slow].sum().item()),
+            ("mean lane", ph.sum(1).mean(1), iters.sum(0).mean().item(),
+             evals.sum(0).mean().item())):
+        total = cyc.sum().item()
+        N = ph.shape[1]
+        parts = []
+        for name, c in zip(boxed.WIDE_PHASES, cyc.tolist()):
+            per = (f"{c / its:.0f} a QP iteration" if name in qp_phases
+                   else f"{c / N:.0f} a stage")
+            parts.append(f"{name} {100 * c / total:.1f} % ({per})")
+        qp_it = sum(c for name, c in zip(boxed.WIDE_PHASES, cyc.tolist())
+                    if name in qp_phases) / its
+        print(f"[k4-wide] profile {key} {who}: {total:.0f} cycles over {N} "
+              f"stages, {its / N:.2f} QP iterations and {evs / N:.2f} Armijo "
+              f"candidates a stage; a QP iteration {qp_it:.0f} cycles "
+              f"({qp_it / ghz / 1e3:.3f} us); {'; '.join(parts)}",
+              flush=True)
+    print(f"[k4-wide] profile {key}: the profile kernel {ms:.4f} ms, the "
+          f"normal build {ms_plain_build:.4f} ms; {ghz:.3f} GHz (the slowest "
+          f"lane's cycles over the profile kernel's time) [{card}]",
+          flush=True)
+
+
+def phase_k4_wide(device, card, baseline):
+    """K4@9x16 (the wide boxed unit), its profile build (cycles a phase,
+    boxqp_wide.cuh::WidePhase) and, with ``baseline``, that checkout's
+    unit (its own unit text and headers): built at once, each with its
+    nvcc seconds, ptxas' report and SASS counts (sass_counts); held bit
+    for bit to each other, QP iterations, free sets and Armijo candidates
+    equal, on the check's data (wide_k4_case: B=256, 37 and 1, fp32 and
+    fp64, both reg_types; the default run holds the unit to its plain
+    version on the card host's CPU); timed in turns (this one's, the
+    baseline's, then in reverse) at each of those; then the profile at
+    B=256 and 1, fp32 and fp64, reg_type 1, beside the normal build's
+    time."""
+    nx, nu = WIDE_K1
+    N = CENTROIDAL[1]
+    fp32, fp64 = torch.float32, torch.float64
+    check_rn_ops(device)
+    units, keys = [], []
+    for dtype in (fp32, fp64):
+        for label, profile in (("this", False), ("profile", True)):
+            keys.append((dtype, label))
+            units.append((boxed.unit_name(nx, nu, dtype, profile=profile),
+                          boxed.unit_source(nx, nu, dtype, profile=profile),
+                          boxed.BOXED_FLAGS, kbuild.CSRC))
+    if baseline:
+        pk = parent_module(baseline, "ddp_backward_boxed")
+        for dtype in (fp32, fp64):
+            keys.append((dtype, "baseline"))
+            units.append((boxed.unit_name(nx, nu, dtype) + "_parent",
+                          pk.unit_source(nx, nu, dtype), pk.BOXED_FLAGS,
+                          Path(baseline).resolve() / "nmpc_tpu_torch"
+                          / "csrc"))
+
+    def compile_unit(unit):
+        begin = time.perf_counter()
+        lib = kbuild.build_generated(*unit)
+        return lib, time.perf_counter() - begin
+
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        built = list(pool.map(compile_unit, units))
+    print(f"[k4-wide] {len(built)} units in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    fns = {}
+    for (dtype, label), (_, _, _, csrc), (lib, secs) in zip(keys, units,
+                                                           built):
+        print(f"[k4-wide] K4@9x16 {str(dtype)[6:]} {label} {lib.name} "
+              f"(headers {os.path.relpath(csrc, ROOT)}): nvcc {secs:.1f} s; "
+              f"{ptxas_report(lib)}; spill stores / loads "
+              f"{spill_bytes(lib)} bytes; SASS {sass_counts(lib)}",
+              flush=True)
+        fn = kbuild.load(lib).boxed_backward_launch
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
+                       + boxed.QP_ARGTYPES)
+        fn.restype = ctypes.c_int
+        fns[dtype, label] = fn
+    normal_ms = {}
+    for dtype in (fp32, fp64):
+        dname = str(dtype)[6:]
+        for B in WIDE_K1_BATCHES:
+            for reg_type in (1, 2):
+                case = wide_k4_case(B, dtype, device, reg_type)
+                outs, stats = {}, {}
+                for (dt, label), fn in fns.items():
+                    if dt == dtype:
+                        stats[label] = {}
+                        outs[label] = boxed.launch(
+                            fn, *case, stats=stats[label],
+                            profile=label == "profile")
+                torch.cuda.synchronize()
+                label = (f"K4@9x16 centroidal boxed B={B} N={N} {dname} "
+                         f"reg_type={reg_type}")
+                first = outs["this"]
+                same = {k: all(same_bits(a, b) for a, b in zip(first, o))
+                        and all(torch.equal(stats["this"][q], stats[k][q])
+                                for q in ("qp_iters", "free", "ls_evals"))
+                        for k, o in outs.items()}
+                print(f"[k4-wide] {label}: bit for bit to this build, QP "
+                      f"stats equal: {same}", flush=True)
+                check(all(same.values()), f"{label}: the builds part")
+                calls = {k: functools.partial(boxed.launch, fn, *case)
+                         for (dt, k), fn in fns.items()
+                         if dt == dtype and k != "profile"}
+                times = collections.defaultdict(list)
+                for order in (list(calls), list(reversed(calls))):
+                    for k in order:
+                        times[k].append(cuda_ms(calls[k], reps=10, inner=2))
+                normal_ms[dtype, B, reg_type] = times["this"][0]
+                print(f"[k4-wide] {label}: " + "; ".join(
+                    f"{k} {ms[0]:.4f} / {ms[1]:.4f} ms"
+                    for k, ms in times.items()) + f" (in turns) [{card}]",
+                    flush=True)
+    for dtype in (fp32, fp64):
+        for B in (CENTROIDAL[0], 1):
+            case = wide_k4_case(B, dtype, device, 1)
+            fn = fns[dtype, "profile"]
+            stats = {}
+            boxed.launch(fn, *case, stats=stats, profile=True)
+            torch.cuda.synchronize()
+            ms = cuda_ms(functools.partial(boxed.launch, fn, *case),
+                         reps=10, inner=2)
+            k4_wide_profile(f"K4@9x16 centroidal boxed B={B} N={N} "
+                            f"{str(dtype)[6:]} reg_type=1", stats, ms,
+                            normal_ms[dtype, B, 1], card)
 
 
 # The FMPC group kernels (K8, K10) are built at, per (nx, nu, ng): every
@@ -4496,6 +4836,7 @@ def check_wide_k4(device, card):
     seconds) at B=256 (fp32: the record) and B=1 (one lane: the chain
     floor), fp32 and fp64."""
     BOXED_REFS.start(device)
+    check_rn_ops(device)
     B, N = CENTROIDAL
     nx, nu = WIDE_K1
     key = "K4@9x16"
@@ -4668,20 +5009,40 @@ def boxed_centroidal_solves(device, card):
               "plain path's own rounding floor")
     B, N = CENTROIDAL
     cfg = dataclasses.replace(cfg, horizon_steps=N)
+    wrapper = ddp_mod.backward_fused_boxed
+
+    def timed_wrapper(*args, **kw):   # CUDA events around each call
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        out = wrapper(*args, **kw)
+        end.record()
+        events.append((begin, end))
+        return out
+
     for dtype in (torch.float32, torch.float64):
         x0s, us0, masked = centroidal_start(problem, B, N, dtype, device)
-        start = time.perf_counter()
-        res, counts, syncs = solve_counted(problem, cfg, x0s, us0,
-                                           t0=CENTROIDAL_T0)
-        secs = time.perf_counter() - start
+        events = []
+        ddp_mod.backward_fused_boxed = timed_wrapper
+        try:
+            start = time.perf_counter()
+            res, counts, syncs = solve_counted(problem, cfg, x0s, us0,
+                                               t0=CENTROIDAL_T0)
+            secs = time.perf_counter() - start
+        finally:
+            ddp_mod.backward_fused_boxed = wrapper
+        torch.cuda.synchronize()
+        k4_ms = sum(b.elapsed_time(e) for b, e in events)
         label = f"B={B} N={N} {str(dtype)[6:]}"
         inside, zero, finite = hold(res, counts, masked, f"auto {label}")
         print(f"[centroidal] boxed solve_batch {label} max_iter="
               f"{cfg.max_iter} t0={CENTROIDAL_T0} auto ({key}, plain "
               f"rollouts): {B / secs:.1f} solves/s ({secs:.2f} s), host "
-              f"syncs {syncs}, launches {counts}; u[0] inside [{lo:g}, "
-              f"{hi:g}] {inside}, masked u exactly 0 {zero}, finite "
-              f"{finite}, statuses "
+              f"syncs {syncs}, launches {counts}; {key} {k4_ms:.2f} ms in "
+              f"{len(events)} calls (CUDA events around each), "
+              f"{100 * k4_ms / (1e3 * secs):.1f} % of the solve; u[0] "
+              f"inside [{lo:g}, {hi:g}] {inside}, masked u exactly 0 {zero}, "
+              f"finite {finite}, statuses "
               f"{torch.bincount(res.status, minlength=5).tolist()}, "
               f"iterations {torch.bincount(res.iters).tolist()} [{card}]",
               flush=True)
@@ -5424,7 +5785,8 @@ def main() -> int:
                "cgmres, horizon, mesh, serial, profiled, runtime+examples "
                "(runtime in a process of its own beside examples); "
                "with --qp-groups: qp-groups, row-groups, wide-groups "
-               "(K1@9x16 at each G of WIDE_GROUPS), fmpc-groups, "
+               "(K1@9x16 at each G of WIDE_GROUPS), k4-wide (K4@9x16, its "
+               "profile build and the baseline's), fmpc-groups, "
                "fwd-groups; with --layers: layers")
     parser.add_argument("--layers", action="store_true",
                         help="also print where one solve's time goes, per "
@@ -5494,6 +5856,8 @@ def main() -> int:
         phases.append(("row-groups", lambda: phase_row_groups(
             device, card, args.baseline)))
         phases.append(("wide-groups", lambda: phase_wide_groups(
+            device, card, args.baseline)))
+        phases.append(("k4-wide", lambda: phase_k4_wide(
             device, card, args.baseline)))
         phases.append(("fmpc-groups", lambda: phase_fmpc_groups(
             device, card, args.baseline)))

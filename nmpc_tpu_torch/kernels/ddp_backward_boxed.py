@@ -29,6 +29,7 @@ import ctypes
 import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from nmpc_tpu_torch.core.types import BoxQPConfig, DDPConfig
@@ -44,9 +45,16 @@ from nmpc_tpu_torch.kernels.ddp_backward_fused import (MAX_NU, MAX_NX,
 # any nx; the wide unit takes the inputs past it up to K1's (MAX_NX,
 # MAX_NU).
 MAX_NU_GROUP = 4
-# The most Armijo steps (max_ls_iter + 1) the wide unit's step table holds
+# The most Armijo steps (armijo_steps) the wide unit's step table holds
 # (csrc/ddp_backward_boxed_wide.cuh::kWideStepTable).
 WIDE_STEP_TABLE = 512
+# The phases of a wide boxed stage whose cycles the wide unit's profile
+# build stores after its QP stats (csrc/boxqp_wide.cuh::WidePhase, in its
+# order): the ring's wait, the Q expansion, the QP's gradient, masked
+# system, Cholesky, backward substitution and Armijo rounds (summed over
+# its iterations), K's columns, the value update, the gains' stores.
+WIDE_PHASES = ("wait", "expand", "gradient", "system", "cholesky", "solve",
+               "armijo", "K columns", "value", "store")
 # the kernels' scalar types (the generated units' T)
 DTYPES = {torch.float32: "float", torch.float64: "double"}
 
@@ -80,29 +88,63 @@ def qp_args(cfg: BoxQPConfig) -> tuple:
             cfg.armijo_param)
 
 
+def armijo_steps(cfg: BoxQPConfig, dtype) -> int:
+    """The Armijo steps a search can visit: ``max_ls_iter + 1``, or k + 1
+    where step k of 1, f, f^2, ... (formed by repeated multiplication at
+    ``dtype``, as ``kernels/ddp_backward.py::_step_schedule`` forms them,
+    and compared with ``min_step`` at ``dtype``) is the first below
+    ``min_step``: the search stops there, exhausted, whatever Armijo says,
+    so no later step is read.  With the defaults (0.6, 1e-22) that is 101
+    at both dtypes.  The wide unit's step table holds this many
+    (``csrc/ddp_backward_boxed_wide.cuh::armijo_steps``, the same rule)."""
+    t = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    f, below = t(cfg.step_factor), t(cfg.min_step)
+    step = t(1.0)
+    for k in range(cfg.max_ls_iter + 1):
+        if step < below:
+            return k + 1
+        if step * f == step:   # a fixed point: no later step differs
+            break
+        step = step * f
+    return cfg.max_ls_iter + 1
+
+
 def boxed_wide(nx: int, nu: int) -> bool:
     """Whether the wide unit serves (nx, nu): only where the one-group
     unit cannot, MAX_NU_GROUP < nu <= MAX_NU and nx <= MAX_NX."""
     return MAX_NU_GROUP < nu <= MAX_NU and 1 <= nx <= MAX_NX
 
 
-def boxed_kernel_supports(nx: int, nu: int, dtype) -> bool:
-    """Whether a boxed kernel takes this state/input size and dtype:
-    float32 or float64, and (nx, nu) with nu <= MAX_NU_GROUP at any nx
-    (the one-group unit) or a :func:`boxed_wide` shape (up to (9, 16));
-    any B and N (the unit is built on demand)."""
-    return (dtype in DTYPES and nx >= 1 and nu >= 1
-            and (boxed_wide(nx, nu) or nu <= MAX_NU_GROUP))
+def boxed_kernel_supports(nx: int, nu: int, dtype,
+                          qp: BoxQPConfig = BoxQPConfig()) -> bool:
+    """Whether a boxed kernel takes this state/input size, dtype and QP
+    configuration: float32 or float64, and (nx, nu) with nu <=
+    MAX_NU_GROUP at any nx (the one-group unit) or a :func:`boxed_wide`
+    shape (up to (9, 16)) whose Armijo schedule fits the wide unit's
+    step table (``armijo_steps(qp, dtype) <= WIDE_STEP_TABLE``); any B
+    and N (the unit is built on demand)."""
+    if dtype not in DTYPES or nx < 1 or nu < 1:
+        return False
+    if boxed_wide(nx, nu):
+        return armijo_steps(qp, dtype) <= WIDE_STEP_TABLE
+    return nu <= MAX_NU_GROUP
 
 
-def unit_source(nx: int, nu: int, dtype, group: int | None = None) -> str:
+def unit_source(nx: int, nu: int, dtype, group: int | None = None,
+                profile: bool = False) -> str:
     """The unit instantiating the kernel at (nx, nu, dtype) (the wide one
     at a :func:`boxed_wide` shape), with its header's threads per lane,
-    or ``group`` where a measurement asks for another.  Both take a lane
-    stride ``ld`` and a ``qp_stats`` buffer, which the one-group kernel
-    does not read."""
+    or ``group`` where a measurement asks for another; ``profile`` (wide
+    only) builds the profile kernel, which adds the cycles of each of
+    :data:`WIDE_PHASES` to its QP stats.  Both take a lane stride ``ld``
+    and a ``qp_stats`` buffer, which the one-group kernel does not
+    read."""
     wide = boxed_wide(nx, nu)
+    if profile and not wide:
+        raise ValueError("only the wide boxed unit has a profile build")
     g = "" if group is None else f", {group}"
+    if profile:
+        g = f", {'nmpc::kWideGroup' if group is None else group}, true"
     if wide:
         header, fn, lead, tail = ("ddp_backward_boxed_wide.cuh",
                                   "launch_backward_boxed_wide", "ld, ",
@@ -124,10 +166,12 @@ def unit_source(nx: int, nu: int, dtype, group: int | None = None) -> str:
             f"dV, ok,\n      {tail}stream);\n}}\n")
 
 
-def unit_name(nx: int, nu: int, dtype, group: int | None = None) -> str:
+def unit_name(nx: int, nu: int, dtype, group: int | None = None,
+              profile: bool = False) -> str:
     kind = "_wide" if boxed_wide(nx, nu) else ""
     g = "" if group is None else f"_g{group}"
-    return f"ddp_backward_boxed{kind}_{nx}x{nu}_{str(dtype)[6:]}{g}"
+    prof = "_prof" if profile else ""
+    return f"ddp_backward_boxed{kind}_{nx}x{nu}_{str(dtype)[6:]}{g}{prof}"
 
 
 @functools.lru_cache(maxsize=16)
@@ -146,7 +190,7 @@ def launcher(nx: int, nu: int, dtype, group: int | None = None,
 
 
 def launch(fn, config: DDPConfig, D: StackedDerivs, bounds: StackedBounds,
-           Vx_T, Vxx_T, lam, stats=None):
+           Vx_T, Vxx_T, lam, stats=None, profile=False):
     """One launch of the unit function ``fn`` (:func:`launcher`) on
     checked CUDA tensors; raises on a CUDA error.  The wide unit reads
     its ten fields through TMA tensor maps: fields TMA does not take are
@@ -154,18 +198,25 @@ def launch(fn, config: DDPConfig, D: StackedDerivs, bounds: StackedBounds,
     ``backward_fused_boxed.padded_copies``).  ``stats``, a dict if given
     (the wide unit only), receives the kernel's QP iterations
     (``"qp_iters"``), free sets (``"free"``, bit a for input a) and
-    Armijo candidates visited (``"ls_evals"``), [N, B] int32 each.
-    Counts no launch: the wrapper counts its own."""
+    Armijo candidates visited (``"ls_evals"``), [N, B] int32 each; with
+    ``profile`` (``fn`` a profile build's) also ``"phases"``, the cycles
+    of each of :data:`WIDE_PHASES` a (stage, lane), [len(WIDE_PHASES), N,
+    B] int32.  Counts no launch: the wrapper counts its own."""
     N, nx, nu = D.Fu.shape[0], D.Fu.shape[1], D.Fu.shape[2]
     B = Vx_T.shape[-1]
     dtype, device = Vx_T.dtype, Vx_T.device
     wide = boxed_wide(nx, nu)
     if stats is not None and not wide:
         raise ValueError("only the wide boxed unit records QP stats")
-    if wide and config.boxqp.max_ls_iter + 1 > WIDE_STEP_TABLE:
-        raise ValueError(f"the wide boxed kernel takes max_ls_iter < "
-                         f"{WIDE_STEP_TABLE}, got "
-                         f"{config.boxqp.max_ls_iter}")
+    if profile and stats is None:
+        raise ValueError("a profile launch records its phases in stats")
+    if wide and armijo_steps(config.boxqp, dtype) > WIDE_STEP_TABLE:
+        q = config.boxqp
+        raise ValueError(
+            f"the wide boxed kernel's step table holds {WIDE_STEP_TABLE} "
+            f"Armijo steps; max_ls_iter={q.max_ls_iter} with step_factor="
+            f"{q.step_factor}, min_step={q.min_step} needs "
+            f"{armijo_steps(q, dtype)}")
     fields, ld = (*D, *bounds), B
     if wide:
         fields, ld, copies = padded_fields(fields)
@@ -174,7 +225,8 @@ def launch(fn, config: DDPConfig, D: StackedDerivs, bounds: StackedBounds,
     Ks = torch.empty((N, nu, nx, B), dtype=dtype, device=device)
     dV = torch.empty((2, B), dtype=dtype, device=device)
     ok = torch.empty((B,), dtype=torch.bool, device=device)
-    qp = (torch.empty((3, N, B), dtype=torch.int32, device=device)
+    rows = 3 + (len(WIDE_PHASES) if profile else 0)
+    qp = (torch.empty((rows, N, B), dtype=torch.int32, device=device)
           if stats is not None else None)
     ptrs = (ctypes.c_void_p * 10)(*(a.data_ptr() for a in fields))
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -189,6 +241,8 @@ def launch(fn, config: DDPConfig, D: StackedDerivs, bounds: StackedBounds,
                            f"error {err}")
     if stats is not None:
         stats.update(qp_iters=qp[0], free=qp[1], ls_evals=qp[2])
+        if profile:
+            stats["phases"] = qp[3:]
     return ks, Ks, dV, ok
 
 

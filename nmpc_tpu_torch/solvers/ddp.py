@@ -186,8 +186,9 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
         ``torch.linalg.cross`` it does not take) runs a kernel; K2 and K3
         take nx <= 8, nu <= 4 and raise, naming the shape, beyond them;
         boxed (K4) within its limits (``boxed_kernel_supports``: its wide
-        unit up to (9, 16), its one-group unit at nu <= 4, float32/
-        float64);
+        unit up to (9, 16) where the Armijo schedule fits its step table,
+        ``armijo_steps(config.boxqp, dtype) <= 512``, its one-group unit
+        at nu <= 4, float32/float64);
     and to ``"stacked"`` (the torch-op recursion) otherwise, on CPU
     tensors always.  The JAX rule sends a boxed solve with nu > 4 to the
     stacked path (``nmpc_tpu/solvers/ddp.py:747-752``); on the H100 the
@@ -241,7 +242,7 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
         if (config.deriv_dtype == "same"
                 and remat_supported(problem, nx, nu, dtype, boxed)):
             return "remat"
-        if (boxed_kernel_supports(nx, nu, dtype) if boxed
+        if (boxed_kernel_supports(nx, nu, dtype, config.boxqp) if boxed
                 else kernel_supports(nx, nu, dtype)):
             return "pallas"
     return "stacked"

@@ -119,7 +119,10 @@ T __shfl_sync(unsigned mask, T v, int src, int width) {
 
 HOST_RUNTIME = r"""
 #pragma once
+#include <chrono>
+#include <cmath>
 #include <cstddef>
+#include <cstring>
 #define __global__
 #define __launch_bounds__(...)
 #define __grid_constant__
@@ -137,6 +140,27 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
+inline float __double2float_rn(double x) { return static_cast<float>(x); }
+// rn_ops.cuh's MUFU seeds (rcp / rsqrt.approx.ftz.f64): the exact value
+// cut to its 20 leading significand bits, so that the Newton steps after
+// them do the work on the host too
+namespace nmpc {
+inline double rn_seed20(double v) {
+  unsigned long long bits;
+  std::memcpy(&bits, &v, sizeof bits);
+  bits &= ~((1ull << 32) - 1);
+  std::memcpy(&v, &bits, sizeof bits);
+  return v;
+}
+inline double rn_rcp_seed(double x) { return rn_seed20(1.0 / x); }
+inline double rn_rsqrt_seed(double x) { return rn_seed20(1.0 / std::sqrt(x)); }
+}  // namespace nmpc
+// the SM's cycle counter: the host's steady clock in nanoseconds
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
+}
 """
 
 HOST_CP_ASYNC = r"""
@@ -251,6 +275,8 @@ inline void tma_load_3d(const CUtensorMap& m, uint64_t* bar, void* dst,
                         int c0, int c1, int c2) {
   if (reinterpret_cast<uintptr_t>(dst) % 128 != 0)
     fail(8, "a box lands at a shared address not 128-byte aligned");
+  if ((static_cast<long long>(c0) * m.size) % 16 != 0)
+    fail(13, "a box starts at a row offset not 16-byte aligned");
   unsigned char* out = static_cast<unsigned char*>(dst);
   for (int z = 0; z < m.b2; ++z)
     for (int y = 0; y < m.b1; ++y)
@@ -370,13 +396,25 @@ def exact_sqrt(a):
 _LAUNCH = re.compile(r"(\w+<[^<>;]*>)\s*<<<(.*?)>>>", re.DOTALL)
 
 
+def host_fma_flags() -> tuple:
+    """``-mfma`` where the host CPU has fused multiply-add (x86's FMA3),
+    so that a kernel's explicit fma() (``rn_ops.cuh``) runs as one
+    instruction and not as libm's software fma; () elsewhere.  Either
+    gives fma's exact rounding; contraction stays off."""
+    try:
+        flags = Path("/proc/cpuinfo").read_text().split()
+    except OSError:
+        return ()
+    return ("-mfma",) if "fma" in flags else ()
+
+
 def build_kernels_host(d: Path, source: str, name: str,
-                       opt: str = "-O1") -> Path:
+                       opt: str = "-O1", extra: tuple = ()) -> Path:
     """The executable of the harness ``source`` (SHIM + KERNELS_PRELUDE +
     its includes and main) built by g++ in ``d`` from a copy of csrc/ with
     the launches turned into host_launch calls and the stand-ins for
-    tma.cuh, cp_async.cuh and cuda_runtime.h, without contraction; skips
-    the test without g++."""
+    tma.cuh, cp_async.cuh and cuda_runtime.h, without contraction, with
+    the g++ flags ``extra``; skips the test without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ on PATH")
@@ -390,7 +428,8 @@ def build_kernels_host(d: Path, source: str, name: str,
     (d / "cuda_runtime.h").write_text(HOST_RUNTIME)
     (d / f"{name}.cpp").write_text(source)
     exe = d / name
-    proc = subprocess.run([gxx, "-std=c++20", opt, "-ffp-contract=off",
+    proc = subprocess.run([gxx, "-std=c++20", opt, *extra,
+                           "-ffp-contract=off",
                            "-pthread", f"-I{d}", f"-I{inc}", "-o", str(exe),
                            str(d / f"{name}.cpp")],
                           capture_output=True, text=True, timeout=900)

@@ -26,6 +26,7 @@ generator refuses it, so K4 serves it on the card).
 """
 
 import concurrent.futures
+import re
 import subprocess
 
 import jax.numpy as jnp
@@ -51,7 +52,7 @@ from nmpc_tpu_torch.models.vertical import make_vertical_problem
 from nmpc_tpu_torch.solvers import ddp
 
 from host_shim import (KERNELS_PRELUDE, SHIM, build_kernels_host,
-                       exact_sqrt, first_apart)
+                       exact_sqrt, first_apart, host_fma_flags)
 
 torch.set_num_threads(1)
 
@@ -66,16 +67,18 @@ BLOCK_SMEM = 227 * 1024
 WIDE_THREADS = 256
 STEP_TABLE = 512
 # G = 1: K4's one-group unit at one thread a lane, the reference; then the
-# wide unit's threads per lane (kWideGroup = 32 among them)
+# wide unit's threads per lane (kWideGroup = 32 among them); PROFILE: the
+# harness's G for the wide unit's profile build (at kWideGroup)
 GROUPS = (1, 4, 8, 16, 32)
 WIDE_GROUP = 32
+PROFILE = 0
 # the batches: a case's lanes, its first 37 (a lane stride TMA does not
 # take at fp32, a ragged last warp at G = 1 and block at G >= 8) and lane
 # 0 alone (run_mpc's batch); the plain version's lanes (plain_lanes)
 BATCHES = (64, 37, 1)
 PLAIN_LANES = 64
-# the lanes made non-PD, NaN and long-searching (_centroidal_case)
-NON_PD, NAN_LANE, LONG = 1, 2, 3
+# the lanes made non-PD, NaN, long-searching and tiny (_centroidal_case)
+NON_PD, NAN_LANE, LONG, TINY = 1, 2, 3, 4
 DTYPES = {torch.float32: "float", torch.float64: "double"}
 
 _HARNESS = SHIM + KERNELS_PRELUDE + r"""
@@ -91,7 +94,7 @@ constexpr int SIZES[10] = {NX * NX, NX * NU, NX, NU, NX * NX,
 // wide kernel's QP iterations, free sets and Armijo candidates [3][N][B]
 // (0 at G = 1, K4's one-group kernel at one thread a lane, fed the fields
 // at lane stride B)
-template <typename T, int G>
+template <typename T, int G, bool P = false>
 int run(int N, int B, int reg_type, int ld, const nmpc::BoxQPParams& qp,
         const T* in, T* out) {
   const void* fields[10];
@@ -109,7 +112,8 @@ int run(int N, int B, int reg_type, int ld, const nmpc::BoxQPParams& qp,
   T* dV = Ks + static_cast<size_t>(N) * NU * NX * B;
   T* rest = dV + 2 * static_cast<size_t>(B);
   std::vector<unsigned char> ok(B);
-  std::vector<int> stats(3 * static_cast<size_t>(N) * B, 0);
+  const size_t NB = static_cast<size_t>(N) * B;
+  std::vector<int> stats((3 + (P ? nmpc::kWidePhases : 0)) * NB, 0);
   int err;
   if constexpr (G == 1) {
     size_t n = 0;
@@ -127,32 +131,39 @@ int run(int N, int B, int reg_type, int ld, const nmpc::BoxQPParams& qp,
         N, B, reg_type, qp, fields, VxT, VxxT, lam, ks, Ks, dV, ok.data(),
         nullptr);
   } else {
-    err = nmpc::launch_backward_boxed_wide<T, NX, NU, G>(
+    err = nmpc::launch_backward_boxed_wide<T, NX, NU, G, P>(
         N, B, ld, reg_type, qp, fields, VxT, VxxT, lam, ks, Ks, dV,
         ok.data(), stats.data(), nullptr);
   }
   if (err) return 20 + err;
   for (int b = 0; b < B; ++b) rest[b] = ok[b];
-  for (size_t e = 0; e < stats.size(); ++e) rest[B + e] = T(stats[e]);
+  for (size_t e = 0; e < 3 * NB; ++e) rest[B + e] = T(stats[e]);
+  if constexpr (P) {   // each phase's cycles over every (stage, lane)
+    for (int q = 0; q < nmpc::kWidePhases; ++q) {
+      long long sum = 0;
+      for (size_t e = 0; e < NB; ++e) sum += stats[(3 + q) * NB + e];
+      std::printf("%lld ", sum);
+    }
+    std::printf("\n");
+  }
   return 0;
 }
 
-// the wide block's geometry at G and B: the layout's offsets and F, R,
-// the most and fewest lanes of a block, the lane stride and size of the
-// scratch, the launch's lanes, a block's bytes at the most lanes and at
-// the launch's
+// the wide block's geometry at G: the layout's offsets and F, the ring's
+// buffers, the block's lanes and box lanes, the lane stride and size of
+// the scratch and its factor buffers' offsets and column stride, a
+// block's bytes and threads
 template <typename T, int G>
-void geometry(int B) {
+void geometry(int) {
   using L = nmpc::BoxedWideLayout<T, NX, NU, G>;
   using Blk = nmpc::WideBoxedBlock<T, NX, NU, G>;
-  constexpr int R = Blk::ring();
-  constexpr int most = Blk::max_lanes();
-  const int lanes = Blk::lanes(B);
-  std::printf("%d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %zu %zu\n",
+  using S = nmpc::WideBoxedScratch<NX, NU>;
+  std::printf("%d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %zu "
+              "%d\n",
               L::Fx, L::Fu, L::Lx, L::Lu, L::Lxx, L::Luu, L::Lxu, L::lower,
-              L::upper, L::u, L::F, R, most, nmpc::wide_min_lanes<G>(),
-              Blk::stride, nmpc::WideBoxedScratch<NX, NU>::size, lanes,
-              Blk::bytes(R, most), Blk::bytes(R, lanes));
+              L::upper, L::u, L::F, Blk::ring, Blk::lanes, Blk::box,
+              Blk::stride, S::size, S::L0, S::L1, S::FS, Blk::bytes,
+              Blk::threads);
 }
 
 template <typename T>
@@ -177,6 +188,8 @@ int main_t(int G, int N, int B, int reg_type, int ld,
 }
 
 // k4_wide G N B reg_type ld max_iter max_ls_iter grad_thre
+//   (G = 0: the profile build at kWideGroup, its phases' cycles printed
+//   before the geometry)
 //   rel_improve_thre step_factor min_step armijo_param in out
 int main(int argc, char** argv) {
   if (argc != 15) return 1;
@@ -196,7 +209,10 @@ int main(int argc, char** argv) {
      "out.data());"]
     + [f"  if (G == {g}) {{\n    err = run<T, {g}>(N, B, reg_type, ld, qp, "
        f"in.data(), out.data());\n    geometry<T, {g}>(B);\n  }}"
-       for g in GROUPS[1:]]))
+       for g in GROUPS[1:]]
+    + ["  if (G == 0) {\n    err = run<T, nmpc::kWideGroup, true>(N, B, "
+       "reg_type, ld, qp, in.data(), out.data());\n    geometry<T, "
+       "nmpc::kWideGroup>(B);\n  }"]))
 
 
 @pytest.fixture(scope="module")
@@ -206,7 +222,7 @@ def host_builds(tmp_path_factory):
     pool = concurrent.futures.ThreadPoolExecutor(len(DTYPES))
     builds = {dtype: pool.submit(
         build_kernels_host, tmp_path_factory.mktemp(f"k4_wide_{name}"),
-        _HARNESS.replace("@T@", name), "k4_wide")
+        _HARNESS.replace("@T@", name), "k4_wide", extra=host_fma_flags())
         for dtype, name in DTYPES.items()}
     yield builds
     pool.shutdown()
@@ -219,7 +235,10 @@ def _centroidal_case(dtype, B=64):
     standing pose and inputs about 60 N, made from a seed: (D, bounds,
     VxT, VxxT).  Lane NON_PD is non-PD (Luu = -10), lane NAN_LANE NaN from
     stage N / 2, lane LONG's Lu moved by 1e6 N(0, 1), so that its Armijo
-    searches run long."""
+    searches run long, lane TINY's linear terms (Lx, Lu, the terminal Vx)
+    scaled to 1e-40 (fp32: subnormal) or 1e-280 (fp64), so that the wide
+    QP's straight-line divisions give quotients it marks (csrc/rn_ops.cuh)
+    and computes again natively."""
     rng = np.random.default_rng(11)
     as_t = lambda a: torch.as_tensor(a, dtype=dtype).contiguous()
     p = make_centroidal_problem(DT, force_limits=FORCE)
@@ -236,7 +255,13 @@ def _centroidal_case(dtype, B=64):
     derivs.Luu[:, :, :, NON_PD] = -10.0
     derivs.Fx[N // 2, 0, 0, NAN_LANE] = float("nan")
     derivs.Lu[:, :, LONG] += as_t(1e6 * rng.normal(size=(N, NU)))
-    return derivs, bounds, VxT.contiguous(), VxxT.contiguous()
+    VxT = VxT.contiguous()
+    if B > TINY:
+        tiny = 1e-40 if dtype == torch.float32 else 1e-280
+        derivs.Lu[:, :, TINY] *= tiny
+        derivs.Lx[:, :, TINY] *= tiny
+        VxT[:, TINY] *= tiny
+    return derivs, bounds, VxT, VxxT.contiguous()
 
 
 def _config(reg_type):
@@ -322,9 +347,10 @@ def k4_wide_runs(host_builds, tmp_path_factory):
                         StackedBounds(*map(cut, bnd)), cut(VxT), cut(VxxT),
                         cut(lam))
                 d = tmp_path_factory.mktemp(f"k4_wide_runs_{B}")
+                runs_at = GROUPS + (PROFILE,)
                 with concurrent.futures.ThreadPoolExecutor(2) as pool:
-                    outs = dict(zip(GROUPS, pool.map(
-                        lambda G: _run(exe, cfg, *args, G, d), GROUPS)))
+                    outs = dict(zip(runs_at, pool.map(
+                        lambda G: _run(exe, cfg, *args, G, d), runs_at)))
                 runs[B] = (cfg, *args, outs, plain_lanes(cfg, *args))
             cache[dtype, reg_type] = runs
         return cache[dtype, reg_type]
@@ -424,41 +450,41 @@ def test_k4_wide_groups(k4_wide_runs, dtype, reg_type, G):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k4_wide_ring_fits(k4_wide_runs, dtype):
-    """The wide boxed block lays out at (9, 16) at every G: each of a ring
-    buffer's ten fields on a 128-byte boundary at any lane count the block
-    takes (a multiple of its fewest lanes), with the packed order's sizes
-    and the bounds last; the lanes' scratch (WideBoxedScratch) after the
-    ring, one lane stride apart, and the step table of STEP_TABLE steps
-    after it, within the launch's dynamic shared memory (the host shim
-    checks the bytes past it); at the most lanes a block, at most 256
-    threads and the ring, scratch and table within 227 KB, where one more
-    buffer would pass them, and twice the lanes one of the two; at
-    kWideGroup (G = 32) 4 lanes and 8 buffers at fp32 (F = 800), 6 at fp64
-    (F = 788); a launch's lanes the fewest at B <= 64."""
+    """The wide boxed block lays out at (9, 16) at every G: one consumer
+    warp (32 / G lanes) and the producer warp; its TMA boxes as many lanes
+    as make at least 16 bytes (the block's first), each of a ring
+    buffer's ten fields on a 128-byte boundary of the box, with the packed
+    order's sizes and the bounds last; two buffers; the lane's scratch
+    (WideBoxedScratch, its two factor buffers 16-byte aligned, columns a
+    multiple of 4 values apart) after the ring, one lane stride apart, and
+    the step table of STEP_TABLE steps after it, within the launch's
+    dynamic shared memory (the host shim checks the bytes past it) and
+    within a third of 227 KB at kWideGroup (three blocks an SM, where
+    B=256 takes two); at kWideGroup one lane and boxes of 4 lanes at fp32
+    (F = 800), 2 at fp64 (F = 800)."""
     size = 4 if dtype == torch.float32 else 8
     sizes = (NX * NX, NX * NU, NX, NU, NX * NX, NU * NU, NX * NU, NU, NU, NU)
     buffer = lambda F, L: -(-F * L * size // 128) * 128
     for B, (*_, runs, _) in k4_wide_runs(dtype, 1).items():
         for G in GROUPS[1:]:
-            *off, F, R, most, least, stride, scratch, L, full, launched = (
-                runs[G][1])
-            assert least == max(32 // G, 4) and L % least == 0, G
+            (*off, F, R, lanes, box, stride, scratch, L0, L1, FS, full,
+             threads) = runs[G][1]
+            assert lanes == 32 // G and box >= lanes, G
+            assert box * size >= 16 and (box == lanes or box * size == 16), G
             for o, o_next, n in zip(off, off[1:] + [F], sizes):
-                assert (o * least * size) % 128 == 0 and o_next - o >= n, G
-            assert stride >= scratch and (stride * size) % 8 == 0, G
-            block = lambda R_, L_: (128 + R_ * buffer(F, L_)
-                                    + L_ * stride * size + STEP_TABLE * size)
-            assert launched == block(R, L) and full == block(R, most), G
+                assert (o * box * size) % 128 == 0 and o_next - o >= n, G
+            assert stride >= scratch and (stride * size) % 16 == 0, G
+            assert L0 % 4 == 0 and L1 % 4 == 0 and FS % 4 == 0, G
+            assert FS >= NU and abs(L1 - L0) >= NU * FS, G
+            assert scratch >= max(L0, L1) + NU * FS, G
+            assert R == 2 and threads == lanes * G + 32, G
+            assert full == (128 + R * buffer(F, box) + lanes * stride * size
+                            + STEP_TABLE * size), G
             assert full <= BLOCK_SMEM, G
-            assert R == 8 or block(R + 1, most) > BLOCK_SMEM, G
-            assert most * G + 32 <= WIDE_THREADS, G
-            assert most == least or most == 32 or (
-                2 * most * G + 32 > WIDE_THREADS
-                or block(2, 2 * most) > BLOCK_SMEM), G
-            assert L == least, (G, B, L)   # B <= 64: the fewest lanes
             if G == WIDE_GROUP:
-                assert (F, R, most) == ((800, 8, 4) if size == 4
-                                        else (788, 6, 4))
+                assert (lanes, box, F) == ((1, 4, 800) if size == 4
+                                           else (1, 2, 800))
+                assert 3 * full <= BLOCK_SMEM, full
 
 
 def test_k4_wide_unit_source():
@@ -526,7 +552,235 @@ def test_k4_wide_limits_and_auto_rule():
         with pytest.raises(NotImplementedError, match="nu <= 4"):
             resolve(DDPConfig(backward_impl="remat"), boxed, dtype, cuda,
                     True, False)
-    with pytest.raises(ValueError, match="max_ls_iter"):
-        cfg = DDPConfig(boxqp=BoxQPConfig(max_ls_iter=STEP_TABLE))
+    with pytest.raises(ValueError, match="step table holds 512"):
+        cfg = DDPConfig(boxqp=BoxQPConfig(max_ls_iter=STEP_TABLE,
+                                          step_factor=0.95))
         D, bnd, VxT, VxxT = _centroidal_case(torch.float64, B=4)
-        K4.launch(None, cfg, D, bnd, VxT, VxxT, torch.zeros(4))
+        K4.launch(None, cfg, D, bnd, VxT, VxxT,
+                  torch.zeros(4, dtype=torch.float64))
+
+
+def test_k4_wide_profile_build(k4_wide_runs):
+    """The wide unit's profile build (``launch_backward_boxed_wide<...,
+    kWideGroup, true>``: each stage's phases timed, boxqp_wide.cuh::
+    WidePhase) equal to the normal build at kWideGroup bit for bit, with
+    the same QP stats and geometry, at B = 64, 37 and 1, fp32 and fp64,
+    both reg_types; every phase's cycles counted, the QP's phases and the
+    expansion above 0; the wrapper's phase names in the header's order
+    and number."""
+    enum = (K4.CSRC / "boxqp_wide.cuh").read_text()
+    body = enum.split("enum WidePhase : int {", 1)[1].split("};", 1)[0]
+    names = re.findall(r"\bkPh(\w+)", body)
+    assert len(names) == len(K4.WIDE_PHASES) and "kWidePhases" in body
+    assert [n.lower() for n in names[:2]] == ["wait", "expand"]
+    for dtype in DTYPES:
+        for reg_type in (1, 2):
+            for B, (*_, runs, _) in k4_wide_runs(dtype, reg_type).items():
+                (out, geo), (prof, pgeo) = runs[WIDE_GROUP], runs[PROFILE]
+                for name, a, b in zip(("ks", "Ks", "dV"), out[:3], prof[:3]):
+                    assert first_apart(a, b) is None, (B, name)
+                for a, b in zip(out[3:], prof[3:]):
+                    assert torch.equal(a, b), B
+                phases = dict(zip(K4.WIDE_PHASES, pgeo[:len(K4.WIDE_PHASES)]))
+                assert pgeo[len(K4.WIDE_PHASES):] == geo, B
+                assert all(v >= 0 for v in phases.values()), phases
+                assert all(phases[k] > 0 for k in (
+                    "expand", "gradient", "cholesky", "solve", "armijo")), (
+                    B, phases)
+
+
+@pytest.mark.parametrize("cfg", [
+    BoxQPConfig(),
+    BoxQPConfig(max_ls_iter=600),
+    BoxQPConfig(max_ls_iter=600, step_factor=0.95),
+], ids=["defaults", "max_ls_iter=600", "step_factor=0.95"])
+def test_k4_wide_step_table_rule(cfg):
+    """The Armijo steps a search can visit (``armijo_steps``: the schedule
+    cut at its first step below min_step, where the search stops) decide
+    whether the wide unit's step table takes a configuration: with the
+    defaults (0.6, 1e-22) 101 steps at both dtypes, whatever max_ls_iter
+    past 100, so ``auto`` runs the kernel on the boxed centroidal model;
+    with step_factor = 0.95 and max_ls_iter = 600 all 601 steps, past the
+    table's 512, so ``auto`` takes the plain path and an explicit
+    ``"pallas"`` raises at the launch, naming the table."""
+    boxed = make_centroidal_problem(DT, force_limits=FORCE)
+    cuda = torch.device("cuda")
+    fits = cfg.step_factor == 0.6
+    for dtype in DTYPES:
+        steps = K4.armijo_steps(cfg, dtype)
+        assert steps == (101 if fits else 601), (cfg, dtype)
+        assert K4.boxed_kernel_supports(NX, NU, dtype, cfg) == fits
+        # the one-group unit's table is sized by the launch
+        assert K4.boxed_kernel_supports(4, 2, dtype, cfg)
+        resolve = lambda impl: ddp._resolve_backward_impl(
+            DDPConfig(backward_impl=impl, boxqp=cfg), boxed, dtype, cuda,
+            True, False)
+        assert resolve("auto") == ("pallas" if fits else "stacked")
+        assert resolve("pallas") == "pallas"
+        D, bnd, VxT, VxxT = _centroidal_case(dtype, B=4)
+        if not fits:
+            with pytest.raises(ValueError, match="holds 512 Armijo steps"):
+                K4.launch(None, DDPConfig(boxqp=cfg), D, bnd, VxT, VxxT,
+                          torch.zeros(4, dtype=dtype))
+    # no step below min_step: the whole schedule (a fixed point included);
+    # else up to the first step below it
+    assert K4.armijo_steps(BoxQPConfig(max_ls_iter=5), torch.float32) == 6
+    assert K4.armijo_steps(BoxQPConfig(min_step=0.5, max_ls_iter=5),
+                           torch.float64) == 3
+    assert K4.armijo_steps(BoxQPConfig(step_factor=1.0, max_ls_iter=700),
+                           torch.float64) == 701
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k4_wide_long_schedule_as_host_cpp(host_builds, k4_wide_runs,
+                                           tmp_path, dtype):
+    """The wide unit at max_ls_iter = 600 with the default step factor
+    and min_step (its launch cuts the schedule to armijo_steps, 101, which
+    the table holds) through its launch function at kWideGroup, on the
+    case's first 37 lanes (the long-search lane among them): equal to
+    ``backward_stacked_boxed`` at max_ls_iter = 600 bit for bit on its ok
+    lanes with the same ok mask and QP stats, and to the default
+    configuration's run bit for bit."""
+    runs = k4_wide_runs(dtype, 1)
+    B = 37
+    cfg0, D, bnd, VxT, VxxT, lam, outs, _ = runs[B]
+    cfg = DDPConfig(horizon_steps=N, reg_type=1, with_input_constraint=True,
+                    boxqp=BoxQPConfig(max_ls_iter=600))
+    out, _ = _run(host_builds[dtype].result(), cfg, D, bnd, VxT, VxxT, lam,
+                  WIDE_GROUP, tmp_path)
+    ref = plain_lanes(cfg, D, bnd, VxT, VxxT, lam)
+    ok = ref[3]
+    assert torch.equal(out[3], ok) and int(ok.sum()) == B - 2
+    for name, a, b in zip(("ks", "Ks", "dV"), ref[:3], out[:3]):
+        at = first_apart(a[..., ok].contiguous(), b[..., ok].contiguous())
+        assert at is None, (name, at)
+    for name, a, b in zip(("qp_iters", "free", "ls_evals"), ref[4:], out[4:]):
+        assert torch.equal(a[:, ok], b[:, ok]), name
+    assert int(ref[6][:, LONG].max()) > WIDE_GROUP
+    for a, b in zip(outs[WIDE_GROUP][0], out):
+        assert (first_apart(a, b) is None if a.is_floating_point()
+                else torch.equal(a, b))
+
+
+_RN_HARNESS = SHIM + r"""
+#include <cuda_runtime.h>
+#include "rn_ops.cuh"
+using T = @T@;
+// rn_ops in out: in holds n pairs (a, b) then n values x; out gets a / b
+// by RnOps<T>, its mark, sqrt_pos(x), its mark
+int main(int argc, char** argv) {
+  if (argc != 3) return 1;
+  FILE* f = std::fopen(argv[1], "rb");
+  std::vector<T> in;
+  T v;
+  while (f && std::fread(&v, sizeof v, 1, f) == 1) in.push_back(v);
+  if (!f || in.size() % 3 != 0) return 2;
+  std::fclose(f);
+  const size_t n = in.size() / 3;
+  std::vector<T> out(4 * n);
+  for (size_t i = 0; i < n; ++i) {
+    bool tiny = false, stiny = false;
+    const T b = in[2 * i + 1];
+    out[i] = nmpc::RnOps<T>::div(in[2 * i], nmpc::RnOps<T>::rcp(b), tiny);
+    out[n + i] = tiny ? T(1) : T(0);
+    out[2 * n + i] = nmpc::RnOps<T>::sqrt_pos(in[2 * n + i], stiny);
+    out[3 * n + i] = stiny ? T(1) : T(0);
+  }
+  f = std::fopen(argv[2], "wb");
+  if (!f || std::fwrite(out.data(), sizeof(T), out.size(), f) != out.size())
+    return 3;
+  std::fclose(f);
+  return 0;
+}
+"""
+
+
+def _rn_cases(dtype, n=1 << 20):
+    """(a, b, x) arrays of ``dtype``: random finite bit patterns (every
+    exponent; b > 0), and at float32 quotients at and beside midpoints of
+    the subnormal grid and of normal binades (a = b m for a midpoint m,
+    where exact); zero, infinite and NaN numerators, b = +inf, powers of
+    two, and the positive extremes for the root."""
+    rng = np.random.default_rng(16)
+    top, ity = ((0x7f800000, np.uint32) if dtype == np.float32
+                else (0x7ff0000000000000, np.uint64))
+    bits = lambda k: rng.integers(0, top, k, dtype=np.int64).astype(
+        ity).view(dtype)
+    a = bits(n) * np.where(rng.random(n) < 0.5, -1, 1).astype(dtype)
+    b = bits(n)
+    tie_a, tie_b = [], []
+    if dtype == np.float32:
+        # b = 2^e odd, a = b m: m a midpoint (2j + 1) 2^-150 (subnormal
+        # grid) or (2j + 1) 2^-24 2^e2 (a normal binade's), where a is
+        # exact, and the floats beside a
+        k = n // 4
+        odd = (2 * rng.integers(1, 1 << 6, k) + 1).astype(np.float64)
+        bd = odd * 2.0 ** rng.integers(-20, 20, k)
+        m_sub = (2 * rng.integers(0, 1 << 10, k) + 1) * 2.0 ** -150
+        m_nrm = ((2 * rng.integers(1 << 23, 1 << 24, k) + 1) * 2.0 ** -25
+                 * 2.0 ** rng.integers(-100, 100, k))
+        for m in (m_sub, m_nrm):
+            prod = bd * m
+            exact = prod.astype(np.float32).astype(np.float64) == prod
+            near = prod[exact].astype(np.float32)
+            tie_a += [near, np.nextafter(near, np.float32(np.inf)),
+                      np.nextafter(near, np.float32(0))]
+            tie_b += [bd[exact].astype(np.float32)] * 3
+    special_a = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0,
+                          1e-45, -1e-45, 3.4e38], dtype)
+    special_b = np.array([1.0, 3.0, 7.0, 0.1, np.inf, 1e-45, 2.0 ** -126,
+                          3.4e38, np.inf, 1e-30], dtype)
+    pairs_a = np.concatenate([a, *tie_a, special_a,
+                              np.repeat(special_a, len(special_b))])
+    pairs_b = np.concatenate([b, *tie_b, special_b,
+                              np.tile(special_b, len(special_a))])
+    x = np.concatenate([bits(len(pairs_a) - 6),
+                        np.array([np.inf, 1e-45, 2.0 ** -126, 3.4e38, 1.0,
+                                  2.0], dtype)])
+    return (pairs_a.astype(dtype), pairs_b.astype(dtype), x.astype(dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_rn_ops_as_host_cpp(tmp_path, dtype):
+    """``csrc/rn_ops.cuh``'s division and square root (RnOps<T>: fp32
+    straight-line through fp64, from seeds cut to 20 bits as the host
+    build's stand-ins give them; fp64 the native operations) against IEEE
+    (numpy) on about 1.3 M quotients: random bit patterns over every
+    exponent, at float32 quotients that are midpoints of the subnormal
+    grid or of a normal binade and their neighbours, zeros, infinities,
+    NaN and b = +inf: every result not marked equal bit for bit (NaN where
+    NaN); every marked float32 quotient under 2^-125 (a nonzero numerator)
+    or NaN, or b = +inf (the caller computes marked work natively); the root of
+    every positive value tried equal bit for bit where not marked (fp32:
+    marked only at +inf; fp64: never)."""
+    name = "float" if dtype == np.float32 else "double"
+    exe = build_kernels_host(tmp_path, _RN_HARNESS.replace("@T@", name),
+                             "rn_ops", extra=host_fma_flags())
+    a, b, x = _rn_cases(dtype)
+    n = len(a)
+    inp, outp = tmp_path / "in", tmp_path / "out"
+    inp.write_bytes(np.stack([a, b], 1).tobytes() + x.tobytes())
+    proc = subprocess.run([str(exe), str(inp), str(outp)],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = np.frombuffer(outp.read_bytes(), dtype)
+    q, tiny, s, stiny = (out[:n], out[n:2 * n] != 0, out[2 * n:3 * n],
+                         out[3 * n:] != 0)
+    with np.errstate(all="ignore"):
+        want_q, want_s = a / b, np.sqrt(x)
+    ity = np.uint32 if dtype == np.float32 else np.uint64
+    same = lambda u, v: (u.view(ity) == v.view(ity)) | (
+        np.isnan(u) & np.isnan(v))
+    assert same(q, want_q)[~tiny].all()
+    assert same(s, want_s)[~stiny].all()
+    if dtype == np.float32:
+        # marked: a quotient under 2^-125 (a nonzero a) or NaN (b = +inf
+        # or NaN, or a NaN a)
+        with np.errstate(all="ignore"):
+            why = ((a != 0) & (np.abs(want_q) < 2.0 ** -125)) | np.isnan(
+                want_q) | np.isinf(b) | np.isnan(a)
+        assert why[tiny].all()
+        assert tiny.sum() > 100 and (~same(q, want_q)).any()  # marks matter
+        assert (stiny == np.isinf(x)).all()
+    else:   # the native operations: nothing marked
+        assert not tiny.any() and not stiny.any()
