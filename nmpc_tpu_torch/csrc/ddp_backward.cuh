@@ -45,7 +45,7 @@
 //     (row_group.cuh::stage_ring: 8 at (4, 1) and (2, 1), 2 at the
 //     centroidal model's (9, 16) fp32, 1 at its fp64) and fits 227 KB
 //     at every (NX <= 9, NU <= 16), checked when the unit compiles;
-//   * past K2's and K3's sizes (row_group.cuh::kWideStage: the centroidal
+//   * past the narrow sizes (row_group.cuh::kWideStage: the centroidal
 //     model's (9, 16), F = 731 values a stage) the NU-sized work every
 //     thread of a group runs alike here (Quu, Quu_F and their Cholesky,
 //     16 x 16 each; FuT Vxx, 16 x 9) passes the register file and spills

@@ -1,6 +1,8 @@
 // K1 at the wide shapes: the sweep-fed DDP Riccati backward for Hopper
-// (sm_90a) where (NX, NU) passes K2's and K3's sizes (row_group.cuh::
-// kWideStage: nx > 8 or nu > 4; the centroidal model's (9, 16)).
+// (sm_90a) where (NX, NU) passes the narrow kernels' sizes (row_group.
+// cuh::kWideStage: nx > 8 or nu > 4; the centroidal model's (9, 16)).
+// Its block, stage and recursion (wide_backward) are K2's and K3's there
+// too (ddp_backward_chunked_wide.cuh, ddp_backward_packed_wide.cuh).
 //
 // Replaces the TPU kernel nmpc_tpu/kernels/ddp_backward_pallas.py::
 // backward_pallas at those shapes (stage-DMA mode: _backward_pallas_call
@@ -41,6 +43,8 @@
 // nothing, and a warp wholly past it returns at once.
 
 #pragma once
+
+#include <type_traits>
 
 #include "ddp_backward.cuh"
 #include "riccati_stage_wide.cuh"
@@ -124,15 +128,55 @@ template <typename T, int NX, int NU, int G>
 using WideK1Block = WideBlock<T, G, WideRingLayout<T, NX, NU, G>::F,
                               WideScratch<NX, NU>::size>;
 
+// K2 and K3 at the wide shapes (ddp_backward_chunked_wide.cuh, BOX = 1;
+// ddp_backward_packed_wide.cuh, BOX = kWideBoxRows): K1-wide's lanes and
+// scratch a lane (One: a block whose two buffers hold one stage each,
+// whose lanes are the most the block takes), two buffers of C stages of
+// the packed layout (row_group.cuh::wide_chunk_stages: 9 and 8 at (9, 16)
+// fp32, 4 and 3 at fp64), checked when the unit compiles.
+template <typename T, int NX, int NU, int G, int BOX>
+struct WideChunkBlock {
+  static constexpr int F = PackedLayout<NX, NU>::F;
+  using One = WideBlock<T, G, wide_chunk_rows(1, F, BOX),
+                        WideScratch<NX, NU>::size>;
+  static constexpr int lanes = One::max_lanes();
+  static constexpr size_t scratch = One::stride * sizeof(T);
+  static constexpr int chunk = wide_chunk_stages<T>(F, BOX, lanes, scratch);
+  static_assert(wide_chunk_bytes<T>(chunk, F, BOX, lanes, scratch) <=
+                    kMaxBlockSmem,
+                "a wide block's two buffers of a stage and its scratch pass "
+                "its shared memory");
+
+  // bytes of a block of L lanes with buffers of C stages
+  __host__ __device__ static constexpr size_t bytes(int C, int L) {
+    return wide_chunk_bytes<T>(C, F, BOX, L, scratch);
+  }
+};
+
+// launch(std::integral_constant<int, L>()) at L == lanes, L one of the
+// lane counts a wide block takes (wide_min_lanes<G>() doubled up to
+// MOST); cudaErrorInvalidValue at any other.
+template <int L, int MOST, typename Launch>
+int with_lanes(int lanes, const Launch& launch) {
+  if constexpr (L > MOST) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (lanes != L) return with_lanes<2 * L, MOST>(lanes, launch);
+    return launch(std::integral_constant<int, L>());
+  }
+}
+
 // The recursion of one lane's group: the terminal carry into the lane's
-// scratch `s`, then every stage from the end of the horizon (`feed` as
-// K1's, its slab L lanes wide), its gains (k and K, row by row as s[X]
-// holds them) stored by the group (value q by rank q % G), and dV and ok
-// by rank 0.
+// scratch `s`, then the chunks of C stages from the end of the horizon
+// (row_group.cuh::packed_chunk; `feed.acquire(c)` gives this lane's
+// column of chunk c, stage i at (i - start) Layout::F values of L lanes),
+// each stage's gains (k and K, row by row as s[X] holds them) stored by
+// the group (value q by rank q % G), and dV and ok by rank 0.  K1-wide's
+// ring feeds one stage a chunk (C = 1), K2's and K3's C.
 template <typename T, int NX, int NU, int G, int L, typename Layout,
           typename Feed>
 __device__ __forceinline__ void wide_backward(
-    Feed& feed, const GroupLane<G>& at, int N, int B, int reg_type,
+    Feed& feed, const GroupLane<G>& at, int N, int C, int B, int reg_type,
     const T* __restrict__ VxT, const T* __restrict__ VxxT,
     const T* __restrict__ lam_in, const BackwardOut<T>& out, T* s) {
   using S = WideScratch<NX, NU>;
@@ -144,25 +188,32 @@ __device__ __forceinline__ void wide_backward(
   const T lam = lam_in[at.b];
   T dV0 = T(0), dV1 = T(0);
   bool ok = true;
-  for (int c = 0; c < N; ++c) {
+  const int n = packed_chunks(N, C);
+  for (int c = 0; c < n; ++c) {
     const T* slab = feed.acquire(c);
-    riccati_stage_wide<T, NX, NU, G, L, Layout>(slab, lam, reg_type, s, dV0,
-                                                dV1, ok);
-    if (at.live) {
-      const int i = N - 1 - c;
-      constexpr int EG = (NU * (NX + 1) + G - 1) / G;   // values a thread
+    const PackedChunk chunk = packed_chunk(c, N, C);
+    for (int i = chunk.hi - 1; i >= chunk.lo; --i) {
+      riccati_stage_wide<T, NX, NU, G, L, Layout>(
+          slab + static_cast<size_t>(i - chunk.start) * Layout::F * L, lam,
+          reg_type, s, dV0, dV1, ok);
+      if (at.live) {
+        constexpr int EG = (NU * (NX + 1) + G - 1) / G;   // values a thread
 #pragma unroll
-      for (int j = 0; j < EG; ++j) {
-        const int e = j * G + r;
-        if (EG * G == NU * (NX + 1) || e < NU * (NX + 1)) {
-          const int a = e / (NX + 1), col = e % (NX + 1);
-          const T v = s[S::X + a * S::XS + col];
-          if (col == 0)
-            out.ks[idx2(i, a, NU, at.b, B)] = v;
-          else
-            out.Ks[idx3(i, a, col - 1, NU, NX, at.b, B)] = v;
+        for (int j = 0; j < EG; ++j) {
+          const int e = j * G + r;
+          if (EG * G == NU * (NX + 1) || e < NU * (NX + 1)) {
+            const int a = e / (NX + 1), col = e % (NX + 1);
+            const T v = s[S::X + a * S::XS + col];
+            if (col == 0)
+              out.ks[idx2(i, a, NU, at.b, B)] = v;
+            else
+              out.Ks[idx3(i, a, col - 1, NU, NX, at.b, B)] = v;
+          }
         }
       }
+      // the next stage of the chunk writes s[X] before its first barrier
+      // (the next chunk's acquire meets the warp itself)
+      if (i > chunk.lo) __syncwarp();
     }
   }
   if (at.live && r == 0) {
@@ -221,34 +272,9 @@ ddp_backward_wide_kernel(const __grid_constant__ FieldMaps maps,
       smem_raw + ring_bytes<T>(R, 1, Layout::F, L));
   StageRingFeed<T, R> feed{ring, at.b - base, L};
   wide_backward<T, NX, NU, G, L, Layout>(
-      feed, at, N, B, reg_type, VxT, VxxT, lam_in, out,
+      feed, at, N, 1, B, reg_type, VxT, VxxT, lam_in, out,
       scratch + static_cast<size_t>(threadIdx.x / G) *
                     WideK1Block<T, NX, NU, G>::stride);
-}
-
-// The launch at lanes == L, else at the next L up to the block's most.
-template <typename T, int NX, int NU, int G, int L>
-int launch_wide_lanes(int lanes, int N, int B, int reg_type,
-                      const FieldMaps& maps, const T* VxT, const T* VxxT,
-                      const T* lam, const BackwardOut<T>& out,
-                      cudaStream_t stream) {
-  using Block = WideK1Block<T, NX, NU, G>;
-  if constexpr (L > Block::max_lanes()) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (lanes != L)
-      return launch_wide_lanes<T, NX, NU, G, 2 * L>(
-          lanes, N, B, reg_type, maps, VxT, VxxT, lam, out, stream);
-    const size_t smem =
-        Block::bytes(Block::ring(), L);
-    const int err =
-        allow_dynamic_smem(ddp_backward_wide_kernel<T, NX, NU, G, L>, smem);
-    if (err != 0) return err;
-    ddp_backward_wide_kernel<T, NX, NU, G, L>
-        <<<(B + L - 1) / L, L * G + 32, smem, stream>>>(
-            maps, VxT, VxxT, lam, out, N, B, reg_type);
-    return static_cast<int>(cudaGetLastError());
-  }
 }
 
 // Launch on `stream`, with the arguments and the result of
@@ -276,10 +302,19 @@ int launch_ddp_backward_wide(int N, int B, int ld, int reg_type,
   const BackwardOut<T> out{static_cast<T*>(ks), static_cast<T*>(Ks),
                            static_cast<T*>(dV),
                            static_cast<unsigned char*>(ok)};
-  return launch_wide_lanes<T, NX, NU, G, wide_min_lanes<G>()>(
-      L, N, B, reg_type, maps, static_cast<const T*>(VxT),
-      static_cast<const T*>(VxxT), static_cast<const T*>(lam), out,
-      static_cast<cudaStream_t>(stream));
+  return with_lanes<wide_min_lanes<G>(), most>(L, [&](auto lanes) {
+    constexpr int LL = decltype(lanes)::value;
+    const size_t smem = Block::bytes(R, LL);
+    const int err =
+        allow_dynamic_smem(ddp_backward_wide_kernel<T, NX, NU, G, LL>, smem);
+    if (err != 0) return err;
+    ddp_backward_wide_kernel<T, NX, NU, G, LL>
+        <<<(B + LL - 1) / LL, LL * G + 32, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+            maps, static_cast<const T*>(VxT), static_cast<const T*>(VxxT),
+            static_cast<const T*>(lam), out, N, B, reg_type);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace nmpc

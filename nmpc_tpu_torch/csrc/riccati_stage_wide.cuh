@@ -1,8 +1,9 @@
 // The DDP Riccati stage at the wide shapes, where a lane's input-sized
-// work passes a thread's registers: (NX, NU) past K2's and K3's sizes
+// work passes a thread's registers: (NX, NU) past the narrow sizes
 // (row_group.cuh::kWideStage, nx > 8 or nu > 4), the centroidal model's
-// (9, 16).  K1 runs it there (ddp_backward_wide.cuh); everywhere else the
-// backward kernels run riccati_stage.cuh::riccati_stage_group.
+// (9, 16).  K1, K2 and K3 run it there (ddp_backward{,_chunked,_packed}_
+// wide.cuh); everywhere else the backward kernels run riccati_stage.cuh::
+// riccati_stage_group.
 //
 // The same stage as riccati_stage_group (the TPU kernel's _riccati_stage,
 // nmpc_tpu/kernels/ddp_backward_pallas.py:112, with _chol_t :49 and

@@ -9,8 +9,9 @@
 // stores nothing.  Also here: what each kernel keeps in shared memory per
 // block or warp (K1's block ring of one-stage TMA buffers, K2's two
 // cp.async chunk slots a warp, K3's ring of TMA chunk buffers a warp, K5's
-// field slab a warp), so that every launch stays within a block's shared
-// memory, and the chunk schedule K1, K2 and K3 share.  Every size rule is
+// field slab a warp; K2's and K3's two chunk buffers at the wide shapes),
+// so that every launch stays within a block's shared memory, and the
+// chunk schedule K1, K2 and K3 share.  Every size rule is
 // a host-and-device function, so the launch and the kernel compute it
 // alike.
 
@@ -28,10 +29,10 @@ namespace nmpc {
 // at 8, where each thread generates the fields of one stage in eight,
 // level with 4 at B=4096 and faster at B=256.  Other (NX, NU) follow the
 // nearest measured shape: nx >= 4 as (4, 1), nx = 2, 3 as (2, 1), nx = 1
-// one thread.  Past K2's and K3's sizes (kWideStage: nx > 8 or nu > 4,
-// the centroidal model's (9, 16)) K1 runs riccati_stage_wide.cuh's stage
-// on kWideGroup threads a lane, chosen by measurement among 8, 16 and 32
-// at (9, 16) (PERF.md, Findings).
+// one thread.  Past those narrow sizes (kWideStage: nx > 8 or nu > 4,
+// the centroidal model's (9, 16)) K1, K2 and K3 run riccati_stage_wide.
+// cuh's stage on kWideGroup threads a lane, chosen by measurement among
+// 8, 16 and 32 at (9, 16) for K1 (PERF.md, Findings).
 template <int NX, int NU>
 constexpr bool kWideStage = NX > 8 || NU > 4;
 constexpr int kWideGroup = 32;
@@ -153,6 +154,42 @@ template <typename T>
 __host__ __device__ constexpr int packed_chunk_stages(int F, int N) {
   const int C = stages_within<T>(kPackedRing, F, kMaxChunk);
   return C < N ? C : N;
+}
+
+// K2 and K3 at the wide shapes (kWideStage: ddp_backward_chunked_wide.cuh,
+// ddp_backward_packed_wide.cuh): a block of `lanes` lanes (K1-wide's,
+// ddp_backward_wide.cuh::WideBlock: 4 at (9, 16)) holds two buffers of C
+// stages after 128 bytes of barriers (K3's ring; K2 leaves them unused),
+// then each lane's scratch (`scratch` bytes a lane).  A buffer holds C F
+// values a lane, rounded up to a whole number of `box` rows (K3: its TMA
+// boxes of kWideBoxRows rows of the packed buffer; K2: box = 1), and its
+// bytes to 128.  C: the most stages, at most kMaxChunk, that keep the
+// block within kMaxBlockSmem, at least 1; the launch takes min(C, N).
+// (9, 16): K2 9 (fp32) and 4 (fp64), K3 8 and 3.  kernels/
+// ddp_backward_fused.py::chunk_stages mirrors K2's.
+constexpr int kWideBoxRows = 256;
+
+__host__ __device__ constexpr int wide_chunk_rows(int C, int F, int box) {
+  return (C * F + box - 1) / box * box;
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t wide_chunk_bytes(int C, int F, int box,
+                                                      int lanes,
+                                                      size_t scratch) {
+  return ring_bytes<T>(2, 1, wide_chunk_rows(C, F, box), lanes) +
+         static_cast<size_t>(lanes) * scratch;
+}
+
+template <typename T>
+__host__ __device__ constexpr int wide_chunk_stages(int F, int box,
+                                                    int lanes,
+                                                    size_t scratch) {
+  int C = kMaxChunk;
+  while (C > 1 && wide_chunk_bytes<T>(C, F, box, lanes, scratch) >
+                      kMaxBlockSmem)
+    --C;
+  return C;
 }
 
 // The chunks of K1 (C = 1), K2 and K3, from the end of the horizon: chunk

@@ -13,18 +13,22 @@ on the card and what its design does about that:
   buffers per block, each filled by a producer warp with seven TMA boxes,
   one per field (a tensor map per field; fields whose lanes or address
   TMA does not take are copied once by :func:`tma_fields`); at a
-  :func:`wide_shape` (past K2's and K3's sizes: the centroidal model's
-  (9, 16)) the same block and ring from ``csrc/ddp_backward_wide.cuh``,
-  whose stage (``csrc/riccati_stage_wide.cuh``) splits the input-sized
-  work by rows over 32 threads a lane through shared memory;
+  :func:`wide_shape` (past the narrow kernels' sizes: the centroidal
+  model's (9, 16)) the same block and ring from
+  ``csrc/ddp_backward_wide.cuh``, whose stage
+  (``csrc/riccati_stage_wide.cuh``) splits the input-sized work by rows
+  over 32 threads a lane through shared memory;
 * ``"chunked"`` (K2, ``csrc/ddp_backward_chunked.cuh``): two slots of C
   stages per warp filled with ``cp.async``, double-buffered by chunk
   (``_backward_pallas_call_chunked``), the threads of a lane splitting its
-  values;
+  values; at a :func:`wide_shape` the same slots feeding K1-wide's stage
+  and lanes (``csrc/ddp_backward_chunked_wide.cuh``);
 * ``"packed"`` (K3, ``csrc/ddp_backward_packed.cuh``): the fields read
   from one ``[N, F, B]`` buffer built by :func:`pack_derivs`
   (``_backward_pallas_call_packed``), fetched by TMA a chunk of stages at
-  a time into a ring of buffers.
+  a time into a ring of buffers; at a :func:`wide_shape` K1-wide's block
+  whose producer warp fills a ring of two chunks of the buffer's rows
+  (``csrc/ddp_backward_packed_wide.cuh``).
 
 ``csrc/row_group.cuh`` sizes every ring, slot and block.  Each is
 instantiated per (nx, nu, dtype) in a small generated unit that nvcc
@@ -53,11 +57,11 @@ from nmpc_tpu_torch.core.types import DDPConfig
 from nmpc_tpu_torch.kernels.build import build_generated, load
 from nmpc_tpu_torch.kernels.ddp_backward import StackedDerivs, backward_stacked
 
-# The largest (nx, nu) a unit is instantiated for.  K1 ("stage") takes the
-# centroidal model's (9, 16) (F = 731 values a stage, one TMA box of a
-# field holding at most 256 of them) in its wide stage; K2 and K3, whose
-# threads hold every stage quantity of the lane in registers, stay at the
-# sizes they were measured at and raise beyond them.
+# The largest (nx, nu) a unit is instantiated for, in every mode: the
+# centroidal model's (9, 16) (F = 731 values a stage).  Past the narrow
+# kernels' sizes (MAX_NX_CHUNKED, MAX_NU_CHUNKED: :func:`wide_shape`),
+# where a thread can no longer hold every stage quantity of its lane in
+# registers, each mode runs the wide stage on 32 threads a lane.
 MAX_NX, MAX_NU = 9, 16
 MAX_NX_CHUNKED, MAX_NU_CHUNKED = 8, 4
 # the kernels' scalar types (the generated units' T)
@@ -71,37 +75,43 @@ DMA_MODES = ("stage", "chunked", "packed")
 LANES = 32
 CHUNK_SMEM_BYTES = 96 * 1024
 MAX_CHUNK = 32
+# The wide blocks (csrc/ddp_backward_wide.cuh::WideBlock, csrc/row_group.cuh::
+# wide_chunk_stages): threads a lane (kWideGroup), the most threads of a
+# block with its producer warp (kWideMaxThreads), a block's shared memory
+# (kMaxBlockSmem) and the rows of a wide K3's TMA box (kWideBoxRows).
+WIDE_GROUP = 32
+WIDE_MAX_THREADS = 256
+BLOCK_SMEM_BYTES = 227 * 1024
+WIDE_BOX_ROWS = 256
 # nvcc flags of every unit here beyond build.NVCC_FLAGS
 UNIT_FLAGS = ("-fmad=false",)
 # per mode: the header and the launch template with its leading arguments;
-# K1 past K2's shapes (wide_shape) from its own header
+# each mode at a wide_shape from its own header ("<mode>_wide")
 _UNITS = {"stage": ("ddp_backward.cuh", "launch_ddp_backward", "ld, "),
-          "wide": ("ddp_backward_wide.cuh", "launch_ddp_backward_wide",
-                   "ld, "),
+          "stage_wide": ("ddp_backward_wide.cuh", "launch_ddp_backward_wide",
+                         "ld, "),
           "chunked": ("ddp_backward_chunked.cuh",
                       "launch_ddp_backward_chunked", ""),
+          "chunked_wide": ("ddp_backward_chunked_wide.cuh",
+                           "launch_ddp_backward_chunked_wide", ""),
           "packed": ("ddp_backward_packed.cuh", "launch_ddp_backward_packed",
-                     "ld, ")}
-
-
-def _limits(dma: str):
-    return ((MAX_NX, MAX_NU) if dma == "stage"
-            else (MAX_NX_CHUNKED, MAX_NU_CHUNKED))
+                     "ld, "),
+          "packed_wide": ("ddp_backward_packed_wide.cuh",
+                          "launch_ddp_backward_packed_wide", "ld, ")}
 
 
 def kernel_supports(nx: int, nu: int, dtype, dma: str = "stage") -> bool:
     """Whether the ``dma`` kernel takes this state/input size and dtype:
-    float32 or float64 and 1 <= nx <= 9, 1 <= nu <= 16 for K1
-    (``"stage"``), 1 <= nx <= 8, 1 <= nu <= 4 for K2 and K3 (any B and N;
-    the unit is built on demand)."""
-    max_nx, max_nu = _limits(dma)
-    return 1 <= nx <= max_nx and 1 <= nu <= max_nu and dtype in DTYPES
+    float32 or float64 and 1 <= nx <= 9, 1 <= nu <= 16, in every mode (any
+    B and N; the unit is built on demand)."""
+    return (dma in DMA_MODES and 1 <= nx <= MAX_NX and 1 <= nu <= MAX_NU
+            and dtype in DTYPES)
 
 
 def wide_shape(nx: int, nu: int) -> bool:
-    """Whether K1 runs its wide stage at (nx, nu) (``csrc/row_group.cuh::
-    kWideStage``): past K2's and K3's sizes, nx > 8 or nu > 4, the
-    centroidal model's (9, 16)."""
+    """Whether the kernels run their wide stage at (nx, nu)
+    (``csrc/row_group.cuh::kWideStage``): past the narrow kernels' sizes,
+    nx > 8 or nu > 4, the centroidal model's (9, 16)."""
     return nx > MAX_NX_CHUNKED or nu > MAX_NU_CHUNKED
 
 
@@ -154,12 +164,50 @@ def unpack_derivs(P: torch.Tensor, nx: int, nu: int) -> StackedDerivs:
     return StackedDerivs(**unpack_fields(P, _shapes(nx, nu)))
 
 
+def wide_scratch(nx: int, nu: int) -> int:
+    """Values of a lane's scratch of the wide stage
+    (``csrc/riccati_stage_wide.cuh::WideScratch::size``)."""
+    xs, us = (nx + 1) | 1, nu | 1
+    return (3 * nx * nx + 2 * nx + 3 * nu + 2 * nu * nx + nu * us + nu * xs
+            + nu * nu)
+
+
+def wide_chunk_stages(nx: int, nu: int, dtype, box: int = 1) -> int:
+    """A wide K2's (``box`` = 1) or K3's (``WIDE_BOX_ROWS``) stages a
+    chunk before the cut to N (``csrc/row_group.cuh::wide_chunk_stages``
+    in ``csrc/ddp_backward_wide.cuh::WideChunkBlock``): the most, up to
+    32, whose two buffers (``C F`` values a lane rounded up to whole boxes
+    and to 128 bytes, after 128 bytes of barriers) and the lanes' scratch
+    keep a block of the most lanes ``WideBlock`` takes within 227 KB.
+    (9, 16): K2 9 (fp32) and 4 (fp64), K3 8 and 3."""
+    size = torch.empty((), dtype=dtype).element_size()
+    _, F = field_offsets(nx, nu)
+    per = 128 // size
+    stride = -(-wide_scratch(nx, nu) // per) * per + WIDE_GROUP % per
+
+    def block_bytes(C, L):
+        buffer = -(-C * F // box) * box * L * size
+        return 128 + 2 * (-(-buffer // 128) * 128) + L * stride * size
+
+    L, least = LANES, max(32 // WIDE_GROUP, 4)
+    while L > least and (L * WIDE_GROUP + 32 > WIDE_MAX_THREADS
+                         or block_bytes(1, L) > BLOCK_SMEM_BYTES):
+        L //= 2
+    C = MAX_CHUNK
+    while C > 1 and block_bytes(C, L) > BLOCK_SMEM_BYTES:
+        C -= 1
+    return C
+
+
 def chunk_stages(nx: int, nu: int, N: int, dtype) -> int:
-    """K2's stages per chunk, as its launch picks them
-    (``csrc/row_group.cuh::chunked_chunk_stages``): as many as two chunk
+    """K2's stages per chunk, as its launch picks them: at a
+    :func:`wide_shape` :func:`wide_chunk_stages` (at most N), else
+    ``csrc/row_group.cuh::chunked_chunk_stages``, as many as two chunk
     slots of a 32-lane block hold within ``CHUNK_SMEM_BYTES`` (at most 32
     and N); the last chunk takes the rest when C does not divide N.
-    (4, 1) fp32: 8; (2, 1) fp32: 24."""
+    (4, 1) fp32: 8; (2, 1) fp32: 24; (9, 16) fp32: 9."""
+    if wide_shape(nx, nu):
+        return min(N, wide_chunk_stages(nx, nu, dtype))
     _, F = field_offsets(nx, nu)
     per_stage = 2 * F * LANES * torch.empty((), dtype=dtype).element_size()
     return max(1, min(N, MAX_CHUNK, CHUNK_SMEM_BYTES // per_stage))
@@ -176,10 +224,10 @@ def unit_source(nx: int, nu: int, dtype, dma: str = "stage",
                 group: int | None = None) -> str:
     """The unit instantiating the ``dma`` kernel at (nx, nu, dtype) with
     the header's ``kRowGroup`` threads per lane, or ``group`` where a
-    measurement asks for another; K1 at a :func:`wide_shape` from
-    ``csrc/ddp_backward_wide.cuh``."""
-    wide = dma == "stage" and wide_shape(nx, nu)
-    header, launch, lead = _UNITS["wide" if wide else dma]
+    measurement asks for another; at a :func:`wide_shape` from the mode's
+    wide header (``csrc/ddp_backward{,_chunked,_packed}_wide.cuh``)."""
+    header, launch, lead = _UNITS[f"{dma}_wide" if wide_shape(nx, nu)
+                                  else dma]
     g = "" if group is None else f", {group}"
     unused = "" if lead else "  (void)ld;\n"
     return (f"#include \"{header}\"\n\n"
@@ -243,10 +291,9 @@ def _check_carry(nx, B, Vx_T, Vxx_T, lam):
 def _require(dma, nx, nu, dtype):
     """Raise, naming the shape, where the ``dma`` kernel does not take it."""
     if not kernel_supports(nx, nu, dtype, dma):
-        max_nx, max_nu = _limits(dma)
         raise ValueError(
             f"the CUDA backward kernel ({dma}) is built for 1 <= nx <= "
-            f"{max_nx}, 1 <= nu <= {max_nu} and float32/float64; got "
+            f"{MAX_NX}, 1 <= nu <= {MAX_NU} and float32/float64; got "
             f"({nx}, {nu}) {dtype}")
 
 
@@ -313,7 +360,10 @@ def backward_fused(config: DDPConfig, D: StackedDerivs, Vx_T, Vxx_T, lam,
         return backward_stacked(config, D, Vx_T, Vxx_T, lam)
     if dma == "chunked":
         out = _launch(dma, config, N, nx, nu, D, Vx_T, Vxx_T, lam)
-        backward_fused.chunked_launches += 1
+        if wide_shape(nx, nu):
+            backward_fused.chunked_wide_launches += 1
+        else:
+            backward_fused.chunked_launches += 1
         return out
     fields, ld = tma_fields(D)
     out = _launch(dma, config, N, nx, nu, fields, Vx_T, Vxx_T, lam, ld)
@@ -327,6 +377,7 @@ def backward_fused(config: DDPConfig, D: StackedDerivs, Vx_T, Vxx_T, lam,
 backward_fused.launches = 0           # K1
 backward_fused.wide_launches = 0      # K1 at a wide_shape: (9, 16)
 backward_fused.chunked_launches = 0   # K2
+backward_fused.chunked_wide_launches = 0   # K2 at a wide_shape: (9, 16)
 backward_fused.padded_copies = 0      # a field copied to a TMA lane stride
 
 
@@ -403,9 +454,13 @@ def backward_packed(config: DDPConfig, P, nx: int, nu: int, Vx_T, Vxx_T,
                                 Vxx_T, lam)
     P, ld = padded_packed(P)
     out = _launch("packed", config, N, nx, nu, (P,), Vx_T, Vxx_T, lam, ld)
-    backward_packed.launches += 1
+    if wide_shape(nx, nu):
+        backward_packed.wide_launches += 1
+    else:
+        backward_packed.launches += 1
     return out
 
 
 backward_packed.launches = 0          # K3
+backward_packed.wide_launches = 0     # K3 at a wide_shape: (9, 16)
 backward_packed.padded_copies = 0     # P copied to a 16-byte lane stride

@@ -87,10 +87,13 @@ class DDPSolver:
     ``backward_dma`` picks the sweep-fed CUDA kernel where the resolved
     backward is ``"pallas"`` and the solve is unboxed: ``"stage"`` (K1),
     ``"chunked"`` (K2) or ``"packed"`` (K3, after a pack of the stage
-    fields); the JAX package's ``packed=`` argument and ``NMPC_PALLAS_DMA``
-    switch (``nmpc_tpu/kernels/ddp_backward_pallas.py:1204-1234``).  The
-    three compute the same numbers.  ``ls_trips`` holds, for the last
-    solve with ``ls_mode="serial"``, the alpha trips of each iteration."""
+    fields), each at every shape K1 takes (nx <= 9, nu <= 16: the
+    centroidal model's (9, 16) on the wide stage); the JAX package's
+    ``packed=`` argument and ``NMPC_PALLAS_DMA`` switch
+    (``nmpc_tpu/kernels/ddp_backward_pallas.py:1204-1234``).  The three
+    compute the same numbers, bit for bit on the card.  ``ls_trips``
+    holds, for the last solve with ``ls_mode="serial"``, the alpha trips
+    of each iteration."""
 
     def __init__(self, problem: Problem, config: DDPConfig = DDPConfig(),
                  backward_dma: str = "stage"):
@@ -169,7 +172,8 @@ def _ls_cost_dtype(problem, config, t0, xs, us):
 
 
 def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
-                           device, boxed: bool, second: bool) -> str:
+                           device, boxed: bool, second: bool,
+                           dma: str = "stage") -> str:
     """Backward-pass choice for the batched solve; the one place holding
     the ``auto`` rule.
 
@@ -179,13 +183,13 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
         the problem at this dtype (``remat_supported``; boxed: its limits
         and mask too, the aux group);
       * else ``"pallas"``, the sweep-fed CUDA kernel, its unit built on
-        demand: unboxed (K1, or K2/K3 by ``DDPSolver``'s ``backward_dma``)
-        within K1's limits (``kernel_supports``: nx <= 9, nu <= 16,
-        float32/float64), so every first-order problem the generator
-        rejects (the bipedal model; the centroidal model, whose
-        ``torch.linalg.cross`` it does not take) runs a kernel; K2 and K3
-        take nx <= 8, nu <= 4 and raise, naming the shape, beyond them;
-        boxed (K4) within its limits (``boxed_kernel_supports``: its wide
+        demand: unboxed, the kernel of the solve's ``dma``
+        (``DDPSolver``'s ``backward_dma``: K1, K2 or K3) within its limits
+        (``kernel_supports(nx, nu, dtype, dma)``: nx <= 9, nu <= 16,
+        float32/float64 in every mode), so every first-order problem the
+        generator rejects (the bipedal model; the centroidal model, whose
+        ``torch.linalg.cross`` it does not take) runs a kernel; boxed
+        (K4) within its limits (``boxed_kernel_supports``: its wide
         unit up to (9, 16) where the Armijo schedule fits its step table,
         ``armijo_steps(config.boxqp, dtype) <= 512``, its one-group unit
         at nu <= 4, float32/float64);
@@ -243,7 +247,7 @@ def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
                 and remat_supported(problem, nx, nu, dtype, boxed)):
             return "remat"
         if (boxed_kernel_supports(nx, nu, dtype, config.boxqp) if boxed
-                else kernel_supports(nx, nu, dtype)):
+                else kernel_supports(nx, nu, dtype, dma)):
             return "pallas"
     return "stacked"
 
@@ -376,7 +380,7 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init,
     second = config.use_state_eq_second_derivative
     boxed = config.with_input_constraint
     impl = _resolve_backward_impl(config, problem, dtype, device, boxed,
-                                  second)
+                                  second, backward_dma)
     wdtype = torch.promote_types(dtype, _deriv_dtype_of(config, dtype))
     thre = config.cost_update_ratio_thre
     hyst = max(1, config.ls_auto_hysteresis)

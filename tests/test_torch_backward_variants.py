@@ -4,9 +4,10 @@ packed FMPC backward (K9, K10).  On CPU tensors each wrapper runs its plain
 version (K3's and K10's through their pack and unpack, so the offsets are
 exercised here); they are held against the JAX package's Pallas kernels in
 the same modes, in interpret mode, on the data of
-``tests/test_pallas_kernels.py:142-209, 588-627``, and the solvers'
-``backward_dma`` / ``backward_variant`` keywords against the default
-solve."""
+``tests/test_pallas_kernels.py:142-209, 588-627`` and on seeded data at the
+wide shape (2, 5), against JAX's ``backward_stacked`` at the centroidal
+model's (9, 16), and the solvers' ``backward_dma`` / ``backward_variant``
+keywords against the default solve (the centroidal model's too)."""
 
 import dataclasses
 import functools
@@ -21,6 +22,8 @@ from jax.experimental import pallas as pl
 import nmpc_tpu.kernels.ddp_backward_pallas as JP
 from nmpc_tpu.core.types import DDPConfig as JaxDDPConfig
 from nmpc_tpu.kernels import fmpc_backward_pallas as JFP
+from nmpc_tpu.kernels.ddp_backward import StackedDerivs as JD_derivs
+from nmpc_tpu.kernels.ddp_backward import backward_stacked as jax_stacked
 from nmpc_tpu.kernels.ddp_backward import stack_derivs
 from nmpc_tpu.models.cartpole import make_cartpole_problem as jax_cartpole
 from nmpc_tpu.solvers import ddp as JD
@@ -32,10 +35,12 @@ from nmpc_tpu_torch.kernels import fmpc_backward as KF
 from nmpc_tpu_torch.kernels.ddp_backward import StackedDerivs, backward_stacked
 from nmpc_tpu_torch.models.cartpole import (make_cartpole_fmpc_problem,
                                             make_cartpole_problem)
+from nmpc_tpu_torch.models.centroidal import make_centroidal_problem
 from nmpc_tpu_torch.models.oscillator import make_oscillator_problem
 from nmpc_tpu_torch.models.vertical import make_vertical_problem
 from nmpc_tpu_torch.solvers import fmpc as F
 from test_torch_fmpc_kernels import _case, _hold_backward
+from test_torch_k2k3_wide import _centroidal
 
 torch.set_num_threads(1)
 
@@ -70,24 +75,66 @@ def _ddp_case(N, B, seed):
     return (c, S, VxTs, VxxTs, lam), port
 
 
-@pytest.mark.parametrize("dma,N,B,seed", [("chunked", 12, 256, 7),
-                                          ("packed", 8, 128, 3)])
+def _spd(rng, shape, n):
+    """[*shape, n, n] positive definite matrices, from a seed."""
+    a = rng.normal(size=(*shape, n, n))
+    return np.einsum("...ij,...kj->...ik", a, a) / n + np.eye(n)
+
+
+def _wide_case(N, B, seed, nx=2, nu=5, dtype=np.float32):
+    """Seeded batch-minor stage fields at a wide shape ((2, 5): nu > 4, so
+    the port's kernels take their wide units) with Lxx, Luu positive
+    definite, as the JAX and the port's arguments."""
+    rng = np.random.default_rng(seed)
+    last = lambda a: np.moveaxis(a, 0, -1).astype(dtype)   # B axis last
+    S = JD_derivs(
+        Fx=last(np.eye(nx) + 0.1 * rng.normal(size=(B, N, nx, nx))),
+        Fu=last(0.3 * rng.normal(size=(B, N, nx, nu))),
+        Lx=last(0.1 * rng.normal(size=(B, N, nx))),
+        Lu=last(0.1 * rng.normal(size=(B, N, nu))),
+        Lxx=last(_spd(rng, (B, N), nx)), Luu=last(_spd(rng, (B, N), nu)),
+        Lxu=last(0.05 * rng.normal(size=(B, N, nx, nu))))
+    VxT = last(rng.normal(size=(B, nx)))
+    VxxT = last(_spd(rng, (B,), nx))
+    lam = np.full((B,), 1e-4, dtype)
+    c = JaxDDPConfig(horizon_steps=N)
+    t = lambda a: torch.as_tensor(a).contiguous()
+    port = (ddp_config_from_reference(c), StackedDerivs(*map(t, S)), t(VxT),
+            t(VxxT), t(lam))
+    return (c, JD_derivs(*map(jnp.asarray, S)), *map(jnp.asarray,
+                                                     (VxT, VxxT, lam))), port
+
+
+def _counts():
+    """The sweep-fed wrappers' launch counters."""
+    return (K.backward_fused.launches, K.backward_fused.wide_launches,
+            K.backward_fused.chunked_launches,
+            K.backward_fused.chunked_wide_launches,
+            K.backward_packed.launches, K.backward_packed.wide_launches)
+
+
+@pytest.mark.parametrize("dma,N,B,seed,wide", [
+    pytest.param("chunked", 12, 256, 7, False, id="chunked-12-256-7"),
+    pytest.param("packed", 8, 128, 3, False, id="packed-8-128-3"),
+    pytest.param("chunked", 3, 128, 5, True, id="chunked-3-128-5-2x5"),
+    pytest.param("packed", 3, 128, 6, True, id="packed-3-128-6-2x5")])
 def test_ddp_dma_plain_routes_match_jax(interpret_pallas, monkeypatch, dma,
-                                        N, B, seed):
+                                        N, B, seed, wide):
     """``backward_fused(dma=...)`` on CPU tensors (K2's plain version;
     K3's through ``pack_derivs`` and its inverse) vs JAX ``backward_pallas``
-    in the same mode (``NMPC_PALLAS_DMA``) in interpret mode, fp32: ks, Ks
-    within 2e-5, dV within 2e-4, ok equal (the tolerances of
-    ``test_pallas_backward_matches_stacked``); and bit-equal to the port's
-    ``backward_stacked``, which every CPU route runs."""
-    jargs, (cfg, D, VxT, VxxT, lam) = _ddp_case(N, B, seed)
+    in the same mode (``NMPC_PALLAS_DMA``) in interpret mode, fp32, on the
+    cart-pole data and at the wide shape (2, 5) on seeded data: ks, Ks
+    within 2e-5, dV within 2e-4, ok equal (the
+    tolerances of ``test_pallas_backward_matches_stacked``); and bit-equal
+    to the port's ``backward_stacked``, which every CPU route runs."""
+    jargs, (cfg, D, VxT, VxxT, lam) = (_wide_case if wide else _ddp_case)(
+        N, B, seed)
     monkeypatch.setenv("NMPC_PALLAS_DMA", dma)
     want = JP.backward_pallas(*jargs)
-    before = (K.backward_fused.launches, K.backward_fused.chunked_launches,
-              K.backward_packed.launches)
+    before = _counts()
     got = K.backward_fused(cfg, D, VxT, VxxT, lam, dma=dma)
-    assert (K.backward_fused.launches, K.backward_fused.chunked_launches,
-            K.backward_packed.launches) == before     # no launch on CPU
+    assert _counts() == before     # no launch on CPU
+    assert bool(got[3].all())
     for name, a, b, tol in zip(("ks", "Ks", "dV"), want[:3], got[:3],
                                (2e-5, 2e-5, 2e-4)):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=tol,
@@ -96,6 +143,59 @@ def test_ddp_dma_plain_routes_match_jax(interpret_pallas, monkeypatch, dma,
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
     for a, b in zip(backward_stacked(cfg, D, VxT, VxxT, lam), got):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("reg_type,lam", [(1, 1e-6), (2, 0.5)])
+@pytest.mark.parametrize("dma", ["chunked", "packed"])
+def test_ddp_dma_wide_routes_match_jax(dma, reg_type, lam):
+    """The port's chunked and packed routes at the centroidal model's (9,
+    16) (``backward_fused`` on CPU tensors: the plain version, "packed"
+    through ``pack_derivs`` and its inverse) against the JAX package's
+    ``backward_stacked`` (which JAX's own tests hold its Pallas kernels
+    to) on the same fp64 centroidal inputs, B = 8, N = 4, the non-PD and
+    NaN lanes among them: ok masks equal, ks, Ks and dV within 1e-10
+    normalized (max|a-b| / (1 + max|a|)) on the ok lanes."""
+    D, VxT, VxxT = _centroidal(torch.float64, 4, B=8)
+    B, N = VxT.shape[-1], D.Fx.shape[0]
+    jc = JaxDDPConfig(horizon_steps=N, reg_type=reg_type)
+    lam_np = np.full(B, lam)
+    want = jax_stacked(jc, JD_derivs(*(jnp.asarray(a.numpy()) for a in D)),
+                       jnp.asarray(VxT.numpy()), jnp.asarray(VxxT.numpy()),
+                       jnp.asarray(lam_np))
+    before = _counts()
+    got = K.backward_fused(ddp_config_from_reference(jc), D, VxT, VxxT,
+                           torch.as_tensor(lam_np), dma=dma)
+    assert _counts() == before
+    ok = np.asarray(want[3])
+    np.testing.assert_array_equal(got[3].numpy(), ok)
+    assert not ok[1] and not ok[2] and ok.sum() == B - 2
+    for a, b in zip(want[:3], got[:3]):
+        a, b = np.asarray(a)[..., ok], b.numpy()[..., ok]
+        assert np.abs(a - b).max() / (1.0 + np.abs(a).max()) <= 1e-10
+
+
+@pytest.mark.parametrize("dma", ["chunked", "packed"])
+def test_ddp_solver_dma_keyword_centroidal(dma):
+    """A CPU solve of the centroidal model from t0 = 1.3 (into the flight
+    phase) with ``backward_impl="pallas"`` and ``backward_dma`` chunked or
+    packed equals the "stage" solve bit for bit: the solver hands its
+    ``backward_dma`` to the backward at (9, 16), where every mode now
+    takes the shape."""
+    B, N = 4, 8
+    p = make_centroidal_problem(0.03)
+    rng = np.random.default_rng(2)
+    x0 = np.concatenate([[0.0, 0.0, 1.0], np.zeros(6)])
+    x0s = torch.as_tensor(np.tile(x0, (B, 1)) + 0.02 * rng.normal(
+        size=(B, 9)))
+    us0 = torch.full((B, N, 16), 5.0, dtype=torch.float64)
+    cfg = DDPConfig(horizon_steps=N, max_iter=2, backward_impl="pallas")
+    ref = DDPSolver(p, cfg).solve_batch(1.3, x0s, us0)
+    got = DDPSolver(p, cfg, backward_dma=dma).solve_batch(1.3, x0s, us0)
+    for f in ("status", "iters", "us", "xs", "ks", "Ks", "lam"):
+        assert torch.equal(getattr(ref, f), getattr(got, f)), f
+    for f in dataclasses.fields(ref.trace):
+        assert torch.equal(getattr(ref.trace, f.name),
+                           getattr(got.trace, f.name))
 
 
 @pytest.mark.parametrize("nx,nu", [(4, 1), (2, 1), (2, 2)])

@@ -118,9 +118,8 @@ def test_kernel_matches_twin(card, dtype, reg_type):
 
 
 def test_unbuilt_shape_raises(card):
-    """(nx, nu) = (10, 1) is past K1's limits (nx <= 9) and (9, 16) past
-    K2's and K3's (nx <= 8, nu <= 4): the wrapper raises, naming the
-    shape."""
+    """(nx, nu) = (10, 1) and (9, 17) are past every mode's limits (nx <=
+    9, nu <= 16): the wrapper raises, naming the shape."""
     r = lambda *shape: torch.rand(shape, device=card)
 
     def derivs(N, nx, nu, B):
@@ -129,9 +128,8 @@ def test_unbuilt_shape_raises(card):
                              r(N, nx, nu, B))
 
     N, B = 4, 32
-    for (nx, nu), dmas in (((10, 1), fused.DMA_MODES),
-                           ((9, 16), ("chunked", "packed"))):
-        for dma in dmas:
+    for nx, nu in ((10, 1), (9, 17)):
+        for dma in fused.DMA_MODES:
             with pytest.raises(ValueError, match=rf"built for.*\({nx}, "
                                rf"{nu}\)"):
                 backward_fused(DDPConfig(horizon_steps=N),

@@ -235,9 +235,10 @@ def test_unported_options_raise(change, item):
 def test_auto_backward_rule(device, dtype, second, nx_nu, impl, want):
     """``auto`` takes a CUDA kernel only on CUDA tensors, first order and
     unboxed: the remat kernel where the generator takes the problem, else
-    the sweep-fed kernel within its limits (nx <= 8, nu <= 4, float32 or
+    the sweep-fed kernel within its limits (nx <= 9, nu <= 16, float32 or
     float64: a problem the generator rejects at (6, 2) takes it, one at
-    (12, 2) the plain backward); no B % 128 condition.  An explicit ``"pallas"`` or ``"remat"`` on a second-order
+    (12, 2) the plain backward); no B % 128 condition.  An explicit
+    ``"pallas"`` or ``"remat"`` on a second-order
     solve raises rather than running a plain version in the kernel's
     place, and so does ``"remat"`` on a problem whose callables do not
     generate at its (nx, nu)."""

@@ -352,24 +352,29 @@ def test_k1_wide_unit_source():
             assert "_wide" not in K.unit_source(8, 4, dtype, dma)
 
 
-def test_k1_wide_limits_and_auto_rule():
-    """K1 takes nx <= 9, nu <= 16; K2 and K3 stay at nx <= 8, nu <= 4 and
-    their launch raises, naming the shape, before any unit is built.  The
-    code generator refuses the centroidal model (its torch.linalg.cross),
-    so neither remat kernel takes it and ``auto`` picks the sweep-fed K1
-    for an unboxed first-order solve on a CUDA device and the sweep-fed
-    K4 (its wide unit) for a boxed one; a second-order one takes the
-    plain backward."""
+def test_k1_wide_limits_and_auto_rule(monkeypatch):
+    """K1, K2 and K3 take nx <= 9, nu <= 16 (the wide stage past nx 8, nu
+    4) and their launch raises past them, naming the shape, before any
+    unit is built.  The code generator refuses the centroidal model (its
+    torch.linalg.cross), so neither remat kernel takes it and ``auto``
+    picks the sweep-fed kernel of the solve's ``backward_dma`` for an
+    unboxed first-order solve on a CUDA device (checking that kernel's
+    limits, not K1's) and the sweep-fed K4 (its wide unit) for a boxed
+    one; a second-order one takes the plain backward."""
     assert K.kernel_supports(9, 16, torch.float32)
     assert K.kernel_supports(9, 16, torch.float64, "stage")
     assert not K.kernel_supports(10, 16, torch.float32)
     assert not K.kernel_supports(9, 17, torch.float32)
     for dma in ("chunked", "packed"):
         assert K.kernel_supports(8, 4, torch.float32, dma)
-        assert not K.kernel_supports(9, 16, torch.float32, dma)
-        with pytest.raises(ValueError, match=r"\(9, 16\)"):
-            K._launch(dma, DDPConfig(), 3, 9, 16, (), None, None,
-                      torch.zeros(4))
+        assert K.kernel_supports(9, 16, torch.float32, dma)
+        assert K.kernel_supports(9, 16, torch.float64, dma)
+        for shape in ((10, 16), (9, 17)):
+            assert not K.kernel_supports(*shape, torch.float32, dma)
+            with pytest.raises(ValueError, match=rf"\({shape[0]}, "
+                                                 rf"{shape[1]}\)"):
+                K._launch(dma, DDPConfig(), 3, *shape, (), None, None,
+                          torch.zeros(4))
     p = make_centroidal_problem(DT)
     boxed = make_centroidal_problem(DT, force_limits=(0.0, 1000.0))
     cuda = torch.device("cuda")
@@ -378,6 +383,9 @@ def test_k1_wide_limits_and_auto_rule():
         assert not forward_remat_supported(p, NX, NU, dtype)
         assert ddp._resolve_backward_impl(DDPConfig(), p, dtype, cuda,
                                           False, False) == "pallas"
+        for dma in ("chunked", "packed"):
+            assert ddp._resolve_backward_impl(DDPConfig(), p, dtype, cuda,
+                                              False, False, dma) == "pallas"
         assert ddp._resolve_backward_impl(DDPConfig(), boxed, dtype, cuda,
                                           True, False) == "pallas"
         assert ddp._resolve_backward_impl(DDPConfig(), p, dtype, cuda,
@@ -385,3 +393,16 @@ def test_k1_wide_limits_and_auto_rule():
         assert ddp._resolve_backward_impl(DDPConfig(), p, dtype,
                                           torch.device("cpu"), False,
                                           False) == "stacked"
+    # the rule asks about the kernel of the solve's dma: with a stand-in
+    # that takes "stage" alone, only "stage" resolves to the kernel
+    asked = []
+
+    def stage_only(nx, nu, dtype, dma="stage"):
+        asked.append(dma)
+        return dma == "stage"
+    monkeypatch.setattr(ddp, "kernel_supports", stage_only)
+    for dma in ("stage", "chunked", "packed"):
+        want = "pallas" if dma == "stage" else "stacked"
+        assert ddp._resolve_backward_impl(DDPConfig(), p, torch.float32,
+                                          cuda, False, False, dma) == want
+    assert asked == ["stage", "chunked", "packed"]
