@@ -19,6 +19,8 @@ Phases, one line each (a failed phase exits non-zero):
    packed) at (nx, nu, ng) = (2, 1, 3), (4, 1, 4), (2, 2, 2) and the FMPC
    recursion (K11) at (2, 1), (4, 1), (2, 2), and K1, K2, K3 and K4 at
    the centroidal model's (9, 16) (K1@9x16, K2@9x16, K3@9x16, K4@9x16),
+   the wide FMPC units at (12, 3, 30) (K8, K9, K10, K11), (16, 8, 48) and
+   (16, 16, 64) (K8, K10, K11),
    for fp32 and fp64 (K1-K5 and K8-K11 with -fmad=false); then compile
    them with nvcc, all at once; print the seconds (the (9, 16) units'
    nvcc seconds apart) and ptxas' registers and spills (the (9, 16)
@@ -99,7 +101,20 @@ Phases, one line each (a failed phase exits non-zero):
    vertical solve and of
    both FMPC configurations for each pair, and of the oscillator at N=20
    and the cart-pole serving shape for each ``backward_variant`` (phase
-   3 prints the bipedal config's for each ``backward_dma``);
+   3 prints the bipedal config's for each ``backward_dma``); then
+   (``fmpc-wide``) FMPC past (nx, nu, ng) = (8, 4, 16) on Wang and Boyd's
+   oscillating masses (12, 3, 30): K8, K9 and K10 at the wide shapes
+   against ``_backward_bm`` on the card (masses B=1024, 37, 1 at N=30,
+   K9 at N=12 where its horizon fits; (16, 8, 48) and (16, 16, 64) at
+   B=256 and 37, N=12), fp32 and fp64, both ``break_if_llt_fails``, with a
+   non-PD, a NaN and a pivoting lane and masked rows, K9 and K10 bit for
+   bit with K8, and K11 fed their gains; the masses' ``solve_batch``
+   (B=4096, N=30, fp32, 5 iterations, ``kkt_error_thre=0``) through
+   ``auto`` and each ``backward_variant`` (K9 at N=12) with their launch
+   counters; fp64 (B=1024, the default config to convergence) and fp32's
+   converged set against the plain path; each wide kernel timed beside
+   its bound and plain version, and the solve through ``auto`` and the
+   plain path;
 6. the slice of C/GMRES and the centroidal model: K1@9x16 on centroidal
    sweep data (B=256, N=100, from t0=1.3 across the flight phase, both
    reg_types, fp32 and fp64, a non-PD and a NaN lane; and its first 37
@@ -155,9 +170,10 @@ Phases, one line each (a failed phase exits non-zero):
    (``profiled``); the native executor's virtual-time swing-up, cut to 2
    s (500 solves on the card, tests/test_runtime.py's assertions) and 1 s
    of real-time mode, and the swingup example at its defaults, each in a
-   process of its own, beside the other examples (constrained and fleet
-   at their defaults, centroidal_jump's first 10 steps with --profile) in
-   this one (``runtime+examples``);
+   process of its own (the example's started right after the build,
+   ``examples-start``, beside phases 2-3), beside the other examples
+   (constrained and fleet at their defaults, centroidal_jump's first 10
+   steps with --profile) in this one (``runtime+examples``);
 8. with ``--qp-groups`` only: K4 and K5 boxed built with 1, 4, 8 and 16
    threads per lane (and, with ``--baseline DIR``, from the headers of
    the checkout at DIR), each held to its plain version bit for bit and
@@ -232,6 +248,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -439,6 +456,22 @@ KERNELS = {
     "K11": Kernel("forward_fmpc_deltas_fused", k11.forward_fmpc_deltas_fused,
                   "launches", "nmpc_tpu_torch/csrc/fmpc_forward.cuh",
                   "nmpc_tpu/kernels/fmpc_forward_pallas.py:113"),
+    "K8@12x3x30": Kernel("fmpc_backward_fused@12x3x30",
+                         k8.backward_fmpc_fused, "wide_launches",
+                         "nmpc_tpu_torch/csrc/fmpc_backward_wide.cuh",
+                         "nmpc_tpu/kernels/fmpc_backward_pallas.py:558"),
+    "K9@12x3x30": Kernel("fmpc_backward_resident@12x3x30",
+                         k8.backward_fmpc_fused, "resident_wide_launches",
+                         "nmpc_tpu_torch/csrc/fmpc_backward_wide.cuh",
+                         "nmpc_tpu/kernels/fmpc_backward_pallas.py:515"),
+    "K10@12x3x30": Kernel("fmpc_backward_packed@12x3x30",
+                          k8.backward_fmpc_packed, "wide_launches",
+                          "nmpc_tpu_torch/csrc/fmpc_backward_packed_wide.cuh",
+                          "nmpc_tpu/kernels/fmpc_backward_pallas.py:632"),
+    "K11@12x3x30": Kernel("forward_fmpc_deltas_fused@12x3",
+                          k11.forward_fmpc_deltas_fused, "wide_launches",
+                          "nmpc_tpu_torch/csrc/fmpc_forward.cuh",
+                          "nmpc_tpu/kernels/fmpc_forward_pallas.py:113"),
 }
 REMAT_PATH = ("K5", "K6", "K7")
 FMPC_PATH = ("K8", "K11")
@@ -542,11 +575,13 @@ RUNTIME_MPC_DT, RUNTIME_SIM_DT = 0.004, 0.002
 # solve uncapped, then max_iter 3), with --profile.
 CENTROIDAL_JUMP_STEPS = 10
 # Timed headline solves of each (backward, forward) pair in the times
-# phase after a warm one (cut from 10 to keep the run in its time limit).
-HEADLINE_REPS = 5
+# phase after a warm one (cut from 10, then 5, to keep the run in its time
+# limit on a slower card host).
+HEADLINE_REPS = 3
 # Ticks of each timed tick loop in the times phase (cut from 20 to make
-# room for the runtime and examples phases; the serving phase keeps 20).
-TIMED_TICKS = 10
+# room for the runtime and examples phases, and from 10 for the fmpc-wide
+# phase; the serving phase keeps 20).
+TIMED_TICKS = 5
 
 
 class PhaseFailed(Exception):
@@ -867,6 +902,17 @@ def phase_build():
                               k8.FMPC_FLAGS))
             units.append((k11.unit_name(nx, nu, dtype),
                           k11.unit_source(nx, nu, dtype), k8.FMPC_FLAGS))
+        # K8-K11 at the wide shapes (phase_fmpc_wide): every variant at
+        # the masses' (12, 3, 30), K8 and K10 past it (K9's horizon of
+        # WIDE_FMPC_N does not fit a block there)
+        for shape in (MASSES,) + WIDE_FMPC_SHAPES:
+            for variant in (k8.VARIANTS if shape == MASSES
+                            else ("stream", "packed")):
+                units.append((k8.unit_name(*shape, dtype, variant),
+                              k8.unit_source(*shape, dtype, variant),
+                              k8.FMPC_FLAGS))
+            units.append((k11.unit_name(*shape[:2], dtype),
+                          k11.unit_source(*shape[:2], dtype), k8.FMPC_FLAGS))
         # K1, K2, K3 and K4 at the centroidal model's (9, 16)
         # (phase_centroidal)
         for dma in k1.DMA_MODES:
@@ -894,11 +940,21 @@ def phase_build():
                   for dma in k1.DMA_MODES}
     wide_units.update({boxed.unit_name(*WIDE_K1, dtype): "K4@9x16"
                        for dtype in (torch.float32, torch.float64)})
+    wide_units.update({
+        k8.unit_name(*shape, dtype, variant):
+            f"{VARIANT_KERNEL[variant]}@{'x'.join(map(str, shape))}"
+        for dtype in (torch.float32, torch.float64)
+        for shape in (MASSES,) + WIDE_FMPC_SHAPES
+        for variant in k8.VARIANTS})
+    wide_units.update({
+        k11.unit_name(*shape[:2], dtype): f"K11@{shape[0]}x{shape[1]}"
+        for dtype in (torch.float32, torch.float64)
+        for shape in (MASSES,) + WIDE_FMPC_SHAPES})
     wide = ", ".join(f"{wide_units[name]} {lib.name} {unit_s:.1f} s"
                      for (name, _, _), (lib, unit_s) in zip(units, built)
                      if name in wide_units)
     print(f"[build] {len(built)} units in {secs:.1f} s (generation "
-          f"{gen_s:.1f} s; nvcc of the (9, 16) units: {wide})", flush=True)
+          f"{gen_s:.1f} s; nvcc of the wide units: {wide})", flush=True)
     for (name, _, flags), (lib, _) in zip(units, built):
         print(f"[build] ptxas {lib.name}{' ' + ' '.join(flags) if flags else ''}"
               f": {ptxas_report(lib)}", flush=True)
@@ -910,8 +966,9 @@ def phase_build():
                   f"stores / loads {spills} bytes", flush=True)
             # K1@9x16 at both dtypes, K2@9x16, K3@9x16 and K4@9x16 at
             # fp32 spill nothing; K4@9x16 at fp64 spills a few bytes
-            # (ROADMAP R14: 774 before its redesign)
-            if key == "K1@9x16" or "float32" in name:
+            # (ROADMAP R14: 774 before its redesign); the wide FMPC units
+            # are printed
+            if key == "K1@9x16" or ("float32" in name and "9x16" in key):
                 check(spills in (None, (0, 0)), f"{key} ({lib.name}) "
                       f"spills")
     return secs
@@ -1727,7 +1784,7 @@ def phase_times(device, card):
               f"{B / statistics.median(secs):.1f} solves/s, host syncs "
               f"{solver.host_syncs} [{card}]", flush=True)
     for pair in PAIRS:
-        tick_loop(device, problem, pair, n_ticks=2)   # warm-up
+        tick_loop(device, problem, pair, n_ticks=1)   # warm-up
         ms, _ = tick_loop(device, problem, pair, n_ticks=TIMED_TICKS)
         print(f"[times] tick loop {TICK[0]} controllers N={TICK[1]} "
               f"max_iter=3 backward={pair[0]} forward={pair[1]}: p50 "
@@ -1740,7 +1797,7 @@ def phase_times(device, card):
         solver = DDPSolver(vertical_problem(), boxed_config(
             N, backward_impl=pair[0], forward_impl=pair[1]))
         secs = timed_solves(solver, x0s, us0, 1 if pair[0] == "stacked"
-                            else 10)
+                            else 5)
         print(f"[times] boxed vertical solve_batch B={B} N={N} max_iter=3 "
               f"fp32 backward={pair[0]} forward={pair[1]}: median "
               f"{statistics.median(secs):.4f} s, "
@@ -1794,9 +1851,12 @@ def timed_solves(solver, x0s, us0, reps):
 def record_time(key, kernel, plain, nbytes, ops, label, keep, card,
                 plain_reps=5):
     """Time a kernel and its plain version, print them beside the bound,
-    and keep them in the record when ``keep``."""
+    and keep them in the record when ``keep``.  A plain version timed once
+    (seconds a call) is timed without a warm-up call: the kernel checks
+    ran it already."""
     t_kern = cuda_ms(kernel, inner=10)
-    t_plain = cuda_ms(plain, reps=plain_reps, warmup=1)
+    t_plain = cuda_ms(plain, reps=plain_reps,
+                      warmup=1 if plain_reps > 1 else 0)
     t_bound, by = bound(nbytes, ops)
     gbs = nbytes / (t_kern * 1e-3) / 1e9
     print(f"[times] {key} {KERNELS[key].name} {label} fp32: kernel "
@@ -3410,13 +3470,13 @@ def two_input_inputs(dtype, device, B=128, N=8):
                                             device=device)
 
 
-def hold_fmpc_backward(label, plain, out, dtype, B, key="K8"):
+def hold_fmpc_backward(label, plain, out, dtype, B, key="K8", lanes=None):
     """An FMPC backward kernel (K8, K9, K10) vs its plain version: ok and
     finite masks equal, outputs within the kernel tolerance on the finite
-    lanes; returns the largest absolute difference and whether every
-    output is equal bit for bit."""
+    lanes (or on ``lanes``); returns the largest absolute difference and
+    whether every output is equal bit for bit."""
     masks = torch.equal(plain[4], out[4]) and torch.equal(plain[5], out[5])
-    lanes = plain[5]
+    lanes = plain[5] if lanes is None else lanes
     errs = {n: norm_err(a, b, lanes) for n, a, b in
             zip(("ks", "Ks", "s", "P"), plain[:4], out[:4])}
     bits = all(torch.equal(a[..., lanes], b[..., lanes])
@@ -3869,7 +3929,7 @@ def phase_times_fmpc(device, card):
             solver = FmpcSolver(problem, fmpc_config(
                 model, N, backward_impl=pair[0], forward_impl=pair[1]))
             secs = timed_fmpc(solver, x0s, var, eps,
-                              3 if pair[0] == "stacked" else 10)
+                              1 if pair[0] == "stacked" else 5)
             med = statistics.median(secs)
             print(f"[times] FMPC {model} solve_batch B={B} N={N} max_iter=5 "
                   f"fp32 backward={pair[0]} forward={pair[1]}"
@@ -4484,6 +4544,392 @@ def phase_times_variants(device, card):
             print(f"[times] FMPC {model} solve_batch B={B} N={N} max_iter=5 "
                   f"fp32 backward_variant={variant}: median {med:.4f} s, "
                   f"{B / med:.1f} solves/s [{card}]", flush=True)
+
+
+# --------------------------------------------------------------------------
+# FMPC at the wide shapes: K8-K11 past (8, 4, 16) on the oscillating masses
+# --------------------------------------------------------------------------
+
+# The oscillating masses of Y. Wang and S. Boyd, "Fast Model Predictive
+# Control Using Online Optimization", IEEE TCST 18(2), 2010, section V: six
+# unit masses on a line, joined to each other and to the walls by unit
+# springs (K = tridiag(-1, 2, -1), no damping), actuator j pushing masses
+# 2j - 1 and 2j apart, exact zero-order hold at dt = 0.5, running cost
+# (|x|^2 + |u|^2) / 2, terminal |x|^2 / 2, |x| <= 4, |u| <= 0.5: (nx, nu,
+# ng) = (12, 3, 30), N = 30.  Eight masses with a force on each, (16, 8,
+# 48), and seeded random stage fields at the kernels' ceiling, (16, 16,
+# 64), for the kernel checks.  The main path: solve_batch at B=4096, N=30,
+# fp32, 5 iterations, kkt_error_thre=0 (fixed work, as the FMPC serving
+# cell); K9 where its horizon fits a block (N <= 14 at the masses:
+# MASSES_RESIDENT_N).
+MASSES = (12, 3, 30)
+MASSES_DT = 0.5
+MASSES_SOLVE = (4096, 30)
+MASSES_RESIDENT_N = 12
+MASSES_BATCHES = (1024, 37, 1)
+MASSES_PLAIN_B = 1024
+WIDE_FMPC_SHAPES = ((16, 8, 48), (16, 16, 64))
+WIDE_FMPC_BATCHES, WIDE_FMPC_N = (256, 37), 12
+WIDE_FMPC_KEY = {"stream": "K8@12x3x30", "resident": "K9@12x3x30",
+                 "packed": "K10@12x3x30"}
+
+
+def masses_matrices(n_masses, pairs):
+    """(A, B) float64 of ``n_masses`` unit masses joined by unit springs,
+    actuator j pushing mass pairs[j][0] by +1 and pairs[j][1] (if any) by
+    -1, with an exact zero-order hold at MASSES_DT."""
+    import scipy.linalg
+    n, m = n_masses, len(pairs)
+    K = 2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
+    Ac = np.block([[np.zeros((n, n)), np.eye(n)], [-K, np.zeros((n, n))]])
+    Bc = np.zeros((2 * n, m))
+    for j, pair in enumerate(pairs):
+        Bc[n + pair[0], j] = 1.0
+        if len(pair) > 1:
+            Bc[n + pair[1], j] = -1.0
+    M = np.zeros((2 * n + m, 2 * n + m))
+    M[:2 * n, :2 * n], M[:2 * n, 2 * n:] = Ac, Bc
+    E = scipy.linalg.expm(M * MASSES_DT)
+    return E[:2 * n, :2 * n], E[:2 * n, 2 * n:]
+
+
+@functools.lru_cache(maxsize=None)
+def masses_problem(shape=MASSES):
+    """The masses problem at (12, 3, 30), or the eight masses at (16, 8,
+    48)."""
+    A, Bm = masses_matrices(*({(12, 3, 30): (6, [(0, 1), (2, 3), (4, 5)]),
+                               (16, 8, 48): (8, [(j,) for j in range(8)])}
+                              [shape]))
+    nx, nu, ng = shape
+    mat = lambda a, x: torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    return Problem(
+        dt=MASSES_DT, state_dim=nx, input_dim=nu, ineq_dim=ng,
+        dynamics=lambda t, x, u: mat(A, x) @ x + mat(Bm, x) @ u,
+        running_cost=lambda t, x, u: 0.5 * (torch.sum(x * x)
+                                            + torch.sum(u * u)),
+        terminal_cost=lambda t, x: 0.5 * torch.sum(x * x),
+        ineq_const=lambda t, x, u: torch.cat([x - 4.0, -x - 4.0, u - 0.5,
+                                              -u - 0.5]))
+
+
+def masses_start(B, N, dtype, device, seed=0):
+    """(problem, x0s [B, 12] uniform in [-1.5, 1.5] from a seed, the reset
+    warm start, eps [B])."""
+    problem = masses_problem()
+    x0 = np.random.default_rng(seed).uniform(-1.5, 1.5, size=(B, 12))
+    v1 = fmpc_variable_reset(N, *MASSES, dtype=dtype, device=device)
+    var = FmpcVariable(**{f: getattr(v1, f).expand(
+        B, *getattr(v1, f).shape).contiguous() for f in VARIABLE})
+    return (problem, torch.as_tensor(x0, dtype=dtype, device=device), var,
+            torch.full((B,), 1e-4, dtype=dtype, device=device))
+
+
+def wide_fmpc_inputs(shape, B, N, dtype, device, poison=True, seed=5):
+    """First-iteration K8-K11 inputs at a wide shape, made from a seed:
+    the masses shapes through ``_coeffs_bm`` at a random iterate (s, nu in
+    [0.2, 1.2)), the ceiling's random stage fields (A near the identity,
+    positive definite Lxx, Luu, Lxx_term); mask row 0 off on every third
+    stage; with ``poison`` (B > 3) lane 1 non-PD (Luu = -1e4 I), lane 2
+    NaN (one NaN A at stage 5), lane 3's Luu large and indefinite on
+    stages 1 and N - 2 (its G pivots in the Gauss-Jordan fallback).
+    Returns (problem (its dt), config, coefficients, variable, masks, eps,
+    x0 [nx, B])."""
+    nx, nu, ng = shape
+    rng = np.random.default_rng(seed)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    v = FmpcVariable(
+        xs=as_t(0.3 * rng.normal(size=(N + 1, nx, B))),
+        us=as_t(0.3 * rng.normal(size=(N, nu, B))),
+        lambdas=as_t(0.3 * rng.normal(size=(N + 1, nx, B))),
+        ss=as_t(0.2 + rng.uniform(size=(N, ng, B))),
+        nus=as_t(0.2 + rng.uniform(size=(N, ng, B))))
+    cfg = FmpcConfig(horizon_steps=N)
+    if shape in (MASSES, (16, 8, 48)):
+        problem = masses_problem(shape)
+        co = fmpc_mod._coeffs_bm(problem, cfg, torch.zeros(
+            (), dtype=dtype, device=device), v)
+    else:
+        problem = types.SimpleNamespace(dt=0.01)
+
+        def spd(n, lead):
+            m = rng.normal(size=(*lead, n, n, B)) / np.sqrt(n)
+            return (np.einsum("...ikb,...jkb->...ijb", m, m)
+                    + np.eye(n)[..., None])
+
+        f = lambda a: as_t(a).contiguous()
+        co = fmpc_mod._StCoeffs(
+            A=f(np.eye(nx)[None, :, :, None]
+                + 0.05 * rng.normal(size=(N, nx, nx, B))),
+            B=f(0.1 * rng.normal(size=(N, nx, nu, B))),
+            C=f(rng.normal(size=(N, ng, nx, B)) / np.sqrt(ng)),
+            D=f(rng.normal(size=(N, ng, nu, B)) / np.sqrt(ng)),
+            Lx=f(rng.normal(size=(N, nx, B))),
+            Lu=f(rng.normal(size=(N, nu, B))),
+            Lxx=f(spd(nx, (N,))), Luu=f(spd(nu, (N,))),
+            Lxu=f(0.1 * rng.normal(size=(N, nx, nu, B))),
+            x_bar=f(0.1 * rng.normal(size=(N, nx, B))),
+            g_bar=f(rng.normal(size=(N, ng, B))),
+            Lx_bar=f(rng.normal(size=(N, nx, B))),
+            Lu_bar=f(rng.normal(size=(N, nu, B))),
+            Lx_term=f(rng.normal(size=(nx, B))),
+            Lxx_term=f(spd(nx, ())),
+            Lx_bar_term=f(rng.normal(size=(nx, B))))
+    gms = torch.ones((N, ng), dtype=dtype, device=device)
+    gms[::3, 0] = 0.0
+    if poison and B > 3:
+        co.Luu[:, :, :, 1] = -1e4 * torch.eye(nu, dtype=dtype,
+                                              device=device)[None]
+        co.A[min(5, N - 1), 0, 0, 2] = float("nan")
+        m = rng.normal(size=(nu, nu))
+        for i in {1, N - 2}:
+            co.Luu[i, :, :, 3] = as_t(200.0 * (m + m.T))
+    x0 = as_t(rng.normal(size=(nx, B))).contiguous()
+    return (problem, cfg, co, v, gms,
+            torch.full((B,), 1e-4, dtype=dtype, device=device), x0)
+
+
+def first_of(case, B, N):
+    """A ``wide_fmpc_inputs`` case cut to its first B lanes and N stages
+    (the terminal fields' first B lanes)."""
+    problem, config, co, v, gms, eps, x0 = case
+    cut = lambda a, staged=True: (a[:N] if staged else a)[..., :B].contiguous()
+    co = fmpc_mod._StCoeffs(*(cut(a, name not in (
+        "Lx_term", "Lxx_term", "Lx_bar_term"))
+        for name, a in zip(fmpc_mod._StCoeffs._fields, co)))
+    v = dataclasses.replace(v, ss=cut(v.ss), nus=cut(v.nus))
+    return (problem, dataclasses.replace(config, horizon_steps=N), co, v,
+            gms[:N].contiguous(), eps[:B].contiguous(), cut(x0, False))
+
+
+def hold_wide_fmpc(case, variants, batches):
+    """The wide backward kernels of ``variants`` and K11 on the first B
+    lanes of one case (``wide_fmpc_inputs``, ``first_of``) for each B of
+    ``batches`` against their plain versions on the card, both
+    ``break_if_llt_fails`` (the plain backward run once on the case's
+    lanes, each lane's result its own): masks equal, within KERNEL_TOL
+    normalized on the finite lanes (the ok ones with
+    ``break_if_llt_fails``); K9 and K10 bit for bit with K8; K11 fed K8's
+    fallback gains.  Updates the record's max_abs_err; returns the checks
+    that were bit for bit with K8."""
+    problem, config, co, v, gms, eps, _ = case
+    N, nx, nu, ng = co.A.shape[0], co.A.shape[1], co.B.shape[2], co.C.shape[1]
+    dtype = eps.dtype
+    name = f"{nx}x{nu}x{ng}"
+    same = 0
+    gains = {}
+    for brk in (False, True):
+        cfg = dataclasses.replace(config, break_if_llt_fails=brk)
+        whole = fmpc_mod._backward_bm(problem, cfg, co, v.ss, v.nus, gms, eps)
+        for B in batches:
+            _, _, co_b, v_b, _, eps_b, _ = first_of(case, B, N)
+            plain = tuple(a[..., :B] for a in whole)
+            label = (f"{name} B={B} N={N} {str(dtype)[6:]} "
+                     f"break_if_llt_fails={brk}")
+            outs = {variant: k8.backward_fmpc_fused(
+                problem, cfg, co_b, v_b.ss, v_b.nus, gms, eps_b,
+                variant=variant) for variant in variants}
+            torch.cuda.synchronize()
+            # a lane whose LLT failed with break_if_llt_fails runs on with a
+            # factor of unit pivots, whose values the solve discards and the
+            # order of a sum moves freely: the values are held on the ok
+            # lanes
+            lanes = plain[5] & plain[4] if brk else plain[5]
+            for variant, out in outs.items():
+                key = WIDE_FMPC_KEY[variant]
+                err, _ = hold_fmpc_backward(label, plain, out, dtype, B,
+                                            key=key, lanes=lanes)
+                KERNELS[key].max_abs_err = max(KERNELS[key].max_abs_err, err)
+                if variant != "stream":
+                    bits = all(same_bits(a, b)
+                               for a, b in zip(outs["stream"], out))
+                    same += bits
+                    check(bits, f"{key} {label}: not bit for bit with "
+                          f"K8-wide")
+            if B > 3:
+                fin = plain[5]
+                check(not bool(fin[2]) and bool(fin[0])
+                      and bool(fin[4:].all()) and bool(plain[4][1]) != brk,
+                      f"K8-wide {label}: the poisoned lanes' masks are wrong")
+            if not brk:
+                gains[B] = outs["stream"][:2]
+    for B in batches:
+        _, _, co_b, _, _, _, x0 = first_of(case, B, N)
+        args = (co_b.A, co_b.B, co_b.x_bar, *gains[B], (0.1 * x0).contiguous())
+        plain = k11.forward_fmpc_deltas_plain(*args)
+        out = k11.forward_fmpc_deltas_fused(*args)
+        torch.cuda.synchronize()
+        finite = fmpc_mod._finite(plain[0]) & fmpc_mod._finite(plain[1])
+        err = report(f"K11@{name} B={B} N={N} {str(dtype)[6:]}", {
+            n: norm_err(a, b, finite)
+            for n, a, b in zip(("dxs", "dus"), plain, out)}, dtype)
+        KERNELS["K11@12x3x30"].max_abs_err = max(
+            KERNELS["K11@12x3x30"].max_abs_err, err)
+    return same
+
+
+def masses_solve(cfg, B, N, dtype, device, variant="stream", seed=0):
+    """One masses solve_batch with every launch counter reset just before
+    and read just after: (result, counts, host syncs, resolved impls,
+    seconds)."""
+    problem, x0s, var, eps = masses_start(B, N, dtype, device, seed)
+    solver = FmpcSolver(problem, cfg, backward_variant=variant)
+    impls = fmpc_mod._resolve_impls(cfg, problem, dtype, device)
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    res = solver.solve_batch(0.0, x0s, var, eps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    return res, read_counts(), solver.host_syncs, impls, secs
+
+
+def phase_fmpc_wide(device, card):
+    """FMPC past (8, 4, 16): K8, K9, K10 and K11 at the wide shapes
+    (``csrc/fmpc_backward_wide.cuh``, ``fmpc_backward_packed_wide.cuh``,
+    ``fmpc_stage_wide.cuh``; K11 ``fmpc_forward.cuh``'s wide group) against
+    their plain versions on the card, the masses solves through ``auto``
+    and each ``backward_variant`` with their launch counters, fp64 and
+    fp32 against the plain path, and the kernels' times."""
+    nx, nu, ng = MASSES
+    dtypes = (torch.float32, torch.float64)
+    same = 0
+    start = time.perf_counter()
+    for dtype in dtypes:
+        # each shape's cases are the first lanes and stages of one
+        case = wide_fmpc_inputs(MASSES, MASSES_BATCHES[0], MASSES_SOLVE[1],
+                                dtype, device)
+        for n, variants in ((MASSES_SOLVE[1], ("stream", "packed")),
+                            (MASSES_RESIDENT_N, ("stream", "resident"))):
+            same += hold_wide_fmpc(first_of(case, MASSES_BATCHES[0], n),
+                                   variants, MASSES_BATCHES)
+        for shape in WIDE_FMPC_SHAPES:
+            case = wide_fmpc_inputs(shape, WIDE_FMPC_BATCHES[0], WIDE_FMPC_N,
+                                    dtype, device)
+            variants = ("stream", "packed") + (
+                ("resident",) if k8.resident_fits(*shape, WIDE_FMPC_N, dtype)
+                else ())
+            same += hold_wide_fmpc(case, variants, WIDE_FMPC_BATCHES)
+    print(f"[fmpc-wide] K9-wide and K10-wide bit for bit with K8-wide in "
+          f"{same} checks; the checks {time.perf_counter() - start:.1f} s",
+          flush=True)
+    start = time.perf_counter()
+
+    # the main path: the masses through auto, and per backward_variant
+    B, N = MASSES_SOLVE
+    cfg = FmpcConfig(horizon_steps=N, max_iter=5, kkt_error_thre=0.0)
+    for variant, n, keys in (("stream", N, ("K8@12x3x30", "K11@12x3x30")),
+                             ("resident", MASSES_RESIDENT_N,
+                              ("K9@12x3x30", "K11@12x3x30")),
+                             ("packed", N, ("K10@12x3x30", "K11@12x3x30"))):
+        res, counts, syncs, impls, secs = masses_solve(
+            dataclasses.replace(cfg, horizon_steps=n), B, n, torch.float32,
+            device, variant)
+        finite = all(bool(torch.isfinite(getattr(res.variable, f)).all())
+                     for f in VARIABLE)
+        ran = {k: c for k, c in counts.items() if c}
+        print(f"[e2e] FMPC masses B={B} N={n} max_iter=5 kkt_error_thre=0 "
+              f"fp32 backward_variant={variant} ({impls}): launches {ran}, "
+              f"host syncs {syncs}, {secs:.3f} s, status counts "
+              f"{torch.bincount(res.status, minlength=7).tolist()}, finite "
+              f"{finite} [{card}]", flush=True)
+        check(impls == ("pallas", "fused") and finite
+              and ran == {k: cfg.max_iter for k in keys},
+              f"the masses solve ({variant}) did not run {keys} once an "
+              f"iteration, and nothing else")
+        KERNELS[keys[0]].launches = counts[keys[0]]
+        if variant == "stream":
+            KERNELS["K11@12x3x30"].launches = counts["K11@12x3x30"]
+
+    # against the plain path: fp64 to convergence, fp32's converged set
+    plain_kw = {"backward_impl": "stacked", "forward_impl": "scan"}
+    B = MASSES_PLAIN_B
+    cfg = FmpcConfig(horizon_steps=N, max_iter=30)
+    a, ca, _, _, ta = masses_solve(cfg, B, N, torch.float64, device)
+    b, cb, _, _, tb = masses_solve(dataclasses.replace(cfg, **plain_kw), B,
+                                   N, torch.float64, device)
+    st, it, dv, n_status = fmpc_compare(a, b)
+    print(f"[e2e] FMPC masses B={B} N={N} fp64 default config, "
+          f"max_iter=30: auto launches {ca['K8@12x3x30']} K8-wide, "
+          f"{ca['K11@12x3x30']} "
+          f"K11-wide, {ta:.3f} s; plain {tb:.3f} s; status counts "
+          f"{n_status}, iterations {torch.unique(a.iters).tolist()}; auto "
+          f"vs plain: status equal {st}, iters equal {it}, variable norm "
+          f"diff {dv:.3e} (tol {E2E_FMPC_FP64:g}) [{card}]", flush=True)
+    check(ca["K8@12x3x30"] > 0 and not any(cb.values()),
+          "FMPC masses fp64: auto skipped K8-wide or plain launched one")
+    check(st and it and dv <= E2E_FMPC_FP64
+          and int((a.status == FmpcStatus.SUCCEEDED).sum()) >= B // 2,
+          "FMPC masses fp64: auto vs plain out of the contract, or fewer "
+          "than half the lanes converged")
+    cfg32 = FmpcConfig(horizon_steps=N, max_iter=30, kkt_error_thre=1e-2)
+    a = masses_solve(cfg32, B, N, torch.float32, device)[0]
+    b = masses_solve(dataclasses.replace(cfg32, **plain_kw), B, N,
+                     torch.float32, device)[0]
+    conv = a.status == FmpcStatus.SUCCEEDED
+    same_set = torch.equal(conv, b.status == FmpcStatus.SUCCEEDED)
+    n_conv = int(conv.sum())
+    du = ((a.variable.us - b.variable.us)[conv].abs().max().item()
+          if n_conv else math.nan)
+    print(f"[e2e] FMPC masses B={B} N={N} max_iter=30 kkt_error_thre=1e-2 "
+          f"fp32: converged {n_conv}/{B} (plain "
+          f"{int((b.status == FmpcStatus.SUCCEEDED).sum())}), converged set "
+          f"equal {same_set}, max|du| on it {du:.3e} (tol {E2E_FMPC_U:g})",
+          flush=True)
+    check(same_set and n_conv >= B // 4 and du <= E2E_FMPC_U,
+          "FMPC masses fp32 converged-lane contract failed")
+    print(f"[fmpc-wide] the solves {time.perf_counter() - start:.1f} s",
+          flush=True)
+
+    # times at the main path's shape (K9 at its horizon)
+    B, N = MASSES_SOLVE
+    for key, n in (("K8@12x3x30", N), ("K9@12x3x30", MASSES_RESIDENT_N),
+                   ("K10@12x3x30", N), ("K11@12x3x30", N)):
+        problem, cfg, co, v, gms, eps, x0 = wide_fmpc_inputs(
+            MASSES, B, n, torch.float32, device, poison=False)
+        ops = B * n * fmpc_stage_ops(nx, nu, ng)
+        label = f"masses B={B} N={n}"
+        if key in ("K8@12x3x30", "K9@12x3x30"):
+            variant = "stream" if key.startswith("K8") else "resident"
+            record_time(key, lambda: k8.backward_fmpc_fused(
+                problem, cfg, co, v.ss, v.nus, gms, eps, variant=variant),
+                lambda: fmpc_mod._backward_bm(problem, cfg, co, v.ss, v.nus,
+                                              gms, eps),
+                fmpc_bytes("K8", B, n, 4, nx, nu, ng), ops, label, True,
+                card)
+        elif key == "K10@12x3x30":
+            P_in, s_T, P_T, pack = fmpc_packed_parts(problem, cfg, co, v,
+                                                     gms, eps)
+            _, Fin, _, Fout = k8.field_offsets(nx, nu, ng)
+            print(f"[times] pack_fmpc_inputs {label} fp32: "
+                  f"{cuda_ms(pack, inner=10):.4f} ms [{card}]", flush=True)
+            record_time(key, lambda: k8.backward_fmpc_packed(
+                problem, cfg, P_in, s_T, P_T, nx, nu, ng),
+                lambda: k8.backward_fmpc_packed_plain(
+                    problem, cfg, P_in, s_T, P_T, nx, nu, ng),
+                4 * B * (n * (Fin + Fout) + nx + nx * nx) + 2 * B,
+                B * n * (fmpc_stage_ops(nx, nu, ng) - 5 * ng), label, True,
+                card)
+        else:
+            ks, Ks, *_ = k8.backward_fmpc_fused(problem, cfg, co, v.ss,
+                                                v.nus, gms, eps)
+            args = (co.A, co.B, co.x_bar, ks, Ks, (0.1 * x0).contiguous())
+            record_time(key, lambda: k11.forward_fmpc_deltas_fused(*args),
+                        lambda: k11.forward_fmpc_deltas_plain(*args),
+                        fmpc_bytes("K11", B, n, 4, nx, nu, ng),
+                        B * n * (2 * nx * nu + nx * (2 * nx + 2 * nu)),
+                        label, True, card)
+    problem, x0s, var, eps = masses_start(B, N, torch.float32, device)
+    for pair in (("auto", "auto"), ("stacked", "scan")):
+        solver = FmpcSolver(problem, FmpcConfig(
+            horizon_steps=N, max_iter=5, kkt_error_thre=0.0,
+            backward_impl=pair[0], forward_impl=pair[1]))
+        secs = timed_fmpc(solver, x0s, var, eps,
+                          1 if pair[0] == "stacked" else 3)
+        med = statistics.median(secs)
+        print(f"[times] FMPC masses solve_batch B={B} N={N} max_iter=5 "
+              f"kkt_error_thre=0 fp32 backward={pair[0]} forward={pair[1]}: "
+              f"median {med:.4f} s, {B / med:.1f} solves/s, host syncs "
+              f"{solver.host_syncs} [{card}]", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -5885,34 +6331,66 @@ def phase_examples(device, card, out_dir):
           "reference")
 
 
+class PhaseChildren:
+    """Phases run in processes of their own (``--phases NAME``), each a
+    host-bound loop of small solves that takes minutes (B = 1): the
+    swingup example, started right after the build (``examples-start``:
+    beside the phases that hold the kernels and the solves, on the card
+    it hardly uses), and the runtime phase, started beside the examples
+    phase.  Each child's output goes to a file under the build directory;
+    phase_runtime_and_examples waits for both and prints their lines."""
+
+    def __init__(self):
+        self.procs = {}
+
+    def start(self, name):
+        if name in self.procs:
+            return
+        log = kbuild.BUILD_DIR / f"phase_{name}.log"
+        log.parent.mkdir(parents=True, exist_ok=True)
+        with open(log, "w") as out:
+            self.procs[name] = (subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phases", name],
+                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT), log)
+        print(f"[{name}] started in a process of its own", flush=True)
+
+    def finish(self, name, timeout=900.0):
+        """(return code, output) of a started child once it ends."""
+        proc, log = self.procs[name]
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+        return proc.returncode, log.read_text()
+
+    def stop(self):
+        for proc, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+CHILDREN = PhaseChildren()
+
+
 def phase_runtime_and_examples(device, card, out_dir):
     """The runtime phase and the swingup example, each in a process of
-    its own (``--phases runtime``, ``--phases swingup-example``), beside
+    its own (``--phases runtime``, ``--phases swingup-example``; the
+    example's started right after the build where that phase ran), beside
     the examples phase in this one: all are host-bound loops of small
     solves (B = 1, the controllers of the examples), and each takes
     minutes.  The children's lines are printed when they end; a child's
     failure fails this phase."""
-    children = {name: subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--phases", name],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for name in ("runtime", "swingup-example")}
-    outs = {}
-    try:
-        phase_examples(device, card, out_dir)
-        for name, child in children.items():
-            outs[name], _ = child.communicate(timeout=900)
-    finally:
-        for child in children.values():
-            if child.poll() is None:
-                child.kill()
-                child.communicate()
-    for name, child in children.items():
-        print("\n".join(ln for ln in outs[name].splitlines()
+    for name in ("runtime", "swingup-example"):
+        CHILDREN.start(name)
+    phase_examples(device, card, out_dir)
+    for name in ("runtime", "swingup-example"):
+        code, out = CHILDREN.finish(name)
+        print("\n".join(ln for ln in out.splitlines()
                         if ln.startswith(("[runtime]", "[examples]",
                                           "[phase]", "chip_smoke"))),
               flush=True)
-        check(child.returncode == 0, f"the {name} phase failed (its own "
-              f"process)")
+        check(code == 0, f"the {name} phase failed (its own process)")
 
 
 def main() -> int:
@@ -5920,8 +6398,11 @@ def main() -> int:
         description=__doc__.splitlines()[0],
         epilog="phases: build, k4-references (K4@9x16's plain version on "
                "the host CPU, in processes of their own until the centroidal "
-               "phase reads them), kernels, kernels-variants, e2e, "
+               "phase reads them), examples-start (the swingup example in a "
+               "process of its own until runtime+examples reads it), "
+               "kernels, kernels-variants, e2e, "
                "e2e-variants, serving, driver, times, times-variants, "
+               "fmpc-wide (K8-K11 past (8, 4, 16), the masses' solves), "
                "centroidal (K1@9x16, K4@9x16 and the centroidal solves), "
                "centroidal-driver, second-order, "
                "cgmres, horizon, mesh, serial, profiled, runtime+examples "
@@ -5974,6 +6455,7 @@ def main() -> int:
           flush=True)
     phases = [("build", phase_build),
               ("k4-references", lambda: BOXED_REFS.start(device)),
+              ("examples-start", lambda: CHILDREN.start("swingup-example")),
               ("kernels", lambda: phase_kernels(device)),
               ("kernels-variants", lambda: phase_kernels_variants(device)),
               ("e2e", lambda: phase_e2e(device)),
@@ -5982,6 +6464,7 @@ def main() -> int:
               ("driver", lambda: phase_driver(device, card)),
               ("times", lambda: phase_times(device, card)),
               ("times-variants", lambda: phase_times_variants(device, card)),
+              ("fmpc-wide", lambda: phase_fmpc_wide(device, card)),
               ("centroidal", lambda: phase_centroidal(device, card)),
               ("centroidal-driver", lambda: phase_centroidal_driver(
                   device, card, args.centroidal_driver)),
@@ -6028,6 +6511,7 @@ def main() -> int:
         return 1
     finally:
         BOXED_REFS.stop()
+        CHILDREN.stop()
     if args.phases:
         print(f"chip_smoke: ran {[name for name, _ in phases]} only",
               flush=True)

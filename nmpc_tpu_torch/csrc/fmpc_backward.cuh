@@ -210,8 +210,7 @@ struct FoldedStages {
 };
 
 // K8's tensor maps, one per field ([N, size, B]: A, B, C, D, Lxx, Luu,
-// Lxu, x_bar, Lx_bar, Lu_bar, s, nu, g_bar).
-constexpr int kFmpcFields = 13;
+// Lxu, x_bar, Lx_bar, Lu_bar, s, nu, g_bar; fmpc_group.cuh::kFmpcFields).
 struct FmpcMaps {
   CUtensorMap field[kFmpcFields];
 };

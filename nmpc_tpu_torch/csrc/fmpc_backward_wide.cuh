@@ -1,0 +1,328 @@
+// K8 and K9 at the wide shapes: the FMPC condensed primal-dual Riccati
+// backward for Hopper (sm_90a) where (NX, NU, NG) passes the narrow
+// kernels' sizes (fmpc_group.cuh::kFmpcWide: nx > 8, nu > 4 or ng > 16;
+// the oscillating masses' (12, 3, 30)), up to (16, 16, 64).  Its loop
+// (fmpc_wide_backward) is K10's there too (fmpc_backward_packed_wide.cuh).
+//
+// Replaces the TPU kernels nmpc_tpu/kernels/fmpc_backward_pallas.py::
+// _fmpc_backward_pallas_call (:558, K8) and _fmpc_backward_pallas_call_
+// resident (:515, K9) at those shapes, as fmpc_backward.cuh and
+// fmpc_backward_resident.cuh do at the others: the same inputs (the ten
+// coefficient fields, s, nu and g_bar [N, size, B], the masks [N, NG], eps
+// [B], the terminal Lx_bar and P), the same outputs (k, K, the N + 1 rows
+// of s and P, ok, finite), the (s, nu) condensation formed in the kernel
+// (fmpc_stage.cuh::fmpc_condense).  Its plain version is nmpc_tpu_torch/
+// solvers/fmpc.py::_backward_bm; the wrapper (kernels/fmpc_backward.py)
+// builds this header's launches for a wide shape.
+//
+// What bounds it on the card: each lane's chain of N dependent stages.
+// At (12, 3, 30) a stage reads 936 values and writes 195 a lane (556 MB
+// at B = 4096, N = 30, fp32: 0.17 ms at 3.35 TB/s); between them ~29,000
+// operations, ~18,000 of them the condensation's NG-term sums, which the
+// lane's threads share, in a chain of NU + 7 exchanges of the group.
+//
+// What the design does about it: K1-wide's block (ddp_backward_wide.cuh):
+// L lanes of G = kFmpcWideGroup threads (one lane a warp) running
+// fmpc_stage_wide.cuh's stage, each lane's scratch in the block's dynamic
+// shared memory after the ring (WideFmpcBlock: its lanes, ring and
+// scratch); one producer warp (the block's last) keeps a ring of R one-
+// stage buffers full through the Tensor Memory Accelerator from the end
+// of the horizon (K1's StageRing: a full and an empty mbarrier a buffer),
+// its first thread issuing a stage's boxes: one tensor map a field, a
+// field of more than 256 values in pieces (FmpcWideLayout: C at the
+// masses in two boxes of 184 values, 14 boxes a stage), each landing 128-
+// byte aligned.  K9 (RESIDENT) is the same kernel with one buffer holding
+// the block's whole horizon, its N stages laid out as K8's one-stage
+// buffers, every box of the horizon issued at once by the producer warp's
+// 32 threads; it takes N <= 32 where that buffer and the lanes' scratch
+// fit (FmpcWideRule::resident_fits: the masses up to N = 14).  One kernel
+// for each lane count, so that every field's address is the slab's plus
+// an immediate.  TMA takes a field at a 16-byte aligned address with its
+// lanes a multiple of 16 bytes apart: the wrapper copies any other field
+// once (kernels/fmpc_backward.py::tma_fields); lanes past B arrive zero-
+// filled, a lane past the batch's end runs the last lane's column and
+// stores nothing, a warp wholly past it returns at once.
+
+#pragma once
+
+#include "ddp_backward_wide.cuh"
+#include "fmpc_backward.cuh"
+#include "fmpc_stage_wide.cuh"
+
+namespace nmpc {
+
+// The recursion of one lane's group on the wide stage: the terminal carry
+// into the lane's scratch `s` (its row N stored where out.terminal, and
+// in the finite flag), then the chunks of C stages from the end of the
+// horizon (row_group.cuh::packed_chunk; `feed.acquire(c)` gives this
+// lane's column of chunk c's buffer, `stage_of(slab, s, i)` the fields of
+// its stage s, stage i of the horizon), each stage's k, K, s and P stored
+// by the group (value q by rank q % G) and ANDed into the finite flag;
+// rank 0 stores ok and finite.  Every thread of a warp calls it (a warp
+// wholly past the batch has returned).
+template <typename T, int NX, int NU, int NG, int G, typename Feed,
+          typename StageOf>
+__device__ __forceinline__ void fmpc_wide_backward(
+    Feed& feed, const StageOf& stage_of, const GroupLane<G>& at, int N,
+    int C, int B, const FmpcRun<T>& run, const FmpcSink<T>& out, T* s) {
+  using S = WideFmpcScratch<NX, NU, NG>;
+  const int r = LaneGroup<G>::rank();
+  const size_t b = static_cast<size_t>(at.b);
+  bool fin = true;
+  // the carry's s and P together from S::s: value e < NX of s, then P
+  auto store_carry = [&](int i, bool store) {
+    for (int e = r; e < NX + NX * NX; e += G) {
+      const T v = s[S::s + e];
+      fin = fin && finite(v);
+      if (!store) continue;
+      if (e < NX)
+        out.s[i * out.stage_s + static_cast<size_t>(e) * B + b] = v;
+      else
+        out.P[i * out.stage_P + static_cast<size_t>(e - NX) * B + b] = v;
+    }
+  };
+  for (int e = r; e < NX + NX * NX; e += G) {
+    if (e < NX) {
+      const T v = run.sT[static_cast<size_t>(e) * B + b];
+      s[S::s + e] = run.negate_sT ? -v : v;
+    } else {
+      s[S::s + e] = run.PT[static_cast<size_t>(e - NX) * B + b];
+    }
+  }
+  store_carry(N, at.live && out.terminal);
+  __syncwarp();
+  bool ok = true;
+  const int n = packed_chunks(N, C);
+  for (int c = 0; c < n; ++c) {
+    const T* slab = feed.acquire(c);
+    const PackedChunk chunk = packed_chunk(c, N, C);
+    for (int i = chunk.hi - 1; i >= chunk.lo; --i) {
+      fmpc_stage_wide<T, NX, NU, NG, G>(stage_of(slab, i - chunk.start, i),
+                                       run.dt, run.break_if_llt_fails, s,
+                                       ok);
+      // k and K from s[X] (row m: k[m], then K[m][a])
+      for (int q = r; q < NU * (NX + 1); q += G) {
+        const int m = q / (NX + 1), col = q % (NX + 1);
+        const T v = s[S::X + m * S::XS + col];
+        fin = fin && finite(v);
+        if (!at.live) continue;
+        if (col == 0)
+          out.k[i * out.stage_k + static_cast<size_t>(m) * B + b] = v;
+        else
+          out.K[i * out.stage_K + static_cast<size_t>(m * NX + col - 1) * B +
+                b] = v;
+      }
+      store_carry(i, at.live);
+    }
+  }
+  const bool all_finite = LaneGroup<G>::ballot(fin) == LaneGroup<G>::kBits;
+  if (at.live && r == 0) {
+    run.ok[b] = ok ? 1 : 0;
+    run.finite[b] = (all_finite || !run.check_nan) ? 1 : 0;
+  }
+}
+
+// K8's and K9's wide stage: one stage's slab of the block's L lanes
+// (value e of a field at p[(offset + e) L]), the stage's mask row and the
+// lane's eps, from which the group forms the (s, nu) scalings.
+template <typename T, int NX, int NU, int NG, int L>
+struct WideFoldedStage {
+  using O = FmpcWideLayout<NX, NU, NG>;
+  const T* __restrict__ p;
+  const T* __restrict__ gm;
+  T eps;
+  __device__ T at(int off, int e) const { return p[(off + e) * L]; }
+  __device__ T A(int e) const { return at(O::A, e); }
+  __device__ T Bm(int e) const { return at(O::Bm, e); }
+  __device__ T C(int e) const { return at(O::C, e); }
+  __device__ T D(int e) const { return at(O::D, e); }
+  __device__ T Lxx(int e) const { return at(O::Lxx, e); }
+  __device__ T Luu(int e) const { return at(O::Luu, e); }
+  __device__ T Lxu(int e) const { return at(O::Lxu, e); }
+  __device__ T xb(int e) const { return at(O::xb, e); }
+  __device__ T Lxb(int e) const { return at(O::Lxb, e); }
+  __device__ T Lub(int e) const { return at(O::Lub, e); }
+  __device__ void scalings(int g, T& nu_s, T& tilde) const {
+    fmpc_condense<T>(at(O::ss, g), at(O::nu, g), at(O::gbar, g),
+                     gm[g] > T(0), eps, nu_s, tilde);
+  }
+};
+
+// Issue box k of stage i's fields (field by field, each field's pieces in
+// order) into the stage's slot `dst` of L lanes, on `bar`.
+template <typename T, int NX, int NU, int NG, int L>
+__device__ __forceinline__ void issue_wide_box(const FmpcMaps& maps, int k,
+                                               T* dst, uint64_t* bar,
+                                               int base, int i) {
+  int f = 0;
+  int pieces = fmpc_wide_pieces(fmpc_field_size(NX, NU, NG, 0));
+  while (k >= pieces) {
+    k -= pieces;
+    ++f;
+    pieces = fmpc_wide_pieces(fmpc_field_size(NX, NU, NG, f));
+  }
+  const int box = fmpc_wide_box(fmpc_field_size(NX, NU, NG, f));
+  tma_load_3d(maps.field[f], bar,
+              dst + (fmpc_wide_offset(NX, NU, NG, f) + k * box) * L, base,
+              k * box, i);
+}
+
+// A block: L lanes of G threads (the consumer warps), then one producer
+// warp; K8 (RESIDENT = false) a ring of one-stage buffers, K9 one buffer
+// of the whole horizon; the lanes' scratch after it.
+template <typename T, int NX, int NU, int NG, int G, int L, bool RESIDENT>
+__global__ void __launch_bounds__(L * G + 32)
+fmpc_backward_wide_kernel(const __grid_constant__ FmpcMaps maps,
+                          const T* __restrict__ gms, int gms_ld,
+                          const T* __restrict__ eps, FmpcRun<T> run,
+                          FmpcSink<T> out, int N, int B) {
+  using O = FmpcWideLayout<NX, NU, NG>;
+  using Block = WideFmpcBlock<T, NX, NU, NG, G>;
+  constexpr int W = 32 / G;
+  constexpr int R = RESIDENT ? 1 : Block::ring;
+  const int C = RESIDENT ? N : 1;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int base = static_cast<int>(blockIdx.x) * L;   // the block's lane 0
+  const int lanes = B - base < L ? B - base : L;
+  const StageRing<T, R> ring(smem_raw, packed_buffer_bytes<T>(C, O::F, L));
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      mbar_init(&ring.full[s]);
+      mbar_init(&ring.empty[s], (lanes + W - 1) / W);   // warps with lanes
+    }
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) >= L * G) {       // the producer warp
+    const int t = static_cast<int>(threadIdx.x % 32);
+    const uint32_t stage = static_cast<uint32_t>(O::F * L * sizeof(T));
+    if (RESIDENT) {
+      // every box of the horizon at once, box k by thread k % 32
+      if (t == 0) mbar_arm(&ring.full[0], static_cast<uint32_t>(N) * stage);
+      __syncwarp();
+      for (int k = t; k < N * O::boxes; k += 32) {
+        const int i = k / O::boxes;
+        issue_wide_box<T, NX, NU, NG, L>(
+            maps, k % O::boxes,
+            ring.buffers + static_cast<size_t>(i) * O::F * L, &ring.full[0],
+            base, i);
+      }
+      return;
+    }
+    if (t != 0) return;
+    auto load = [&maps, base, N, stage](int c, T* dst, uint64_t* bar) {
+      mbar_arm(bar, stage);
+      for (int k = 0; k < O::boxes; ++k)
+        issue_wide_box<T, NX, NU, NG, L>(maps, k, dst, bar, base, N - 1 - c);
+    };
+    ring.produce(N, load);
+    return;
+  }
+  const GroupLane<G> at(B, L);
+  if (at.lane0 >= B) return;                // a warp wholly past the batch
+  T* scratch = reinterpret_cast<T*>(smem_raw + ring_bytes<T>(R, C, O::F, L)) +
+               static_cast<size_t>(threadIdx.x / G) * Block::stride;
+  StageRingFeed<T, R> feed{ring, at.b - base, L};
+  const T lane_eps = eps[at.b];
+  auto stage_of = [gms, gms_ld, lane_eps](const T* slab, int s, int i) {
+    return WideFoldedStage<T, NX, NU, NG, L>{
+        slab + static_cast<size_t>(s) * O::F * L,
+        gms + static_cast<size_t>(i) * gms_ld, lane_eps};
+  };
+  fmpc_wide_backward<T, NX, NU, NG, G>(feed, stage_of, at, N, C, B, run, out,
+                                       scratch);
+}
+
+// One launch of fmpc_backward_wide_kernel (K8: lanes = 0, K8's rule; K9
+// (RESIDENT): lanes = 0, resident_lanes, or that many); the arguments and
+// the result as fmpc_backward.cuh::launch_fmpc_backward's
+// (cudaErrorInvalidValue where the block does not fit its shared memory,
+// K9's horizon included, or `lanes` is not one a block takes).
+template <typename T, int NX, int NU, int NG, int G, bool RESIDENT>
+int launch_fmpc_wide(int lanes, int N, int B, int ld, double dt,
+                     int break_if_llt_fails, int check_nan,
+                     const void* const* fields, const void* gms, int gms_ld,
+                     const void* eps, const void* LxT, const void* PT,
+                     void* ks, void* Ks, void* sv, void* Ps, void* ok,
+                     void* finite, void* stream) {
+  using Block = WideFmpcBlock<T, NX, NU, NG, G>;
+  constexpr FmpcWideRule<T> rule = Block::rule();
+  constexpr int most = Block::max_lanes;
+  constexpr int R = RESIDENT ? 1 : Block::ring;
+  static_assert(most * G + 32 <= 1024, "a wide block passes 1024 threads");
+  if (B <= 0 || N <= 0 || !rule.fits() ||
+      (RESIDENT && !rule.resident_fits(N)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int C = RESIDENT ? N : 1;
+  const int L = lanes > 0 ? lanes
+                : RESIDENT ? rule.resident_lanes(N, B)
+                           : rule.lanes(B);
+  if (rule.bytes(R, C, L) > kMaxBlockSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FmpcMaps maps;
+  for (int f = 0; f < kFmpcFields; ++f) {
+    const int size = fmpc_field_size(NX, NU, NG, f);
+    const int err = encode_map_3d<T>(&maps.field[f], fields[f], B, size, N,
+                                     ld, L, fmpc_wide_box(size), 1);
+    if (err != 0) return err;
+  }
+  const size_t b = static_cast<size_t>(B);
+  const FmpcRun<T> run{static_cast<const T*>(LxT),
+                       static_cast<const T*>(PT),
+                       true,
+                       static_cast<T>(dt),
+                       break_if_llt_fails != 0,
+                       check_nan != 0,
+                       static_cast<unsigned char*>(ok),
+                       static_cast<unsigned char*>(finite)};
+  const FmpcSink<T> out{static_cast<T*>(ks), static_cast<T*>(Ks),
+                        static_cast<T*>(sv), static_cast<T*>(Ps),
+                        NU * b, NU * NX * b, NX * b, NX * NX * b, true};
+  return with_lanes<Block::least, most>(L, [&](auto lanes_c) {
+    constexpr int LL = decltype(lanes_c)::value;
+    const size_t smem = rule.bytes(R, C, LL);
+    const int err = allow_dynamic_smem(
+        fmpc_backward_wide_kernel<T, NX, NU, NG, G, LL, RESIDENT>, smem);
+    if (err != 0) return err;
+    fmpc_backward_wide_kernel<T, NX, NU, NG, G, LL, RESIDENT>
+        <<<(B + LL - 1) / LL, LL * G + 32, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+            maps, static_cast<const T*>(gms), gms_ld,
+            static_cast<const T*>(eps), run, out, N, B);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// K8-wide's launch on `stream`; the arguments and the result as
+// fmpc_backward.cuh::launch_fmpc_backward's.  G threads a lane as
+// kFmpcWideGroup unless a measurement or a test asks for another.
+template <typename T, int NX, int NU, int NG, int G = kFmpcWideGroup>
+int launch_fmpc_backward_wide(int N, int B, int ld, double dt,
+                              int break_if_llt_fails, int check_nan,
+                              const void* const* fields, const void* gms,
+                              int gms_ld, const void* eps, const void* LxT,
+                              const void* PT, void* ks, void* Ks, void* sv,
+                              void* Ps, void* ok, void* finite,
+                              void* stream) {
+  static_assert(G != kFmpcWideGroup ||
+                    WideFmpcBlock<T, NX, NU, NG, G>::rule().fits(),
+                "a wide block of the fewest lanes passes its shared memory");
+  return launch_fmpc_wide<T, NX, NU, NG, G, false>(
+      0, N, B, ld, dt, break_if_llt_fails, check_nan, fields, gms, gms_ld,
+      eps, LxT, PT, ks, Ks, sv, Ps, ok, finite, stream);
+}
+
+// K9-wide's launch on `stream` with `lanes` lanes a block (0: its rule);
+// the arguments and the result as launch_fmpc_backward_resident's.
+template <typename T, int NX, int NU, int NG, int G = kFmpcWideGroup>
+int launch_fmpc_backward_resident_wide(
+    int lanes, int N, int B, int ld, double dt, int break_if_llt_fails,
+    int check_nan, const void* const* fields, const void* gms, int gms_ld,
+    const void* eps, const void* LxT, const void* PT, void* ks, void* Ks,
+    void* sv, void* Ps, void* ok, void* finite, void* stream) {
+  return launch_fmpc_wide<T, NX, NU, NG, G, true>(
+      lanes, N, B, ld, dt, break_if_llt_fails, check_nan, fields, gms,
+      gms_ld, eps, LxT, PT, ks, Ks, sv, Ps, ok, finite, stream);
+}
+
+}  // namespace nmpc

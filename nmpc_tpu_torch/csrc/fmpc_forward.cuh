@@ -27,7 +27,8 @@
 //     copies once, kernels/fmpc_forward.py);
 //   * a lane is a group of G threads (kFmpcFwdGroup): thread r owns rows
 //     r, r + G, ... of A dx + B du + x_bar, every thread computes du = K
-//     dx + k, and the rows of dx reach the group by shuffles.  Every value
+//     dx + k (past (8, 4) each its rows of it too, exchanged), and the
+//     rows of dx reach the group by shuffles.  Every value
 //     is computed by one thread in the one-thread order, so every (C, G)
 //     gives the same bits (built with -fmad=false);
 //   * dx and du are stored batch-minor, each row by the thread that owns
@@ -50,10 +51,17 @@ using FmpcFwdFields = FwdFields<NX * NX, NX * NU, NX, NU, NU * NX>;
 // (2, 1) and (2, 2) (chip_smoke.py --qp-groups; PERF.md, Findings): 2
 // threads per lane at nu = 1 but fp64 at nx >= 4, else one (every thread
 // of a group forms all of du); chunks of 4 stages at nx >= 4 (fp64: 2)
-// and of 8 below.
+// and of 8 below.  Past (8, 4) (kFmpcFwdWide: the masses' (12, 3) up to
+// (16, 16)) a group of 4 splits the rows of both products, du's too: a
+// stage's 800 values of 32 lanes (one thread a lane) at fp64 pass a
+// block's shared memory twice over, and a group of 4 keeps the ring of
+// two one-stage buffers of the fewest lanes (8) within it.
+template <int NX, int NU>
+constexpr bool kFmpcFwdWide = NX > 8 || NU > 4;
 template <typename T, int NX, int NU>
 constexpr int kFmpcFwdGroup =
-    NU == 1 && !(sizeof(T) == 8 && NX >= 4) ? 2 : 1;
+    kFmpcFwdWide<NX, NU> ? 4
+                         : (NU == 1 && !(sizeof(T) == 8 && NX >= 4) ? 2 : 1);
 template <typename T, int NX, int NU>
 constexpr int fmpc_fwd_chunk() {
   return fwd_chunk<T>(FmpcFwdFields<NX, NU>::F,
@@ -76,13 +84,33 @@ __device__ __forceinline__ void fmpc_forward_group(
   for (int a = 0; a < NX; ++a) dx[a] = dx0[static_cast<size_t>(a) * B + b];
   auto stage = [&](const FwdView<T, Fs>& v, int s, int i) {
     T du[NU];
+    if constexpr (kFmpcFwdWide<NX, NU> && G > 1) {
+      // rows a = r, r + G, ... of du by this thread, then exchanged
+      constexpr int JU = (NU + G - 1) / G;
+      T duo[JU];
 #pragma unroll
-    for (int a = 0; a < NU; ++a) {
-      T sum = v(kKK, s, a * NX) * dx[0];
+      for (int j = 0; j < JU; ++j) {
+        const int a = j * G + r < NU ? j * G + r : NU - 1;
+        T sum = v(kKK, s, a * NX) * dx[0];
 #pragma unroll
-      for (int c = 1; c < NX; ++c) sum = sum + v(kKK, s, a * NX + c) * dx[c];
-      du[a] = sum + v(kK, s, a);
-      if (at.live && a % G == r) dus[idx2(i, a, NU, b, B)] = du[a];
+        for (int c = 1; c < NX; ++c)
+          sum = sum + v(kKK, s, a * NX + c) * dx[c];
+        duo[j] = sum + v(kK, s, a);
+        if (at.live && j * G + r < NU) dus[idx2(i, a, NU, b, B)] = duo[j];
+      }
+#pragma unroll
+      for (int a = 0; a < NU; ++a)
+        du[a] = LaneGroup<G>::bcast(duo[a / G], a % G);
+    } else {
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        T sum = v(kKK, s, a * NX) * dx[0];
+#pragma unroll
+        for (int c = 1; c < NX; ++c)
+          sum = sum + v(kKK, s, a * NX + c) * dx[c];
+        du[a] = sum + v(kK, s, a);
+        if (at.live && a % G == r) dus[idx2(i, a, NU, b, B)] = du[a];
+      }
     }
     T dxn[J];
 #pragma unroll

@@ -10,9 +10,11 @@
 // warp.  Here: the
 // threads per lane, the fields of a stage and their offsets in each
 // kernel's buffers, and the rules that keep a launch within a block's
-// shared memory at every (NX <= 8, NU <= 4, NG <= 16).  Every rule is a
-// host-and-device function, so the launch and the kernel compute it
-// alike.
+// shared memory at every (NX <= 8, NU <= 4, NG <= 16); past those, the
+// same for the wide units (fmpc_backward_wide.cuh, fmpc_backward_packed_
+// wide.cuh: fmpc_stage_wide.cuh's stage on one lane a warp) up to (16,
+// 16, 64).  Every rule is a host-and-device function, so the launch and
+// the kernel compute it alike.
 
 #pragma once
 
@@ -267,5 +269,270 @@ __host__ __device__ inline int fmpc_packed_lanes(int Fin, int C, int B) {
     L /= 2;
   return L;
 }
+
+
+// K8's and K9's stage fields, one tensor map each (fmpc_backward.cuh).
+constexpr int kFmpcFields = 13;
+
+// The wide shapes: past (8, 4, 16) a narrow unit unrolls every field of a
+// stage into each thread's registers (fmpc_stage_group) and would spill,
+// as K1's did at (9, 16), so K8, K9 and K10 run fmpc_stage_wide.cuh's
+// stage there, on kFmpcWideGroup threads a lane, up to (16, 16, 64)
+// (kernels/fmpc_backward.py::MAX_NX, MAX_NU, MAX_NG).
+__host__ __device__ constexpr bool fmpc_wide(int nx, int nu, int ng) {
+  return nx > 8 || nu > 4 || ng > 16;
+}
+template <int NX, int NU, int NG>
+constexpr bool kFmpcWide = fmpc_wide(NX, NU, NG);
+constexpr int kFmpcWideGroup = 32;
+// a wide block's most threads, its producer warp's included: 8 warps, so
+// that ptxas keeps 255 registers a thread (ddp_backward_wide.cuh)
+constexpr int kFmpcWideMaxThreads = 256;
+
+// The 13 fields of K8's and K9's stage, in the order of their tensor maps
+// (A, B, C, D, Lxx, Luu, Lxu, x_bar, Lx_bar, Lu_bar, s, nu, g_bar): the
+// values of field f.
+__host__ __device__ constexpr int fmpc_field_size(int nx, int nu, int ng,
+                                                  int f) {
+  return f == 0 || f == 4 ? nx * nx
+         : f == 1 || f == 6 ? nx * nu
+         : f == 2 ? ng * nx
+         : f == 3 ? ng * nu
+         : f == 5 ? nu * nu
+         : f == 7 || f == 8 ? nx
+         : f == 9 ? nu
+                  : ng;
+}
+
+// A wide stage's field arrives in `pieces` TMA boxes of `box` values (a
+// box spans at most 256 values along a dimension: C at (12, 3, 30) is 360
+// values, two boxes of 184), box a multiple of 8 values, so that every
+// piece lands 128-byte aligned at any lane count a wide block takes (a
+// lane's row is at least 16 bytes); the last piece is zero-filled past
+// the field.  A field's region of a stage is pieces * box values, the
+// regions follow one another in the order above (FmpcWideLayout), and
+// value e of a field sits at its offset + e.
+__host__ __device__ constexpr int fmpc_wide_pieces(int size) {
+  return (size + 255) / 256;
+}
+__host__ __device__ constexpr int fmpc_wide_box(int size) {
+  return round_up((size + fmpc_wide_pieces(size) - 1) /
+                      fmpc_wide_pieces(size),
+                  8);
+}
+__host__ __device__ constexpr int fmpc_wide_offset(int nx, int nu, int ng,
+                                                   int f) {
+  int off = 0;
+  for (int g = 0; g < f; ++g) {
+    const int size = fmpc_field_size(nx, nu, ng, g);
+    off += fmpc_wide_pieces(size) * fmpc_wide_box(size);
+  }
+  return off;
+}
+__host__ __device__ constexpr int fmpc_wide_boxes(int nx, int nu, int ng) {
+  int n = 0;
+  for (int f = 0; f < kFmpcFields; ++f)
+    n += fmpc_wide_pieces(fmpc_field_size(nx, nu, ng, f));
+  return n;
+}
+
+// K8's and K9's wide stage: each field's offset, F the stage's values (984
+// at the masses' (12, 3, 30): 936 values and the padding of the boxes).
+template <int NX, int NU, int NG>
+struct FmpcWideLayout {
+  static constexpr int A = fmpc_wide_offset(NX, NU, NG, 0),
+                       Bm = fmpc_wide_offset(NX, NU, NG, 1),
+                       C = fmpc_wide_offset(NX, NU, NG, 2),
+                       D = fmpc_wide_offset(NX, NU, NG, 3),
+                       Lxx = fmpc_wide_offset(NX, NU, NG, 4),
+                       Luu = fmpc_wide_offset(NX, NU, NG, 5),
+                       Lxu = fmpc_wide_offset(NX, NU, NG, 6),
+                       xb = fmpc_wide_offset(NX, NU, NG, 7),
+                       Lxb = fmpc_wide_offset(NX, NU, NG, 8),
+                       Lub = fmpc_wide_offset(NX, NU, NG, 9),
+                       ss = fmpc_wide_offset(NX, NU, NG, 10),
+                       nu = fmpc_wide_offset(NX, NU, NG, 11),
+                       gbar = fmpc_wide_offset(NX, NU, NG, 12),
+                       F = fmpc_wide_offset(NX, NU, NG, kFmpcFields);
+  static constexpr int boxes = fmpc_wide_boxes(NX, NU, NG);
+};
+
+// A lane's scratch of the wide stage in shared memory, offsets in values:
+// the carry s and P, what the lane's threads exchange within a stage, and
+// the Gauss-Jordan fallback's two matrices.  The right-hand sides R and
+// the solutions X are [NU][XS]: column 0 is rhs_k / k, column 1 + a is
+// row a of H / column a of K (K[m][a] at X[m XS + 1 + a]); G is [NU][US];
+// L by columns (Lt[k NU + i] = L[i][k]).  XS and US are odd, so that the
+// owners of consecutive rows write to distinct banks.  P - K^T (G K)
+// reuses P A's place.
+template <int NX, int NU, int NG>
+struct WideFmpcScratch {
+  static constexpr int XS = (NX + 1) | 1;
+  static constexpr int US = NU | 1;
+  static constexpr int s = 0;                    // carry s [NX]
+  static constexpr int P = s + NX;               // carry P [NX][NX]
+  static constexpr int sn = P + NX * NX;         // the new s [NX]
+  static constexpr int ns = sn + NX;             // nu / s [NG]
+  static constexpr int tl = ns + NG;             // tilde [NG]
+  static constexpr int PA = tl + NG;             // P A, then Pn [NX][NX]
+  static constexpr int PB = PA + NX * NX;        // P B [NX][NU]
+  static constexpr int Pxb = PB + NX * NU;       // P x_bar [NX]
+  static constexpr int F = Pxb + NX;             // [NX][NX]
+  static constexpr int Gm = F + NX * NX;         // G [NU][US]
+  static constexpr int Lxt = Gm + NU * US;       // Lx_t [NX]
+  static constexpr int R = Lxt + NX;             // [NU][XS]
+  static constexpr int X = R + NU * XS;          // [NU][XS]
+  static constexpr int Lt = X + NU * XS;         // [NU][NU]
+  static constexpr int Fd = Lt + NU * NU;        // G's diagonal [NU]
+  static constexpr int GK = Fd + NU;             // G K [NU][NX]
+  static constexpr int Ga = GK + NU * NX;        // Gauss-Jordan: G [NU][NU]
+  static constexpr int Gi = Ga + NU * NU;        // and its inverse
+  static constexpr int size = Gi + NU * NU;
+};
+
+// The values of a lane's WideFmpcScratch, at run time.
+__host__ __device__ constexpr int fmpc_wide_scratch(int nx, int nu,
+                                                    int ng) {
+  const int xs = (nx + 1) | 1, us = nu | 1;
+  return 4 * nx + 3 * nx * nx + 2 * ng + 2 * nx * nu + nu * us +
+         2 * nu * xs + 3 * nu * nu + nu;
+}
+static_assert(WideFmpcScratch<12, 3, 30>::size ==
+                      fmpc_wide_scratch(12, 3, 30) &&
+                  WideFmpcScratch<16, 16, 64>::size ==
+                      fmpc_wide_scratch(16, 16, 64),
+              "the scratch's size at run time is its layout's");
+
+// The size rules of a wide block of L lanes of G threads at (nx, nu, ng)
+// and T, at run time (fmpc_wide_rule), so that one loop can hold them at
+// every shape up to the ceiling; WideFmpcBlock and WideFmpcPackedBlock
+// are a unit's.  K8's and K9's block: a ring of R buffers of C stages of
+// F values a lane (K8 R one-stage buffers, K9 one buffer of the horizon's
+// N stages, laid out as K8's), then each lane's scratch, `stride` values
+// apart (the scratch rounded up to 128 bytes).
+//   * least: the fewest lanes, a warp's lanes and a box row of 16 bytes
+//     (4 at G = 32 fp32, 2 at fp64);
+//   * max_lanes: kMaxRowLanes, halved while the block passes 8 warps or a
+//     ring of two buffers passes a block's shared memory, down to least
+//     (the masses' (12, 3, 30): 4 at both dtypes; (16, 16, 64) fp64: 2);
+//   * ring: as many buffers as then fit, at most kMaxStageRing (the
+//     masses: 8 at fp32, 6 at fp64);
+//   * lanes(B): max_lanes, halved while the batch fills fewer than
+//     kFillBlocks blocks;
+//   * K9 takes a horizon of N <= kResidentMaxN stages where its buffer and
+//     the scratch of the fewest lanes fit (resident_fits: the masses up
+//     to N = 14 at both dtypes), at the most lanes up to lanes(B) that fit
+//     (resident_lanes).
+// K10's block (packed_*): the same lanes and scratch, two buffers of C
+// stages of the packed [N, Fin, B] buffer seen as N Fin rows, each
+// rounded up to whole boxes of kWideBoxRows rows (row_group.cuh::
+// wide_chunk_rows: a box spans at most 256 values, Fin = 906 at the
+// masses); C the most stages, at most kMaxChunk, that keep a block of
+// packed_max_lanes within a block's shared memory (the masses: 7 at fp32,
+// 3 at fp64).
+template <typename T>
+struct FmpcWideRule {
+  int G, F, Fin, stride, least;
+
+  __host__ __device__ constexpr size_t scratch_bytes(int L) const {
+    return static_cast<size_t>(L) * stride * sizeof(T);
+  }
+  __host__ __device__ constexpr size_t bytes(int R, int C, int L) const {
+    return ring_bytes<T>(R, C, F, L) + scratch_bytes(L);
+  }
+  __host__ __device__ constexpr int max_lanes() const {
+    int L = kMaxRowLanes;
+    while (L > least && (L * G + 32 > kFmpcWideMaxThreads ||
+                         bytes(2, 1, L) > kMaxBlockSmem))
+      L /= 2;
+    return L;
+  }
+  __host__ __device__ constexpr int ring() const {
+    int R = kMaxStageRing;
+    while (R > 1 && bytes(R, 1, max_lanes()) > kMaxBlockSmem) --R;
+    return R;
+  }
+  __host__ __device__ constexpr bool fits() const {
+    return bytes(1, 1, least) <= kMaxBlockSmem;
+  }
+  __host__ __device__ constexpr int fill(int most, int B) const {
+    int L = most;
+    while (L > least && (B + L - 1) / L < kFillBlocks) L /= 2;
+    return L;
+  }
+  __host__ __device__ constexpr int lanes(int B) const {
+    return fill(max_lanes(), B);
+  }
+  __host__ __device__ constexpr bool resident_fits(int N) const {
+    return N >= 1 && N <= kResidentMaxN &&
+           bytes(1, N, least) <= kMaxBlockSmem;
+  }
+  __host__ __device__ constexpr int resident_lanes(int N, int B) const {
+    int L = lanes(B);
+    while (L > least && bytes(1, N, L) > kMaxBlockSmem) L /= 2;
+    return L;
+  }
+  __host__ __device__ constexpr size_t packed_bytes(int C, int L) const {
+    return wide_chunk_bytes<T>(C, Fin, kWideBoxRows, L,
+                               static_cast<size_t>(stride) * sizeof(T));
+  }
+  __host__ __device__ constexpr int packed_max_lanes() const {
+    int L = kMaxRowLanes;
+    while (L > least && (L * G + 32 > kFmpcWideMaxThreads ||
+                         packed_bytes(1, L) > kMaxBlockSmem))
+      L /= 2;
+    return L;
+  }
+  __host__ __device__ constexpr int packed_chunk() const {
+    return wide_chunk_stages<T>(Fin, kWideBoxRows, packed_max_lanes(),
+                                static_cast<size_t>(stride) * sizeof(T));
+  }
+  __host__ __device__ constexpr bool packed_fits() const {
+    return packed_bytes(1, least) <= kMaxBlockSmem;
+  }
+  __host__ __device__ constexpr int packed_lanes(int B) const {
+    return fill(packed_max_lanes(), B);
+  }
+};
+
+template <typename T>
+__host__ __device__ constexpr FmpcWideRule<T> fmpc_wide_rule(int nx, int nu,
+                                                             int ng, int G) {
+  const int per = 128 / static_cast<int>(sizeof(T));
+  const int item = static_cast<int>(sizeof(T));
+  return FmpcWideRule<T>{
+      G, fmpc_wide_offset(nx, nu, ng, kFmpcFields),
+      fmpc_offsets(nx, nu, ng, true, 1).F,
+      round_up(fmpc_wide_scratch(nx, nu, ng), per),
+      (32 / G) > 16 / item ? 32 / G : 16 / item};
+}
+
+// A unit's K8 / K9 block and its K10 block (fmpc_backward_wide.cuh,
+// fmpc_backward_packed_wide.cuh): the rule at its shape, and its sizes.
+template <typename T, int NX, int NU, int NG, int G>
+struct WideFmpcBlock {
+  __host__ __device__ static constexpr FmpcWideRule<T> rule() {
+    return fmpc_wide_rule<T>(NX, NU, NG, G);
+  }
+  static constexpr int F = fmpc_wide_rule<T>(NX, NU, NG, G).F;
+  static constexpr int stride = fmpc_wide_rule<T>(NX, NU, NG, G).stride;
+  static constexpr int least = fmpc_wide_rule<T>(NX, NU, NG, G).least;
+  static constexpr int max_lanes =
+      fmpc_wide_rule<T>(NX, NU, NG, G).max_lanes();
+  static constexpr int ring = fmpc_wide_rule<T>(NX, NU, NG, G).ring();
+};
+template <typename T, int NX, int NU, int NG, int G>
+struct WideFmpcPackedBlock {
+  __host__ __device__ static constexpr FmpcWideRule<T> rule() {
+    return fmpc_wide_rule<T>(NX, NU, NG, G);
+  }
+  static constexpr int Fin = fmpc_wide_rule<T>(NX, NU, NG, G).Fin;
+  static constexpr int stride = fmpc_wide_rule<T>(NX, NU, NG, G).stride;
+  static constexpr int least = fmpc_wide_rule<T>(NX, NU, NG, G).least;
+  static constexpr int max_lanes =
+      fmpc_wide_rule<T>(NX, NU, NG, G).packed_max_lanes();
+  static constexpr int chunk =
+      fmpc_wide_rule<T>(NX, NU, NG, G).packed_chunk();
+};
 
 }  // namespace nmpc

@@ -23,8 +23,15 @@ fallback ``csrc/linalg.cuh::gauss_jordan_inverse``):
 
 Each is instantiated per (nx, nu, ng, dtype) in a small generated unit that
 nvcc builds at first use without FMA contraction, so all three equal the
-plain version bit for bit.  ``csrc/fmpc_group.cuh`` sizes the groups, rings
-and blocks; the headers say what bounds each kernel on the card.
+plain version bit for bit.  Past (nx, nu, ng) = (8, 4, 16)
+(:func:`wide_shape`), up to (16, 16, 64), the units instantiate the wide
+kernels instead (``csrc/fmpc_backward_wide.cuh``: K8 and K9,
+``csrc/fmpc_backward_packed_wide.cuh``: K10), which run
+``csrc/fmpc_stage_wide.cuh``'s stage on one lane a warp, each product
+split by entries over the warp through shared memory; their launches are
+counted apart (``wide_launches``, ``resident_wide_launches``).
+``csrc/fmpc_group.cuh`` sizes the groups, rings and blocks; the headers
+say what bounds each kernel on the card.
 
 :func:`backward_fmpc_fused` is a drop-in for
 ``solvers/fmpc.py::_backward_bm``.  On CPU tensors it runs that plain
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -47,9 +55,11 @@ from nmpc_tpu_torch.kernels.ddp_backward_fused import (_check, offsets,
                                                        padded_lanes,
                                                        unpack_fields)
 
-# The largest (nx, nu, ng) a unit is instantiated for: every stage field
-# is unrolled into registers.
-MAX_NX, MAX_NU, MAX_NG = 8, 4, 16
+# The largest (nx, nu, ng) a unit is instantiated for, and the largest of
+# a narrow unit, which unrolls every stage field into registers (past it
+# the wide units: fmpc_group.cuh::kFmpcWide).
+MAX_NX, MAX_NU, MAX_NG = 16, 16, 64
+NARROW_NX, NARROW_NU, NARROW_NG = 8, 4, 16
 # the kernels' scalar types (the generated units' T)
 DTYPES = {torch.float32: "float", torch.float64: "double"}
 # No contraction of a*b + c into an FMA, so that the kernel rounds op by
@@ -72,13 +82,124 @@ IN_FIELDS = ("A", "B", "C", "D", "Lxx", "Luu", "Lxu", "xb", "Lxb", "Lub",
 OUT_FIELDS = ("k", "K", "svec", "P")
 RESIDENT_MAX_N = 32
 MAX_SMEM_BYTES = 227 * 1024
+# The wide units' threads per lane (fmpc_group.cuh::kFmpcWideGroup) and
+# the bounds of their blocks (kFmpcWideMaxThreads, row_group.cuh's
+# kMaxRowLanes, kFillBlocks, kMaxStageRing, kMaxChunk, kWideBoxRows).
+WIDE_GROUP = 32
+_WIDE_MAX_THREADS, _MAX_ROW_LANES, _FILL_BLOCKS = 256, 32, 128
+_MAX_STAGE_RING, _MAX_CHUNK, _BOX_ROWS = 8, 32, 256
 
 
 def kernel_supports(nx: int, nu: int, ng: int, dtype) -> bool:
-    """Whether the kernel takes this shape and dtype: 1 <= nx <= 8,
-    1 <= nu <= 4, 1 <= ng <= 16, float32 or float64 (any B and N)."""
+    """Whether the kernel takes this shape and dtype: 1 <= nx <= 16,
+    1 <= nu <= 16, 1 <= ng <= 64, float32 or float64 (any B and N; past
+    (8, 4, 16) the wide units)."""
     return (1 <= nx <= MAX_NX and 1 <= nu <= MAX_NU and 1 <= ng <= MAX_NG
             and dtype in DTYPES)
+
+
+def wide_shape(nx: int, nu: int, ng: int) -> bool:
+    """Whether (nx, nu, ng) takes the wide units: past (8, 4, 16)
+    (``csrc/fmpc_group.cuh::fmpc_wide``)."""
+    return nx > NARROW_NX or nu > NARROW_NU or ng > NARROW_NG
+
+
+def _round_up(v: int, q: int) -> int:
+    return -(-v // q) * q
+
+
+def _stage_sizes(nx, nu, ng):
+    """The values of K8's 13 stage fields, in the order of its maps."""
+    return (nx * nx, nx * nu, ng * nx, ng * nu, nx * nx, nu * nu, nx * nu,
+            nx, nx, nu, ng, ng, ng)
+
+
+def wide_boxes(size: int) -> tuple:
+    """(pieces, box): a wide stage's field of ``size`` values arrives in
+    ``pieces`` TMA boxes of ``box`` values, at most 256, a multiple of 8
+    (``fmpc_group.cuh::fmpc_wide_pieces``, ``fmpc_wide_box``)."""
+    pieces = -(-size // 256)
+    return pieces, _round_up(-(-size // pieces), 8)
+
+
+def wide_stage_values(nx: int, nu: int, ng: int) -> int:
+    """Values of K8's and K9's wide stage in shared memory
+    (``fmpc_group.cuh::FmpcWideLayout::F``): each field's boxes, one after
+    another (984 at the masses' (12, 3, 30))."""
+    return sum(p * box for p, box in map(wide_boxes,
+                                         _stage_sizes(nx, nu, ng)))
+
+
+def wide_scratch_values(nx: int, nu: int, ng: int) -> int:
+    """Values of a lane's scratch of the wide stage
+    (``fmpc_group.cuh::WideFmpcScratch::size``; 729 at the masses)."""
+    xs, us = (nx + 1) | 1, nu | 1
+    return (4 * nx + 3 * nx * nx + 2 * ng + 2 * nx * nu + nu * us
+            + 2 * nu * xs + 3 * nu * nu + nu)
+
+
+def wide_rule(nx: int, nu: int, ng: int, dtype, group: int = WIDE_GROUP):
+    """The wide units' size rules at (nx, nu, ng, dtype) and ``group``
+    threads a lane, as ``fmpc_group.cuh::FmpcWideRule`` computes them: a
+    namespace of F, Fin, stride, least, max_lanes, ring, fits, lanes(B),
+    resident_fits(N), resident_lanes(N, B), packed_max_lanes,
+    packed_chunk, packed_fits and packed_lanes(B), and the bytes of a
+    block (``bytes(R, C, L)``, ``packed_bytes(C, L)``)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    F = wide_stage_values(nx, nu, ng)
+    _, Fin, _, _ = field_offsets(nx, nu, ng)
+    stride = _round_up(wide_scratch_values(nx, nu, ng), 128 // item)
+    least = max(32 // group, 16 // item)
+
+    def ring_bytes(R, C, F_, L):
+        return 128 + R * _round_up(C * F_ * L * item, 128)
+
+    def bytes_(R, C, L):
+        return ring_bytes(R, C, F, L) + L * stride * item
+
+    def packed_bytes(C, L):
+        rows = _round_up(C * Fin, _BOX_ROWS)
+        return ring_bytes(2, 1, rows, L) + L * stride * item
+
+    def most(size):
+        L = _MAX_ROW_LANES
+        while L > least and (L * group + 32 > _WIDE_MAX_THREADS
+                             or size(L) > MAX_SMEM_BYTES):
+            L //= 2
+        return L
+
+    def fill(top, B):
+        L = top
+        while L > least and -(-B // L) < _FILL_BLOCKS:
+            L //= 2
+        return L
+
+    max_lanes = most(lambda L: bytes_(2, 1, L))
+    ring = _MAX_STAGE_RING
+    while ring > 1 and bytes_(ring, 1, max_lanes) > MAX_SMEM_BYTES:
+        ring -= 1
+    packed_max = most(lambda L: packed_bytes(1, L))
+    chunk = _MAX_CHUNK
+    while chunk > 1 and packed_bytes(chunk, packed_max) > MAX_SMEM_BYTES:
+        chunk -= 1
+
+    def resident_lanes(N, B):
+        L = fill(max_lanes, B)
+        while L > least and bytes_(1, N, L) > MAX_SMEM_BYTES:
+            L //= 2
+        return L
+
+    return types.SimpleNamespace(
+        F=F, Fin=Fin, stride=stride, least=least, max_lanes=max_lanes,
+        ring=ring, fits=bytes_(1, 1, least) <= MAX_SMEM_BYTES,
+        lanes=lambda B: fill(max_lanes, B),
+        resident_fits=lambda N: (1 <= N <= RESIDENT_MAX_N
+                                 and bytes_(1, N, least) <= MAX_SMEM_BYTES),
+        resident_lanes=resident_lanes, packed_max_lanes=packed_max,
+        packed_chunk=chunk,
+        packed_fits=packed_bytes(1, least) <= MAX_SMEM_BYTES,
+        packed_lanes=lambda B: fill(packed_max, B), bytes=bytes_,
+        packed_bytes=packed_bytes)
 
 
 def field_offsets(nx: int, nu: int, ng: int):
@@ -117,10 +238,14 @@ def resident_fits(nx: int, nu: int, ng: int, N: int, dtype) -> bool:
     dtype K8 takes, N <= 32, and the horizon of a block of the fewest lanes
     within the 227 KB of shared memory a block may have
     (``fmpc_group.cuh::fmpc_resident_fits``: the oscillator (2, 1, 3) and
-    the cart-pole (4, 1, 4) at every N <= 32 at both dtypes).  The card's
-    counterpart of ``_pick_sub_resident``."""
+    the cart-pole (4, 1, 4) at every N <= 32 at both dtypes; at a wide
+    shape with the lanes' scratch, ``FmpcWideRule::resident_fits``: the
+    masses' (12, 3, 30) up to N = 14).  The card's counterpart of
+    ``_pick_sub_resident``."""
     if not kernel_supports(nx, nu, ng, dtype) or not 1 <= N <= RESIDENT_MAX_N:
         return False
+    if wide_shape(nx, nu, ng):
+        return wide_rule(nx, nu, ng, dtype).resident_fits(N)
     return resident_block_fits(nx, nu, ng, N, dtype, GROUP, LEAST_LANES)
 
 
@@ -151,29 +276,40 @@ def unit_source(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
     rows of P A, P B and P x_bar exchanged or computed by every thread as
     its rule says, or as ``share`` says
     (``csrc/fmpc_stage.cuh::fmpc_stage_group``); K9 with the lanes per
-    block of ``fmpc_resident_lanes``, or ``lanes``."""
+    block of ``fmpc_resident_lanes``, or ``lanes``.  At a wide shape
+    (:func:`wide_shape`) the wide kernels (``fmpc_backward_wide.cuh``,
+    ``fmpc_backward_packed_wide.cuh``) at ``kFmpcWideGroup`` threads a
+    lane, or ``group``; ``share`` has no meaning there."""
     T = DTYPES[dtype]
-    rule = "kFmpcPackedGroup" if variant == "packed" else "kFmpcGroup"
-    g = f"nmpc::{rule}<{nx}, {nu}>" if group is None else str(group)
-    sh = (f"nmpc::kFmpcShare<{nx}>" if share is None
-          else "true" if share else "false")
-    args = f"{T}, {nx}, {nu}, {ng}, {g}, {sh}"
+    wide = "_wide" if wide_shape(nx, nu, ng) else ""
+    if wide:
+        if share is not None:
+            raise ValueError("the wide FMPC units exchange every row; share "
+                             "does not apply")
+        args = f"{T}, {nx}, {nu}, {ng}" + (
+            "" if group is None else f", {group}")
+    else:
+        rule = "kFmpcPackedGroup" if variant == "packed" else "kFmpcGroup"
+        g = f"nmpc::{rule}<{nx}, {nu}>" if group is None else str(group)
+        sh = (f"nmpc::kFmpcShare<{nx}>" if share is None
+              else "true" if share else "false")
+        args = f"{T}, {nx}, {nu}, {ng}, {g}, {sh}"
     if variant == "packed":
-        return (f"#include \"fmpc_backward_packed.cuh\"\n\n"
+        return (f"#include \"fmpc_backward_packed{wide}.cuh\"\n\n"
                 f"extern \"C\" int fmpc_backward_launch(\n"
                 f"    int N, int B, int ld, double dt, int break_if_llt_fails,\n"
                 f"    int check_nan, const void* Pin, const void* sT,\n"
                 f"    const void* PT, void* out, void* ok, void* finite,\n"
                 f"    void* stream) {{\n"
-                f"  return nmpc::launch_fmpc_backward_packed<{args}>(\n"
+                f"  return nmpc::launch_fmpc_backward_packed{wide}<{args}>(\n"
                 f"      N, B, ld, dt, break_if_llt_fails, check_nan, Pin, sT, "
                 f"PT, out, ok,\n      finite, stream);\n}}\n")
-    header, launch = (("fmpc_backward_resident.cuh",
-                       f"launch_fmpc_backward_resident<{args}>(\n"
-                       f"      {lanes or 0}, ")
-                      if variant == "resident" else
-                      ("fmpc_backward.cuh",
-                       f"launch_fmpc_backward<{args}>(\n      "))
+    header = ("fmpc_backward_wide.cuh" if wide else
+              "fmpc_backward_resident.cuh" if variant == "resident" else
+              "fmpc_backward.cuh")
+    launch = (f"launch_fmpc_backward_resident{wide}<{args}>(\n"
+              f"      {lanes or 0}, " if variant == "resident" else
+              f"launch_fmpc_backward{wide}<{args}>(\n      ")
     return (f"#include \"{header}\"\n\n"
             f"extern \"C\" int fmpc_backward_launch(\n"
             f"    int N, int B, int ld, double dt, int break_if_llt_fails,\n"
@@ -190,6 +326,7 @@ def unit_name(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
               group: int | None = None, share: bool | None = None,
               lanes: int | None = None) -> str:
     kind = "" if variant == "stream" else f"_{variant}"
+    kind += "_wide" if wide_shape(nx, nu, ng) else ""
     g = "" if group is None else f"_g{group}"
     sh = {None: "", True: "_share", False: "_redundant"}[share]
     ln = "" if lanes is None else f"_l{lanes}"
@@ -269,10 +406,12 @@ def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps,
         raise ValueError(f"backward_fmpc_fused takes CPU or CUDA tensors, "
                          f"got {device}")
     if variant == "resident" and not resident_fits(nx, nu, ng, N, dtype):
+        least = (wide_rule(nx, nu, ng, dtype).least if kernel_supports(
+            nx, nu, ng, dtype) and wide_shape(nx, nu, ng) else LEAST_LANES)
         raise ValueError(
             f"the resident FMPC backward takes N <= {RESIDENT_MAX_N} within "
-            f"{MAX_SMEM_BYTES} bytes of shared memory per {LEAST_LANES} "
-            f"lanes; got (nx, nu, ng) = ({nx}, {nu}, {ng}), N={N}, {dtype}")
+            f"{MAX_SMEM_BYTES} bytes of shared memory per {least} lanes; "
+            f"got (nx, nu, ng) = ({nx}, {nu}, {ng}), N={N}, {dtype}")
     if variant == "packed":
         return _backward_packed_fields(problem, config, co, ss, nus, gms,
                                        barrier_eps)
@@ -286,16 +425,19 @@ def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps,
                          f"on {gms.device}")
     out = launch_stream(launcher(nx, nu, ng, dtype, variant), problem, config,
                         co, ss, nus, gms, barrier_eps)
-    if variant == "resident":
-        backward_fmpc_fused.resident_launches += 1
-    else:
-        backward_fmpc_fused.launches += 1
+    wide = "wide_" if wide_shape(nx, nu, ng) else ""
+    counter = (f"resident_{wide}launches" if variant == "resident"
+               else f"{wide}launches")
+    setattr(backward_fmpc_fused, counter,
+            getattr(backward_fmpc_fused, counter) + 1)
     return out
 
 
-backward_fmpc_fused.launches = 0            # K8
-backward_fmpc_fused.resident_launches = 0   # K9
-backward_fmpc_fused.padded_copies = 0       # a K8 / K9 field copied for TMA
+backward_fmpc_fused.launches = 0                # K8
+backward_fmpc_fused.resident_launches = 0       # K9
+backward_fmpc_fused.wide_launches = 0           # K8 at a wide shape
+backward_fmpc_fused.resident_wide_launches = 0  # K9 at a wide shape
+backward_fmpc_fused.padded_copies = 0           # a K8 / K9 field copied for TMA
 
 
 def _outputs(N, nx, nu, B, dtype, device):
@@ -354,9 +496,9 @@ def launch_stream(fn, problem, config, co, ss, nus, gms, barrier_eps):
 def _check_shape(nx, nu, ng, dtype):
     if not kernel_supports(nx, nu, ng, dtype):
         raise ValueError(
-            f"the FMPC CUDA backward takes nx <= {MAX_NX}, nu <= {MAX_NU}, "
-            f"ng <= {MAX_NG} and float32/float64; got ({nx}, {nu}, {ng}) "
-            f"{dtype}")
+            f"the FMPC CUDA backward takes (nx, nu, ng) up to ({MAX_NX}, "
+            f"{MAX_NU}, {MAX_NG}) and float32/float64; got ({nx}, {nu}, "
+            f"{ng}) {dtype}")
 
 
 def _backward_packed_fields(problem, config, co, ss, nus, gms, barrier_eps):
@@ -397,7 +539,10 @@ def backward_fmpc_packed(problem, config, P_in, s_T, P_T, nx: int, nu: int,
     backward_fmpc_packed.padded_copies += padded is not P_in
     out = launch_packed(launcher(nx, nu, ng, dtype, "packed"), problem,
                         config, padded, ld, s_T, P_T, nx, nu, ng)
-    backward_fmpc_packed.launches += 1
+    if wide_shape(nx, nu, ng):
+        backward_fmpc_packed.wide_launches += 1
+    else:
+        backward_fmpc_packed.launches += 1
     return out
 
 
@@ -424,6 +569,7 @@ def launch_packed(fn, problem, config, P_in, ld, s_T, P_T, nx: int, nu: int,
 
 
 backward_fmpc_packed.launches = 0           # K10
+backward_fmpc_packed.wide_launches = 0      # K10 at a wide shape
 backward_fmpc_packed.padded_copies = 0      # P_in copied for TMA
 
 

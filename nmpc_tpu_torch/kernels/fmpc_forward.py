@@ -26,13 +26,21 @@ from nmpc_tpu_torch.kernels.build import build_generated, load
 from nmpc_tpu_torch.kernels.ddp_backward import _mv
 from nmpc_tpu_torch.kernels.ddp_backward_fused import _check, padded_fields
 from nmpc_tpu_torch.kernels.fmpc_backward import (DTYPES, FMPC_FLAGS, MAX_NU,
-                                                  MAX_NX)
+                                                  MAX_NX, NARROW_NU,
+                                                  NARROW_NX)
 
 
 def forward_kernel_supports(nx: int, nu: int, dtype) -> bool:
-    """Whether the kernel takes this shape and dtype: 1 <= nx <= 8,
-    1 <= nu <= 4, float32 or float64 (any B and N)."""
+    """Whether the kernel takes this shape and dtype: 1 <= nx <= 16,
+    1 <= nu <= 16, float32 or float64 (any B and N)."""
     return 1 <= nx <= MAX_NX and 1 <= nu <= MAX_NU and dtype in DTYPES
+
+
+def forward_wide_shape(nx: int, nu: int) -> bool:
+    """Whether (nx, nu) passes (8, 4), where the kernel's group of
+    threads splits the rows of du too (``csrc/fmpc_forward.cuh::
+    kFmpcFwdWide``); its launches there are counted apart."""
+    return nx > NARROW_NX or nu > NARROW_NU
 
 
 def forward_fmpc_deltas_plain(A, Bm, xb, ks, Ks, dx0):
@@ -132,15 +140,19 @@ def forward_fmpc_deltas_fused(A, Bm, xb, ks, Ks, dx0):
         raise ValueError(f"forward_fmpc_deltas_fused takes CPU or CUDA "
                          f"tensors, got {device}")
     if not forward_kernel_supports(nx, nu, dtype):
-        raise ValueError(f"the FMPC CUDA forward takes nx <= {MAX_NX}, "
-                         f"nu <= {MAX_NU} and float32/float64; got "
+        raise ValueError(f"the FMPC CUDA forward takes (nx, nu) up to "
+                         f"({MAX_NX}, {MAX_NU}) and float32/float64; got "
                          f"({nx}, {nu}) {dtype}")
     fields, _, copies = padded_fields((A, Bm, xb, ks, Ks))
     forward_fmpc_deltas_fused.padded_copies += copies
     dxs, dus = launch(launcher(nx, nu, dtype), *fields, dx0)
-    forward_fmpc_deltas_fused.launches += 1
+    if forward_wide_shape(nx, nu):
+        forward_fmpc_deltas_fused.wide_launches += 1
+    else:
+        forward_fmpc_deltas_fused.launches += 1
     return dxs, dus
 
 
 forward_fmpc_deltas_fused.launches = 0
+forward_fmpc_deltas_fused.wide_launches = 0   # past (8, 4)
 forward_fmpc_deltas_fused.padded_copies = 0   # a field copied for TMA

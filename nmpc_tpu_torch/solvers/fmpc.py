@@ -42,7 +42,8 @@ from nmpc_tpu_torch.core.types import (FmpcConfig, FmpcResult, FmpcStatus,
                                         FmpcTrace, FmpcVariable)
 from nmpc_tpu_torch.kernels.ddp_backward import (_chol_bl, _chol_solve_bl,
                                                  _mm, _mT, _mv)
-from nmpc_tpu_torch.kernels.fmpc_backward import (VARIANTS,
+from nmpc_tpu_torch.kernels.fmpc_backward import (MAX_NG, MAX_NU, MAX_NX,
+                                                  VARIANTS,
                                                   backward_fmpc_fused,
                                                   condensation,
                                                   kernel_supports,
@@ -467,24 +468,28 @@ def _resolve_impls(config: FmpcConfig, problem: Problem, dtype,
 
     ``auto`` takes the K8 backward (``"pallas"``) and the K11 recursion
     (``"fused"``) on CUDA tensors wherever the kernel takes the shape and
-    dtype (``kernel_supports``: nx <= 8, nu <= 4, ng <= 16, float32 or
-    float64, any B; the unit is built on demand), and the plain versions
-    otherwise, on CPU tensors always.  The JAX rule's ``B % 128 == 0``,
-    fp32, ``N >= 50`` and VMEM conditions were fit to the TPU and do not
-    carry over.  An explicit ``"pallas"`` or ``"fused"`` on a shape the
-    kernel does not take raises ``ValueError``; on CPU tensors the
+    dtype (``kernel_supports``: (nx, nu, ng) up to (16, 16, 64), float32
+    or float64, any B; past (8, 4, 16), the oscillating masses' (12, 3,
+    30) among them, the wide units; the unit is built on demand), and the
+    plain versions otherwise, on CPU tensors always.  The JAX rule's
+    ``B % 128 == 0``, fp32, ``N >= 50`` and VMEM conditions were fit to
+    the TPU and do not carry over.  An explicit ``"pallas"`` or
+    ``"fused"`` on a shape the kernel does not take raises
+    ``ValueError`` naming the shape and the ceiling; on CPU tensors the
     kernels' wrappers run their plain versions."""
     nx, nu, ng = problem.state_dim, problem.input_dim, problem.ineq_dim
     bw, fw = config.backward_impl, config.forward_impl
     bw_ok = kernel_supports(nx, nu, ng, dtype)
     fw_ok = forward_kernel_supports(nx, nu, dtype)
     if bw == "pallas" and not bw_ok:
-        raise ValueError(f"backward_impl='pallas': the K8 kernel does not "
-                         f"take (nx, nu, ng) = ({nx}, {nu}, {ng}) at "
-                         f"{dtype}")
+        raise ValueError(f"backward_impl='pallas': the K8 kernel takes "
+                         f"(nx, nu, ng) up to ({MAX_NX}, {MAX_NU}, "
+                         f"{MAX_NG}) at float32/float64; got ({nx}, {nu}, "
+                         f"{ng}) at {dtype}")
     if fw == "fused" and not fw_ok:
-        raise ValueError(f"forward_impl='fused': the K11 kernel does not "
-                         f"take (nx, nu) = ({nx}, {nu}) at {dtype}")
+        raise ValueError(f"forward_impl='fused': the K11 kernel takes "
+                         f"(nx, nu) up to ({MAX_NX}, {MAX_NU}) at "
+                         f"float32/float64; got ({nx}, {nu}) at {dtype}")
     on_card = device.type == "cuda"
     if bw == "auto":
         bw = "pallas" if on_card and bw_ok else "stacked"

@@ -323,7 +323,9 @@ def test_fmpc_packed_buffers_hold_the_fields():
 def test_resident_fits_and_raises():
     """``resident_fits``: N <= 32 and the horizon of a block's fewest lanes
     within 227 KB (cart-pole (4, 1, 4): every N <= 32 at fp32 and fp64;
-    (8, 4, 16) at fp64: N <= 7); the wrapper asked for the resident kernel
+    (8, 4, 16) at fp64: N <= 7; past (8, 4, 16) the wide unit's rule with
+    the lanes' scratch: the masses' (12, 3, 30) N <= 14; nothing past
+    the ceiling (16, 16, 64)); the wrapper asked for the resident kernel
     at a shape that does not fit raises, on the CPU too, and an unknown
     variant raises."""
     fits = lambda *s: KF.resident_fits(*s)
@@ -335,7 +337,10 @@ def test_resident_fits_and_raises():
     assert fits(4, 1, 4, 32, torch.float64)
     assert fits(8, 4, 16, 7, torch.float64)
     assert not fits(8, 4, 16, 8, torch.float64)
-    assert not fits(9, 1, 4, 4, torch.float32)
+    assert fits(9, 1, 4, 4, torch.float32)
+    assert fits(12, 3, 30, 14, torch.float32)
+    assert not fits(12, 3, 30, 15, torch.float32)
+    assert not fits(17, 1, 4, 4, torch.float32)
     pp, pc, co, var, gms, eps = _port_case("cartpole", 33, 8, seed=1)
     with pytest.raises(ValueError, match="resident"):
         KF.backward_fmpc_fused(pp, pc, co, var.ss, var.nus, gms, eps,

@@ -253,8 +253,9 @@ def test_batch_matches_single():
 
 def test_impl_rules():
     """``auto`` takes K8 and K11 on CUDA tensors where the kernels take the
-    shape and dtype, the plain versions on CPU tensors; an explicit kernel
-    on a shape it does not take raises; an explicit kernel on CPU tensors
+    shape and dtype (past (8, 4, 16) their wide units, up to (16, 16,
+    64)), the plain versions on CPU tensors; an explicit kernel on a shape
+    past the ceiling raises, naming it; an explicit kernel on CPU tensors
     runs the plain version, launches nothing and equals ``auto``."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     osc = make_oscillator_problem(DT)
@@ -265,11 +266,14 @@ def test_impl_rules():
     assert _resolve_impls(auto, osc, torch.float16, cuda) == ("stacked",
                                                              "scan")
     wide = dataclasses.replace(osc, input_dim=5)
-    assert _resolve_impls(auto, wide, torch.float32, cuda) == ("stacked",
+    assert _resolve_impls(auto, wide, torch.float32, cuda) == ("pallas",
+                                                              "fused")
+    past = dataclasses.replace(osc, input_dim=17)
+    assert _resolve_impls(auto, past, torch.float32, cuda) == ("stacked",
                                                               "scan")
     for kw in ({"backward_impl": "pallas"}, {"forward_impl": "fused"}):
-        with pytest.raises(ValueError, match="does not take"):
-            _resolve_impls(FmpcConfig(**kw), wide, torch.float32, cpu)
+        with pytest.raises(ValueError, match=r"up to \(16, 16"):
+            _resolve_impls(FmpcConfig(**kw), past, torch.float32, cpu)
 
     N, B = 20, 4
     x0s = torch.tensor([[0.0, 1.0]] * B, dtype=torch.float64)
