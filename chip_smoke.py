@@ -217,7 +217,16 @@ Phases, one line each (a failed phase exits non-zero):
    and a ragged B and N; timed in turns with the baseline's, K6 and K7 (one
    alpha) on one warp (B=32, N=100: their chain floor), and (with
    ``--baseline``) K6's, K7's and K11's wrappers in turns with the
-   baseline's wrappers;
+   baseline's wrappers; then (``fmpc-wide-groups``) K8-wide and K9-wide
+   at the masses' (12, 3, 30), their profile build (clock64() cycles a
+   part of the stage, and the producer's), K10-wide (and, with
+   ``--baseline DIR``, that checkout's K8-wide and K9-wide), each with
+   its ptxas report: all bit for bit with the baseline's K8-wide on the
+   fmpc-wide cases (the masses at B=1024, 37 and 1, N=30 and 12; (16, 8,
+   48) and (16, 16, 64)), fp32 and fp64, both ``break_if_llt_fails``;
+   timed in turns at B=4096 and 1 (N=30; K9 at N=12) beside K10-wide,
+   the profile's cycles a part printed, and K8-wide and K9-wide at (16,
+   8, 48) and (16, 16, 64) timed in turns with the baseline's;
 9. with ``--layers`` only: where one solve's time goes at both shapes,
    for each pair, for the boxed vertical solve, the bipedal config's
    ``auto`` path at 2 iterations and the FMPC configurations (synced time
@@ -2752,15 +2761,14 @@ def phase_fmpc_groups(device, card, baseline):
                         launcher(("baseline", "packed", shape, dtype)),
                         problem, cfg, P_in, ld3, s_T, P_T, nx, nu, ng)
                 if base9:
-                    # the baseline's K9 after its wrapper's torch
-                    # condensation, as a call and alone
+                    # the baseline's K9 takes K8's arguments (the
+                    # condensation folded in), as a call and alone
                     fn9 = launcher(("baseline", "resident", shape, dtype))
-                    calls["K9 baseline"] = (
-                        lambda fn9=fn9, cfg=cfg: condensed_call(
-                            fn9, problem, cfg, co, *k8.condensation(
-                                co, v.ss, v.nus, gms, eps))())
-                    k9_alone = condensed_call(fn9, problem, cfg, co, nu_s,
-                                              tilde)
+                    calls["K9 baseline"] = functools.partial(
+                        pk8.launch_stream, fn9, problem, cfg, co, v.ss,
+                        v.nus, gms, eps)
+                    k9_alone = fmpc_kernel_alone(problem, cfg, co, v, gms,
+                                                 eps, "resident", fn=fn9)
                 outs = {key: as_k8_outputs(fn(), nx, nu, N)
                         for key, fn in calls.items()}
                 torch.cuda.synchronize()
@@ -3809,39 +3817,12 @@ def fmpc_bytes(key, B, N, itemsize, nx, nu, ng):
     return itemsize * B * (N * stage + nx + (N + 1) * nx + N * nu)
 
 
-def condensed_call(fn, problem, cfg, co, nu_s, tilde):
-    """A launch of a unit that takes the condensation scalings from its
-    caller (the baseline's K9: the ten coefficient fields, nu_s, tilde)
-    on ``nu_s`` and ``tilde`` computed once, into outputs allocated
-    once."""
-    N, nx, nu = co.A.shape[0], co.A.shape[1], co.B.shape[2]
-    B, dtype, device = nu_s.shape[-1], nu_s.dtype, nu_s.device
-    s_T = -co.Lx_bar_term
-    outs = [torch.empty(shape, dtype=dtype, device=device) for shape in
-            ((N, nu, B), (N, nu, nx, B), (N + 1, nx, B), (N + 1, nx, nx, B))]
-    outs += [torch.empty((B,), dtype=torch.bool, device=device)
-             for _ in range(2)]
-    held = [getattr(co, name) for name in k8._FIELDS] + [nu_s, tilde]
-    ptrs = (ctypes.c_void_p * len(held))(*(a.data_ptr() for a in held))
-    stream = torch.cuda.current_stream(device).cuda_stream
-
-    def call(_inputs=held):   # holds the inputs while the call may run
-        err = fn(N, B, float(problem.dt), int(cfg.break_if_llt_fails),
-                 int(cfg.check_nan), ptrs, s_T.data_ptr(),
-                 co.Lxx_term.data_ptr(), *(o.data_ptr() for o in outs),
-                 stream)
-        check(err == 0, f"a condensed FMPC kernel's launch failed: CUDA "
-              f"error {err}")
-        return outs
-    return call
-
-
 def fmpc_kernel_alone(problem, cfg, co, v, gms, eps, variant="stream",
-                      fn=None):
+                      fn=None, prof=None):
     """K8's or K9's launch as ``backward_fmpc_fused`` makes it, on inputs
     prepared once (the fields as their tensor maps take them), into
     outputs allocated once; ``fn`` another build of the ``variant``'s
-    unit."""
+    unit, ``prof`` a profile build's cycles."""
     nx, nu, ng = co.A.shape[1], co.B.shape[2], co.C.shape[1]
     N, B, dtype, device = co.A.shape[0], eps.shape[0], eps.dtype, eps.device
     fn = fn or k8.launcher(nx, nu, ng, dtype, variant)
@@ -3858,7 +3839,8 @@ def fmpc_kernel_alone(problem, cfg, co, v, gms, eps, variant="stream",
                  int(cfg.check_nan), ptrs, gms.data_ptr(), gms.stride(0),
                  eps.data_ptr(),
                  co.Lx_bar_term.data_ptr(), co.Lxx_term.data_ptr(),
-                 *(o.data_ptr() for o in outs), stream)
+                 *(o.data_ptr() for o in outs), stream,
+                 *(() if prof is None else (prof.data_ptr(),)))
         check(err == 0, f"the FMPC {variant} kernel's launch failed: CUDA "
               f"error {err}")
         return outs
@@ -4930,6 +4912,261 @@ def phase_fmpc_wide(device, card):
               f"kkt_error_thre=0 fp32 backward={pair[0]} forward={pair[1]}: "
               f"median {med:.4f} s, {B / med:.1f} solves/s, host syncs "
               f"{solver.host_syncs} [{card}]", flush=True)
+
+
+# The wide FMPC backward (K8@12x3x30, K9@12x3x30) beside the parent's
+# build: the fmpc-wide phase's cases it is held on (shape, B of the
+# case's first lanes, N, variants), and the shapes it is timed at (B, N)
+# with K9 at its horizon.
+FMPC_WIDE_GROUPS_CASES = (
+    [(MASSES, B, MASSES_SOLVE[1], ("stream", "packed"))
+     for B in MASSES_BATCHES]
+    + [(MASSES, B, MASSES_RESIDENT_N, ("stream", "resident"))
+       for B in MASSES_BATCHES]
+    + [(shape, B, WIDE_FMPC_N, ("stream", "packed", "resident"))
+       for shape in WIDE_FMPC_SHAPES for B in WIDE_FMPC_BATCHES])
+FMPC_WIDE_GROUPS_TIMED = ((MASSES_SOLVE[0], MASSES_SOLVE[1]),
+                          (1, MASSES_SOLVE[1]))
+
+
+def fmpc_wide_profile(key, prof, N, B, lanes, resident, ms, card):
+    """One profile launch's summary (``prof`` the cycles of
+    ``k8.profile_values``): each part's cycles a stage for the mean lane
+    and the slowest (the most cycles over its stages), the ring's wait
+    against the stage, and the producer's empty wait and issue a stage
+    (mean over the blocks; K9: the horizon's issue); the clock the slowest
+    lane implies over the profile kernel's ``ms`` where one block runs (B
+    <= its lanes)."""
+    parts = len(k8.WIDE_PHASES)
+    cyc = prof.double().cpu()
+    lane = cyc[:parts * N * B].view(parts, N, B)
+    blocks, chunks = -(-B // lanes), 1 if resident else N
+    prod = cyc[parts * N * B:][:2 * N * blocks].view(2, N, blocks)
+    per = lane.sum(1)                                    # [parts, B]
+    slow = int(per.sum(0).argmax())
+    for who, c in ((f"slowest lane {slow}", per[:, slow]),
+                   ("mean lane", per.mean(1))):
+        total = c.sum().item()
+        wait, stage = c[0].item(), total - c[0].item()
+        print(f"[fmpc-wide-groups] profile {key} {who}: {total / N:.0f} "
+              f"cycles a stage: ring wait {wait / N:.0f} "
+              f"({100 * wait / total:.1f} %), "
+              f"stage {stage / N:.0f}; " + "; ".join(
+                  f"{name} {v / N:.0f} ({100 * v / total:.1f} %)"
+                  for name, v in zip(k8.WIDE_PHASES, c.tolist())),
+              flush=True)
+    used = prod[:, :chunks]
+    clock = (f"; {per.sum(0)[slow].item() / (ms * 1e6):.3f} GHz (the "
+             f"slowest lane's cycles over the kernel's time)"
+             if blocks == 1 else "")
+    print(f"[fmpc-wide-groups] profile {key}: producer "
+          f"{'the horizon at once' if resident else 'a stage at a time'}, "
+          f"{blocks} blocks of {lanes} lanes: empty wait "
+          f"{used[0].mean().item():.0f}, issue {used[1].mean().item():.0f} "
+          f"cycles (mean), the first stage's issue "
+          f"{used[1, 0].mean().item():.0f}; the profile kernel {ms:.4f} ms"
+          f"{clock} [{card}]", flush=True)
+
+
+def phase_fmpc_wide_groups(device, card, baseline):
+    """K8-wide and K9-wide (``csrc/fmpc_backward_wide.cuh``) at the
+    masses' (12, 3, 30), their profile build and, with ``baseline``
+    (another checkout's root), that checkout's K8-wide and K9-wide from
+    its headers and unit text: built at once, each with its nvcc seconds
+    and ptxas' report.  On every case of FMPC_WIDE_GROUPS_CASES (the
+    fmpc-wide phase's: the masses at B=1024, 37 and 1, N=30 and 12, (16,
+    8, 48) and (16, 16, 64) at B=256 and 37, N=12), fp32 and fp64, both
+    break_if_llt_fails: this K8, K9 (where its horizon fits), K10 and the
+    profile builds bit for bit with the baseline's K8 (this K8 without a
+    baseline), K10 on its N rows, ok and finite masks included.  Then
+    timed in turns with the baseline's at FMPC_WIDE_GROUPS_TIMED (K9 at
+    its horizon, N=12), fp32 and fp64, K10-wide beside them, the profile's
+    cycles a part at B=1 and 4096, N=30 (K8) and 12 (K9), and, with a
+    baseline, K8 and K9 at (16, 8, 48) and (16, 16, 64) in turns with the
+    baseline's at B=4096 (K8 N=12, K9 N=2 and its longest horizon)."""
+    fp32, fp64 = torch.float32, torch.float64
+    nx, nu, ng = MASSES
+    shapes = (MASSES,) + WIDE_FMPC_SHAPES
+    units, index = [], {}
+
+    def unit(key, name, text, flags, csrc=kbuild.CSRC):
+        index[key] = len(units)
+        units.append((name, text, flags, csrc))
+
+    for dtype in (fp32, fp64):
+        for shape in shapes:
+            for variant in ("stream", "resident", "packed"):
+                unit(("this", variant, shape, dtype),
+                     k8.unit_name(*shape, dtype, variant),
+                     k8.unit_source(*shape, dtype, variant), k8.FMPC_FLAGS)
+        for variant in ("stream", "resident"):
+            unit(("profile", variant, MASSES, dtype),
+                 k8.unit_name(*MASSES, dtype, variant, profile=True),
+                 k8.unit_source(*MASSES, dtype, variant, profile=True),
+                 k8.FMPC_FLAGS)
+    if baseline:
+        pk8 = parent_module(baseline, "fmpc_backward")
+        parent_csrc = Path(baseline).resolve() / "nmpc_tpu_torch" / "csrc"
+        for dtype in (fp32, fp64):
+            for shape in shapes:
+                for variant in ("stream", "resident"):
+                    unit(("baseline", variant, shape, dtype),
+                         k8.unit_name(*shape, dtype, variant) + "_parent",
+                         pk8.unit_source(*shape, dtype, variant),
+                         pk8.FMPC_FLAGS, parent_csrc)
+
+    def compile_unit(u):
+        begin = time.perf_counter()
+        lib = kbuild.build_generated(*u)
+        return lib, time.perf_counter() - begin
+
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        built = list(pool.map(compile_unit, units))
+    print(f"[fmpc-wide-groups] {len(built)} units in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    fns = {}
+    for key, (name, _, _, csrc), (lib, secs) in zip(index, units, built):
+        print(f"[fmpc-wide-groups] {name} (headers "
+              f"{os.path.relpath(csrc, ROOT)}): nvcc {secs:.1f} s; "
+              f"{ptxas_report(lib)}; spill stores / loads "
+              f"{spill_bytes(lib)} bytes", flush=True)
+        if key[0] == "this" and key[2] == MASSES:
+            check(spill_bytes(lib) in (None, (0, 0)), f"{name}: ptxas spills")
+        fns[key] = (pk8.bind(kbuild.load(lib), key[1])
+                    if key[0] == "baseline" else
+                    k8.bind(kbuild.load(lib), key[1],
+                            profile=key[0] == "profile"))
+
+    def outputs(key, case, cfg, prof=None):
+        problem, _, co, v, gms, eps, _ = case
+        if key[1] == "packed":
+            nu_s, tilde = k8.condensation(co, v.ss, v.nus, gms, eps)
+            P_in, ld3 = k8.padded_lanes(k8.pack_fmpc_inputs(co, nu_s, tilde))
+            s = co.A.shape[1], co.B.shape[2], co.C.shape[1]
+            return as_k8_outputs(k8.launch_packed(
+                fns[key], problem, cfg, P_in, ld3, -co.Lx_bar_term,
+                co.Lxx_term, *s), s[0], s[1], co.A.shape[0])
+        return fmpc_kernel_alone(problem, cfg, co, v, gms, eps, key[1],
+                                 fn=fns[key], prof=prof)()
+
+    same = 0
+    start = time.perf_counter()
+    for dtype in (fp32, fp64):
+        dname = str(dtype)[6:]
+        whole = {shape: wide_fmpc_inputs(
+            shape, MASSES_BATCHES[0] if shape == MASSES
+            else WIDE_FMPC_BATCHES[0],
+            MASSES_SOLVE[1] if shape == MASSES else WIDE_FMPC_N, dtype,
+            device) for shape in shapes}
+        for shape, B, N, variants in FMPC_WIDE_GROUPS_CASES:
+            case = first_of(whole[shape], B, N)
+            fits = k8.resident_fits(*shape, N, dtype)
+            for brk in (False, True):
+                cfg = dataclasses.replace(case[1], break_if_llt_fails=brk)
+                ref_key = ("baseline" if baseline else "this", "stream",
+                           shape, dtype)
+                ref = outputs(ref_key, case, cfg)
+                outs = {}
+                for variant in variants:
+                    if variant == "resident" and not fits:
+                        continue
+                    outs[f"this {variant}"] = outputs(
+                        ("this", variant, shape, dtype), case, cfg)
+                    if ("profile", variant, shape, dtype) in fns:
+                        prof = torch.zeros(k8.profile_values(N, B),
+                                           dtype=torch.int64, device=device)
+                        outs[f"profile {variant}"] = outputs(
+                            ("profile", variant, shape, dtype), case, cfg,
+                            prof)
+                    if (variant == "resident" and baseline and
+                            pk8.resident_fits(*shape, N, dtype)):
+                        outs["baseline resident"] = outputs(
+                            ("baseline", "resident", shape, dtype), case,
+                            cfg)
+                torch.cuda.synchronize()
+                # K10 gives the N rows of s and P before the terminal one
+                equal = {k: all(same_bits(a[:len(b)], b[:len(a)])
+                                for a, b in zip(ref, o))
+                         for k, o in outs.items()}
+                same += sum(equal.values())
+                label = (f"{'x'.join(map(str, shape))} B={B} N={N} {dname} "
+                         f"break_if_llt_fails={brk}")
+                print(f"[fmpc-wide-groups] {label}: ok {int(ref[4].sum())}"
+                      f"/{B}, finite {int(ref[5].sum())}/{B}; bit for bit "
+                      f"with the {ref_key[0]} K8-wide {equal}", flush=True)
+                check(all(equal.values()), f"{label}: a build differs from "
+                      f"the {ref_key[0]} K8-wide")
+    print(f"[fmpc-wide-groups] {same} checks bit for bit; the checks "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+
+    for dtype in (fp32, fp64):
+        dname = str(dtype)[6:]
+        for B, N in FMPC_WIDE_GROUPS_TIMED:
+            for variant, n in (("stream", N), ("resident", MASSES_RESIDENT_N)):
+                case = wide_fmpc_inputs(MASSES, B, n, dtype, device,
+                                        poison=False)
+                problem, cfg, co, v, gms, eps, _ = case
+                calls = {}
+                for who in ("baseline", "this") if baseline else ("this",):
+                    calls[f"{who} K{8 if variant == 'stream' else 9}"] = (
+                        fmpc_kernel_alone(problem, cfg, co, v, gms, eps,
+                                          variant,
+                                          fn=fns[who, variant, MASSES,
+                                                 dtype]))
+                if variant == "stream":
+                    nu_s, tilde = k8.condensation(co, v.ss, v.nus, gms, eps)
+                    P_in, ld3 = k8.padded_lanes(k8.pack_fmpc_inputs(
+                        co, nu_s, tilde))
+                    calls["this K10"] = functools.partial(
+                        k8.launch_packed, fns["this", "packed", MASSES, dtype],
+                        problem, cfg, P_in, ld3, -co.Lx_bar_term, co.Lxx_term,
+                        nx, nu, ng)
+                timed_in_turns(calls, f"masses B={B} N={n}", card,
+                               tag="fmpc-wide-groups", dtype=dname)
+                prof = torch.zeros(k8.profile_values(n, B), dtype=torch.int64,
+                                   device=device)
+                pcall = fmpc_kernel_alone(
+                    problem, cfg, co, v, gms, eps, variant,
+                    fn=fns["profile", variant, MASSES, dtype], prof=prof)
+                ms = cuda_ms(pcall, inner=2, reps=5)
+                prof.zero_()
+                pcall()
+                torch.cuda.synchronize()
+                lanes = (k8.wide_rule(*MASSES, dtype).max_lanes
+                         if variant == "stream" else
+                         k8.wide_rule(*MASSES, dtype, k8.WIDE_GROUP)
+                         .resident_lanes(n, B))
+                fmpc_wide_profile(
+                    f"K{8 if variant == 'stream' else 9}@12x3x30 B={B} N={n} "
+                    f"{dname}", prof, n, B, lanes, variant == "resident", ms,
+                    card)
+    if not baseline:
+        return
+    # the other wide shapes in turns with the baseline's: K8 at N=12, K9 at
+    # N=2 (fp64 (16, 8, 48): 4 lanes a block) and at its longest horizon
+    for dtype in (fp32, fp64):
+        dname = str(dtype)[6:]
+        for shape in WIDE_FMPC_SHAPES:
+            n9 = max(n for n in range(1, k8.RESIDENT_MAX_N + 1)
+                     if k8.resident_fits(*shape, n, dtype)
+                     and pk8.resident_fits(*shape, n, dtype))
+            for variant, n in (("stream", WIDE_FMPC_N),
+                               *(("resident", n) for n in sorted({2, n9}))):
+                problem, cfg, co, v, gms, eps, _ = wide_fmpc_inputs(
+                    shape, MASSES_SOLVE[0], n, dtype, device, poison=False)
+                lanes = (k8.wide_rule(*shape, dtype, k8.WIDE_GROUP),
+                         pk8.wide_rule(*shape, dtype))
+                kind = "K8" if variant == "stream" else (
+                    "K9 (lanes {}, the baseline's {})".format(*(
+                        r.resident_lanes(n, MASSES_SOLVE[0]) for r in lanes)))
+                timed_in_turns(
+                    {f"{who} {kind}": fmpc_kernel_alone(
+                        problem, cfg, co, v, gms, eps, variant,
+                        fn=fns[who, variant, shape, dtype])
+                     for who in ("baseline", "this")},
+                    f"{'x'.join(map(str, shape))} B={MASSES_SOLVE[0]} N={n}",
+                    card, tag="fmpc-wide-groups", dtype=dname)
 
 
 # --------------------------------------------------------------------------
@@ -6411,7 +6648,9 @@ def main() -> int:
                "with --qp-groups: qp-groups, row-groups, wide-groups "
                "(K1@9x16 at each G of WIDE_GROUPS), k4-wide (K4@9x16, its "
                "profile build and the baseline's), fmpc-groups, "
-               "fwd-groups; with --layers: layers")
+               "fwd-groups, fmpc-wide-groups (K8-wide and K9-wide at "
+               "(12, 3, 30), their profile build and the baseline's); "
+               "with --layers: layers")
     parser.add_argument("--layers", action="store_true",
                         help="also print where one solve's time goes, per "
                              "layer, with the profiler's device busy time")
@@ -6429,10 +6668,10 @@ def main() -> int:
                              f"first {CENTROIDAL_DRIVER_STEPS} steps)")
     parser.add_argument("--baseline", metavar="DIR",
                         help="with --qp-groups, also build K1-K6, K8, K10 and "
-                             "K11 from the checkout at DIR, hold this one's "
-                             "K1-K3 to its K1, K8, K10 to its K8 and K6, K11 "
-                             "to its K6, K11, and time them in turns with "
-                             "this one's")
+                             "K11 (and K8-wide, K9-wide) from the checkout at "
+                             "DIR, hold this one's K1-K3 to its K1, K8, K10 "
+                             "to its K8 and K6, K11 to its K6, K11, and time "
+                             "them in turns with this one's")
     parser.add_argument("--phases", metavar="NAME,...",
                         help="run only these phases (a development run: no "
                              "kernel record and no result line)")
@@ -6486,6 +6725,8 @@ def main() -> int:
         phases.append(("k4-wide", lambda: phase_k4_wide(
             device, card, args.baseline)))
         phases.append(("fmpc-groups", lambda: phase_fmpc_groups(
+            device, card, args.baseline)))
+        phases.append(("fmpc-wide-groups", lambda: phase_fmpc_wide_groups(
             device, card, args.baseline)))
         phases.append(("fwd-groups", lambda: phase_fwd_groups(
             device, card, args.baseline)))

@@ -284,10 +284,24 @@ __host__ __device__ constexpr bool fmpc_wide(int nx, int nu, int ng) {
 }
 template <int NX, int NU, int NG>
 constexpr bool kFmpcWide = fmpc_wide(NX, NU, NG);
+// K9's and K10's threads a lane at the wide shapes, and their blocks'
+// most threads, the producer warp's included: 8 warps, so that ptxas
+// keeps 255 registers a thread (ddp_backward_wide.cuh)
 constexpr int kFmpcWideGroup = 32;
-// a wide block's most threads, its producer warp's included: 8 warps, so
-// that ptxas keeps 255 registers a thread (ddp_backward_wide.cuh)
 constexpr int kFmpcWideMaxThreads = 256;
+// K8's block at the wide shapes: box rows of kFmpcWideRowBytes (a
+// stage's value e of the block's lanes is a row, so a warp's reads of the
+// stage's values fall on fewer banks the wider the row: at the masses
+// 64-byte rows ran the stage's sums at ~5x the cycles of 16-byte ones),
+// 2 consumer warps and the producer's, so that four blocks share an SM
+// (ptxas: 168 registers a thread at the masses), and a ring of two
+// one-stage buffers: the producer warp issues a stage's boxes in a
+// fraction of the stage's time, so the next stage is enough (PERF.md,
+// section 6: 16-byte rows 0.76 ms against 0.94 for 32-byte, 1.34 for
+// 64-byte at B = 4096, N = 30, fp32, on an H100).
+constexpr int kFmpcWideRowBytes = 16;
+constexpr int kFmpcWideStreamThreads = 96;
+constexpr int kFmpcWideRing = 2;
 
 // The 13 fields of K8's and K9's stage, in the order of their tensor maps
 // (A, B, C, D, Lxx, Luu, Lxu, x_bar, Lx_bar, Lu_bar, s, nu, g_bar): the
@@ -406,30 +420,34 @@ static_assert(WideFmpcScratch<12, 3, 30>::size ==
 // The size rules of a wide block of L lanes of G threads at (nx, nu, ng)
 // and T, at run time (fmpc_wide_rule), so that one loop can hold them at
 // every shape up to the ceiling; WideFmpcBlock and WideFmpcPackedBlock
-// are a unit's.  K8's and K9's block: a ring of R buffers of C stages of
-// F values a lane (K8 R one-stage buffers, K9 one buffer of the horizon's
-// N stages, laid out as K8's), then each lane's scratch, `stride` values
-// apart (the scratch rounded up to 128 bytes).
-//   * least: the fewest lanes, a warp's lanes and a box row of 16 bytes
-//     (4 at G = 32 fp32, 2 at fp64);
-//   * max_lanes: kMaxRowLanes, halved while the block passes 8 warps or a
-//     ring of two buffers passes a block's shared memory, down to least
-//     (the masses' (12, 3, 30): 4 at both dtypes; (16, 16, 64) fp64: 2);
-//   * ring: as many buffers as then fit, at most kMaxStageRing (the
-//     masses: 8 at fp32, 6 at fp64);
-//   * lanes(B): max_lanes, halved while the batch fills fewer than
-//     kFillBlocks blocks;
-//   * K9 takes a horizon of N <= kResidentMaxN stages where its buffer and
-//     the scratch of the fewest lanes fit (resident_fits: the masses up
-//     to N = 14 at both dtypes), at the most lanes up to lanes(B) that fit
-//     (resident_lanes).
-// K10's block (packed_*): the same lanes and scratch, two buffers of C
-// stages of the packed [N, Fin, B] buffer seen as N Fin rows, each
-// rounded up to whole boxes of kWideBoxRows rows (row_group.cuh::
-// wide_chunk_rows: a box spans at most 256 values, Fin = 906 at the
-// masses); C the most stages, at most kMaxChunk, that keep a block of
-// packed_max_lanes within a block's shared memory (the masses: 7 at fp32,
-// 3 at fp64).
+// are a unit's.  Every block's lanes are at least `least`: a warp's lanes
+// and a box row of 16 bytes (4 at G = 16 or 32 fp32, 2 at fp64).
+//   * K8 (at kFmpcWideStreamGroup): a ring of R one-stage buffers of F
+//     values a lane (a multiple of 128 bytes: F is a multiple of 8
+//     values, a lane's row at least 16 bytes) after 128 bytes of
+//     barriers, then each lane's scratch, `stride` values apart (the
+//     scratch rounded up to 128 bytes); least lanes at every B
+//     (max_lanes: one kFmpcWideRowBytes row, the 2 consumer warps of
+//     kFmpcWideStreamThreads), R kFmpcWideRing buffers, fewer where they
+//     do not fit (ring; the masses' (12, 3, 30): 4 lanes of 16 threads
+//     at fp32, 2 of 32 at fp64, 43,392 bytes).
+//   * K9 (at kFmpcWideGroup): the horizon's N one-stage buffers after N
+//     barriers (rounded up to 128 bytes), then the scratch; it takes N <=
+//     kResidentMaxN where those and the fewest lanes' scratch fit
+//     (resident_fits: the masses up to N = 14 at both dtypes), at
+//     resident_max_lanes (kMaxRowLanes, halved while the block passes
+//     kFmpcWideMaxThreads or one stage's buffer does not fit), halved
+//     while the batch fills fewer than kFillBlocks blocks (fill) or the
+//     horizon does not fit (resident_lanes: the masses' N = 12, 4 lanes
+//     at fp32, 2 at fp64).
+//   * K10 (packed_*, at kFmpcWideGroup): two buffers of C stages of the
+//     packed [N, Fin, B] buffer seen as N Fin rows, each rounded up to
+//     whole boxes of kWideBoxRows rows (row_group.cuh::wide_chunk_rows: a
+//     box spans at most 256 values, Fin = 906 at the masses), then the
+//     scratch; packed_max_lanes as K9's, one chunk's buffers in place of
+//     its stage; C the most stages, at most kMaxChunk, that keep a block
+//     of packed_max_lanes within a block's shared memory (the masses: 7
+//     at fp32, 3 at fp64).
 template <typename T>
 struct FmpcWideRule {
   int G, F, Fin, stride, least;
@@ -437,39 +455,44 @@ struct FmpcWideRule {
   __host__ __device__ constexpr size_t scratch_bytes(int L) const {
     return static_cast<size_t>(L) * stride * sizeof(T);
   }
-  __host__ __device__ constexpr size_t bytes(int R, int C, int L) const {
-    return ring_bytes<T>(R, C, F, L) + scratch_bytes(L);
+  __host__ __device__ constexpr size_t buffer_bytes(int L) const {
+    return static_cast<size_t>(F) * L * sizeof(T);
   }
-  __host__ __device__ constexpr int max_lanes() const {
-    int L = kMaxRowLanes;
-    while (L > least && (L * G + 32 > kFmpcWideMaxThreads ||
-                         bytes(2, 1, L) > kMaxBlockSmem))
-      L /= 2;
-    return L;
+  __host__ __device__ constexpr size_t bytes(int R, int L) const {
+    return 128 + R * buffer_bytes(L) + scratch_bytes(L);
   }
+  __host__ __device__ constexpr size_t resident_bytes(int N, int L) const {
+    return static_cast<size_t>(round_up(8 * N, 128)) + N * buffer_bytes(L) +
+           scratch_bytes(L);
+  }
+  __host__ __device__ constexpr int max_lanes() const { return least; }
   __host__ __device__ constexpr int ring() const {
-    int R = kMaxStageRing;
-    while (R > 1 && bytes(R, 1, max_lanes()) > kMaxBlockSmem) --R;
+    int R = kFmpcWideRing;
+    while (R > 1 && bytes(R, least) > kMaxBlockSmem) --R;
     return R;
   }
   __host__ __device__ constexpr bool fits() const {
-    return bytes(1, 1, least) <= kMaxBlockSmem;
+    return bytes(1, least) <= kMaxBlockSmem;
   }
   __host__ __device__ constexpr int fill(int most, int B) const {
     int L = most;
     while (L > least && (B + L - 1) / L < kFillBlocks) L /= 2;
     return L;
   }
-  __host__ __device__ constexpr int lanes(int B) const {
-    return fill(max_lanes(), B);
-  }
   __host__ __device__ constexpr bool resident_fits(int N) const {
     return N >= 1 && N <= kResidentMaxN &&
-           bytes(1, N, least) <= kMaxBlockSmem;
+           resident_bytes(N, least) <= kMaxBlockSmem;
+  }
+  __host__ __device__ constexpr int resident_max_lanes() const {
+    int L = kMaxRowLanes;
+    while (L > least && (L * G + 32 > kFmpcWideMaxThreads ||
+                         resident_bytes(1, L) > kMaxBlockSmem))
+      L /= 2;
+    return L;
   }
   __host__ __device__ constexpr int resident_lanes(int N, int B) const {
-    int L = lanes(B);
-    while (L > least && bytes(1, N, L) > kMaxBlockSmem) L /= 2;
+    int L = fill(resident_max_lanes(), B);
+    while (L > least && resident_bytes(N, L) > kMaxBlockSmem) L /= 2;
     return L;
   }
   __host__ __device__ constexpr size_t packed_bytes(int C, int L) const {
@@ -507,6 +530,13 @@ __host__ __device__ constexpr FmpcWideRule<T> fmpc_wide_rule(int nx, int nu,
       (32 / G) > 16 / item ? 32 / G : 16 / item};
 }
 
+// K8's threads a lane at the wide shapes: the block's 2 consumer warps
+// over the lanes of a kFmpcWideRowBytes row (16 at fp32, 32 at fp64).
+template <typename T>
+constexpr int kFmpcWideStreamGroup =
+    (kFmpcWideStreamThreads - 32) /
+    (kFmpcWideRowBytes / static_cast<int>(sizeof(T)));
+
 // A unit's K8 / K9 block and its K10 block (fmpc_backward_wide.cuh,
 // fmpc_backward_packed_wide.cuh): the rule at its shape, and its sizes.
 template <typename T, int NX, int NU, int NG, int G>
@@ -519,6 +549,8 @@ struct WideFmpcBlock {
   static constexpr int least = fmpc_wide_rule<T>(NX, NU, NG, G).least;
   static constexpr int max_lanes =
       fmpc_wide_rule<T>(NX, NU, NG, G).max_lanes();
+  static constexpr int resident_max_lanes =
+      fmpc_wide_rule<T>(NX, NU, NG, G).resident_max_lanes();
   static constexpr int ring = fmpc_wide_rule<T>(NX, NU, NG, G).ring();
 };
 template <typename T, int NX, int NU, int NG, int G>

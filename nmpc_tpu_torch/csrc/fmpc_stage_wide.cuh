@@ -43,7 +43,9 @@
 //
 // Scalar type T, (NX, NU, NG), G threads a lane (a power of two up to 32),
 // the stage's fields `f` (its A(e), Bm(e), C(e), D(e), Lxx(e), Luu(e),
-// Lxu(e), xb(e), Lxb(e), Lub(e) and scalings(g, nu_s, tilde) of row g).
+// Lxu(e), xb(e), Lxb(e), Lub(e) and scalings(g, nu_s, tilde) of row g),
+// and a clock (FmpcClock) that the profile build of K8 and K9 reads
+// between the stage's parts; in every other build it is empty.
 
 #pragma once
 
@@ -51,6 +53,42 @@
 #include "riccati_stage_wide.cuh"
 
 namespace nmpc {
+
+// The parts of a lane's stage that the profile build of K8 and K9
+// (fmpc_backward_wide.cuh, P) times, in this order after the outputs
+// (kernels/fmpc_backward.py::WIDE_PHASES names them).
+enum FmpcWidePhase : int {
+  kFwWait,     // the feed's wait for the stage's buffer
+  kFwScale,    // the (s, nu) scalings and P A, P B, P x_bar
+  kFwSums,     // F, H, G, rhs and Lx_t with their condensation sums
+  kFwFactor,   // G's Cholesky, the substitutions, the LU fallback
+  kFwUpdate,   // the new s, G K, P - K^T G K and the symmetrized P
+  kFwStore,    // the stores of k, K, s and P
+  kFmpcWidePhases
+};
+
+// The profile build's clock (On): start() zeroes the sums, lap(p) adds
+// the cycles since the last start or lap to part p.  Off, it is empty,
+// and the build is the normal one.
+template <bool On>
+struct FmpcClock {
+  __device__ void start() {}
+  __device__ void lap(int) {}
+};
+template <>
+struct FmpcClock<true> {
+  long long t = 0, acc[kFmpcWidePhases] = {};
+  __device__ void start() {
+#pragma unroll
+    for (int q = 0; q < kFmpcWidePhases; ++q) acc[q] = 0;
+    t = clock64();
+  }
+  __device__ void lap(int q) {
+    const long long now = clock64();
+    acc[q] += now - t;
+    t = now;
+  }
+};
 
 // The first of the tasks q, q + G, ... of rank r when a kind of product's
 // tasks follow `before` tasks of the kinds ahead of it.
@@ -165,10 +203,11 @@ __device__ __forceinline__ void gauss_jordan_rows(const T* __restrict__ Gm,
 // lane's flag (equal across the group).  On return the stage's k and K
 // sit in s[X] (k in column 0, K[m][a] at s[X + m XS + 1 + a]) until the
 // next stage's Cholesky.
-template <typename T, int NX, int NU, int NG, int G, typename Fields>
+template <typename T, int NX, int NU, int NG, int G, typename Fields,
+          typename Clock>
 __device__ __forceinline__ void fmpc_stage_wide(const Fields& f, T dt,
                                                 bool break_if_llt_fails,
-                                                T* s, bool& ok) {
+                                                T* s, bool& ok, Clock& clk) {
   using S = WideFmpcScratch<NX, NU, NG>;
   constexpr int XS = S::XS, US = S::US;
   const int r = LaneGroup<G>::rank();
@@ -209,6 +248,7 @@ __device__ __forceinline__ void fmpc_stage_wide(const Fields& f, T dt,
     s[S::Pxb + q] = t;
   }
   __syncwarp();
+  clk.lap(kFwScale);
 
   // F = Qxx + A^T (P A), H = Qxu + A^T (P B) (row a of H to column 1 + a
   // of R), G = Quu + B^T (P B), rhs_k = B^T (P x_bar - s) + Lu_t (column
@@ -261,6 +301,7 @@ __device__ __forceinline__ void fmpc_stage_wide(const Fields& f, T dt,
     s[S::Lxt + q] = f.Lxb(q) + m;
   }
   __syncwarp();
+  clk.lap(kFwSums);
 
   // LLT(G) by rows with the forward substitution of the NX + 1 right-hand
   // sides, then each own right-hand side's backward substitution: k and
@@ -313,6 +354,7 @@ __device__ __forceinline__ void fmpc_stage_wide(const Fields& f, T dt,
     }
     __syncwarp();
   }
+  clk.lap(kFwFactor);
 
   // s = A^T (s - P x_bar) - Lx_t - H k and G K (FmpcSolver.hpp:633-635)
   for (int q = r; q < NX; q += G) {
@@ -348,6 +390,7 @@ __device__ __forceinline__ void fmpc_stage_wide(const Fields& f, T dt,
   for (int q = next_task<G>(r, NX * NX); q < NX; q += G)
     s[S::s + q] = s[S::sn + q];
   __syncwarp();
+  clk.lap(kFwUpdate);
 }
 
 }  // namespace nmpc

@@ -82,12 +82,20 @@ IN_FIELDS = ("A", "B", "C", "D", "Lxx", "Luu", "Lxu", "xb", "Lxb", "Lub",
 OUT_FIELDS = ("k", "K", "svec", "P")
 RESIDENT_MAX_N = 32
 MAX_SMEM_BYTES = 227 * 1024
-# The wide units' threads per lane (fmpc_group.cuh::kFmpcWideGroup) and
-# the bounds of their blocks (kFmpcWideMaxThreads, row_group.cuh's
-# kMaxRowLanes, kFillBlocks, kMaxStageRing, kMaxChunk, kWideBoxRows).
+# K9's and K10's threads per lane at the wide shapes (fmpc_group.cuh::
+# kFmpcWideGroup) and the bounds of the wide blocks (their
+# kFmpcWideMaxThreads, K8's kFmpcWideStreamThreads, kFmpcWideRowBytes and
+# kFmpcWideRing, row_group.cuh's kMaxRowLanes, kFillBlocks, kMaxChunk,
+# kWideBoxRows).
 WIDE_GROUP = 32
-_WIDE_MAX_THREADS, _MAX_ROW_LANES, _FILL_BLOCKS = 256, 32, 128
-_MAX_STAGE_RING, _MAX_CHUNK, _BOX_ROWS = 8, 32, 256
+_WIDE_MAX_THREADS, _STREAM_THREADS, _WIDE_RING = 256, 96, 2
+_ROW_BYTES = 16
+_MAX_ROW_LANES, _FILL_BLOCKS, _MAX_CHUNK, _BOX_ROWS = 32, 128, 32, 256
+# The parts of a lane's wide stage that the profile build of K8 and K9
+# times (csrc/fmpc_stage_wide.cuh::FmpcWidePhase), then the producer's two
+# (its wait for an empty buffer, the issue of a chunk's boxes).
+WIDE_PHASES = ("wait", "scale", "sums", "factor", "update", "store")
+PRODUCER_PHASES = ("empty wait", "issue")
 
 
 def kernel_supports(nx: int, nu: int, ng: int, dtype) -> bool:
@@ -138,28 +146,36 @@ def wide_scratch_values(nx: int, nu: int, ng: int) -> int:
             + 2 * nu * xs + 3 * nu * nu + nu)
 
 
-def wide_rule(nx: int, nu: int, ng: int, dtype, group: int = WIDE_GROUP):
+def wide_rule(nx: int, nu: int, ng: int, dtype, group: int | None = None):
     """The wide units' size rules at (nx, nu, ng, dtype) and ``group``
-    threads a lane, as ``fmpc_group.cuh::FmpcWideRule`` computes them: a
-    namespace of F, Fin, stride, least, max_lanes, ring, fits, lanes(B),
-    resident_fits(N), resident_lanes(N, B), packed_max_lanes,
-    packed_chunk, packed_fits and packed_lanes(B), and the bytes of a
-    block (``bytes(R, C, L)``, ``packed_bytes(C, L)``)."""
+    threads a lane (None: K8's, :func:`stream_group`; K9's and K10's are
+    ``WIDE_GROUP``), as ``fmpc_group.cuh::FmpcWideRule`` computes them: a
+    namespace of G, F, Fin, stride, least, K8's max_lanes (least), ring
+    and fits, K9's resident_fits(N), resident_max_lanes and
+    resident_lanes(N, B), K10's packed_max_lanes, packed_chunk,
+    packed_fits and packed_lanes(B), and the bytes of a block (K8's
+    ``bytes(R, L)``, K9's ``resident_bytes(N, L)``, K10's
+    ``packed_bytes(C, L)``)."""
+    if group is None:
+        group = stream_group(dtype)
     item = torch.empty((), dtype=dtype).element_size()
     F = wide_stage_values(nx, nu, ng)
     _, Fin, _, _ = field_offsets(nx, nu, ng)
     stride = _round_up(wide_scratch_values(nx, nu, ng), 128 // item)
     least = max(32 // group, 16 // item)
 
-    def ring_bytes(R, C, F_, L):
-        return 128 + R * _round_up(C * F_ * L * item, 128)
+    def scratch(L):
+        return L * stride * item
 
-    def bytes_(R, C, L):
-        return ring_bytes(R, C, F, L) + L * stride * item
+    def bytes_(R, L):
+        return 128 + R * F * L * item + scratch(L)
+
+    def resident_bytes(N, L):
+        return _round_up(8 * N, 128) + N * F * L * item + scratch(L)
 
     def packed_bytes(C, L):
         rows = _round_up(C * Fin, _BOX_ROWS)
-        return ring_bytes(2, 1, rows, L) + L * stride * item
+        return 128 + 2 * _round_up(rows * L * item, 128) + scratch(L)
 
     def most(size):
         L = _MAX_ROW_LANES
@@ -174,32 +190,42 @@ def wide_rule(nx: int, nu: int, ng: int, dtype, group: int = WIDE_GROUP):
             L //= 2
         return L
 
-    max_lanes = most(lambda L: bytes_(2, 1, L))
-    ring = _MAX_STAGE_RING
-    while ring > 1 and bytes_(ring, 1, max_lanes) > MAX_SMEM_BYTES:
+    ring = _WIDE_RING
+    while ring > 1 and bytes_(ring, least) > MAX_SMEM_BYTES:
         ring -= 1
+    resident_max = most(lambda L: resident_bytes(1, L))
     packed_max = most(lambda L: packed_bytes(1, L))
     chunk = _MAX_CHUNK
     while chunk > 1 and packed_bytes(chunk, packed_max) > MAX_SMEM_BYTES:
         chunk -= 1
 
     def resident_lanes(N, B):
-        L = fill(max_lanes, B)
-        while L > least and bytes_(1, N, L) > MAX_SMEM_BYTES:
+        L = fill(resident_max, B)
+        while L > least and resident_bytes(N, L) > MAX_SMEM_BYTES:
             L //= 2
         return L
 
     return types.SimpleNamespace(
-        F=F, Fin=Fin, stride=stride, least=least, max_lanes=max_lanes,
-        ring=ring, fits=bytes_(1, 1, least) <= MAX_SMEM_BYTES,
-        lanes=lambda B: fill(max_lanes, B),
+        G=group, F=F, Fin=Fin, stride=stride, least=least,
+        max_lanes=least, ring=ring,
+        fits=bytes_(1, least) <= MAX_SMEM_BYTES,
         resident_fits=lambda N: (1 <= N <= RESIDENT_MAX_N
-                                 and bytes_(1, N, least) <= MAX_SMEM_BYTES),
-        resident_lanes=resident_lanes, packed_max_lanes=packed_max,
-        packed_chunk=chunk,
+                                 and resident_bytes(N, least)
+                                 <= MAX_SMEM_BYTES),
+        resident_max_lanes=resident_max, resident_lanes=resident_lanes,
+        packed_max_lanes=packed_max, packed_chunk=chunk,
         packed_fits=packed_bytes(1, least) <= MAX_SMEM_BYTES,
         packed_lanes=lambda B: fill(packed_max, B), bytes=bytes_,
-        packed_bytes=packed_bytes)
+        resident_bytes=resident_bytes, packed_bytes=packed_bytes)
+
+
+def stream_group(dtype) -> int:
+    """K8's threads a lane at the wide shapes
+    (``fmpc_group.cuh::kFmpcWideStreamGroup``): 2 consumer warps over the
+    lanes of a 16-byte box row (16 at fp32, 32 at fp64); K9's is
+    ``WIDE_GROUP``."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return (_STREAM_THREADS - 32) // (_ROW_BYTES // item)
 
 
 def field_offsets(nx: int, nu: int, ng: int):
@@ -245,7 +271,7 @@ def resident_fits(nx: int, nu: int, ng: int, N: int, dtype) -> bool:
     if not kernel_supports(nx, nu, ng, dtype) or not 1 <= N <= RESIDENT_MAX_N:
         return False
     if wide_shape(nx, nu, ng):
-        return wide_rule(nx, nu, ng, dtype).resident_fits(N)
+        return wide_rule(nx, nu, ng, dtype, WIDE_GROUP).resident_fits(N)
     return resident_block_fits(nx, nu, ng, N, dtype, GROUP, LEAST_LANES)
 
 
@@ -269,7 +295,7 @@ def pack_fmpc_inputs(co, nu_s, tilde):
 
 def unit_source(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
                 group: int | None = None, share: bool | None = None,
-                lanes: int | None = None) -> str:
+                lanes: int | None = None, profile: bool = False) -> str:
     """The unit instantiating the ``variant`` kernel at (nx, nu, ng, dtype)
     with the threads per lane of ``csrc/fmpc_group.cuh``'s rules, or
     ``group`` where a measurement asks for another, and with the group's
@@ -278,16 +304,26 @@ def unit_source(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
     (``csrc/fmpc_stage.cuh::fmpc_stage_group``); K9 with the lanes per
     block of ``fmpc_resident_lanes``, or ``lanes``.  At a wide shape
     (:func:`wide_shape`) the wide kernels (``fmpc_backward_wide.cuh``,
-    ``fmpc_backward_packed_wide.cuh``) at ``kFmpcWideGroup`` threads a
-    lane, or ``group``; ``share`` has no meaning there."""
+    ``fmpc_backward_packed_wide.cuh``) at their rules' threads a lane
+    (K8: :func:`stream_group`; K9, K10: ``WIDE_GROUP``), or
+    ``group``, K9 at its rule's lanes a block, or ``lanes``; ``share``
+    has no meaning there.  ``profile``: the wide K8's or K9's
+    profile build (its launch takes a last pointer, the cycles' buffer of
+    :func:`profile_values`)."""
     T = DTYPES[dtype]
     wide = "_wide" if wide_shape(nx, nu, ng) else ""
+    if profile and not (wide and variant in ("stream", "resident")):
+        raise ValueError("the profile build is the wide K8's and K9's")
     if wide:
         if share is not None:
             raise ValueError("the wide FMPC units exchange every row; share "
                              "does not apply")
+        if profile and group is None:
+            group = (stream_group(dtype) if variant == "stream"
+                     else WIDE_GROUP)
         args = f"{T}, {nx}, {nu}, {ng}" + (
-            "" if group is None else f", {group}")
+            "" if group is None else f", {group}") + (
+            ", true" if profile else "")
     else:
         rule = "kFmpcPackedGroup" if variant == "packed" else "kFmpcGroup"
         g = f"nmpc::{rule}<{nx}, {nu}>" if group is None else str(group)
@@ -316,32 +352,46 @@ def unit_source(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
             f"    int check_nan, const void* const* fields, const void* gms,\n"
             f"    int gms_ld, const void* eps, const void* LxT, const void* PT,\n"
             f"    void* ks, void* Ks, void* sv, void* Ps, void* ok,\n"
-            f"    void* finite, void* stream) {{\n"
+            f"    void* finite, void* stream"
+            f"{', void* prof' if profile else ''}) {{\n"
             f"  return nmpc::{launch}N, B, ld, dt, break_if_llt_fails, "
             f"check_nan, fields, gms,\n      gms_ld, eps, LxT, PT, ks, Ks, "
-            f"sv, Ps, ok, finite, stream);\n}}\n")
+            f"sv, Ps, ok, finite, stream{', prof' if profile else ''});"
+            f"\n}}\n")
 
 
 def unit_name(nx: int, nu: int, ng: int, dtype, variant: str = "stream",
               group: int | None = None, share: bool | None = None,
-              lanes: int | None = None) -> str:
+              lanes: int | None = None, profile: bool = False) -> str:
     kind = "" if variant == "stream" else f"_{variant}"
     kind += "_wide" if wide_shape(nx, nu, ng) else ""
     g = "" if group is None else f"_g{group}"
     sh = {None: "", True: "_share", False: "_redundant"}[share]
     ln = "" if lanes is None else f"_l{lanes}"
-    return f"fmpc_backward{kind}_{nx}x{nu}x{ng}_{str(dtype)[6:]}{g}{sh}{ln}"
+    pr = "_profile" if profile else ""
+    return (f"fmpc_backward{kind}_{nx}x{nu}x{ng}_{str(dtype)[6:]}{g}{sh}{ln}"
+            f"{pr}")
 
 
-def bind(lib, variant: str = "stream"):
+def bind(lib, variant: str = "stream", profile: bool = False):
     """The launch function of a loaded ``variant`` unit
-    (:func:`unit_source`; K9's takes K8's arguments)."""
+    (:func:`unit_source`; K9's takes K8's arguments, the profile build one
+    pointer more)."""
     i, d, p = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
     fn = lib.fmpc_backward_launch
     fn.argtypes = ([i, i, i, d, i, i] + [p] * 7 if variant == "packed"
-                   else [i, i, i, d, i, i, p, p, i] + [p] * 10)
+                   else [i, i, i, d, i, i, p, p, i] + [p] * (
+                       11 if profile else 10))
     fn.restype = ctypes.c_int
     return fn
+
+
+def profile_values(N: int, B: int) -> int:
+    """The cycles a profile build of the wide K8 or K9 stores (int64):
+    each (stage, lane)'s of each of ``WIDE_PHASES`` ([6][N][B]), then the
+    producer's of each of ``PRODUCER_PHASES`` a chunk and block ([2][N]
+    [blocks], in room for [2][N][B])."""
+    return (len(WIDE_PHASES) + len(PRODUCER_PHASES)) * N * B
 
 
 @functools.lru_cache(maxsize=32)
@@ -406,7 +456,8 @@ def backward_fmpc_fused(problem, config, co, ss, nus, gms, barrier_eps,
         raise ValueError(f"backward_fmpc_fused takes CPU or CUDA tensors, "
                          f"got {device}")
     if variant == "resident" and not resident_fits(nx, nu, ng, N, dtype):
-        least = (wide_rule(nx, nu, ng, dtype).least if kernel_supports(
+        least = (wide_rule(nx, nu, ng, dtype, WIDE_GROUP).least
+                 if kernel_supports(
             nx, nu, ng, dtype) and wide_shape(nx, nu, ng) else LEAST_LANES)
         raise ValueError(
             f"the resident FMPC backward takes N <= {RESIDENT_MAX_N} within "
@@ -467,13 +518,15 @@ def tma_fields(co, ss, nus):
     return fields, ld
 
 
-def launch_stream(fn, problem, config, co, ss, nus, gms, barrier_eps):
+def launch_stream(fn, problem, config, co, ss, nus, gms, barrier_eps,
+                  prof=None):
     """One launch of the K8 or K9 unit function ``fn`` (:func:`launcher`) on
     checked CUDA inputs (the arguments of :func:`backward_fmpc_fused`),
     its fields as :func:`tma_fields` gives them, ``gms`` read with its row
     stride (0 where every stage has one mask row; a copy only if its rows
     are not contiguous); returns (ks, Ks, svecs, Ps, ok, finite) and raises
-    on a CUDA error.  Counts no launch."""
+    on a CUDA error.  Counts no launch.  ``prof``: a profile build's
+    cycles (int64, :func:`profile_values`)."""
     N, nx = co.A.shape[0], co.A.shape[1]
     nu, B = co.B.shape[2], barrier_eps.shape[0]
     device = barrier_eps.device
@@ -488,7 +541,7 @@ def launch_stream(fn, problem, config, co, ss, nus, gms, barrier_eps):
                  int(config.check_nan), ptrs, gms.data_ptr(), gms.stride(0),
                  barrier_eps.data_ptr(), co.Lx_bar_term.data_ptr(),
                  co.Lxx_term.data_ptr(), *(o.data_ptr() for o in outs),
-                 stream)
+                 stream, *(() if prof is None else (prof.data_ptr(),)))
     _raise_on(err, "stream or resident")
     return tuple(outs)
 

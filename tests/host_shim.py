@@ -188,9 +188,10 @@ HOST_TMA = r"""
 // the phase it waits on completes, and that the barrier did not complete
 // a later phase first (a buffer refilled before this thread read it);
 // every arm, box and first-thread wait goes to the log with its block and
-// warp.  A waiting thread sleeps until a phase completes: a block's
-// hundreds of threads spinning on sched_yield starve the one thread they
-// wait for when other processes load the machine.
+// warp, its values, and last the thread's place in its warp.  A waiting
+// thread sleeps until a phase completes: a block's hundreds of threads
+// spinning on sched_yield starve the one thread they wait for when other
+// processes load the machine.
 #pragma once
 #include <atomic>
 #include <chrono>
@@ -239,8 +240,8 @@ inline int offset(const void* p) {
 inline void log_event(const char* what, int a, int b = 0, int c = 0,
                       int d = 0) {
   if (g_log)
-    std::fprintf(g_log, "%s %u %u %d %d %d %d\n", what, blockIdx.x,
-                 threadIdx.x / 32, a, b, c, d);
+    std::fprintf(g_log, "%s %u %u %d %d %d %d %u\n", what, blockIdx.x,
+                 threadIdx.x / 32, a, b, c, d, threadIdx.x % 32);
 }
 // under g_lock: the phase completes once every arrival and byte is in
 inline void settle(uint64_t* bar, Pending& p) {

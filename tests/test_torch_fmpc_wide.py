@@ -24,17 +24,22 @@ non-PD lane, a NaN lane and a lane whose G pivots in the Gauss-Jordan
 fallback:
 
 * every group size a block takes bit-equal to the smallest (G = 1 where
-  its block fits, 2, 4 or 16 where it does not), NaN lanes NaN where they
-  are, the ok and finite masks equal; K10 bit-equal to K8, K9 to K8 where
-  its horizon fits (refused where it does not); K11 at G = 1 (where its
-  ring fits), 2 and 4 bit-equal;
+  its block fits, 2, 4 or 16 where it does not), K8 at the most lanes a
+  block takes at each G (B = 37: a last block part-filled), NaN lanes NaN
+  where they are, the ok and finite masks equal; K10 bit-equal to K8, K9
+  to K8 where its horizon fits (refused where it does not); the profile
+  build of K8 and K9 (clock64() cycles a part of the stage) bit-equal to
+  the normal build; K11 at G = 1 (where its ring fits), 2 and 4
+  bit-equal;
 * the smallest G within the kernel tolerance of ``_backward_bm`` run with
   a correctly rounded sqrt, with equal masks (K11: of
   ``forward_fmpc_deltas_plain``);
 * the folded nu/s and tilde bit-equal to ``condensation()``;
-* K8's boxes a stage from the end of the horizon; K10's each 256 rows
-  of the block's lanes, landing 128-byte aligned, one a chunk's worth
-  per chunk;
+* K8's boxes a stage from the end of the horizon, one arm a stage, the
+  stage's boxes issued over the producer warp's threads; K9's horizon
+  one arm a stage, issued at once over the warp; K10's each 256 rows of
+  the block's lanes, landing 128-byte aligned, one a chunk's worth per
+  chunk;
 * every size rule's Python twin (``fmpc_backward.wide_rule``) equal to the
   header's (``FmpcWideRule``) at every wide shape up to the ceiling, both
   dtypes, each block within 227 KB, and K11's ring within it.
@@ -216,7 +221,8 @@ def _case(shape, dtype, N, B=B_HOST):
     return dt, co, it["ss"], it["nus"], gms, eps
 
 
-def _rule(shape, dtype, G=K8.WIDE_GROUP):
+def _rule(shape, dtype, G=None):
+    """The wide rules at ``G`` threads a lane (None: K8's and K9's)."""
     return K8.wide_rule(*shape, dtype, G)
 
 
@@ -224,7 +230,7 @@ def _horizon(shape, dtype):
     """N of a shape's host runs: past one of K10's chunks (at the
     kernel's own group) and ending on a short one where a chunk holds more
     than one stage, at least 3."""
-    C = _rule(shape, dtype).packed_chunk
+    C = _rule(shape, dtype, K8.WIDE_GROUP).packed_chunk
     return max(3, C + 2 if C > 1 else 3)
 
 
@@ -256,7 +262,14 @@ def _dispatch(dtype):
     bw = "\n".join(
         f"  if (nx == {nx} && nu == {nu} && ng == {ng} && G == {G}) "
         f"return run<T, {nx}, {nu}, {ng}, {G}>(N, B, brk, ld, ld3, lanes, "
-        f"dt, in, out);" for nx, nu, ng in SHAPES for G in GROUPS)
+        f"dt, in, out);" for nx, nu, ng in SHAPES for G in GROUPS) + "\n" + (
+        "\n".join(
+            f"  if (nx == {nx} && nu == {nu} && ng == {ng} && G == {g}) "
+            f"return run<T, {nx}, {nu}, {ng}, {group}, true>(N, B, brk, ld, "
+            f"ld3, lanes, dt, in, out);"
+            for nx, nu, ng in SHAPES
+            for g, group in ((0, "nmpc::kFmpcWideStreamGroup<T>"),
+                             (-1, "nmpc::kFmpcWideGroup"))))
     fw = "\n".join(
         f"  if (nx == {nx} && nu == {nu} && G == {G}) return run_fwd<T, "
         f"{nx}, {nu}, {G}>(N, B, ld, in, out);"
@@ -284,8 +297,9 @@ using T = @T@;
 // [NX][NX][B], s_T [NX][B]; out: K8's (or K9's) ks, Ks, svecs, Ps, ok,
 // finite, K10's out, ok, finite, and the condensation nu_s, tilde
 // [N][NG][B]; lanes >= 0: K9 at that many lanes a block (0: its rule) in
-// K8's place, and nothing else
-template <typename S, int NX, int NU, int NG, int G>
+// K8's place, and nothing else; P: the profile build of K8 (or K9), its
+// cycles after the condensation
+template <typename S, int NX, int NU, int NG, int G, bool P = false>
 int run(int N, int B, int brk, int ld, int ld3, int lanes, double dt,
         const S* in, S* out) {
   using O = nmpc::FmpcPackedLayout<NX, NU, NG>;
@@ -315,16 +329,19 @@ int run(int N, int B, int brk, int ld, int ld3, int lanes, double dt,
   S* out10 = flags8 + 2 * B;
   S* flags10 = out10 + static_cast<size_t>(N) * O::Fout * B;
   S* cond = flags10 + 2 * B;
+  std::vector<long long> prof(P ? 8 * static_cast<size_t>(N) * B : 0, -1);
   if (nmpc::g_log) std::fprintf(nmpc::g_log, "K %d\n", lanes >= 0 ? 9 : 8);
   int err =
       lanes >= 0
-          ? nmpc::launch_fmpc_backward_resident_wide<S, NX, NU, NG, G>(
+          ? nmpc::launch_fmpc_backward_resident_wide<S, NX, NU, NG, G, P>(
                 lanes, N, B, ld, dt, brk, 1, f, gms, NG, eps, LxT, PT, ks,
-                Ks, sv, Ps, ok.data(), fin.data(), nullptr)
-          : nmpc::launch_fmpc_backward_wide<S, NX, NU, NG, G>(
+                Ks, sv, Ps, ok.data(), fin.data(), nullptr, prof.data())
+          : nmpc::launch_fmpc_backward_wide<S, NX, NU, NG, G, P>(
                 N, B, ld, dt, brk, 1, f, gms, NG, eps, LxT, PT, ks, Ks, sv,
-                Ps, ok.data(), fin.data(), nullptr);
+                Ps, ok.data(), fin.data(), nullptr, prof.data());
   if (err) return 20 + err;
+  for (size_t j = 0; j < prof.size(); ++j)
+    cond[2 * static_cast<size_t>(N) * NG * B + j] = S(prof[j]);
   for (int b = 0; b < B; ++b) {
     flags8[b] = ok[b];
     flags8[B + b] = fin[b];
@@ -385,30 +402,34 @@ int fw(int nx, int nu, int G, int N, int B, int ld, const T* in, T* out) {
   return 2;
 }
 
-// "rules": the size rules of FmpcWideRule at G = 32 at every wide shape
-// up to the ceiling, then K11's group, chunk and ring at its fewest lanes
-// at every wide (nx, nu)
+// "rules": the size rules of FmpcWideRule at every wide shape up to the
+// ceiling (K8's at kFmpcWideStreamGroup, K9's and K10's at
+// kFmpcWideGroup), then K11's group, chunk and ring at its fewest lanes at
+// every wide (nx, nu)
 void rules() {
   for (int nx = 1; nx <= 16; ++nx)
     for (int nu = 1; nu <= 16; ++nu)
       for (int ng = 1; ng <= 64; ++ng) {
         if (!nmpc::fmpc_wide(nx, nu, ng)) continue;
-        const nmpc::FmpcWideRule<T> r =
+        const int G = nmpc::kFmpcWideStreamGroup<T>;
+        const nmpc::FmpcWideRule<T> r = nmpc::fmpc_wide_rule<T>(nx, nu, ng, G);
+        const nmpc::FmpcWideRule<T> k =
             nmpc::fmpc_wide_rule<T>(nx, nu, ng, nmpc::kFmpcWideGroup);
         int n9 = 0;
         for (int n = 1; n <= 40; ++n)
-          if (r.resident_fits(n)) n9 = n;
-        const int L = r.max_lanes(), Lp = r.packed_max_lanes();
+          if (k.resident_fits(n)) n9 = n;
+        const int L = r.max_lanes(), Lp = k.packed_max_lanes();
         std::printf(
-            "wide %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %zu "
-            "%zu %zu %zu\n",
-            nx, nu, ng, r.F, r.Fin, r.stride, r.least, L, r.ring(),
-            int(r.fits()), r.lanes(4096), r.lanes(37), n9,
-            n9 > 0 ? r.resident_lanes(n9, 4096) : 0, Lp, r.packed_chunk(),
-            int(r.packed_fits()), r.packed_lanes(37),
-            r.bytes(r.ring(), 1, L), r.bytes(1, 1, r.least),
-            n9 > 0 ? r.bytes(1, n9, r.least) : 0,
-            r.packed_bytes(r.packed_chunk(), Lp));
+            "wide %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d "
+            "%d %zu %zu %zu %zu\n",
+            nx, nu, ng, G, r.F, r.Fin, r.stride, r.least, L, r.ring(),
+            int(r.fits()), n9, k.resident_max_lanes(),
+            n9 > 0 ? k.resident_lanes(n9, 4096) : 0,
+            n9 > 0 ? k.resident_lanes(n9, 37) : 0, k.least, Lp,
+            k.packed_chunk(), int(k.packed_fits()), k.packed_lanes(37),
+            r.bytes(r.ring(), L), r.bytes(1, r.least),
+            n9 > 0 ? k.resident_bytes(n9, k.least) : 0,
+            k.packed_bytes(k.packed_chunk(), Lp));
       }
 @RULES@
 }
@@ -453,15 +474,18 @@ int main(int argc, char** argv) {
 
 @pytest.fixture(scope="module")
 def wide_host(tmp_path_factory):
-    """{dtype: the harness built by g++}, the two built side by side."""
+    """{dtype: the harness built by g++}, the two built side by side (their
+    directories made first: two threads making a worker's first temporary
+    directory at once race on its base directory)."""
+    dirs = {dtype: tmp_path_factory.mktemp(f"fmpc_wide_{name}")
+            for dtype, name in DTYPES.items()}
+
     def build(item):
         dtype, name = item
         bw, fw, rules = _dispatch(dtype)
         src = (_HARNESS.replace("@T@", name).replace("@BW@", bw)
                .replace("@FW@", fw).replace("@RULES@", rules))
-        return dtype, build_kernels_host(
-            tmp_path_factory.mktemp(f"fmpc_wide_{name}"), src,
-            "fmpc_wide_host")
+        return dtype, build_kernels_host(dirs[dtype], src, "fmpc_wide_host")
     with concurrent.futures.ThreadPoolExecutor(len(DTYPES)) as pool:
         return dict(pool.map(build, DTYPES.items()))
 
@@ -492,8 +516,9 @@ def _host_bw(exe, shape, dtype, G, brk, workdir, lanes=-1):
     unpacked) and the folded (nu_s, tilde) on ``_case``, fed as the
     wrappers feed them (K8's fields by ``tma_fields``, K10's buffer padded
     to the lane stride TMA takes), and the TMA log; with ``lanes`` >= 0
-    K9 at that many lanes a block (0: its rule) as "K9" and nothing else.
-    None where the launch refuses the block (its invalid-value error)."""
+    K9 at that many lanes a block (0: its rule) as "K9" and nothing else;
+    G = 0 (K8) or -1 (K9): the profile build at the kernel's group, its
+    cycles as "prof".  None where the launch refuses the block (its invalid-value error)."""
     nx, nu, ng = shape
     N = _horizon(shape, dtype)
     dt, co, ss, nus, gms, eps = _case(shape, dtype, N)
@@ -504,7 +529,7 @@ def _host_bw(exe, shape, dtype, G, brk, workdir, lanes=-1):
     _, _, _, Fout = K8.field_offsets(nx, nu, ng)
     sizes = [N * nu * B, N * nu * nx * B, (N + 1) * nx * B,
              (N + 1) * nx * nx * B, 2 * B, N * Fout * B, 2 * B,
-             2 * N * ng * B]
+             2 * N * ng * B, K8.profile_values(N, B) if G <= 0 else 0]
     tag = f"bw{G}_{int(brk)}_{lanes}"
     o, err = _exchange(
         exe, ["bw", nx, nu, ng, G, N, B, int(brk), ld, ld3, lanes,
@@ -519,8 +544,9 @@ def _host_bw(exe, shape, dtype, G, brk, workdir, lanes=-1):
           parts[2].reshape(N + 1, nx, B), parts[3].reshape(N + 1, nx, nx, B),
           parts[4][:B] != 0, parts[4][B:] != 0)
     log = (workdir / f"{tag}.log").read_text().splitlines()
+    prof = parts[8]
     if lanes >= 0:
-        return {"K9": k8, "log": log}
+        return {"K9": k8, "log": log, "prof": prof}
     packed = K8.unpack_fields(parts[5].reshape(N, Fout, B),
                               K8._out_shapes(nx, nu))
     k10 = (None if bool((parts[6][:B] < 0).any()) else
@@ -528,7 +554,7 @@ def _host_bw(exe, shape, dtype, G, brk, workdir, lanes=-1):
             parts[6][:B] != 0, parts[6][B:] != 0))
     cond = parts[7].reshape(2, N, ng, B)
     return {"K8": k8, "K10": k10, "cond": (cond[0], cond[1]),
-            "ref_cond": (nu_s, tilde), "log": log}
+            "ref_cond": (nu_s, tilde), "log": log, "prof": prof}
 
 
 @pytest.fixture(scope="module")
@@ -569,11 +595,13 @@ def _id(v):
 @pytest.mark.parametrize("shape,dtype,brk", CASES, ids=_id)
 def test_wide_kernels_as_host_cpp(runs, monkeypatch, shape, dtype, brk):
     """K8 and K10 at a wide shape on the host through their launch
-    functions at every G of GROUPS: each launched where its block fits
-    (the Python twin's rule) and refused elsewhere; every output bit-equal
-    to the smallest G's (NaN lanes NaN where they are; K10's to its own
-    smallest G's); K10 bit-equal to K8 on the finite lanes with the same
-    masks; the folded scalings bit-equal to
+    functions at every G of GROUPS at their rules' lanes a block (K8's
+    the same at every B: at the masses' group 4 lanes at fp32 and 2 at
+    fp64, so B=37 ends on a block of one live lane and a warp wholly past
+    B): each launched where its block fits (the Python twin's rule) and refused
+    elsewhere; every output bit-equal to the smallest G's (NaN lanes NaN
+    where they are; K10's to its own smallest G's); K10 bit-equal to K8 on
+    the finite lanes with the same masks; the folded scalings bit-equal to
     ``condensation()``; the smallest G within TOL of ``_backward_bm`` with
     a correctly rounded sqrt on its finite lanes, with the same ok and
     finite masks (the NaN lane not finite, the clean lanes finite, the
@@ -593,7 +621,7 @@ def test_wide_kernels_as_host_cpp(runs, monkeypatch, shape, dtype, brk):
                 k10s[G] = out["K10"]
             for a, b in zip(out["ref_cond"], out["cond"]):
                 assert torch.equal(bits(a), bits(b)), G
-    assert K8.WIDE_GROUP in outs and K8.WIDE_GROUP in k10s
+    assert _rule(shape, dtype).G in outs and K8.WIDE_GROUP in k10s
     G0 = min(outs)
     ref = outs[G0]
     for G in outs:
@@ -640,43 +668,64 @@ def _events(log):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=_id)
 @pytest.mark.parametrize("shape", SHAPES, ids=_id)
 def test_wide_resident_and_boxes(runs, shape, dtype):
-    """K9 at a wide shape through its launch function, its rule's lanes
-    and the fewest: bit-equal to K8 where its horizon fits
-    (``resident_fits``, the Python twin), refused where it does not, its
-    producer issuing the horizon's boxes at once; and the TMA issue of
-    K8's and K10's runs at the kernels' group: K8 a stage's boxes a
-    stage from the end of the horizon, at the block's first lane, landing
-    128-byte aligned; K10's boxes 256 rows of the block's lanes each,
-    starting at its first lane and landing 128-byte aligned, one arm a
-    chunk of C stages, ceil(N / C) chunks."""
+    """K9 at a wide shape through its launch function, its rule's lanes,
+    the fewest and its most where their horizon fits (4 at fp64):
+    bit-equal to K8 where its horizon fits (``resident_fits``, the Python
+    twin), refused where it does not; and the TMA issue of the kernels'
+    runs at their groups.  K8 at its rule's block (rows of lanes x
+    itemsize bytes: 16): a stage's
+    boxes a stage from the end of the horizon, at the block's first lane,
+    landing 128-byte aligned, one arm of the stage's bytes a stage, the
+    stage's boxes issued by as many threads of the producer warp as it
+    has boxes (at most 32); K9 one arm a stage of its horizon, every box
+    of the horizon issued at once over the warp's 32 threads; K10's boxes
+    256 rows of the block's lanes each, starting at its first lane and
+    landing 128-byte aligned, one arm a chunk of C stages, ceil(N / C)
+    chunks."""
     N = _horizon(shape, dtype)
-    G = K8.WIDE_GROUP
-    rule = _rule(shape, dtype)
+    rule, rule9 = _rule(shape, dtype), _rule(shape, dtype, K8.WIDE_GROUP)
+    G = rule.G
     item = torch.empty((), dtype=dtype).element_size()
     fits = K8.resident_fits(*shape, N, dtype)
-    assert fits == rule.resident_fits(N)
+    assert fits == rule9.resident_fits(N)
+    most = rule9.resident_max_lanes
+    widest = ({most} if fits and rule9.resident_bytes(N, most) <= BLOCK_SMEM
+              else set())
     for brk in (False, True):
         ref = runs(shape, dtype, G, brk)["K8"]
-        for lanes in (0, rule.least):
-            out = runs(shape, dtype, G, brk, lanes)
+        for lanes in sorted({0, rule9.least} | widest):
+            out = runs(shape, dtype, K8.WIDE_GROUP, brk, lanes)
             assert (out is not None) == fits, lanes
             if out is not None:
                 assert _same_out(ref, out["K9"]), (brk, lanes)
-    events = _events(runs(shape, dtype, G, False)["log"])
     boxes = sum(K8.wide_boxes(s)[0] for s in K8._stage_sizes(*shape))
-    L = rule.lanes(B_HOST)
+    L = rule.max_lanes
+    events = _events(runs(shape, dtype, G, False)["log"])
+    stage_bytes = rule.F * L * item
+    blocks = 0
     for (blk, _), ev in events[8].items():
         loads = [e for e in ev if e[0] == "L"]
         if not loads:
             continue
+        blocks += 1
         assert [e[2] for e in loads] == [i for i in reversed(range(N))
                                          for _ in range(boxes)]
         assert {e[1] for e in loads} == {blk * L}
-        assert all(e[3] % 128 == 0 for e in loads)
-    Fin, C = rule.Fin, min(rule.packed_chunk, N)
-    Lp = rule.packed_lanes(B_HOST)
+        assert all(e[3] % 128 == 0 and e[4] % (L * item) == 0
+                   for e in loads)
+        arms = [e for e in ev if e[0] == "A"]
+        assert [e[2] for e in arms] == [stage_bytes] * N
+        for i in range(N):
+            issuers = {e[5] for e in loads if e[2] == i}
+            assert sum(e[4] for e in loads if e[2] == i) == stage_bytes
+            assert len(issuers) == min(32, boxes), (i, issuers)
+    assert blocks == -(-B_HOST // L)
+    k10 = _rule(shape, dtype, K8.WIDE_GROUP)
+    Fin, C = k10.Fin, min(k10.packed_chunk, N)
+    Lp = k10.packed_lanes(B_HOST)
     starts = []
-    for (blk, _), ev in events[10].items():
+    for (blk, _), ev in _events(runs(shape, dtype, K8.WIDE_GROUP, False)[
+            "log"])[10].items():
         loads = [e for e in ev if e[0] == "L"]
         if not loads:
             continue
@@ -686,11 +735,51 @@ def test_wide_resident_and_boxes(runs, shape, dtype):
         starts.append(sum(e[0] == "A" for e in ev))
     assert starts and all(n == -(-N // C) for n in starts)
     if fits:
-        ev9 = _events(runs(shape, dtype, G, False, 0)["log"])[9]
-        arms = [e for ev in ev9.values() for e in ev if e[0] == "A"]
-        loads = [e for ev in ev9.values() for e in ev if e[0] == "L"]
-        blocks = -(-B_HOST // rule.resident_lanes(N, B_HOST))
-        assert len(arms) == blocks and len(loads) == blocks * N * boxes
+        L9 = rule9.resident_lanes(N, B_HOST)
+        for (blk, _), ev in _events(runs(shape, dtype, K8.WIDE_GROUP, False,
+                                         0)["log"])[9].items():
+            loads = [e for e in ev if e[0] == "L"]
+            if not loads:
+                continue
+            arms = [e for e in ev if e[0] == "A"]
+            assert [e[2] for e in arms] == [rule.F * L9 * item] * N
+            assert len(loads) == N * boxes and {e[1] for e in loads} == {
+                blk * L9}
+            assert len({e[5] for e in loads}) == min(32, N * boxes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=_id)
+@pytest.mark.parametrize("shape", SHAPES, ids=_id)
+def test_wide_profile_build(runs, shape, dtype):
+    """The profile build of K8 and K9 (G = 0 and -1 in the harness: their
+    groups with P) bit for bit with the normal build, ok and finite masks
+    included, K9 where its horizon fits; its cycles: each live lane's
+    stages a positive total and no negative part, each lane's wait timed;
+    the producer's two parts of each stage of each block non-negative, the
+    issue positive (K9's horizon issued at once: its first)."""
+    N = _horizon(shape, dtype)
+    rule, rule9 = _rule(shape, dtype), _rule(shape, dtype, K8.WIDE_GROUP)
+    parts = len(K8.WIDE_PHASES)
+    for lanes in (-1, 0):
+        if lanes == 0 and not rule9.resident_fits(N):
+            continue
+        key = "K9" if lanes == 0 else "K8"
+        normal = runs(shape, dtype, rule9.G if lanes == 0 else rule.G, False,
+                      lanes)
+        prof = runs(shape, dtype, -1 if lanes == 0 else 0, False, lanes)
+        assert _same_out(normal[key], prof[key]), key
+        cyc = prof["prof"].double()
+        lane = cyc[:parts * N * B_HOST].reshape(parts, N, B_HOST)
+        assert bool((lane >= 0).all()) and bool((lane.sum(0) > 0).all())
+        assert bool((lane[0] > 0).any(0).all()), key   # a wait a stage
+        L = (rule9.resident_lanes(N, B_HOST) if lanes == 0 else
+             rule.max_lanes)
+        blocks = -(-B_HOST // L)
+        prod = cyc[parts * N * B_HOST:][:2 * N * blocks].reshape(2, N,
+                                                                 blocks)
+        issued = 1 if lanes == 0 else N   # K9: the horizon's at once
+        assert bool((prod[:, :issued] >= 0).all()), key
+        assert bool((prod[1, :issued] > 0).all()), key
 
 
 @pytest.fixture(scope="module")
@@ -718,37 +807,67 @@ def rules(wide_host):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_wide_rules_are_the_headers(rules, dtype):
     """At every wide (nx <= 16, nu <= 16, ng <= 64), both dtypes:
-    ``wide_rule`` (and ``resident_fits``, ``wide_stage_values``) equal
-    ``FmpcWideRule``'s values; every block (K8's ring at its lanes, the
-    fewest lanes' one-stage ring, K9's largest horizon, K10's chunks)
-    within 227 KB and 8 warps, its lanes a whole number of warps and of
-    16-byte box rows; and K11's ring of its chunk at its group and fewest
-    lanes within 227 KB at every wide (nx, nu)."""
+    ``wide_rule`` (and ``stream_group``, ``resident_fits``,
+    ``wide_stage_values``) equal ``FmpcWideRule``'s values, K8's at its
+    group, K9's and K10's at ``WIDE_GROUP``; every block (K8's ring at its
+    lanes, the fewest lanes' one-stage ring, K9's largest horizon, K10's
+    chunks) within 227 KB, K8's within 2 consumer warps and the
+    producer's, K9's and K10's within 8 warps, the lanes a whole number of
+    warps and of 16-byte box rows, K8's rows of 16 bytes, K9's most lanes
+    (4: 8 warps at one lane a warp) its lanes at every B where its horizon
+    does not bound them; at the masses' (12, 3, 30) K8's block of 4 lanes
+    of 16 threads at fp32 and 2 of 32 at fp64 (a ring of two stages), its
+    bytes (four blocks within an SM's shared memory), K9 to N = 14 at 4
+    (fp32) and 2 (fp64) lanes, K10 as before (4 lanes, chunks of 7 and 3
+    stages); and K11's ring of its
+    chunk at its group and fewest lanes within 227 KB at every wide (nx,
+    nu)."""
     item = torch.empty((), dtype=dtype).element_size()
     wide = rules[item]["wide"]
     assert len(wide) == 16 * 16 * 64 - 8 * 4 * 16
     for (nx, nu, ng), v in wide.items():
-        (F, Fin, stride, least, L, R, fits, L4096, L37, n9, L9, Lp, Cp,
-         pfits, Lp37, smem, smem1, smem9, smemp) = v
+        (G, F, Fin, stride, least, L, R, fits, n9, L9max, L9, L937,
+         least10, Lp, Cp, pfits, Lp37, smem, smem1, smem9, smemp) = v
+        assert G == K8.stream_group(dtype)
         r = K8.wide_rule(nx, nu, ng, dtype)
-        twin = (r.F, r.Fin, r.stride, r.least, r.max_lanes, r.ring,
-                int(r.fits), r.lanes(4096), r.lanes(37),
-                max([n for n in range(1, 41) if r.resident_fits(n)],
-                    default=0))
-        assert twin == (F, Fin, stride, least, L, R, fits, L4096, L37, n9)
-        assert (r.packed_max_lanes, r.packed_chunk, int(r.packed_fits),
-                r.packed_lanes(37)) == (Lp, Cp, pfits, Lp37)
+        k = K8.wide_rule(nx, nu, ng, dtype, K8.WIDE_GROUP)
+        twin = (r.G, r.F, r.Fin, r.stride, r.least, r.max_lanes, r.ring,
+                int(r.fits),
+                max([n for n in range(1, 41) if k.resident_fits(n)],
+                    default=0), k.resident_max_lanes)
+        assert twin == (G, F, Fin, stride, least, L, R, fits, n9, L9max)
+        assert (k.least, k.packed_max_lanes, k.packed_chunk,
+                int(k.packed_fits), k.packed_lanes(37)) == (
+                    least10, Lp, Cp, pfits, Lp37)
+        assert (r.bytes(R, L), r.bytes(1, least)) == (smem, smem1)
+        assert smem9 == (k.resident_bytes(n9, least10) if n9 else 0)
+        assert (L9, L937) == ((k.resident_lanes(n9, 4096),
+                               k.resident_lanes(n9, 37)) if n9 else (0, 0))
+        assert smemp == k.packed_bytes(Cp, Lp)
         assert F == K8.wide_stage_values(nx, nu, ng) and n9 <= 32
         assert fits and pfits and R >= 1 and Cp >= 1
         for size in (smem, smem1, smem9, smemp):
             assert size <= BLOCK_SMEM, (nx, nu, ng)
-        for lanes in (L, L4096, L37, Lp, Lp37) + ((L9,) if n9 else ()):
-            assert least <= lanes <= 32 and lanes * 32 + 32 <= 256
+        assert L == least and L * G + 32 <= 96 and L * item == 16
+        assert L9max == 4
+        for lanes in (Lp, Lp37, L9max) + ((L9, L937) if n9 else ()):
+            assert least10 <= lanes <= 32 and lanes * 32 + 32 <= 256
             assert (lanes * item) % 16 == 0
+        if n9:
+            assert L937 == least10
+            assert L9 == L9max or k.resident_bytes(n9, 2 * L9) > BLOCK_SMEM
         assert all(K8.resident_fits(nx, nu, ng, n, dtype) == (n <= n9)
                    for n in (1, n9, n9 + 1) if n >= 1)
     masses = wide[MASSES]
-    assert masses[:4] == (984, 906, 736, 16 // item)
+    r = K8.wide_rule(*MASSES, dtype)
+    lanes = 16 // item
+    assert masses[:5] == (64 // lanes, 984, 906, 736, lanes)
+    assert (r.max_lanes, r.ring) == (lanes, 2)
+    smem = 128 + 2 * 984 * lanes * item + lanes * 736 * item
+    assert r.bytes(2, lanes) == smem == 43392
+    assert 4 * (smem + 1024) <= 228 * 1024   # an SM's, 1 KB a block kept
+    assert masses[8:12] == (14, 4, 4 if item == 4 else 2, lanes)  # K9
+    assert masses[12:15] == (16 // item, 4, 7 if item == 4 else 3)
     fwd = rules[item]["fwd"]
     assert len(fwd) == 16 * 16 - 8 * 4
     for (nx, nu), (G, C, smem) in fwd.items():

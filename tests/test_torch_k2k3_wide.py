@@ -149,11 +149,16 @@ int main(int argc, char** argv) {
 
 @pytest.fixture(scope="module")
 def k2k3_host(tmp_path_factory):
-    """{dtype: the harness built by g++}, the two built side by side."""
+    """{dtype: the harness built by g++}, the two built side by side (their
+    directories made first: two threads making a worker's first temporary
+    directory at once race on its base directory)."""
+    dirs = {dtype: tmp_path_factory.mktemp(f"k2k3_wide_{name}")
+            for dtype, name in DTYPES.items()}
+
     def build(item):
         dtype, name = item
         return dtype, build_kernels_host(
-            tmp_path_factory.mktemp(f"k2k3_wide_{name}"),
+            dirs[dtype],
             _HARNESS.replace("@T@", name).replace("@RULES@", _rules(name)),
             "k2k3")
     with concurrent.futures.ThreadPoolExecutor(len(DTYPES)) as pool:
